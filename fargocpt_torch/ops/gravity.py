@@ -1,0 +1,96 @@
+"""Gravitational potential of the N-body system on the gas and the indirect
+terms of the hydro frame (reference src/Pframeforce.cpp:21-95 and
+src/frame_of_reference.cpp:114-165).
+
+Body vectors are tiny (N bodies); the loop over bodies is unrolled and the
+per-cell work is elementwise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..params import Physics
+from .common import Geom
+
+
+@dataclass(frozen=True)
+class BodiesOnGrid:
+    """Per-body state the gas-side gravity ops need; 1-D tensors of
+    length N_bodies."""
+    x: torch.Tensor
+    y: torch.Tensor
+    mass: torch.Tensor                    # ramped-up mass
+    cubic_smoothing_radius: torch.Tensor
+
+
+def smoothing_length(phys: Physics, scale_height: torch.Tensor,
+                     body_index: int, body_r=None) -> torch.Tensor:
+    """epsilon * H per cell (reference src/Force.cpp:124-131), or at the
+    planet location in compatibility mode (:133-143)."""
+    if phys.compatibility_no_star_smoothing and body_index == 0:
+        return torch.zeros_like(scale_height)
+    if phys.compatibility_smoothing_planetloc and body_r is not None:
+        h_loc = phys.aspectratio_ref * body_r ** (1.0 + phys.flaring_index)
+        return (phys.thickness_smoothing * h_loc).expand_as(scale_height)
+    return phys.thickness_smoothing * scale_height
+
+
+def nbody_potential(phys: Physics, constants, g: Geom,
+                    bodies: BodiesOnGrid, n_bodies: int,
+                    cell_x: torch.Tensor, cell_y: torch.Tensor,
+                    scale_height: torch.Tensor,
+                    indirect_x, indirect_y) -> torch.Tensor:
+    """POTENTIAL grid (reference src/Pframeforce.cpp:21-95):
+    Phi = sum_k [-G m_k / sqrt(d^2 + (eps H)^2) * klahr] - I . x_cell.
+    Body values are cast to the field dtype first."""
+    dt = cell_x.dtype
+    bx, by = bodies.x.to(dt), bodies.y.to(dt)
+    bm = bodies.mass.to(dt)
+    brs = bodies.cubic_smoothing_radius.to(dt)
+    pot = torch.zeros_like(cell_x)
+    for k in range(n_bodies):
+        body_r = torch.sqrt(bx[k] ** 2 + by[k] ** 2)
+        smooth = smoothing_length(phys, scale_height, k, body_r)
+        dx = cell_x - bx[k]
+        dy = cell_y - by[k]
+        d_sm = torch.sqrt(dx * dx + dy * dy + smooth * smooth)
+        r_sm = brs[k]
+        # Klahr & Kley 2005 cubic inner smoothing (src/Pframeforce.cpp:61-76)
+        q = d_sm / torch.where(r_sm > 0.0, r_sm, torch.ones_like(r_sm))
+        klahr = torch.where((r_sm > 0.0) & (d_sm < r_sm),
+                            q ** 4 - 2.0 * q ** 3 + 2.0 * q,
+                            torch.ones_like(q))
+        pot = pot - constants.G * bm[k] / d_sm * klahr
+    pot = pot - indirect_x.to(dt) * cell_x - indirect_y.to(dt) * cell_y
+    return pot
+
+
+def indirect_term_nbody(constants, bodies: BodiesOnGrid, n_center: int,
+                        n_bodies: int):
+    """Euler-mode N-body indirect term (reference
+    src/frame_of_reference.cpp:114-133): exactly zero when every body
+    defines the frame center; the mutual-gravity sum of more bodies is not
+    ported yet."""
+    if n_center >= n_bodies or n_bodies == 1:
+        z = torch.zeros((), dtype=bodies.x.dtype, device=bodies.x.device)
+        return z, z
+    raise NotImplementedError(
+        "the Euler-mode indirect term of more than one body is not ported "
+        "yet")
+
+
+def indirect_term_nbody_predictor(constants, nb, n_center: int,
+                                  n_bodies: int, dt):
+    """Predictor-mode N-body indirect term (reference
+    src/frame_of_reference.cpp:135-165). It is exactly zero when every
+    body defines the frame center; the predictor itself needs the IAS15
+    integrator, which is not ported yet."""
+    if n_center >= n_bodies or n_bodies == 1:
+        z = torch.zeros((), dtype=nb.x.dtype, device=nb.x.device)
+        return z, z
+    raise NotImplementedError(
+        "the predictor indirect term needs IAS15 (more than one body), "
+        "which is not ported yet")

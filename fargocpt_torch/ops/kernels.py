@@ -1,0 +1,524 @@
+"""The four fused ops of the time step: CFL, sources, viscous kick and
+transport, each as a hand-written CUDA kernel (``csrc/*.cu``) and as its
+plain PyTorch version composed from the ported ops.
+
+Each op's entry point (``cfl``, ``sources``, ``viscous_kick``,
+``transport``) takes the plain version only for tensors on the CPU; for a
+CUDA tensor it launches the kernel or raises. There is no fallback from a
+failed build or launch to the plain version.
+
+The kernels are built at first use with ``nvcc`` into
+``build/fargocpt_torch/`` at the root of the checkout, as one shared
+library with a plain C interface loaded through ``ctypes``. Its file name
+carries a hash of the sources and flags, so a stale build is never loaded.
+
+``LAUNCHES`` counts, per op, the calls that launched the op's kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..grid import Geometry
+from ..params import Physics, ARTVISC_SN, ARTVISC_TW, LEAPFROG
+from . import artvisc, cfl as cfl_ops, energy as energy_ops, eos, gravity, \
+    sources as src_ops, transport as tr_ops, viscosity as visc
+from .common import Geom
+
+OPS = ("cfl", "sources", "viscous_kick", "transport")
+LAUNCHES = {name: 0 for name in OPS}
+
+
+def reset_launches() -> None:
+    for name in OPS:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# geometry columns shared by the kernels (order = csrc/common.cuh enum Col)
+# ---------------------------------------------------------------------------
+
+KERNEL_COLUMNS = (
+    "rb", "inv_rb", "ra", "inv_ra", "invdrm", "inv_diff_rsup",
+    "inv_diff_rsup_rb", "two_diff_ra_sq", "inv_surf", "cm", "cp", "coef",
+    "src_invdxtheta", "hfac", "cs_iso", "omega_k", "drift", "inv_cell",
+    "inv_dxrad", "inv_dxaz", "sum_rs_ri", "l_sq")
+N_COLS = 24
+
+
+def make_columns(phys: Physics, constants, geometry: Geometry) -> np.ndarray:
+    """(NR+1, N_COLS) float64 table of the per-ring geometry the kernels
+    read; rows past a column's length are zero."""
+    nr = geometry.nrad
+    rb = geometry.rmed
+    rinf, rsup = geometry.rinf, geometry.rsup
+    rme = geometry.rmed_ext
+    dphi = geometry.dphi
+    gm = constants.G * phys.hydro_center_mass
+    omega_k = np.sqrt(gm / rb ** 3)
+    hfac = 1.0 / (math.sqrt(phys.adiabatic_index) * omega_k) \
+        if phys.is_adiabatic else 1.0 / omega_k
+    dxrad = rsup - rinf
+    dxaz = rb * dphi
+    dr = geometry.ra[1:] - geometry.ra[:-1]
+    dx_tw = np.minimum(dr, dxaz) if geometry.naz <= 16 else np.maximum(dr, dxaz)
+    drift = np.zeros(nr)
+    if phys.imposed_disk_drift != 0.0:
+        drift = phys.imposed_disk_drift * 0.5 * rb ** (-2.5 + phys.sigma_slope)
+    named = {
+        "rb": rb, "inv_rb": geometry.inv_rmed, "ra": geometry.ra,
+        "inv_ra": geometry.inv_rinf, "invdrm": geometry.inv_diff_rmed,
+        "inv_diff_rsup": geometry.inv_diff_rsup,
+        "inv_diff_rsup_rb": geometry.inv_diff_rsup_rb,
+        "two_diff_ra_sq": geometry.two_diff_ra_sq,
+        "inv_surf": geometry.inv_surf,
+        "cm": np.concatenate([[0.0], rme[1:] - rme[:-1]]),
+        "cp": np.concatenate([rme[1:] - rme[:-1], [0.0]]),
+        "coef": dxrad,
+        "src_invdxtheta": 2.0 / (dphi * (rsup + rinf)),
+        "hfac": hfac,
+        "cs_iso": phys.aspectratio_ref * rb ** phys.flaring_index
+        * np.sqrt(gm / rb),
+        "omega_k": omega_k,
+        "drift": drift,
+        "inv_cell": 1.0 / np.minimum(dxrad, dxaz),
+        "inv_dxrad": 1.0 / dxrad,
+        "inv_dxaz": 1.0 / dxaz,
+        "sum_rs_ri": rsup + rinf,
+        "l_sq": phys.artificial_viscosity_factor ** 2 * dx_tw ** 2,
+    }
+    table = np.zeros((nr + 1, N_COLS))
+    for k, name in enumerate(KERNEL_COLUMNS):
+        a = np.asarray(named[name], np.float64)
+        table[:a.shape[0], k] = a
+    return table
+
+
+class KernelContext(nn.Module):
+    """Everything the four ops read besides the fields: the physics and
+    constants, the ``Geom`` columns, the kernels' column table, the
+    azimuth rows and the isothermal sound-speed profile. All tensors are
+    buffers, so ``.to(device)`` moves every one of them."""
+
+    def __init__(self, phys: Physics, constants, geometry: Geometry,
+                 dtype: torch.dtype, device: torch.device | str | None = None):
+        super().__init__()
+        self.phys = phys
+        self.constants = constants
+        self.g = Geom(geometry, dtype, device)
+        self.register_buffer("cols", torch.tensor(
+            make_columns(phys, constants, geometry), dtype=dtype,
+            device=device))
+        self.register_buffer("cos_row", torch.tensor(
+            geometry.cos_phi, dtype=dtype, device=device))
+        self.register_buffer("sin_row", torch.tensor(
+            geometry.sin_phi, dtype=dtype, device=device))
+        self.register_buffer("cs_iso", eos.sound_speed_iso_profile(
+            phys, constants, self.g.rb))
+
+    def cell_xy(self):
+        """Cartesian cell centers (NR, NAZ)."""
+        return self.g.rb * self.cos_row[None, :], \
+            self.g.rb * self.sin_row[None, :]
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the definitions the kernels are held to)
+# ---------------------------------------------------------------------------
+
+def derived(ctx: KernelContext, sigma, energy):
+    """Sound speed, pressure and scale height (AspectRatioMode 0)."""
+    phys, constants, g = ctx.phys, ctx.constants, ctx.g
+    cs = eos.sound_speed(phys, constants, g, sigma, energy, ctx.cs_iso)
+    press = eos.pressure(phys, constants, sigma, energy, cs)
+    h = eos.scale_height(phys, constants, g, cs)
+    return cs, press, h
+
+
+def cfl_plain(ctx: KernelContext, sigma, vrad, vaz, energy, qplus, qminus):
+    """CFL dt (0-d) from the ported condition_cfl."""
+    cs, _, h = derived(ctx, sigma, energy)
+    nu = visc.kinematic_viscosity(ctx.phys, ctx.g, cs, h)
+    return cfl_ops.condition_cfl(ctx.phys, ctx.g, sigma, vrad, vaz, energy,
+                                 cs, nu, qplus, qminus)
+
+
+def sources_plain(ctx: KernelContext, sigma, vrad, vaz, energy,
+                  bodies: gravity.BodiesOnGrid, indirect, omega_frame, dt):
+    """N-body potential + momentum source terms, without the compression
+    heating. Returns (vrad, vaz)."""
+    phys = ctx.phys
+    _, press, h = derived(ctx, sigma, energy)
+    cell_x, cell_y = ctx.cell_xy()
+    pot = gravity.nbody_potential(phys, ctx.constants, ctx.g, bodies,
+                                  bodies.x.shape[0], cell_x, cell_y, h,
+                                  indirect[0], indirect[1])
+    vrad, vaz, _ = src_ops.update_with_sourceterms(
+        phys, ctx.g, sigma, press, pot, vrad, vaz, energy,
+        omega_frame.to(sigma.dtype), dt, compress=False)
+    return vrad, vaz
+
+
+def viscous_kick_plain(ctx: KernelContext, sigma, vrad, vaz, energy, dt,
+                       time, compress: bool = True):
+    """Compression heating (optional), artificial viscosity, the clamp,
+    viscosity and SubStep3. Returns (vrad, vaz, energy, qplus, qminus)."""
+    phys, constants, g = ctx.phys, ctx.constants, ctx.g
+    if compress:
+        energy = src_ops.compression_heating(phys, g, energy, vrad, vaz, dt)
+    vrad, vaz, energy = artvisc.update_with_artificial_viscosity(
+        phys, g, sigma, vrad, vaz, energy, dt)
+    if phys.is_adiabatic and phys.artificial_viscosity_dissipation:
+        energy = eos.energy_floor_ceiling(phys, constants, sigma, energy)
+    cs, _, h = derived(ctx, sigma, energy)
+    nu = visc.kinematic_viscosity(phys, g, cs, h)
+    trr, tpp, trp, divv = visc.viscous_stress_tensor(phys, g, sigma, vrad,
+                                                     vaz, nu)
+    vrad, vaz = visc.update_velocities_with_viscosity(
+        phys, g, sigma, vrad, vaz, trr, tpp, trp, dt)
+    if not phys.is_adiabatic:
+        z = torch.zeros_like(sigma)
+        return vrad, vaz, energy, z, z
+    energy, qplus, qminus = energy_ops.substep3(
+        phys, constants, g, sigma, energy, nu, trr, tpp, trp, divv, h, time,
+        dt)
+    return vrad, vaz, energy, qplus, qminus
+
+
+def transport_plain(ctx: KernelContext, sigma, vrad, vaz, energy,
+                    omega_frame, dt, shift):
+    """The composed FARGO transport. Returns
+    (sigma, vrad, vaz, energy, mass_flux)."""
+    return tr_ops.transport(ctx.phys, ctx.g, sigma, vrad, vaz, energy,
+                            omega_frame.to(sigma.dtype), dt, shift=shift)
+
+
+# ---------------------------------------------------------------------------
+# build and launch
+# ---------------------------------------------------------------------------
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" \
+    / "fargocpt_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+
+@dataclass
+class BuildInfo:
+    library: Path
+    nvcc: str
+    seconds: float      # nvcc time; 0.0 when a built library was found
+
+
+_LIB: ctypes.CDLL | None = None
+BUILD: BuildInfo | None = None
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    raise RuntimeError("nvcc not found ($CUDA_HOME/bin, PATH, "
+                       "/usr/local/cuda/bin): cannot build the CUDA kernels")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _sources():
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libfargocpt_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> BuildInfo:
+    """Build (if needed) and load the kernel library; idempotent."""
+    global _LIB, BUILD
+    if _LIB is not None:
+        return BUILD
+    lib_path = library_path()
+    nvcc = find_nvcc()
+    seconds = 0.0
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               *[str(f) for f in sorted(CSRC.glob("*.cu"))]]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stderr}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    args = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    for op in OPS:
+        for sfx in ("f32", "f64"):
+            fn = getattr(lib, f"fc_{op}_{sfx}")
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    lib.fc_error_string.argtypes = [ctypes.c_int]
+    lib.fc_error_string.restype = ctypes.c_char_p
+    lib.fc_cfl_n_partial.argtypes = []
+    lib.fc_cfl_n_partial.restype = ctypes.c_int
+    _LIB = lib
+    BUILD = BuildInfo(library=lib_path, nvcc=nvcc, seconds=seconds)
+    return BUILD
+
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _check(name: str, t: torch.Tensor, shape, like: torch.Tensor) -> None:
+    if t.device != like.device:
+        raise ValueError(f"{name} is on {t.device}, expected {like.device}")
+    if t.dtype != like.dtype:
+        raise TypeError(f"{name} is {t.dtype}, expected {like.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _launch(op: str, like: torch.Tensor, tensors: list[torch.Tensor],
+            fp: list[float], ip: list[int]) -> None:
+    """Call fc_<op>_<dtype> on the current stream; raise on a CUDA error."""
+    if like.device.type != "cuda":
+        raise RuntimeError(f"{op}: the CUDA kernel needs CUDA tensors, got "
+                           f"{like.device}")
+    if like.dtype not in _SUFFIX:
+        raise TypeError(f"{op}: kernels take float32 or float64, got "
+                        f"{like.dtype}")
+    if ip[0] < 4 or ip[1] < 1:
+        raise ValueError(f"{op}: the kernels need NR >= 4 and NAZ >= 1, got "
+                         f"{ip[0]} x {ip[1]}")
+    build()
+    fn = getattr(_LIB, f"fc_{op}_{_SUFFIX[like.dtype]}")
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    fpa = (ctypes.c_double * len(fp))(*[float(x) for x in fp])
+    ipa = (ctypes.c_int * len(ip))(*[int(x) for x in ip])
+    with torch.cuda.device(like.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(ptrs, fpa, ipa, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc} "
+                           f"({_LIB.fc_error_string(rc).decode()})")
+    LAUNCHES[op] += 1
+
+
+def _scalars(like: torch.Tensor, values) -> torch.Tensor:
+    """Device vector of the field dtype from 0-d tensors / floats, built
+    without a host round trip."""
+    parts = [v.reshape(1).to(like.dtype) if torch.is_tensor(v)
+             else torch.full((1,), float(v), dtype=like.dtype,
+                             device=like.device) for v in values]
+    return torch.cat(parts)
+
+
+# ---------------------------------------------------------------------------
+# the four ops
+# ---------------------------------------------------------------------------
+
+def cfl(ctx: KernelContext, sigma, vrad, vaz, energy, qplus, qminus):
+    """CFL dt as a 0-d tensor of the field dtype."""
+    if sigma.device.type == "cpu":
+        return cfl_plain(ctx, sigma, vrad, vaz, energy, qplus, qminus)
+    phys, g = ctx.phys, ctx.g
+    nr, naz = g.nrad, g.naz
+    if phys.stabilize_viscosity == 2:
+        raise NotImplementedError("StabilizeViscosity 2 is not ported yet")
+    for name, t, shape in (("sigma", sigma, (nr, naz)),
+                           ("vrad", vrad, (nr + 1, naz)),
+                           ("vaz", vaz, (nr, naz)),
+                           ("energy", energy, (nr, naz)),
+                           ("qplus", qplus, (nr, naz)),
+                           ("qminus", qminus, (nr, naz)),
+                           ("cols", ctx.cols, (nr + 1, N_COLS))):
+        _check(name, t, shape, sigma)
+    vmean = torch.empty(nr, dtype=sigma.dtype, device=sigma.device)
+    build()
+    partial = torch.empty(_LIB.fc_cfl_n_partial(), dtype=sigma.dtype,
+                          device=sigma.device)
+    out = torch.empty((), dtype=sigma.dtype, device=sigma.device)
+    lf = 0.6 if phys.hydro_integrator == LEAPFROG else 1.0
+    fp = [phys.adiabatic_index, phys.viscous_alpha, phys.constant_viscosity,
+          phys.artificial_viscosity_factor ** 2, lf,
+          1.0 / phys.heating_cooling_cfl_limit, phys.cfl, g.dphi, g.invdphi]
+    ip = [nr, naz, int(phys.is_adiabatic),
+          int(phys.artificial_viscosity == ARTVISC_SN),
+          int(phys.fast_transport)]
+    _launch("cfl", sigma, [sigma, energy, vrad, vaz, qplus, qminus,
+                           ctx.cols, vmean, partial, out], fp, ip)
+    return out
+
+
+_SMOOTH_MODE = {"zero": 0, "scalar": 1, "cell": 2}
+
+
+def smoothing_modes(phys: Physics, n_bodies: int) -> tuple[str, ...]:
+    """Per-body potential smoothing: none (star in compatibility mode), a
+    scalar eps*h at the body, or eps*H per cell."""
+    return tuple(
+        "zero" if (phys.compatibility_no_star_smoothing and k == 0)
+        else "scalar" if phys.compatibility_smoothing_planetloc
+        else "cell" for k in range(n_bodies))
+
+
+def sources(ctx: KernelContext, sigma, vrad, vaz, energy,
+            bodies: gravity.BodiesOnGrid, indirect, omega_frame, dt):
+    """Potential + momentum source terms. Returns (vrad, vaz)."""
+    if sigma.device.type == "cpu":
+        return sources_plain(ctx, sigma, vrad, vaz, energy, bodies,
+                             indirect, omega_frame, dt)
+    phys, g = ctx.phys, ctx.g
+    nr, naz = g.nrad, g.naz
+    if phys.is_polytropic:
+        raise NotImplementedError("polytropic EoS is not ported yet")
+    for name, t, shape in (("sigma", sigma, (nr, naz)),
+                           ("vrad", vrad, (nr + 1, naz)),
+                           ("vaz", vaz, (nr, naz)),
+                           ("energy", energy, (nr, naz)),
+                           ("cols", ctx.cols, (nr + 1, N_COLS)),
+                           ("cos_row", ctx.cos_row, (naz,)),
+                           ("sin_row", ctx.sin_row, (naz,))):
+        _check(name, t, shape, sigma)
+    n_bodies = bodies.x.shape[0]
+    modes = smoothing_modes(phys, n_bodies)
+    dt_ = sigma.dtype
+    bx, by = bodies.x.to(dt_), bodies.y.to(dt_)
+    sm_scalar = torch.zeros_like(bx)
+    if "scalar" in modes:
+        body_r = torch.sqrt(bx ** 2 + by ** 2)
+        sm_scalar = phys.thickness_smoothing * (
+            phys.aspectratio_ref * body_r ** (1.0 + phys.flaring_index))
+    # filled on the device: a host list would cost a stream sync per call
+    mode_col = torch.full((n_bodies,), float(_SMOOTH_MODE[modes[-1]]),
+                          dtype=dt_, device=sigma.device)
+    if modes[0] != modes[-1]:
+        mode_col[0] = float(_SMOOTH_MODE[modes[0]])
+    per_body = torch.stack([bodies.mass.to(dt_), bx, by,
+                            bodies.cubic_smoothing_radius.to(dt_), sm_scalar,
+                            mode_col], dim=1).reshape(-1)
+    scal = torch.cat([_scalars(sigma, [dt, omega_frame, indirect[0],
+                                       indirect[1]]), per_body])
+    vrad_out = torch.empty_like(vrad)
+    vaz_out = torch.empty_like(vaz)
+    fp = [phys.adiabatic_index, phys.thickness_smoothing, ctx.constants.G]
+    ip = [nr, naz, int(phys.is_adiabatic), n_bodies,
+          int(phys.imposed_disk_drift != 0.0)]
+    _launch("sources", sigma, [sigma, energy, vaz, vrad, ctx.cols,
+                               ctx.cos_row, ctx.sin_row, scal, vrad_out,
+                               vaz_out], fp, ip)
+    return vrad_out, vaz_out
+
+
+def viscous_kick(ctx: KernelContext, sigma, vrad, vaz, energy, dt, time,
+                 compress: bool = True):
+    """Returns (vrad, vaz, energy, qplus, qminus)."""
+    if sigma.device.type == "cpu":
+        return viscous_kick_plain(ctx, sigma, vrad, vaz, energy, dt, time,
+                                  compress)
+    phys, constants, g = ctx.phys, ctx.constants, ctx.g
+    nr, naz = g.nrad, g.naz
+    if phys.is_adiabatic:
+        energy_ops.check_supported(phys)
+    if phys.stabilize_viscosity != 0:
+        raise NotImplementedError("StabilizeViscosity is not ported yet")
+    if phys.is_polytropic:
+        raise NotImplementedError("polytropic EoS is not ported yet")
+    for name, t, shape in (("sigma", sigma, (nr, naz)),
+                           ("vrad", vrad, (nr + 1, naz)),
+                           ("vaz", vaz, (nr, naz)),
+                           ("energy", energy, (nr, naz)),
+                           ("cols", ctx.cols, (nr + 1, N_COLS))):
+        _check(name, t, shape, sigma)
+    beta_inv = energy_ops.beta_inverse(phys, time)
+    scal = _scalars(sigma, [dt, beta_inv])
+    new = lambda t: torch.empty_like(t)   # noqa: E731
+    vrad_out, vaz_out, e_out = new(vrad), new(vaz), new(energy)
+    qp, qm = new(sigma), new(sigma)
+    scratch = [new(sigma), new(vrad), new(vaz)] + [new(sigma)
+                                                   for _ in range(4)]
+    gam = phys.adiabatic_index
+    av = {ARTVISC_SN: 1, ARTVISC_TW: 2}.get(phys.artificial_viscosity, 0)
+    fp = [gam, phys.viscous_alpha, phys.constant_viscosity,
+          phys.artificial_viscosity_factor ** 2,
+          phys.heating_viscous_factor, phys.radial_viscosity_factor,
+          phys.minimum_temperature,
+          eos.finite_in(phys.maximum_temperature, sigma.dtype),
+          phys.mu, constants.R, constants.sigma_sb, constants.c,
+          10.0 * phys.sigma0 * phys.sigma_floor, g.invdphi]
+    ip = [nr, naz, int(phys.is_adiabatic), av,
+          int(phys.artificial_viscosity_dissipation), int(compress),
+          int(phys.heating_viscous), int(phys.cooling_beta_enabled)]
+    _launch("viscous_kick", sigma,
+            [sigma, vrad, vaz, energy, ctx.cols, scal, vrad_out, vaz_out,
+             e_out, qp, qm] + scratch, fp, ip)
+    return vrad_out, vaz_out, e_out, qp, qm
+
+
+def transport(ctx: KernelContext, sigma, vrad, vaz, energy, omega_frame, dt,
+              shift=None):
+    """FARGO transport. ``shift`` is ``transport.fargo_shift``'s
+    (vmean, nshift, vconst); computed here when not given. Returns
+    (sigma, vrad, vaz, energy, mass_flux)."""
+    if shift is None:
+        shift = tr_ops.fargo_shift(ctx.g, vaz, dt)
+    if sigma.device.type == "cpu":
+        return transport_plain(ctx, sigma, vrad, vaz, energy, omega_frame,
+                               dt, shift)
+    phys, g = ctx.phys, ctx.g
+    nr, naz = g.nrad, g.naz
+    vmean, nshift, vconst = shift
+    for name, t, shape in (("sigma", sigma, (nr, naz)),
+                           ("vrad", vrad, (nr + 1, naz)),
+                           ("vaz", vaz, (nr, naz)),
+                           ("energy", energy, (nr, naz)),
+                           ("cols", ctx.cols, (nr + 1, N_COLS)),
+                           ("vmean", vmean, (nr, 1)),
+                           ("vconst", vconst, (nr, 1))):
+        _check(name, t, shape, sigma)
+    if nshift.dtype != torch.int32 or tuple(nshift.shape) != (nr,) \
+            or nshift.device != sigma.device or not nshift.is_contiguous():
+        raise ValueError("nshift must be a contiguous int32 (NR,) tensor on "
+                         f"{sigma.device}")
+    k = 6 if phys.is_adiabatic else 5
+    scal = _scalars(sigma, [dt, omega_frame])
+    outs = [torch.empty_like(sigma), torch.empty_like(vrad),
+            torch.empty_like(vaz), torch.empty_like(energy),
+            torch.empty_like(vrad)]
+    scratch = [torch.empty((k, nr, naz), dtype=sigma.dtype,
+                           device=sigma.device) for _ in range(2)]
+    ip = [nr, naz, int(phys.is_adiabatic), phys.flux_limiter_type,
+          int(phys.fast_transport)]
+    _launch("transport", sigma,
+            [sigma, vrad, vaz, energy, ctx.cols, scal, vmean, nshift,
+             vconst] + outs + scratch, [g.dphi], ip)
+    return tuple(outs)

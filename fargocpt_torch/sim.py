@@ -1,0 +1,215 @@
+"""Simulation: setup from a config and the outer time loop
+(reference src/simulation.cpp:505-560 ``sim::run`` and src/main.cpp).
+
+    sim = Simulation(Config.from_dict({...}), dtype="float32", device="cuda")
+    sim.run()                      # through the configured output times
+    dt = sim.calculate_time_step() # or drive single steps
+    sim.step_once(dt)
+
+Everything lives on ``device``; ``device="cuda"`` without a card raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time as _time
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from . import initial, units as u
+from .config import Config
+from .constants import Constants
+from .grid import Geometry
+from .nbody import system as nbody_sys
+from .params import physics_from_config
+from .state import FieldState, SystemState
+from .step import HydroStep, check_supported, make_ref_values
+
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+@dataclass
+class RunSettings:
+    """Output cadence & run length (reference src/Interpret.cpp:200-202)."""
+    n_snapshots: int = 1000
+    n_monitor: int = 10
+    monitor_timestep: float = 1.0
+    first_dt: float = 1e-9
+    outdir: str = "output/out"
+    write_at_every_timestep: bool = True
+
+    @classmethod
+    def from_config(cls, cfg: Config, outdir: str | None = None) -> "RunSettings":
+        cfg_outdir = cfg.get("OutputDir", "output/out", type=str)
+        return cls(
+            n_snapshots=cfg.get("Nsnapshots", 1000, type=int),
+            n_monitor=cfg.get("Nmonitor", 10, type=int),
+            monitor_timestep=cfg.get("MonitorTimestep", 1.0, dim=u.DIM_TIME,
+                                     type=float),
+            first_dt=cfg.get("FirstDT", 1e-9, dim=u.DIM_TIME, type=float),
+            outdir=outdir or cfg_outdir,
+            write_at_every_timestep=cfg.get_flag("WriteAtEveryTimestep", True),
+        )
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda is not "
+                           "available")
+    return device
+
+
+class Simulation:
+    """End-to-end simulation: config -> grid -> ICs -> stepping."""
+
+    def __init__(self, cfg: Config, outdir: str | None = None,
+                 dtype: str = "float64", device: str | torch.device = "cpu"):
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
+        self.dtype = DTYPES[dtype]
+        self.device = _resolve_device(device)
+        self.cfg = cfg
+        if cfg.get("ShockTube", 0, type=int):
+            raise NotImplementedError("ShockTube is not ported yet")
+        for key in ("l0", "m0", "t0", "temp0"):
+            cfg.get_raw(key)
+        self.units = u.Units.from_config_strings(
+            str(cfg.get_raw("l0", "1.0")), str(cfg.get_raw("m0", "1.0")),
+            str(cfg.get_raw("t0")) if "t0" in cfg else None,
+            str(cfg.get_raw("temp0")) if "temp0" in cfg else None)
+        self.constants = Constants.from_units(self.units)
+        cfg.set_units(self.units)
+        self.phys = physics_from_config(cfg, self.units, dtype=dtype)
+
+        self.bodies = nbody_sys.parse_bodies(cfg, self.units)
+        if cfg.get("KlahrSmoothingRadius", 0.0, type=float) > 0.0 \
+                and len(self.bodies) > 1:
+            raise NotImplementedError("KlahrSmoothingRadius (planets) is not "
+                                      "ported yet")
+        self.n_hydroframe = nbody_sys.hydroframe_center_count(
+            cfg, len(self.bodies))
+        nb_init = nbody_sys.initialize_system(self.bodies, self.constants.G,
+                                              self.n_hydroframe)
+        self.phys = self.phys.with_(hydro_center_mass=float(
+            nb_init["mass"][:self.n_hydroframe].sum()))
+        if any(b.irradiate for b in self.bodies):
+            self.phys = self.phys.with_(heating_star=True)
+        check_supported(self.phys, self.bodies)
+        if cfg.get("CustomBoundaryModule", "", type=str):
+            raise NotImplementedError("CustomBoundaryModule is not ported yet")
+
+        self.geometry = Geometry.from_config(cfg)
+        self.settings = RunSettings.from_config(cfg, outdir)
+
+        fields = initial.build_initial_state(
+            self.phys, self.constants, self.geometry, dtype=self.dtype,
+            device=self.device)
+        # reference src/init.cpp:335-341: snapshot refs, BCs, refs again
+        self.stepper = HydroStep(
+            self.phys, self.constants, self.geometry, make_ref_values(fields),
+            self.bodies, self.n_hydroframe, dtype=self.dtype,
+            device=self.device)
+        fields = self.stepper.apply_bcs(fields)
+        self.stepper.set_ref_values(make_ref_values(fields))
+        self.state: SystemState = self.stepper.initial_system_state(
+            fields, nbody_sys.make_state(nb_init, self.device))
+
+        self.time = self._scalar(0.0)
+        self.last_dt = self._scalar(self.settings.first_dt)
+        # a fresh start grows last_dt twice before the first loop step
+        # (src/main.cpp:117 and src/simulation.cpp:467-469)
+        self._dt_primed = False
+        self.n_monitor = 0
+        self.n_hydro_iter = 0
+        self.monitor_stats: dict = {}
+        # every config key has been consulted by now; a leftover key is a
+        # typo (reference src/main.cpp:110)
+        cfg.exit_on_unknown_key()
+
+    def _scalar(self, value) -> torch.Tensor:
+        return torch.tensor(value, dtype=self.dtype, device=self.device)
+
+    @property
+    def fields(self) -> FieldState:
+        return self.state.fields
+
+    # ------------------------------------------------------------------
+    def calculate_time_step(self) -> torch.Tensor:
+        """dt = min(CFL_max_var * last_dt, cfl_dt) as a 0-d device tensor
+        (reference src/simulation.cpp:100-117); no host sync."""
+        dt = torch.minimum(self.phys.cfl_max_var * self.last_dt,
+                           self.stepper.cfl_dt(self.state))
+        self.last_dt = dt
+        return dt
+
+    def step_once(self, dt):
+        dt = torch.as_tensor(dt, dtype=self.dtype, device=self.device)
+        self.state = self.stepper.step(self.state, self.time, dt)
+        self.time = self.time + dt
+        self.n_hydro_iter += 1
+
+    def run(self, max_steps: int | None = None):
+        """Outer loop (reference src/simulation.cpp:505-560): one
+        ``advance_to`` per monitor interval."""
+        s = self.settings
+        total_monitors = s.n_snapshots * s.n_monitor
+        if not self._dt_primed:
+            self.calculate_time_step()   # main.cpp:117
+            self.calculate_time_step()   # sim::init, simulation.cpp:467
+            self._dt_primed = True
+        while self.n_monitor < total_monitors:
+            if max_steps is not None and self.n_hydro_iter >= max_steps:
+                break
+            t_target = (self.n_monitor + 1) * s.monitor_timestep
+            wall0 = _time.time()
+            (self.state, self.time, self.last_dt, n, dt_min, dt_max, dt_sum,
+             dt_sq) = self.stepper.advance_to(self.state, self.time,
+                                              self.last_dt, t_target)
+            self.n_hydro_iter += n
+            self.monitor_stats = {
+                "n_steps": n, "walltime": _time.time() - wall0,
+                "dt_min": float(dt_min), "dt_max": float(dt_max),
+                "dt_sum": float(dt_sum), "dt_sq": float(dt_sq),
+            }
+            self.n_monitor += 1
+
+
+def reachable_tensors(root, prefix: str = "sim"):
+    """Yield (path, tensor) for every tensor reachable from ``root``
+    through attributes, dataclass fields, module buffers/parameters,
+    dicts, lists and tuples."""
+    seen: set[int] = set()
+    stack = [(prefix, root)]
+    while stack:
+        path, obj = stack.pop()
+        if id(obj) in seen:
+            continue
+        seen.add(id(obj))
+        if torch.is_tensor(obj):
+            yield path, obj
+        elif isinstance(obj, nn.Module):
+            for name, t in obj.named_buffers(recurse=False):
+                stack.append((f"{path}.{name}", t))
+            for name, t in obj.named_parameters(recurse=False):
+                stack.append((f"{path}.{name}", t))
+            for name, m in obj.named_children():
+                stack.append((f"{path}.{name}", m))
+            for name, v in vars(obj).items():
+                if not name.startswith("_"):
+                    stack.append((f"{path}.{name}", v))
+        elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+            for f in dataclasses.fields(obj):
+                stack.append((f"{path}.{f.name}", getattr(obj, f.name)))
+        elif isinstance(obj, dict):
+            for k, v in obj.items():
+                stack.append((f"{path}[{k!r}]", v))
+        elif isinstance(obj, (list, tuple)):
+            for k, v in enumerate(obj):
+                stack.append((f"{path}[{k}]", v))
+        elif hasattr(obj, "__dict__") and type(obj).__module__.startswith(
+                "fargocpt_torch"):
+            for name, v in vars(obj).items():
+                stack.append((f"{path}.{name}", v))
