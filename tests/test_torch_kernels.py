@@ -255,3 +255,24 @@ def test_transport_shift_rounds_half_up():
     assert nshift.dtype == torch.int32
     assert nshift.tolist() == [3, -2, 1, 0, 2]
     assert vconst[:, 0].tolist() == [-0.5, -0.5, -0.5, -0.5, -0.5]
+
+
+def test_column_order_matches_the_cuda_header():
+    """ops/kernels.py KERNEL_COLUMNS and csrc/common.cuh enum Col index
+    the same table: a reordering on one side only would feed every kernel
+    the wrong geometry."""
+    import re
+    header = (kernels.CSRC / "common.cuh").read_text()
+    body = header[header.index("enum Col {"):header.index("N_COLS_USED")]
+    names = [n[2:].lower() for n in re.findall(r"\b(C_[A-Z_]+)\b", body)]
+    assert tuple(names) == kernels.KERNEL_COLUMNS
+    n_cols = int(re.search(r"constexpr int N_COLS = (\d+);", header).group(1))
+    assert n_cols == kernels.N_COLS
+
+
+def test_cuda_launch_refuses_cpu_tensors():
+    """The CUDA path never runs on CPU tensors (and never falls back)."""
+    x = torch.zeros((8, 16), dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        kernels._launch("cfl", x, [x], [], [8, 16])
+    assert kernels.LAUNCHES["cfl"] == 0
