@@ -2,21 +2,32 @@
 
     python3 chip_smoke.py
 
+The transport has two routes (fargocpt_torch/ops/transport.route): the
+whole-transport kernel when NR is a multiple of 16 (the flagship at
+1024x3072), else the split route's two kernels, radial_momenta_sweep and
+fargo_theta (the flagship at 1000x3072). Both are driven here.
+
 Phases (any failure raises, so the exit code is not 0):
   1. environment: GPU name and power limit, torch/CUDA versions, nvcc,
      and the build of the CUDA kernels from fargocpt_torch/csrc;
-  2. per-kernel parity: each of the four kernels against its plain PyTorch
-     version on the same GPU tensors, at 1024x3072 float32 (the flagship
-     state with seeded noise) and 130x200 float64 (seeded random fields),
-     plus each one's time beside the plain version's (CUDA events, median
-     of 25 calls);
-  3. the slice: the flagship Simulation at 1024x3072 float32 on the GPU,
-     20 warm-up and 120 timed steps of calculate_time_step + step_once,
-     with the launch counters of the four kernels checked afterwards;
-  4. the trajectory against the CPU: 256x512 float32 for 200 steps
-     (rel-L2 < 1e-3 per field) and 128x256 float64 for 20 steps
-     (rel-L2 < 1e-9), the GPU run through the kernels and the CPU run
-     through the plain versions, both on the GPU run's dt sequence.
+  2. per-kernel parity: each of the six kernels against its plain PyTorch
+     version on the same GPU tensors, at full size in float32 (the flagship
+     state with seeded noise: 1024x3072 for the whole route's four
+     kernels, 1000x3072 for the split route's two) and at 130x200 float64
+     (seeded random fields), plus each one's time beside the plain
+     version's and its least time on the card (CUDA events, median of 25
+     calls); and the split route as a whole against the whole-transport
+     kernel on the same 1000x3072 state;
+  3. the slice: the flagship Simulation on the GPU at 1024x3072 and at
+     1000x3072 float32, 20 warm-up and 120 timed steps each of
+     calculate_time_step + step_once, with the launch counters of each
+     route checked afterwards;
+  4. the trajectory against the CPU, whole route: 256x512 float32 for 200
+     steps (rel-L2 < 1e-3 per field) and 128x256 float64 for 20 steps
+     (rel-L2 < 1e-9); split route: 250x512 float32 for 200 steps and
+     130x256 float64 for 20 steps, the same budgets. The GPU run goes
+     through the kernels and the CPU run through the plain versions, both
+     on the GPU run's dt sequence.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -55,7 +66,10 @@ FLAGSHIP = {
     # runs at the steady step size (FirstDT is a run-control key)
     "FirstDT": "1e-3",
 }
-NR, NAZ = 1024, 3072
+NR, NAZ = 1024, 3072          # whole transport route
+NR_SPLIT = 1000               # split transport route (NR % 16 != 0)
+ROUTE_OPS = {"whole": ("transport",),
+             "split": ("radial_momenta_sweep", "fargo_theta")}
 
 KERNELS = {
     "cfl": ("fargocpt_torch/csrc/cfl.cu",
@@ -66,7 +80,26 @@ KERNELS = {
                      "fargocpt_tpu/ops/pallas_kernels.py:1470"),
     "transport": ("fargocpt_torch/csrc/transport.cu",
                   "fargocpt_tpu/ops/pallas_kernels.py:1098"),
+    "radial_momenta_sweep": ("fargocpt_torch/csrc/radial_momenta_sweep.cu",
+                             "fargocpt_tpu/ops/pallas_kernels.py:192"),
+    "fargo_theta": ("fargocpt_torch/csrc/fargo_theta.cu",
+                    "fargocpt_tpu/ops/pallas_kernels.py:495"),
 }
+# The card's published peaks (H100 SXM data sheet, at 700 W): device
+# memory rate, and float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Floating-point operations per grid cell of each kernel on the flagship
+# (adiabatic, K = 6, SN artificial viscosity, fast transport), counted
+# from the CUDA sources with each +, -, *, /, sqrt, exp, min/max and
+# compare as one: cfl 45, sources 120 (three potential evaluations),
+# viscous kick 230 (three launches), whole transport 1300 (radial sweep
+# 500, two azimuthal sweeps 396 each, reconstruction 10), radial sweep
+# 6 x 66, fargo_theta 2 x 396.
+OPS_PER_CELL = {"cfl": 45, "sources": 120, "viscous_kick": 230,
+                "transport": 1300, "radial_momenta_sweep": 396,
+                "fargo_theta": 792}
+
 # f32 at 1024x3072, as a fraction of each output's scale (velocities are
 # scaled by max|vaz|, as in tests/test_dtype_budget.py): the kernels read
 # geometry columns computed in float64 and the plain versions difference
@@ -74,8 +107,10 @@ KERNELS = {
 # of the scale on the perturbed flagship state
 F32_TOL = 1e-5
 # f64 at 130x200: the tolerances of tests/test_torch_kernels.py
+# (rtol 1e-11 for the split route's two kernels)
 F64_RTOL = {"cfl": 1e-12, "sources": 1e-11, "viscous_kick": 1e-10,
-            "transport": 1e-11}
+            "transport": 1e-11, "radial_momenta_sweep": 1e-11,
+            "fargo_theta": 1e-11}
 
 
 def log(*args):
@@ -114,37 +149,83 @@ def time_ms(fn, reps=25) -> float:
 
 # --- phase 2 -----------------------------------------------------------------
 
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(name, inputs, outputs, n_cells) -> dict:
+    """Least time on the card: each input read once and each output
+    written once at the memory rate, against the operations at the
+    float32 rate; the larger of the two."""
+    t_bytes = (nbytes(inputs) + nbytes(outputs)) / HBM_BYTES_PER_S
+    t_ops = OPS_PER_CELL[name] * n_cells / F32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def op_calls(ctx, f, q, bodies, omega, dt):
-    """name -> (kernel call, plain call, output names) on one state."""
+    """name -> (kernel call, plain call, output names, inputs) of the
+    whole route's four ops on one state."""
     from fargocpt_torch.ops import kernels as K
     from fargocpt_torch.ops import transport as tr
     zero = torch.zeros((), dtype=torch.float64, device=f["sigma"].device)
     shift = tr.fargo_shift(ctx.g, f["vaz"], dt)
     s, vr, va, e = f["sigma"], f["vrad"], f["vaz"], f["energy"]
+    fields = [s, vr, va, e, ctx.cols]
     return {
         "cfl": (lambda: (K.cfl(ctx, s, vr, va, e, *q),),
-                lambda: (K.cfl_plain(ctx, s, vr, va, e, *q),), ("dt",)),
+                lambda: (K.cfl_plain(ctx, s, vr, va, e, *q),), ("dt",),
+                fields + list(q)),
         "sources": (
             lambda: K.sources(ctx, s, vr, va, e, bodies, (zero, zero),
                               omega, dt),
             lambda: K.sources_plain(ctx, s, vr, va, e, bodies, (zero, zero),
-                                    omega, dt), ("vrad", "vaz")),
+                                    omega, dt), ("vrad", "vaz"),
+            fields + [ctx.cos_row, ctx.sin_row]),
         "viscous_kick": (
             lambda: K.viscous_kick(ctx, s, vr, va, e, dt, 0.0),
             lambda: K.viscous_kick_plain(ctx, s, vr, va, e, dt, 0.0),
-            ("vrad", "vaz", "energy", "qplus", "qminus")),
+            ("vrad", "vaz", "energy", "qplus", "qminus"), fields),
         "transport": (
-            lambda: K.transport(ctx, s, vr, va, e, omega, dt, shift),
-            lambda: K.transport_plain(ctx, s, vr, va, e, omega, dt, shift),
-            ("sigma", "vrad", "vaz", "energy", "mass_flux")),
+            lambda: K.transport(ctx, s, vr, va, e, omega, dt, shift,
+                                route="whole"),
+            lambda: K.transport_plain(ctx, s, vr, va, e, omega, dt, shift,
+                                      route="whole"),
+            ("sigma", "vrad", "vaz", "energy", "mass_flux"),
+            fields + list(shift)),
     }
 
 
-def parity_f32_flagship(sim) -> dict:
-    """Kernel vs plain at full size on the flagship state, perturbed by
-    seeded noise (the unperturbed disk is axisymmetric, which would leave
-    the azimuthal stencils untested); returns
-    name -> {max_abs_err, ms, plain_ms}."""
+def split_calls(ctx, f, omega, dt):
+    """name -> (kernel call, plain call, output names, inputs) of the split
+    route's two ops on one state, each fed what the transport feeds it."""
+    from fargocpt_torch.ops import kernels as K
+    from fargocpt_torch.ops import transport as tr
+    g, phys = ctx.g, ctx.phys
+    s, vr, va, e = f["sigma"], f["vrad"], f["vaz"], f["energy"]
+    vmean, nshift, vconst = tr.fargo_shift(g, va, dt)
+    base = dt * g.dphi * g.ra * tr.star_radial(phys, g, s, vr, dt) * vr
+    rms = (s, vr, va, e, base, dt, omega)
+    qs = K.radial_momenta_sweep_plain(ctx, *rms)
+    vres = va - vmean
+    if not phys.fast_transport:
+        vres = vres + vconst
+    ft = (qs, vres, vconst, nshift, dt, phys.fast_transport)
+    return {
+        "radial_momenta_sweep": (
+            lambda: (K.radial_momenta_sweep(ctx, *rms),),
+            lambda: (K.radial_momenta_sweep_plain(ctx, *rms),), ("qs",),
+            [s, vr, va, e, base, ctx.cols]),
+        "fargo_theta": (
+            lambda: (K.fargo_theta(ctx, *ft),),
+            lambda: (K.fargo_theta_plain(ctx, *ft),), ("qs",),
+            [qs, vres, vconst, nshift, ctx.cols]),
+    }
+
+
+def perturbed(sim) -> dict:
+    """The simulation's fields with seeded noise (the unperturbed disk is
+    axisymmetric, which would leave the azimuthal stencils untested)."""
     st = sim.state
     gen = torch.Generator(device=st.fields.sigma.device).manual_seed(7)
 
@@ -153,39 +234,110 @@ def parity_f32_flagship(sim) -> dict:
                              dtype=t.dtype) - 1.0
         return t * (1.0 + rel * u) + add * u
 
-    f = {"sigma": noisy(st.fields.sigma, rel=1e-2),
-         "vrad": noisy(st.fields.vrad, add=1e-4),
-         "vaz": noisy(st.fields.vaz, add=1e-3),
-         "energy": noisy(st.fields.energy, rel=1e-2)}
+    return {"sigma": noisy(st.fields.sigma, rel=1e-2),
+            "vrad": noisy(st.fields.vrad, add=1e-4),
+            "vaz": noisy(st.fields.vaz, add=1e-3),
+            "energy": noisy(st.fields.energy, rel=1e-2)}
+
+
+def output_scales(oname, ref, f) -> list[float]:
+    """The scale each output's error is measured against: velocities by
+    max|vaz| (as in tests/test_dtype_budget.py), the momenta rp, rm, ap,
+    am of a (K, NR, NAZ) batch by max(sigma) max|vaz|, every other
+    quantity by its own max."""
+    vscale = float(f["vaz"].abs().max())
+    if oname in ("vrad", "vaz"):
+        return [vscale]
+    if oname == "qs":
+        mom = float(f["sigma"].max()) * vscale
+        return [mom if k < 4 else float(ref[k].abs().max())
+                for k in range(ref.shape[0])]
+    return [float(ref.abs().max())]
+
+
+def check_f32(name, got, ref, names, f, nr) -> float:
+    """Worst error over the outputs as a fraction of their scale; raises
+    above F32_TOL. Returns the largest absolute error."""
+    worst, max_abs = 0.0, 0.0
+    for oname, a, b in zip(names, got, ref):
+        scales = output_scales(oname, b, f)
+        parts = [(a[k], b[k]) for k in range(b.shape[0])] \
+            if oname == "qs" else [(a, b)]
+        errs = [float((x - y).abs().max()) for x, y in parts]
+        rel = max(e / sc for e, sc in zip(errs, scales))
+        max_abs = max(max_abs, *errs)
+        worst = max(worst, rel)
+        log(f"  {name:20s} {oname:9s} f32 {nr}x{NAZ}: max|k-p| = "
+            f"{max(errs):.3e}  / scale = {rel:.3e}")
+    if not worst <= F32_TOL:
+        raise AssertionError(f"{name}: f32 kernel/plain mismatch "
+                             f"{worst:.3e} > {F32_TOL}")
+    return max_abs
+
+
+def measure(calls, f, nr) -> dict:
+    """Parity, times and bound of each kernel in ``calls``."""
+    out = {}
+    for name, (kern, plain, names, inputs) in calls.items():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        max_abs = check_f32(name, got, ref, names, f, nr)
+        ms, plain_ms = time_ms(kern), time_ms(plain)
+        b = bound(name, inputs, got, nr * NAZ)
+        log(f"  {name:20s} kernel {ms:.4f} ms   plain {plain_ms:.4f} ms   "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        out[name] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                     **b, "library_ms": None}
+    return out
+
+
+def parity_f32_flagship(sim) -> dict:
+    """The whole route's four kernels against their plain versions at
+    1024x3072 on the perturbed flagship state."""
+    st = sim.state
+    f = perturbed(sim)
     dt = sim.stepper.cfl_dt(st)
     bodies = sim.stepper.bodies_on_grid(st.nbody)
     calls = op_calls(sim.stepper.ops, f, (st.qplus, st.qminus), bodies,
                      st.omega_frame, dt)
-    vscale = float(f["vaz"].abs().max())
-    out = {}
-    for name, (kern, plain, names) in calls.items():
-        got, ref = kern(), plain()
-        torch.cuda.synchronize()
-        worst, max_abs = 0.0, 0.0
-        for oname, a, b in zip(names, got, ref):
-            err = float((a - b).abs().max())
-            scale = vscale if oname in ("vrad", "vaz") \
-                else float(b.abs().max())
-            max_abs = max(max_abs, err)
-            worst = max(worst, err / scale)
-            log(f"  {name:13s} {oname:9s} f32 {NR}x{NAZ}: max|k-p| = {err:.3e}"
-                f"  / scale = {err / scale:.3e}")
-        if not worst <= F32_TOL:
-            raise AssertionError(f"{name}: f32 kernel/plain mismatch "
-                                 f"{worst:.3e} > {F32_TOL}")
-        ms, plain_ms = time_ms(kern), time_ms(plain)
-        log(f"  {name:13s} kernel {ms:.4f} ms   plain {plain_ms:.4f} ms")
-        out[name] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
-    return out
+    return measure(calls, f, NR)
+
+
+def parity_f32_split(sim) -> tuple[dict, dict]:
+    """The split route's two kernels against their plain versions at
+    1000x3072 on the perturbed flagship state; then the split route as a
+    whole against the whole-transport kernel on the same state (outputs
+    and times). Returns (per-kernel results, route times in ms)."""
+    from fargocpt_torch.ops import kernels as K
+    from fargocpt_torch.ops import transport as tr
+    st, ctx = sim.state, sim.stepper.ops
+    f = perturbed(sim)
+    dt = sim.stepper.cfl_dt(st)
+    out = measure(split_calls(ctx, f, st.omega_frame, dt), f, NR_SPLIT)
+
+    shift = tr.fargo_shift(ctx.g, f["vaz"], dt)
+    args = (ctx, f["sigma"], f["vrad"], f["vaz"], f["energy"],
+            st.omega_frame, dt, shift)
+    routes = {r: (lambda r=r: K.transport(*args, route=r))
+              for r in ("split", "whole")}
+    names = ("sigma", "vrad", "vaz", "energy", "mass_flux")
+    check_f32("split vs whole", routes["split"](), routes["whole"](), names,
+              f, NR_SPLIT)
+    # in turns: split, whole, whole, split
+    t = {"split": [], "whole": []}
+    for r in ("split", "whole", "whole", "split"):
+        t[r].append(time_ms(routes[r]))
+    times = {r: float(np.mean(v)) for r, v in t.items()}
+    log(f"  transport at {NR_SPLIT}x{NAZ} f32: split route "
+        f"{times['split']:.4f} ms, whole-transport kernel "
+        f"{times['whole']:.4f} ms (event medians, mean of two turns each)")
+    return out, times
 
 
 def parity_f64_ragged(device) -> None:
-    """Kernel vs plain at 130x200 float64 on seeded random fields."""
+    """Kernel vs plain at 130x200 float64 on seeded random fields: the
+    whole route's four, then the split route's two over K = 5 and 6, both
+    limiters and one or two azimuthal sweeps, with shifts of either sign."""
     from fargocpt_torch.constants import Constants
     from fargocpt_torch.grid import Geometry
     from fargocpt_torch.ops import kernels as K
@@ -199,9 +351,9 @@ def parity_f64_ragged(device) -> None:
                    cooling_beta_enabled=True, cooling_beta=10.0,
                    minimum_temperature=1e-6, sigma0=1.0, sigma_floor=1e-6,
                    thickness_smoothing=0.6, imposed_disk_drift=1e-4)
-    ctx = K.KernelContext(phys, Constants.from_units(Units()),
-                          Geometry.build(nr, naz, 0.4, 2.5, "Log"),
-                          torch.float64, device)
+    geometry = Geometry.build(nr, naz, 0.4, 2.5, "Log")
+    constants = Constants.from_units(Units())
+    ctx = K.KernelContext(phys, constants, geometry, torch.float64, device)
     rng = np.random.default_rng(11)
     t = lambda a: torch.tensor(a, dtype=torch.float64,  # noqa: E731
                                device=device)
@@ -214,23 +366,57 @@ def parity_f64_ragged(device) -> None:
     bodies = BodiesOnGrid(x=t([0.0, 1.0]), y=t([0.0, 0.3]),
                           mass=t([1.0, 1e-3]),
                           cubic_smoothing_radius=t([0.0, 0.05]))
-    calls = op_calls(ctx, f, q, bodies, t(0.4), t(0.003))
-    for name, (kern, plain, names) in calls.items():
-        for oname, a, b in zip(names, kern(), plain()):
+
+    def check(name, label, got, ref, onames):
+        for oname, a, b in zip(onames, got, ref):
             a, b = a.cpu().numpy(), b.cpu().numpy()
             atol = 1e-13 * float(np.abs(b).max())
             err = float(np.abs(a - b).max())
-            log(f"  {name:13s} {oname:9s} f64 {nr}x{naz}: max|k-p| = "
+            log(f"  {name:20s} {oname:9s} f64 {nr}x{naz}{label}: max|k-p| = "
                 f"{err:.3e}  (rtol {F64_RTOL[name]:.0e}, atol {atol:.1e})")
             np.testing.assert_allclose(a, b, rtol=F64_RTOL[name], atol=atol,
-                                       err_msg=f"{name}.{oname}")
+                                       err_msg=f"{name}.{oname}{label}")
+
+    calls = op_calls(ctx, f, q, bodies, t(0.4), t(0.003))
+    for name, (kern, plain, names, _) in calls.items():
+        check(name, "", kern(), plain(), names)
+
+    dt, omega = t(0.01), t(0.3)
+    shifts = torch.tensor(rng.integers(-2 * naz, 2 * naz, nr),
+                          dtype=torch.int32, device=device)
+    if not (bool((shifts < 0).any()) and bool((shifts > 0).any())):
+        raise AssertionError("the shifts need both signs")
+    for eos_name in ("adiabatic", "isothermal"):
+        for limiter in (0, 1):
+            c = K.KernelContext(phys.with_(eos=eos_name,
+                                           flux_limiter_type=limiter),
+                                constants, geometry, torch.float64, device)
+            calls = split_calls(c, f, omega, dt)
+            for name in ("radial_momenta_sweep", "fargo_theta"):
+                kern, plain, names, inputs = calls[name]
+                label = f" K={6 if eos_name == 'adiabatic' else 5} " \
+                    f"limiter={limiter}"
+                if name == "radial_momenta_sweep":
+                    check(name, label, kern(), plain(), names)
+                    continue
+                qs, vres, vconst = inputs[:3]
+                for two_pass in (True, False):
+                    ft = (qs, vres, vconst, shifts, dt, two_pass)
+                    check(name, label + f" two_pass={two_pass}",
+                          (K.fargo_theta(c, *ft),),
+                          (K.fargo_theta_plain(c, *ft),), names)
 
 
 # --- phase 3 -----------------------------------------------------------------
 
 def run_slice(sim, warmup=20, steps=120) -> dict:
+    """The flagship's steps on its route, with the launch counters set to 0
+    just before and read just after: every op of the route at least once a
+    step, the other route's ops never."""
     from fargocpt_torch.ops import kernels as K
     from fargocpt_torch.sim import reachable_tensors
+    route = sim.stepper.ops.route
+    nr = sim.geometry.nrad
     K.reset_launches()
     for _ in range(warmup):
         sim.step_once(sim.calculate_time_step())
@@ -242,8 +428,13 @@ def run_slice(sim, warmup=20, steps=120) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    other = [op for r, ops in ROUTE_OPS.items() if r != route for op in ops]
     for name in K.OPS:
-        if launches[name] < warmup + steps:
+        if name in other:
+            if launches[name] != 0:
+                raise AssertionError(f"{route} route at {nr} rings launched "
+                                     f"{name} {launches[name]} times")
+        elif launches[name] < warmup + steps:
             raise AssertionError(f"kernel {name} launched {launches[name]} "
                                  f"times in {warmup + steps} steps")
     f = sim.fields
@@ -258,9 +449,18 @@ def run_slice(sim, warmup=20, steps=120) -> dict:
         raise AssertionError(f"tensors left on the CPU: {on_cpu[:10]}")
     mean_dt = float(sim.time - t_start) / steps
     per_step = seconds / steps
-    return {"launches": launches, "seconds": seconds, "per_step": per_step,
-            "mcell": NR * NAZ / per_step / 1e6, "mean_dt": mean_dt,
+    return {"route": route, "launches": launches, "seconds": seconds,
+            "per_step": per_step, "mcell": nr * NAZ / per_step / 1e6,
+            "mean_dt": mean_dt,
             "s_per_orbit": 2.0 * math.pi / mean_dt * per_step}
+
+
+def log_slice(res, nr, gpu) -> None:
+    log(f"  {res['route']} route, launches {res['launches']}")
+    log(f"  {nr}x{NAZ} float32: {res['per_step'] * 1e3:.4f} ms/step "
+        f"(CFL + step), {res['mcell']:.1f} Mcell-updates/s, mean dt "
+        f"{res['mean_dt']:.4e}, {res['s_per_orbit']:.2f} s per orbit at "
+        f"r = 1 [{gpu}]")
 
 
 def host_sync_cost(sim, steps=40) -> float:
@@ -296,7 +496,8 @@ def trajectory(nr, naz, dtype, steps, budget) -> dict:
         b = getattr(cpu.fields, name).double()
         scale = torch.linalg.norm(vaz_ref if name == "vrad" else b)
         errs[name] = float(torch.linalg.norm(a - b) / scale)
-    log(f"  {nr}x{naz} {dtype} {steps} steps (t = {float(gpu.time):.4e}): "
+    log(f"  {nr}x{naz} {dtype} {gpu.stepper.ops.route} route, {steps} steps "
+        f"(t = {float(gpu.time):.4e}): "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + f"  (budget {budget:.0e})")
     for name, err in errs.items():
@@ -313,6 +514,7 @@ def main() -> int:
         return 2
     from fargocpt_torch.ops import kernels as K
 
+    t_main = time.perf_counter()
     log("== 1. environment")
     gpu = gpu_line()
     log(gpu)
@@ -321,36 +523,51 @@ def main() -> int:
     t0 = time.perf_counter()
     info = K.build()
     log(f"nvcc {info.nvcc}; library {os.path.relpath(info.library, HERE)}; "
-        f"nvcc time {info.seconds:.2f} s; build+load "
+        f"compile + link {info.seconds:.2f} s (one nvcc per source, "
+        f"concurrent); build+load "
         f"{time.perf_counter() - t0:.2f} s")
 
     log("== 2. per-kernel parity (kernel vs plain on the GPU)")
     t0 = time.perf_counter()
     sim = flagship(NR, NAZ, "float32", "cuda")
-    log(f"  flagship {NR}x{NAZ} float32 built in "
+    sim_split = flagship(NR_SPLIT, NAZ, "float32", "cuda")
+    log(f"  flagship {NR}x{NAZ} and {NR_SPLIT}x{NAZ} float32 built in "
         f"{time.perf_counter() - t0:.2f} s")
     measured = parity_f32_flagship(sim)
+    split_measured, route_ms = parity_f32_split(sim_split)
+    measured.update(split_measured)
     parity_f64_ragged(torch.device("cuda"))
+    log(f"  phase 2 done at {time.perf_counter() - t_main:.1f} s")
 
-    log("== 3. the slice: flagship Simulation on the GPU")
-    res = run_slice(sim)
-    log(f"  launches {res['launches']}")
-    log(f"  {NR}x{NAZ} float32: {res['per_step'] * 1e3:.4f} ms/step "
-        f"(CFL + step), {res['mcell']:.1f} Mcell-updates/s, mean dt "
-        f"{res['mean_dt']:.4e}, {res['s_per_orbit']:.2f} s per orbit at "
-        f"r = 1 [{gpu}]")
+    log("== 3. the slice: flagship Simulation on the GPU, both routes")
+    res = {"whole": run_slice(sim), "split": run_slice(sim_split)}
+    log_slice(res["whole"], NR, gpu)
+    log_slice(res["split"], NR_SPLIT, gpu)
     sync = host_sync_cost(sim)
     log(f"  host sync of one device scalar per step: {sync * 1e3:.4f} ms "
         f"[{gpu}]")
+    log(f"  phase 3 done at {time.perf_counter() - t_main:.1f} s")
 
     log("== 4. trajectory: GPU kernels vs CPU plain path")
     trajectory(256, 512, "float32", 200, 1e-3)
     trajectory(128, 256, "float64", 20, 1e-9)
+    trajectory(250, 512, "float32", 200, 1e-3)
+    trajectory(130, 256, "float64", 20, 1e-9)
+    log(f"  phase 4 done at {time.perf_counter() - t_main:.1f} s")
 
+    # launches: each kernel's count from the run of its own route's path
+    # (the whole route for cfl, sources and viscous_kick as well)
+    def route_of(name):
+        return "split" if name in ROUTE_OPS["split"] else "whole"
     kernels = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
                 "replaces": KERNELS[name][1],
-                "launches": res["launches"][name], **measured[name]}
+                "launches": res[route_of(name)]["launches"][name],
+                **measured[name]}
                for name in K.OPS]
+    log(json.dumps({"transport_routes_ms": route_ms,
+                    "slices": {r: {k: v for k, v in x.items()
+                                   if k != "launches"}
+                               for r, x in res.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,7 @@
 // The shift s_i = floor(ntilde + 0.5) and the residual velocity are inputs
 // (computed once by the caller), so the kernel and the tensor version can
 // be fed the same shift. scal = [dt, omega_frame] on the device.
-#include "common.cuh"
+#include "transport.cuh"
 
 namespace fc {
 namespace {
@@ -33,57 +33,6 @@ struct TrParams {
   double dphi;
   int adiabatic, limiter, fast;
 };
-
-// specific value (quantity / sigma) of quantity k at cell (r, j), and the
-// quantity itself, from the transport's input fields
-template <typename T>
-__device__ __forceinline__ void quantity(const T* __restrict__ sigma,
-                                         const T* __restrict__ vrad,
-                                         const T* __restrict__ vaz,
-                                         const T* __restrict__ energy,
-                                         const T* __restrict__ cols, T omega,
-                                         int k, int k_sigma, int r, int j,
-                                         int naz, T& q, T& work) {
-  const size_t c = (size_t)r * naz + j;
-  const T sig = sigma[c];
-  if (k == k_sigma) {
-    q = sig;
-  } else if (k == 0) {
-    q = sig * vrad[c + naz];
-  } else if (k == 1) {
-    q = sig * vrad[c];
-  } else if (k == 2 || k == 3) {
-    const T rb = col(cols, r, C_RB);
-    const T corot = rb * omega;
-    const T v = k == 2 ? vaz[(size_t)r * naz + jnext(j, naz)] : vaz[c];
-    q = sig * (v + corot) * rb;
-  } else {
-    q = energy[c];
-  }
-  work = q / sig;
-}
-
-// upwind face value at face f of the radial profile w[0..3] = rows f-2..f+1
-// (van Leer / MC slope; faces 0 and NR carry nothing)
-template <typename T>
-__device__ __forceinline__ T star_radial(const T* w, int f, int nr, T vr, T dt,
-                                         const T* __restrict__ cols, int kind) {
-  if (f < 1 || f > nr - 1) return T(0);
-  // slopes at rows f-1 (w[1]) and f (w[2]); zero outside rows 1..NR-2
-  T dq_lo = T(0), dq_hi = T(0);
-  if (f - 1 >= 1) {
-    const T dqm = (w[1] - w[0]) * col(cols, f - 1, C_INVDRM);
-    const T dqp = (w[2] - w[1]) * col(cols, f, C_INVDRM);
-    dq_lo = limiter(dqp, dqm, kind);
-  }
-  if (f <= nr - 2) {
-    const T dqm = (w[2] - w[1]) * col(cols, f, C_INVDRM);
-    const T dqp = (w[3] - w[2]) * col(cols, f + 1, C_INVDRM);
-    dq_hi = limiter(dqp, dqm, kind);
-  }
-  if (vr > T(0)) return w[1] + (col(cols, f, C_CM) - vr * dt) * T(0.5) * dq_lo;
-  return w[2] - (col(cols, f, C_CP) + vr * dt) * T(0.5) * dq_hi;
-}
 
 template <typename T>
 __global__ void tr_radial_kernel(const T* __restrict__ sigma,
@@ -116,13 +65,8 @@ __global__ void tr_radial_kernel(const T* __restrict__ sigma,
 
   for (int k = 0; k < K; ++k) {
     T w[5], q = T(0);
-    for (int d = 0; d < 5; ++d) {
-      T qd, wd;
-      quantity(sigma, vrad, vaz, energy, cols, omega, k, k_sigma,
-               clampi(i - 2 + d, 0, nr - 1), j, naz, qd, wd);
-      w[d] = wd;
-      if (d == 2) q = qd;
-    }
+    radial_profile(sigma, vrad, vaz, energy, cols, omega, k, k_sigma, i, j,
+                   nr, naz, w, q);
     const T st0 = star_radial(w, f0, nr, vr0, dt, cols, P.limiter);
     const T st1 = star_radial(w + 1, f1, nr, vr1, dt, cols, P.limiter);
     const T fl0 = dtdphi * ra0 * st0 * ds0 * vr0;
@@ -133,16 +77,6 @@ __global__ void tr_radial_kernel(const T* __restrict__ sigma,
       if (i == nr - 1) flux[idx + naz] = T(0);
     }
   }
-}
-
-// azimuthal upwind value at interface c (between cells c-1 and c) of the
-// ring profile w[0..3] = cells c-2..c+1, for the displacement ksi
-template <typename T>
-__device__ __forceinline__ T star_theta(const T* w, T ksi, T dxtheta, int kind) {
-  const T dq_lo = T(0.5) * limiter(w[2] - w[1], w[1] - w[0], kind) / dxtheta;
-  const T dq_hi = T(0.5) * limiter(w[3] - w[2], w[2] - w[1], kind) / dxtheta;
-  if (ksi > T(0)) return w[1] + (dxtheta - ksi) * dq_lo;
-  return w[2] - (dxtheta + ksi) * dq_hi;
 }
 
 // mode 0: v = vaz - vmean; 1: v = vconst; 2: v = vaz - vmean + vconst
@@ -170,33 +104,12 @@ __global__ void tr_theta_kernel(const T* __restrict__ qin,
   if (idx >= plane) return;
   const int i = (int)(idx / naz);
   const int j = (int)(idx % naz);
-  const T dt = scal[0];
-  const size_t row = (size_t)i * naz;
   int jj[5];                         // cells j-2 .. j+2
   for (int d = 0; d < 5; ++d) jj[d] = wrap(j - 2 + d, naz);
-  const T dxtheta = T(P.dphi) * col(cols, i, C_RB);
-  const T coef = col(cols, i, C_COEF) * dt;
-  const T inv_surf = col(cols, i, C_INV_SURF);
   const T v0 = sweep_velocity(vaz, vmean, vconst, mode, i, j, naz);
   const T v1 = sweep_velocity(vaz, vmean, vconst, mode, i, jj[3], naz);
-  const T ksi0 = v0 * dt, ksi1 = v1 * dt;
-
-  const T* sig_in = qin + (size_t)(K - 1) * plane + row;
-  T s[5];
-  for (int d = 0; d < 5; ++d) s[d] = sig_in[jj[d]];
-  const T ds0 = star_theta(s, ksi0, dxtheta, P.limiter);
-  const T ds1 = star_theta(s + 1, ksi1, dxtheta, P.limiter);
-
-  for (int k = 0; k < K; ++k) {
-    const T* qk = qin + (size_t)k * plane + row;
-    T w[5];
-    for (int d = 0; d < 5; ++d) w[d] = qk[jj[d]] / s[d];
-    const T st0 = star_theta(w, ksi0, dxtheta, P.limiter);
-    const T st1 = star_theta(w + 1, ksi1, dxtheta, P.limiter);
-    const T f0 = coef * st0 * ds0 * v0;
-    const T f1 = coef * st1 * ds1 * v1;
-    qout[(size_t)k * plane + idx] = qk[j] + (f0 - f1) * inv_surf;
-  }
+  theta_sweep_cell(qin, cols, K, nr, naz, i, jj, v0, v1, scal[0], T(P.dphi),
+                   P.limiter, qout, idx);
 }
 
 template <typename T>

@@ -1,15 +1,20 @@
-"""The four fused ops of the time step: CFL, sources, viscous kick and
-transport, each as a hand-written CUDA kernel (``csrc/*.cu``) and as its
-plain PyTorch version composed from the ported ops.
+"""The fused ops of the time step, each as a hand-written CUDA kernel
+(``csrc/*.cu``) and as its plain PyTorch version composed from the ported
+ops: CFL, sources, viscous kick, and the FARGO transport by one of two
+routes (``transport.route``): the whole transport as one op, or the split
+route's two ops, ``radial_momenta_sweep`` and ``fargo_theta``, with the
+glue between them as PyTorch ops.
 
 Each op's entry point (``cfl``, ``sources``, ``viscous_kick``,
-``transport``) takes the plain version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel or raises. There is no fallback from a
-failed build or launch to the plain version.
+``transport``, ``radial_momenta_sweep``, ``fargo_theta``) takes the plain
+version only for tensors on the CPU; for a CUDA tensor it launches the
+kernel or raises. There is no fallback from a failed build or launch to the
+plain version.
 
 The kernels are built at first use with ``nvcc`` into
 ``build/fargocpt_torch/`` at the root of the checkout, as one shared
-library with a plain C interface loaded through ``ctypes``. Its file name
+library with a plain C interface loaded through ``ctypes``: one ``nvcc``
+per source, all started together, then one link. The library's file name
 carries a hash of the sources and flags, so a stale build is never loaded.
 
 ``LAUNCHES`` counts, per op, the calls that launched the op's kernel.
@@ -25,6 +30,7 @@ import shutil
 import subprocess
 import time
 from dataclasses import dataclass
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -37,7 +43,8 @@ from . import artvisc, cfl as cfl_ops, energy as energy_ops, eos, gravity, \
     sources as src_ops, transport as tr_ops, viscosity as visc
 from .common import Geom
 
-OPS = ("cfl", "sources", "viscous_kick", "transport")
+OPS = ("cfl", "sources", "viscous_kick", "transport",
+       "radial_momenta_sweep", "fargo_theta")
 LAUNCHES = {name: 0 for name in OPS}
 
 
@@ -107,16 +114,18 @@ def make_columns(phys: Physics, constants, geometry: Geometry) -> np.ndarray:
 
 
 class KernelContext(nn.Module):
-    """Everything the four ops read besides the fields: the physics and
+    """Everything the ops read besides the fields: the physics and
     constants, the ``Geom`` columns, the kernels' column table, the
-    azimuth rows and the isothermal sound-speed profile. All tensors are
-    buffers, so ``.to(device)`` moves every one of them."""
+    azimuth rows, the isothermal sound-speed profile, and the transport
+    route of the grid. All tensors are buffers, so ``.to(device)`` moves
+    every one of them."""
 
     def __init__(self, phys: Physics, constants, geometry: Geometry,
                  dtype: torch.dtype, device: torch.device | str | None = None):
         super().__init__()
         self.phys = phys
         self.constants = constants
+        self.route = tr_ops.route(geometry.nrad)
         self.g = Geom(geometry, dtype, device)
         self.register_buffer("cols", torch.tensor(
             make_columns(phys, constants, geometry), dtype=dtype,
@@ -198,11 +207,28 @@ def viscous_kick_plain(ctx: KernelContext, sigma, vrad, vaz, energy, dt,
 
 
 def transport_plain(ctx: KernelContext, sigma, vrad, vaz, energy,
-                    omega_frame, dt, shift):
-    """The composed FARGO transport. Returns
-    (sigma, vrad, vaz, energy, mass_flux)."""
-    return tr_ops.transport(ctx.phys, ctx.g, sigma, vrad, vaz, energy,
-                            omega_frame.to(sigma.dtype), dt, shift=shift)
+                    omega_frame, dt, shift, route=None):
+    """The composed FARGO transport by ``route`` (the context's when
+    None). Returns (sigma, vrad, vaz, energy, mass_flux)."""
+    compose = tr_ops.transport_split if (route or ctx.route) == "split" \
+        else tr_ops.transport
+    return compose(ctx.phys, ctx.g, sigma, vrad, vaz, energy,
+                   omega_frame.to(sigma.dtype), dt, shift=shift)
+
+
+def radial_momenta_sweep_plain(ctx: KernelContext, sigma, vrad, vaz, energy,
+                               base, dt, omega_frame):
+    """Momenta + radial sweep of the split route; (K, NR, NAZ)."""
+    return tr_ops.radial_momenta_sweep(ctx.phys, ctx.g, sigma, vrad, vaz,
+                                       energy, base, dt,
+                                       omega_frame.to(sigma.dtype))
+
+
+def fargo_theta_plain(ctx: KernelContext, qs, vres, vconst, nshift, dt,
+                      two_pass: bool):
+    """Azimuthal sweeps + integer roll of the split route; (K, NR, NAZ)."""
+    return tr_ops.fargo_theta(ctx.phys, ctx.g, qs, vres, vconst, nshift, dt,
+                              two_pass)
 
 
 # ---------------------------------------------------------------------------
@@ -213,14 +239,15 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" \
     / "fargocpt_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 
 @dataclass
 class BuildInfo:
     library: Path
     nvcc: str
-    seconds: float      # nvcc time; 0.0 when a built library was found
+    seconds: float      # compile + link time; 0.0 when a built library
+                        # was found
 
 
 _LIB: ctypes.CDLL | None = None
@@ -255,6 +282,38 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfargocpt_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise naming the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{err}")
+
+
+def _compile_and_link(nvcc: str, lib_path: Path) -> None:
+    """Each source to an object, all at once, then the shared library;
+    written under a temporary name and renamed, so a reader never finds
+    half a library."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = BUILD_DIR / f"objects.{os.getpid()}"
+    work.mkdir(exist_ok=True)
+    try:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [work / f"{f.stem}.o" for f in srcs]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(f), "-o", str(o)]
+                  for f, o in zip(srcs, objs)])
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def build() -> BuildInfo:
     """Build (if needed) and load the kernel library; idempotent."""
     global _LIB, BUILD
@@ -264,17 +323,9 @@ def build() -> BuildInfo:
     nvcc = find_nvcc()
     seconds = 0.0
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *[str(f) for f in sorted(CSRC.glob("*.cu"))]]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        _compile_and_link(nvcc, lib_path)
         seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stderr}")
-        os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     args = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_double),
             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
@@ -305,6 +356,13 @@ def _check(name: str, t: torch.Tensor, shape, like: torch.Tensor) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def _check_nshift(nshift: torch.Tensor, nr: int, like: torch.Tensor) -> None:
+    if nshift.dtype != torch.int32 or tuple(nshift.shape) != (nr,) \
+            or nshift.device != like.device or not nshift.is_contiguous():
+        raise ValueError("nshift must be a contiguous int32 (NR,) tensor on "
+                         f"{like.device}")
 
 
 def _launch(op: str, like: torch.Tensor, tensors: list[torch.Tensor],
@@ -343,7 +401,7 @@ def _scalars(like: torch.Tensor, values) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the four ops
+# the ops
 # ---------------------------------------------------------------------------
 
 def cfl(ctx: KernelContext, sigma, vrad, vaz, energy, qplus, qminus):
@@ -485,15 +543,23 @@ def viscous_kick(ctx: KernelContext, sigma, vrad, vaz, energy, dt, time,
 
 
 def transport(ctx: KernelContext, sigma, vrad, vaz, energy, omega_frame, dt,
-              shift=None):
-    """FARGO transport. ``shift`` is ``transport.fargo_shift``'s
-    (vmean, nshift, vconst); computed here when not given. Returns
-    (sigma, vrad, vaz, energy, mass_flux)."""
+              shift=None, route=None):
+    """FARGO transport by ``route`` (the context's when None): on the
+    whole route one op, on the split route ``radial_momenta_sweep`` and
+    ``fargo_theta`` with the glue between them. ``shift`` is
+    ``transport.fargo_shift``'s (vmean, nshift, vconst); computed here when
+    not given. Returns (sigma, vrad, vaz, energy, mass_flux)."""
     if shift is None:
         shift = tr_ops.fargo_shift(ctx.g, vaz, dt)
+    if (route or ctx.route) == "split":
+        return tr_ops.transport_split(
+            ctx.phys, ctx.g, sigma, vrad, vaz, energy,
+            omega_frame.to(sigma.dtype), dt, shift,
+            radial=partial(radial_momenta_sweep, ctx),
+            theta=partial(fargo_theta, ctx))
     if sigma.device.type == "cpu":
         return transport_plain(ctx, sigma, vrad, vaz, energy, omega_frame,
-                               dt, shift)
+                               dt, shift, "whole")
     phys, g = ctx.phys, ctx.g
     nr, naz = g.nrad, g.naz
     vmean, nshift, vconst = shift
@@ -505,10 +571,7 @@ def transport(ctx: KernelContext, sigma, vrad, vaz, energy, omega_frame, dt,
                            ("vmean", vmean, (nr, 1)),
                            ("vconst", vconst, (nr, 1))):
         _check(name, t, shape, sigma)
-    if nshift.dtype != torch.int32 or tuple(nshift.shape) != (nr,) \
-            or nshift.device != sigma.device or not nshift.is_contiguous():
-        raise ValueError("nshift must be a contiguous int32 (NR,) tensor on "
-                         f"{sigma.device}")
+    _check_nshift(nshift, nr, sigma)
     k = 6 if phys.is_adiabatic else 5
     scal = _scalars(sigma, [dt, omega_frame])
     outs = [torch.empty_like(sigma), torch.empty_like(vrad),
@@ -522,3 +585,54 @@ def transport(ctx: KernelContext, sigma, vrad, vaz, energy, omega_frame, dt,
             [sigma, vrad, vaz, energy, ctx.cols, scal, vmean, nshift,
              vconst] + outs + scratch, [g.dphi], ip)
     return tuple(outs)
+
+
+def radial_momenta_sweep(ctx: KernelContext, sigma, vrad, vaz, energy, base,
+                         dt, omega_frame):
+    """The momenta [rp, rm, ap, am, (energy), sigma] built from the fields
+    and swept radially with the sigma flux ``base`` (NR+1, NAZ). Returns
+    (K, NR, NAZ), K = 6 adiabatic, 5 isothermal."""
+    if sigma.device.type == "cpu":
+        return radial_momenta_sweep_plain(ctx, sigma, vrad, vaz, energy,
+                                          base, dt, omega_frame)
+    phys, g = ctx.phys, ctx.g
+    nr, naz = g.nrad, g.naz
+    for name, t, shape in (("sigma", sigma, (nr, naz)),
+                           ("vrad", vrad, (nr + 1, naz)),
+                           ("vaz", vaz, (nr, naz)),
+                           ("energy", energy, (nr, naz)),
+                           ("base", base, (nr + 1, naz)),
+                           ("cols", ctx.cols, (nr + 1, N_COLS))):
+        _check(name, t, shape, sigma)
+    k = 6 if phys.is_adiabatic else 5
+    out = torch.empty((k, nr, naz), dtype=sigma.dtype, device=sigma.device)
+    _launch("radial_momenta_sweep", sigma,
+            [sigma, vrad, vaz, energy, base, ctx.cols,
+             _scalars(sigma, [dt, omega_frame]), out], [],
+            [nr, naz, int(phys.is_adiabatic), phys.flux_limiter_type])
+    return out
+
+
+def fargo_theta(ctx: KernelContext, qs, vres, vconst, nshift, dt,
+                two_pass: bool):
+    """Residual sweep of the (K, NR, NAZ) batch with ``vres`` (NR, NAZ),
+    with ``two_pass`` the uniform sweep with ``vconst`` (NR, 1), then the
+    per-ring roll by ``nshift`` (int32, NR). Returns (K, NR, NAZ)."""
+    if qs.device.type == "cpu":
+        return fargo_theta_plain(ctx, qs, vres, vconst, nshift, dt, two_pass)
+    g = ctx.g
+    nr, naz = g.nrad, g.naz
+    k = qs.shape[0]
+    for name, t, shape in (("qs", qs, (k, nr, naz)),
+                           ("vres", vres, (nr, naz)),
+                           ("vconst", vconst, (nr, 1)),
+                           ("cols", ctx.cols, (nr + 1, N_COLS))):
+        _check(name, t, shape, qs)
+    _check_nshift(nshift, nr, qs)
+    out = torch.empty_like(qs)
+    scratch = torch.empty_like(qs) if two_pass else out
+    _launch("fargo_theta", qs,
+            [qs, vres, vconst, nshift, ctx.cols, _scalars(qs, [dt]), out,
+             scratch], [g.dphi],
+            [nr, naz, k, ctx.phys.flux_limiter_type, int(two_pass)])
+    return out

@@ -6,9 +6,17 @@ All advected quantities (radial/angular momenta, energy, density) are
 stacked into one (K, NR, NAZ) tensor so each sweep is one batched pass;
 every quantity divides by the same pre-sweep density snapshot. The
 per-ring integer-cell roll of the FARGO trick is a ``torch.gather``.
+
+Two routes compose the same substep, as in the JAX package
+(fargocpt_tpu/ops/transport.py:164-279): ``transport``, the whole
+transport (one CUDA kernel on the GPU), and ``transport_split``, the radial
+half (``radial_momenta_sweep``) and the azimuthal half (``fargo_theta``)
+as two kernels with the glue between them. ``route`` picks one per grid.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -125,6 +133,45 @@ def fargo_shift(g: Geom, vaz, dt):
     return vmean, nshift, vconst
 
 
+def route(nrad: int) -> str:
+    """The transport route of a grid with ``nrad`` rings, as the JAX
+    package's gate picks it (fargocpt_tpu/ops/transport.py:183-191):
+    ``"whole"`` when NR is a multiple of 16, else ``"split"``. The TPU's
+    other conditions (float32 only, NAZ a multiple of 128) are not carried
+    over: CUDA takes any dtype and width."""
+    return "whole" if nrad % 16 == 0 else "split"
+
+
+def radial_momenta_sweep(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
+                         base, dt, omega_frame):
+    """The momenta and the radial sweep of the split route
+    (fargocpt_tpu/ops/pallas_kernels.py ``radial_momenta_sweep_pallas``):
+    the stack [rp, rm, ap, am, (energy), sigma] advected radially in
+    specific form, with ``base`` = dt dphi Ra density_star vrad the sigma
+    flux through the faces. Returns (K, NR, NAZ)."""
+    rp, rm, ap, am = compute_momenta(g, sigma, vrad, vaz, omega_frame)
+    names = [rp, rm, ap, am] + ([energy] if phys.is_adiabatic else []) \
+        + [sigma]
+    qs = torch.stack(names, dim=0)
+    flux = star_radial(phys, g, qs / sigma, vrad, dt) * base
+    return qs + (flux[..., :-1, :] - flux[..., 1:, :]) * g.inv_surf
+
+
+def fargo_theta(phys: Physics, g: Geom, qs, vres, vconst, nshift, dt,
+                two_pass: bool):
+    """The azimuthal half of the transport
+    (fargocpt_tpu/ops/pallas_kernels.py ``fargo_theta_pallas``): a sweep
+    of the (K, NR, NAZ) batch with the residual velocity ``vres``, with
+    ``two_pass`` a second sweep with the uniform ``vconst`` (NR, 1), then
+    the per-ring integer roll by ``nshift``. Entry K-1 is the density."""
+    passes = [vres, vconst.expand_as(vres)] if two_pass else [vres]
+    for v in passes:
+        sig_now = qs[-1]
+        ds = star_theta(phys, g, sig_now, v, dt)
+        qs = van_leer_theta_batch(phys, g, qs, sig_now, ds, v, dt)
+    return advect_shift(qs, nshift)
+
+
 def transport(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
               omega_frame, dt, shift=None):
     """Full FARGO transport substep (reference src/TransportEuler.cpp:112-136).
@@ -132,34 +179,51 @@ def transport(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
     callers that compare two implementations pass the same one to both.
     Returns (sigma, vrad, vaz, energy, mass_flux) with mass_flux the
     radial mass flux through the faces, (NR+1, NAZ)."""
-    adiabatic = phys.is_adiabatic
-    k_sigma = 5 if adiabatic else 4
-    if shift is None:
-        shift = fargo_shift(g, vaz, dt)
-    vmean, nshift, vconst = shift
-
     density_star = star_radial(phys, g, sigma, vrad, dt)
     rp, rm, ap, am = compute_momenta(g, sigma, vrad, vaz, omega_frame)
-    names = [rp, rm, ap, am] + ([energy] if adiabatic else []) + [sigma]
+    names = [rp, rm, ap, am] + ([energy] if phys.is_adiabatic else []) \
+        + [sigma]
     qs = torch.stack(names, dim=0)
     qs, flux = van_leer_radial_batch(phys, g, qs, sigma, density_star,
                                      vrad, dt)
-    mass_flux = flux[k_sigma]
+    return _azimuthal_half(phys, g, qs, vrad, vaz, energy, omega_frame, dt,
+                           shift, partial(fargo_theta, phys, g)) \
+        + (flux[-1],)
 
+
+def _azimuthal_half(phys: Physics, g: Geom, qs, vrad, vaz, energy,
+                    omega_frame, dt, shift, theta):
+    """What both routes do after the radial sweep of the batch ``qs``: the
+    residual velocity, the azimuthal sweeps and roll (``theta``, as
+    ``fargo_theta`` without its first two arguments), and the velocities.
+    Returns (sigma, vrad, vaz, energy)."""
+    if shift is None:
+        shift = fargo_shift(g, vaz, dt)
+    vmean, nshift, vconst = shift
     vres = vaz - vmean
-    if phys.fast_transport:
-        passes = [vres, vconst.expand_as(vres)]
-    else:
-        passes = [vres + vconst]
-    for v in passes:
-        sig_now = qs[k_sigma]
-        ds = star_theta(phys, g, sig_now, v, dt)
-        qs = van_leer_theta_batch(phys, g, qs, sig_now, ds, v, dt)
-    qs = advect_shift(qs, nshift)
-
-    if adiabatic:
+    if not phys.fast_transport:
+        vres = vres + vconst
+    qs = theta(qs, vres, vconst, nshift, dt, phys.fast_transport)
+    if phys.is_adiabatic:
         energy = qs[4]
-    sigma = qs[k_sigma]
+    sigma = qs[-1]
     vrad, vaz = velocities_from_momenta(g, sigma, qs[0], qs[1], qs[2],
                                         qs[3], vrad, omega_frame)
-    return sigma, vrad, vaz, energy, mass_flux
+    return sigma, vrad, vaz, energy
+
+
+def transport_split(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
+                    omega_frame, dt, shift=None, radial=None, theta=None):
+    """The split route of the transport substep, in the order of
+    fargocpt_tpu/ops/transport.py:212-279: the sigma flux ``base``, the
+    momenta and radial sweep, the residual velocity, the azimuthal sweeps
+    and roll, the velocities. ``radial`` and ``theta`` stand in for
+    ``radial_momenta_sweep`` and ``fargo_theta`` without their first two
+    arguments (the GPU passes its kernels); ``shift`` is as in
+    ``transport``. Returns (sigma, vrad, vaz, energy, mass_flux)."""
+    radial = radial or partial(radial_momenta_sweep, phys, g)
+    theta = theta or partial(fargo_theta, phys, g)
+    base = dt * g.dphi * g.ra * star_radial(phys, g, sigma, vrad, dt) * vrad
+    qs = radial(sigma, vrad, vaz, energy, base, dt, omega_frame)
+    return _azimuthal_half(phys, g, qs, vrad, vaz, energy, omega_frame, dt,
+                           shift, theta) + (base,)

@@ -1,12 +1,13 @@
 """Simulation: setup from a config and the outer time loop
 (reference src/simulation.cpp:505-560 ``sim::run`` and src/main.cpp).
 
-    sim = Simulation(Config.from_dict({...}), dtype="float32", device="cuda")
+    sim = Simulation(Config.from_dict({...}), dtype="float32")
     sim.run()                      # through the configured output times
     dt = sim.calculate_time_step() # or drive single steps
     sim.step_once(dt)
 
-Everything lives on ``device``; ``device="cuda"`` without a card raises.
+Everything lives on ``device``, the GPU (``"cuda"``) unless the caller
+asks for ``device="cpu"``; ``"cuda"`` without a card raises.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ class Simulation:
     """End-to-end simulation: config -> grid -> ICs -> stepping."""
 
     def __init__(self, cfg: Config, outdir: str | None = None,
-                 dtype: str = "float64", device: str | torch.device = "cpu"):
+                 dtype: str = "float64", device: str | torch.device = "cuda"):
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
         self.dtype = DTYPES[dtype]

@@ -5,9 +5,11 @@ The gas substeps always take the fused decomposition of the JAX package's
 production path: the potential + momentum sources without compression
 heating, then the viscous kick (compression heating, artificial
 viscosity, viscosity, SubStep3), the boundary conditions, and the FARGO
-transport. These four ops dispatch on the tensors' device
-(``ops/kernels.py``): the plain PyTorch versions on the CPU, the CUDA
-kernels on a GPU.
+transport. The transport takes the route of the grid, fixed when the
+``HydroStep`` is built (``ops/transport.route``): the whole-transport op
+when NR is a multiple of 16, else the split route's two ops. The ops
+dispatch on the tensors' device (``ops/kernels.py``): the plain PyTorch
+versions on the CPU, the CUDA kernels on a GPU.
 
 The time loop is a host loop with one host sync per step: the decision
 whether the step lands on the output time.

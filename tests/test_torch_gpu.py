@@ -1,7 +1,8 @@
 """The CUDA kernels of fargocpt_torch against their plain PyTorch versions
 on the same GPU tensors, at a ragged 130x200 float64 grid, with the
 tolerances of tests/test_torch_kernels.py (rtol 1e-12 cfl, 1e-11 sources
-and transport, 1e-10 viscous kick).
+and transport, 1e-10 viscous kick) and rtol 1e-11 for the split route's
+two kernels; and a split-route Simulation step through those two kernels.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one. This file imports no JAX, so it runs on a GPU host that has none:
@@ -13,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from fargocpt_torch.config import Config
 from fargocpt_torch.constants import Constants
 from fargocpt_torch.grid import Geometry
 from fargocpt_torch.ops import gravity, kernels, transport
 from fargocpt_torch.params import Physics
+from fargocpt_torch.sim import Simulation
 from fargocpt_torch.units import Units
 
 torch.set_num_threads(2)
@@ -123,9 +126,12 @@ def test_viscous_kick_kernel_matches_plain(cuda, compress, artvisc_on,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", ["whole", "split"])
 @pytest.mark.parametrize("fast", [True, False])
 @pytest.mark.parametrize("adiabatic", [True, False])
-def test_transport_kernel_matches_plain(cuda, adiabatic, fast):
+def test_transport_kernel_matches_plain(cuda, adiabatic, fast, route):
+    """Either route at 130 rings (the whole-transport kernel takes any NR)
+    against the plain whole transport."""
     ctx = _ctx(dict(eos="adiabatic" if adiabatic else "isothermal",
                     adiabatic_index=1.4, aspectratio_ref=0.05,
                     fast_transport=fast), cuda)
@@ -133,8 +139,80 @@ def test_transport_kernel_matches_plain(cuda, adiabatic, fast):
     dt, omega = _one(0.01, cuda), _one(0.3, cuda)
     shift = transport.fargo_shift(ctx.g, f["vaz"], dt)
     args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], omega, dt, shift)
-    _close(kernels.transport(ctx, *args), kernels.transport_plain(ctx, *args),
+    before = dict(kernels.LAUNCHES)
+    got = kernels.transport(ctx, *args, route=route)
+    ops = ("transport",) if route == "whole" else ("radial_momenta_sweep",
+                                                   "fargo_theta")
+    assert {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS} == \
+        {op: int(op in ops) for op in kernels.OPS}
+    _close(got, kernels.transport_plain(ctx, *args, route="whole"),
            1e-11, (1e-14, 1e-13, 1e-13, 1e-14, 1e-15))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("limiter", [0, 1])
+@pytest.mark.parametrize("adiabatic", [True, False])
+def test_radial_momenta_sweep_kernel_matches_plain(cuda, adiabatic, limiter):
+    ctx = _ctx(dict(eos="adiabatic" if adiabatic else "isothermal",
+                    adiabatic_index=1.4, aspectratio_ref=0.05,
+                    flux_limiter_type=limiter), cuda)
+    f = _fields(17, cuda)
+    dt, omega = _one(0.01, cuda), _one(0.3, cuda)
+    base = dt * ctx.g.dphi * ctx.g.ra * f["vrad"] * transport.star_radial(
+        ctx.phys, ctx.g, f["sigma"], f["vrad"], dt)
+    args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], base, dt, omega)
+    before = kernels.LAUNCHES["radial_momenta_sweep"]
+    got = kernels.radial_momenta_sweep(ctx, *args)
+    assert kernels.LAUNCHES["radial_momenta_sweep"] == before + 1
+    ref = kernels.radial_momenta_sweep_plain(ctx, *args)
+    assert got.shape == ref.shape == (6 if adiabatic else 5, NR, NAZ)
+    _close([got], [ref], 1e-11, [1e-13 * float(ref.abs().max())])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("two_pass", [True, False])
+@pytest.mark.parametrize("limiter", [0, 1])
+@pytest.mark.parametrize("k_quant", [5, 6])
+def test_fargo_theta_kernel_matches_plain(cuda, k_quant, limiter, two_pass):
+    ctx = _ctx(dict(flux_limiter_type=limiter), cuda)
+    rng = np.random.default_rng(19)
+    qs = _one(rng.random((k_quant, NR, NAZ)) + 0.5, cuda)
+    vres = _one((rng.random((NR, NAZ)) - 0.5) * 0.05, cuda)
+    vconst = _one((rng.random((NR, 1)) - 0.5) * 0.02, cuda)
+    # shifts of either sign, some beyond one turn of the ring
+    nshift = torch.tensor(rng.integers(-2 * NAZ, 2 * NAZ, NR),
+                          dtype=torch.int32, device=cuda)
+    args = (qs, vres, vconst, nshift, _one(0.01, cuda), two_pass)
+    before = kernels.LAUNCHES["fargo_theta"]
+    got = kernels.fargo_theta(ctx, *args)
+    assert kernels.LAUNCHES["fargo_theta"] == before + 1
+    ref = kernels.fargo_theta_plain(ctx, *args)
+    _close([got], [ref], 1e-11, [1e-13 * float(ref.abs().max())])
+
+
+@pytest.mark.gpu
+def test_split_route_step_launches_the_split_kernels(cuda):
+    """A Simulation whose NR is not a multiple of 16 steps through
+    radial_momenta_sweep and fargo_theta, never the whole transport."""
+    cfg = Config.from_dict({
+        "EquationOfState": "Ideal", "AdiabaticIndex": "1.4",
+        "AspectRatio": "0.05", "ViscousAlpha": "0.001",
+        "Sigma0": "200 g/cm2", "SigmaSlope": "0.5",
+        "ArtificialViscosity": "SN", "Nrad": "40", "Naz": "128",
+        "Rmin": "0.4", "Rmax": "2.5", "RadialSpacing": "Log",
+        "InnerBoundary": "outflow", "OuterBoundary": "outflow",
+        "Transport": "FARGO"})
+    sim = Simulation(cfg)
+    assert sim.device.type == "cuda"
+    assert sim.stepper.ops.route == "split"
+    before = dict(kernels.LAUNCHES)
+    sim.step_once(sim.calculate_time_step())
+    torch.cuda.synchronize()
+    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    assert delta == {"cfl": 1, "sources": 1, "viscous_kick": 1,
+                     "transport": 0, "radial_momenta_sweep": 1,
+                     "fargo_theta": 1}
+    assert bool(torch.isfinite(sim.fields.sigma).all())
 
 
 @pytest.mark.gpu

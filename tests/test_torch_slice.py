@@ -57,7 +57,7 @@ def jax_state_tree(state) -> dict[str, np.ndarray]:
 @pytest.fixture(scope="module")
 def pair():
     return (JSimulation(JConfig.from_dict(dict(FLAGSHIP))),
-            Simulation(Config.from_dict(dict(FLAGSHIP))))
+            Simulation(Config.from_dict(dict(FLAGSHIP)), device="cpu"))
 
 
 def _assert_fields(t_state, j_state, rtol=1e-10, vrad_atol=1e-10):
@@ -87,7 +87,7 @@ def test_initial_state_equals_jax(pair):
 
 def test_ten_steps_match_jax():
     js = JSimulation(JConfig.from_dict(dict(FLAGSHIP)))
-    ts = Simulation(Config.from_dict(dict(FLAGSHIP)))
+    ts = Simulation(Config.from_dict(dict(FLAGSHIP)), device="cpu")
     for _ in range(10):
         np.testing.assert_allclose(float(ts.stepper.cfl_dt(ts.state)),
                                    float(js.stepper.cfl_dt(js.state)),
@@ -108,7 +108,7 @@ def test_ten_steps_match_jax():
 def test_seeded_from_jax_state(pair):
     js, _ = pair
     tree = jax_state_tree(js.state)
-    ts = Simulation(Config.from_dict(dict(FLAGSHIP)))
+    ts = Simulation(Config.from_dict(dict(FLAGSHIP)), device="cpu")
     ts.state = system_state_from_numpy(tree, "cpu", torch.float64)
     back = system_state_to_numpy(ts.state)
     for key in tree:
@@ -130,7 +130,7 @@ def test_seeded_from_jax_state(pair):
 def test_run_to_monitor_boundary_matches_jax():
     cfg = dict(FLAGSHIP, FirstDT="0.05", MonitorTimestep="0.5")
     js = JSimulation(JConfig.from_dict(dict(cfg)))
-    ts = Simulation(Config.from_dict(dict(cfg)))
+    ts = Simulation(Config.from_dict(dict(cfg)), device="cpu")
     js.run()
     ts.run()
     assert ts.n_hydro_iter == js.n_hydro_iter > 3
@@ -159,6 +159,15 @@ def test_cuda_request_without_a_card_raises():
         Simulation(Config.from_dict(dict(FLAGSHIP)), device="cuda")
 
 
+def test_default_device_is_the_card():
+    """Without a device argument the Simulation asks for the GPU, so
+    without a card it raises rather than running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Simulation(Config.from_dict(dict(FLAGSHIP)))
+
+
 @pytest.mark.parametrize("extra,feature", [
     ({"EquationOfState": "PVTE"}, "PVTE"),
     ({"SelfGravity": "Yes"}, "self-gravity"),
@@ -169,5 +178,6 @@ def test_cuda_request_without_a_card_raises():
 ])
 def test_features_outside_the_slice_raise(extra, feature):
     with pytest.raises(NotImplementedError, match=feature):
-        Simulation(Config.from_dict(dict(FLAGSHIP, **extra)))
+        Simulation(Config.from_dict(dict(FLAGSHIP, **extra)),
+                   device="cpu")
 
