@@ -15,13 +15,16 @@ Phases (any failure raises, so the exit code is not 0):
      state with seeded noise: 1024x3072 for the whole route's four
      kernels, 1000x3072 for the split route's two) and at 130x200 float64
      (seeded random fields), plus each one's time beside the plain
-     version's and its least time on the card (CUDA events, median of 25
-     calls); and the split route as a whole against the whole-transport
-     kernel on the same 1000x3072 state;
+     version's (CUDA events, median of 25 calls) and its least time on the
+     card: the bytes of its inputs and outputs at the memory rate against
+     the floating-point operations of its plain version (counted by
+     FlopCounter) at the float32 rate; and the split route as a whole
+     against the whole-transport kernel on the same 1000x3072 state;
   3. the slice: the flagship Simulation on the GPU at 1024x3072 and at
      1000x3072 float32, 20 warm-up and 120 timed steps each of
      calculate_time_step + step_once, with the launch counters of each
-     route checked afterwards;
+     route checked afterwards; then the 1000x3072 step through each route
+     in turns (split, whole, whole, split);
   4. the trajectory against the CPU, whole route: 256x512 float32 for 200
      steps (rel-L2 < 1e-3 per field) and 128x256 float64 for 20 steps
      (rel-L2 < 1e-9); split route: 250x512 float32 for 200 steps and
@@ -49,23 +52,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
-FLAGSHIP = {
-    "EquationOfState": "Ideal", "AdiabaticIndex": "1.4",
-    "AspectRatio": "0.05", "FlaringIndex": "0.25",
-    "ViscousAlpha": "0.001",
-    "Sigma0": "200 g/cm2", "SigmaSlope": "0.5",
-    "HeatingViscous": "Yes", "CoolingBetaLocal": "Yes",
-    "CoolingBeta": "10",
-    "ArtificialViscosity": "SN",
-    "Rmin": "0.4", "Rmax": "2.5", "RadialSpacing": "Log",
-    "InnerBoundary": "outflow", "OuterBoundary": "outflow",
-    "Transport": "FARGO",
-    "Nsnapshots": "1", "Nmonitor": "1", "MonitorTimestep": "1.0",
-    # start near the CFL limit so short runs evolve and the timed window
-    # runs at the steady step size (FirstDT is a run-control key)
-    "FirstDT": "1e-3",
-}
 NR, NAZ = 1024, 3072          # whole transport route
 NR_SPLIT = 1000               # split transport route (NR % 16 != 0)
 ROUTE_OPS = {"whole": ("transport",),
@@ -89,22 +77,13 @@ KERNELS = {
 # memory rate, and float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Floating-point operations per grid cell of each kernel on the flagship
-# (adiabatic, K = 6, SN artificial viscosity, fast transport), counted
-# from the CUDA sources with each +, -, *, /, sqrt, exp, min/max and
-# compare as one: cfl 45, sources 120 (three potential evaluations),
-# viscous kick 230 (three launches), whole transport 1300 (radial sweep
-# 500, two azimuthal sweeps 396 each, reconstruction 10), radial sweep
-# 6 x 66, fargo_theta 2 x 396.
-OPS_PER_CELL = {"cfl": 45, "sources": 120, "viscous_kick": 230,
-                "transport": 1300, "radial_momenta_sweep": 396,
-                "fargo_theta": 792}
 
-# f32 at 1024x3072, as a fraction of each output's scale (velocities are
-# scaled by max|vaz|, as in tests/test_dtype_budget.py): the kernels read
-# geometry columns computed in float64 and the plain versions difference
-# float32 radii (Rsup - Rinf ~ 2e-3 r); the two have differed by <= 1e-6
-# of the scale on the perturbed flagship state
+# f32 at full size, as a fraction of each output's scale (velocities are
+# scaled by max|vaz|, as in tests/test_dtype_budget.py; every plane of a
+# (K, NR, NAZ) batch by its own max): the kernels read geometry columns
+# computed in float64 and the plain versions difference float32 radii
+# (Rsup - Rinf ~ 2e-3 r); the two have differed by <= 6.4e-6 of the scale
+# on the perturbed flagship state
 F32_TOL = 1e-5
 # f64 at 130x200: the tolerances of tests/test_torch_kernels.py
 # (rtol 1e-11 for the split route's two kernels)
@@ -125,10 +104,9 @@ def gpu_line() -> str:
 
 
 def flagship(nr, naz, dtype, device):
-    from fargocpt_torch.config import Config
+    from fargocpt_torch.flagship import flagship as flagship_config
     from fargocpt_torch.sim import Simulation
-    cfg = Config.from_dict(dict(FLAGSHIP, Nrad=str(nr), Naz=str(naz)))
-    return Simulation(cfg, dtype=dtype, device=device)
+    return Simulation(flagship_config(nr, naz), dtype=dtype, device=device)
 
 
 def time_ms(fn, reps=25) -> float:
@@ -153,12 +131,48 @@ def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(name, inputs, outputs, n_cells) -> dict:
+class FlopCounter(TorchDispatchMode):
+    """Counts the floating-point operations of the PyTorch calls made
+    under it: each arithmetic op, math function, min/max and compare on
+    floating-point tensors counts once per element of its largest operand
+    or result (so a reduction counts its input). Data movement (copies,
+    casts, cat, stack, roll, gather) and selects count nothing."""
+
+    COUNTED = frozenset((
+        "add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "rsqrt",
+        "reciprocal", "exp", "log", "pow", "floor", "sign", "maximum",
+        "minimum", "clamp", "clamp_min", "clamp_max", "max", "min", "amax",
+        "amin", "sum", "mean", "gt", "lt", "ge", "le", "eq", "ne"))
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket.__name__.rstrip("_") in self.COUNTED:
+            ts = [t for t in (*args, *(kwargs or {}).values(),
+                              *(out if isinstance(out, tuple) else (out,)))
+                  if torch.is_tensor(t)]
+            if any(t.is_floating_point() for t in ts):
+                self.flops += max(t.numel() for t in ts)
+        return out
+
+
+def flops_of(fn) -> int:
+    """The floating-point operations of one call of ``fn``, a plain
+    version: the function itself, each value computed once per element."""
+    with FlopCounter() as fc:
+        fn()
+    return fc.flops
+
+
+def bound(inputs, outputs, flops) -> dict:
     """Least time on the card: each input read once and each output
-    written once at the memory rate, against the operations at the
-    float32 rate; the larger of the two."""
+    written once at the memory rate, against the function's operations
+    at the float32 rate; the larger of the two."""
     t_bytes = (nbytes(inputs) + nbytes(outputs)) / HBM_BYTES_PER_S
-    t_ops = OPS_PER_CELL[name] * n_cells / F32_OPS_PER_S
+    t_ops = flops / F32_OPS_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -204,7 +218,7 @@ def split_calls(ctx, f, omega, dt):
     g, phys = ctx.g, ctx.phys
     s, vr, va, e = f["sigma"], f["vrad"], f["vaz"], f["energy"]
     vmean, nshift, vconst = tr.fargo_shift(g, va, dt)
-    base = dt * g.dphi * g.ra * tr.star_radial(phys, g, s, vr, dt) * vr
+    base = tr.sigma_flux(phys, g, s, vr, dt)
     rms = (s, vr, va, e, base, dt, omega)
     qs = K.radial_momenta_sweep_plain(ctx, *rms)
     vres = va - vmean
@@ -242,16 +256,13 @@ def perturbed(sim) -> dict:
 
 def output_scales(oname, ref, f) -> list[float]:
     """The scale each output's error is measured against: velocities by
-    max|vaz| (as in tests/test_dtype_budget.py), the momenta rp, rm, ap,
-    am of a (K, NR, NAZ) batch by max(sigma) max|vaz|, every other
-    quantity by its own max."""
-    vscale = float(f["vaz"].abs().max())
+    max|vaz| (as in tests/test_dtype_budget.py), each plane of a
+    (K, NR, NAZ) batch by its own max (rp and rm, sigma vrad, are ~1e-4
+    of the angular momenta), every other quantity by its own max."""
     if oname in ("vrad", "vaz"):
-        return [vscale]
+        return [float(f["vaz"].abs().max())]
     if oname == "qs":
-        mom = float(f["sigma"].max()) * vscale
-        return [mom if k < 4 else float(ref[k].abs().max())
-                for k in range(ref.shape[0])]
+        return [float(ref[k].abs().max()) for k in range(ref.shape[0])]
     return [float(ref.abs().max())]
 
 
@@ -283,9 +294,12 @@ def measure(calls, f, nr) -> dict:
         torch.cuda.synchronize()
         max_abs = check_f32(name, got, ref, names, f, nr)
         ms, plain_ms = time_ms(kern), time_ms(plain)
-        b = bound(name, inputs, got, nr * NAZ)
+        flops = flops_of(plain)
+        b = bound(inputs, got, flops)
         log(f"  {name:20s} kernel {ms:.4f} ms   plain {plain_ms:.4f} ms   "
-            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
+            f"{nbytes(inputs) + nbytes(got)} B, {flops} flops = "
+            f"{flops / (nr * NAZ):.1f} per cell)")
         out[name] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
                      **b, "library_ms": None}
     return out
@@ -463,6 +477,30 @@ def log_slice(res, nr, gpu) -> None:
         f"r = 1 [{gpu}]")
 
 
+def route_turns(sim, warmup=10, steps=100) -> dict:
+    """ms per step of ``sim`` through each transport route in turns
+    (split, whole, whole, split), in this process. The whole-transport
+    kernel takes any NR: at 1000 rings it is the route the port took
+    before the split route existed."""
+    ctx = sim.stepper.ops
+    own = ctx.route
+    times = {"split": [], "whole": []}
+    try:
+        for r in ("split", "whole", "whole", "split"):
+            ctx.route = r
+            for _ in range(warmup):
+                sim.step_once(sim.calculate_time_step())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                sim.step_once(sim.calculate_time_step())
+            torch.cuda.synchronize()
+            times[r].append((time.perf_counter() - t0) / steps * 1e3)
+    finally:
+        ctx.route = own
+    return times
+
+
 def host_sync_cost(sim, steps=40) -> float:
     """Seconds per step that one host read of a device scalar adds (the
     landing test of the host time loop)."""
@@ -543,6 +581,10 @@ def main() -> int:
     res = {"whole": run_slice(sim), "split": run_slice(sim_split)}
     log_slice(res["whole"], NR, gpu)
     log_slice(res["split"], NR_SPLIT, gpu)
+    turns = route_turns(sim_split)
+    log(f"  {NR_SPLIT}x{NAZ} float32 in turns (split, whole, whole, split): "
+        f"split route {turns['split']} ms/step, whole-transport kernel "
+        f"{turns['whole']} ms/step [{gpu}]")
     sync = host_sync_cost(sim)
     log(f"  host sync of one device scalar per step: {sync * 1e3:.4f} ms "
         f"[{gpu}]")
@@ -565,6 +607,7 @@ def main() -> int:
                 **measured[name]}
                for name in K.OPS]
     log(json.dumps({"transport_routes_ms": route_ms,
+                    f"step_ms_in_turns_at_{NR_SPLIT}": turns,
                     "slices": {r: {k: v for k, v in x.items()
                                    if k != "launches"}
                                for r, x in res.items()}}))

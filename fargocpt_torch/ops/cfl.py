@@ -29,7 +29,7 @@ def condition_cfl(phys: Physics, g: Geom, sigma, vrad, vaz, energy, cs, nu,
     dt_shear = shear_limit(phys, g, vmean)
 
     lf = 0.6 if phys.hydro_integrator == LEAPFROG else 1.0
-    dxrad = g.rsup - g.rinf
+    dxrad = g.dxrad
     dxaz = g.rb * g.dphi
     cell_size = torch.minimum(dxrad, dxaz)
     vres = vaz - vmean if phys.fast_transport else vaz

@@ -87,6 +87,13 @@ class Geom(nn.Module):
             col = np.asarray(getattr(geometry, src), np.float64)[:, None]
             self.register_buffer(
                 name, torch.tensor(col, dtype=dtype, device=device))
+        # the radial cell width Rsup - Rinf, differenced in float64: a
+        # difference of float32 radii loses four digits (it is ~2e-3 r at
+        # 1000 rings)
+        dxrad = np.asarray(geometry.rsup, np.float64) \
+            - np.asarray(geometry.rinf, np.float64)
+        self.register_buffer("dxrad", torch.tensor(
+            dxrad[:, None], dtype=dtype, device=device))
         self.dphi = float(geometry.dphi)
         self.invdphi = float(geometry.invdphi)
         self.nrad = geometry.nrad

@@ -85,7 +85,7 @@ def van_leer_theta_batch(phys: Physics, g: Geom, qs, sig_int, density_star,
     """Advect a stack azimuthally in specific form (reference
     src/TransportEuler.cpp:630-664)."""
     qrstar = star_theta(phys, g, qs / sig_int, v, dt)
-    f = (g.rsup - g.rinf) * dt * qrstar * density_star * v
+    f = g.dxrad * dt * qrstar * density_star * v
     return qs + (f - _next(f)) * g.inv_surf
 
 
@@ -140,6 +140,12 @@ def route(nrad: int) -> str:
     other conditions (float32 only, NAZ a multiple of 128) are not carried
     over: CUDA takes any dtype and width."""
     return "whole" if nrad % 16 == 0 else "split"
+
+
+def sigma_flux(phys: Physics, g: Geom, sigma, vrad, dt):
+    """The split route's ``base``: the sigma flux dt dphi Ra density_star
+    vrad through the faces, (NR+1, NAZ); also its mass flux."""
+    return dt * g.dphi * g.ra * star_radial(phys, g, sigma, vrad, dt) * vrad
 
 
 def radial_momenta_sweep(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
@@ -223,7 +229,7 @@ def transport_split(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
     ``transport``. Returns (sigma, vrad, vaz, energy, mass_flux)."""
     radial = radial or partial(radial_momenta_sweep, phys, g)
     theta = theta or partial(fargo_theta, phys, g)
-    base = dt * g.dphi * g.ra * star_radial(phys, g, sigma, vrad, dt) * vrad
+    base = sigma_flux(phys, g, sigma, vrad, dt)
     qs = radial(sigma, vrad, vaz, energy, base, dt, omega_frame)
     return _azimuthal_half(phys, g, qs, vrad, vaz, energy, omega_frame, dt,
                            shift, theta) + (base,)

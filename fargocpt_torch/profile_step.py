@@ -20,22 +20,7 @@ import time
 
 import torch
 
-from .config import Config
-
-FLAGSHIP = {
-    "EquationOfState": "Ideal", "AdiabaticIndex": "1.4",
-    "AspectRatio": "0.05", "FlaringIndex": "0.25",
-    "ViscousAlpha": "0.001",
-    "Sigma0": "200 g/cm2", "SigmaSlope": "0.5",
-    "HeatingViscous": "Yes", "CoolingBetaLocal": "Yes",
-    "CoolingBeta": "10",
-    "ArtificialViscosity": "SN",
-    "Rmin": "0.4", "Rmax": "2.5", "RadialSpacing": "Log",
-    "InnerBoundary": "outflow", "OuterBoundary": "outflow",
-    "Transport": "FARGO",
-    "Nsnapshots": "1", "Nmonitor": "1", "MonitorTimestep": "1.0",
-    "FirstDT": "1e-3",
-}
+from .flagship import flagship
 
 # device kernel name fragment -> the op whose CUDA source defines it
 KERNEL_OPS = (("rms_kernel", "radial_momenta_sweep"),
@@ -68,8 +53,7 @@ def profile_grid(nrad: int, naz: int, warmup: int = 20, steps: int = 120,
                  window: int = 20) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from .sim import Simulation
-    sim = Simulation(Config.from_dict(dict(FLAGSHIP, Nrad=str(nrad),
-                                           Naz=str(naz))), dtype="float32")
+    sim = Simulation(flagship(nrad, naz), dtype="float32")
 
     def run(n):
         for _ in range(n):

@@ -158,8 +158,7 @@ def test_radial_momenta_sweep_kernel_matches_plain(cuda, adiabatic, limiter):
                     flux_limiter_type=limiter), cuda)
     f = _fields(17, cuda)
     dt, omega = _one(0.01, cuda), _one(0.3, cuda)
-    base = dt * ctx.g.dphi * ctx.g.ra * f["vrad"] * transport.star_radial(
-        ctx.phys, ctx.g, f["sigma"], f["vrad"], dt)
+    base = transport.sigma_flux(ctx.phys, ctx.g, f["sigma"], f["vrad"], dt)
     args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], base, dt, omega)
     before = kernels.LAUNCHES["radial_momenta_sweep"]
     got = kernels.radial_momenta_sweep(ctx, *args)
