@@ -1,36 +1,49 @@
-"""Runs fargocpt_torch's main path on one CUDA GPU and checks it.
+"""Runs fargocpt_torch's main paths on one CUDA GPU and checks them.
 
     python3 chip_smoke.py
 
-The transport has two routes (fargocpt_torch/ops/transport.route): the
-whole-transport kernel when NR is a multiple of 16 (the flagship at
-1024x3072), else the split route's two kernels, radial_momenta_sweep and
-fargo_theta (the flagship at 1000x3072). Both are driven here.
+Two setups (fargocpt_torch/flagship.py). The flagship (constant gamma)
+takes the fused kernels: cfl, sources, viscous_kick, and the transport by
+one of two routes (fargocpt_torch/ops/transport.route): the
+whole-transport kernel when NR is a multiple of 16 (1024x3072), else the
+split route's two kernels, radial_momenta_sweep and fargo_theta
+(1000x3072). The PDS70 gas setup (PVTE, FLD, FFT self-gravity, surface
+cooling) takes the unfused substeps with the artvisc_sn kernel and the
+whole-transport kernel (1024x3072). All three paths are driven here.
 
 Phases (any failure raises, so the exit code is not 0):
   1. environment: GPU name and power limit, torch/CUDA versions, nvcc,
      and the build of the CUDA kernels from fargocpt_torch/csrc;
-  2. per-kernel parity: each of the six kernels against its plain PyTorch
-     version on the same GPU tensors, at full size in float32 (the flagship
-     state with seeded noise: 1024x3072 for the whole route's four
-     kernels, 1000x3072 for the split route's two) and at 130x200 float64
-     (seeded random fields), plus each one's time beside the plain
+  2. per-kernel parity: each of the seven kernels against its plain
+     PyTorch version on the same GPU tensors, at full size in float32 (a
+     setup's state with seeded noise: the flagship at 1024x3072 for the
+     whole route's four kernels and at 1000x3072 for the split route's
+     two, the PDS70 gas state at 1024x3072 for artvisc_sn, whose outputs
+     are measured against the plain version's increments) and at 130x200
+     float64 (seeded random fields), plus each one's time beside the plain
      version's (CUDA events, median of 25 calls) and its least time on the
      card: the bytes of its inputs and outputs at the memory rate against
      the floating-point operations of its plain version (counted by
      FlopCounter) at the float32 rate; and the split route as a whole
      against the whole-transport kernel on the same 1000x3072 state;
-  3. the slice: the flagship Simulation on the GPU at 1024x3072 and at
-     1000x3072 float32, 20 warm-up and 120 timed steps each of
-     calculate_time_step + step_once, with the launch counters of each
-     route checked afterwards; then the 1000x3072 step through each route
-     in turns (split, whole, whole, split);
-  4. the trajectory against the CPU, whole route: 256x512 float32 for 200
-     steps (rel-L2 < 1e-3 per field) and 128x256 float64 for 20 steps
-     (rel-L2 < 1e-9); split route: 250x512 float32 for 200 steps and
-     130x256 float64 for 20 steps, the same budgets. The GPU run goes
-     through the kernels and the CPU run through the plain versions, both
-     on the GPU run's dt sequence.
+  3. the slices: the flagship Simulation on the GPU at 1024x3072 and at
+     1000x3072 float32 (10 warm-up and 60 timed steps each of
+     calculate_time_step + step_once), the 1000x3072 step through each
+     route in turns (split, whole, whole, split), and the PDS70 gas
+     Simulation at 1024x3072 float32 (3 warm-up and 15 timed steps, then
+     the run path's advance_to over about 15 steps), each with the launch
+     counters set to 0 before and read after; the PDS70 lines add the FLD
+     SOR iterations and the PVTE refreshes per step;
+  4. the trajectories against the CPU: the flagship, whole route, 256x512
+     float32 for 200 steps (rel-L2 < 1e-3 per field) and 128x256 float64
+     for 20 steps (rel-L2 < 1e-9); split route 250x512 float32 for 200
+     steps and 130x256 float64 for 20 steps, the same budgets; the PDS70
+     gas setup at 64x128, float32 for 200 steps and float64 for 20, the
+     same budgets. The GPU run goes through the kernels and the CPU run
+     through the plain versions, both on the GPU run's dt sequence. Then
+     the PDS70 gas setup at 128x384 float32 for 200 steps on the GPU with
+     one warm PVTE Newton step against three (rel-L2 < 1e-4, the budget
+     of a warm against a cold PVTE refresh).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -72,6 +85,8 @@ KERNELS = {
                              "fargocpt_tpu/ops/pallas_kernels.py:192"),
     "fargo_theta": ("fargocpt_torch/csrc/fargo_theta.cu",
                     "fargocpt_tpu/ops/pallas_kernels.py:495"),
+    "artvisc_sn": ("fargocpt_torch/csrc/artvisc_sn.cu",
+                   "fargocpt_tpu/ops/pallas_kernels.py:721"),
 }
 # The card's published peaks (H100 SXM data sheet, at 700 W): device
 # memory rate, and float32 outside the tensor cores.
@@ -86,10 +101,10 @@ F32_OPS_PER_S = 67e12
 # on the perturbed flagship state
 F32_TOL = 1e-5
 # f64 at 130x200: the tolerances of tests/test_torch_kernels.py
-# (rtol 1e-11 for the split route's two kernels)
+# (rtol 1e-11 for the split route's two kernels, 1e-12 for artvisc_sn)
 F64_RTOL = {"cfl": 1e-12, "sources": 1e-11, "viscous_kick": 1e-10,
             "transport": 1e-11, "radial_momenta_sweep": 1e-11,
-            "fargo_theta": 1e-11}
+            "fargo_theta": 1e-11, "artvisc_sn": 1e-12}
 
 
 def log(*args):
@@ -107,6 +122,12 @@ def flagship(nr, naz, dtype, device):
     from fargocpt_torch.flagship import flagship as flagship_config
     from fargocpt_torch.sim import Simulation
     return Simulation(flagship_config(nr, naz), dtype=dtype, device=device)
+
+
+def pds70(nr, naz, dtype, device):
+    from fargocpt_torch.flagship import pds70_gas
+    from fargocpt_torch.sim import Simulation
+    return Simulation(pds70_gas(nr, naz), dtype=dtype, device=device)
 
 
 def time_ms(fn, reps=25) -> float:
@@ -254,11 +275,24 @@ def perturbed(sim) -> dict:
             "energy": noisy(st.fields.energy, rel=1e-2)}
 
 
-def output_scales(oname, ref, f) -> list[float]:
+def output_scales(name, oname, ref, f) -> list[float]:
     """The scale each output's error is measured against: velocities by
     max|vaz| (as in tests/test_dtype_budget.py), each plane of a
     (K, NR, NAZ) batch by its own max (rp and rm, sigma vrad, are ~1e-4
-    of the angular momenta), every other quantity by its own max."""
+    of the angular momenta), every other quantity by its own max.
+    artvisc_sn adds small increments to its inputs (on the perturbed PDS70
+    state ~3e-5 of max|vaz| to vaz, ~8e-6 of max e to e), so each of its
+    outputs is measured against the plain version's increment, max
+    |plain - input| in float64 (the error of the increments is the error of
+    the outputs). One float32 ulp of vaz or e is then ~5e-3 of the scale:
+    the check holds only where kernel and plain agree bit for bit, as a
+    kernel that follows its plain version operation by operation does. An
+    increment of 0 everywhere raises, as it would test nothing."""
+    if name == "artvisc_sn":
+        inc = float((ref.double() - f[oname].double()).abs().max())
+        if not inc > 0.0:
+            raise AssertionError(f"artvisc_sn leaves {oname} unchanged")
+        return [inc]
     if oname in ("vrad", "vaz"):
         return [float(f["vaz"].abs().max())]
     if oname == "qs":
@@ -271,7 +305,7 @@ def check_f32(name, got, ref, names, f, nr) -> float:
     above F32_TOL. Returns the largest absolute error."""
     worst, max_abs = 0.0, 0.0
     for oname, a, b in zip(names, got, ref):
-        scales = output_scales(oname, b, f)
+        scales = output_scales(name, oname, b, f)
         parts = [(a[k], b[k]) for k in range(b.shape[0])] \
             if oname == "qs" else [(a, b)]
         errs = [float((x - y).abs().max()) for x, y in parts]
@@ -279,7 +313,8 @@ def check_f32(name, got, ref, names, f, nr) -> float:
         max_abs = max(max_abs, *errs)
         worst = max(worst, rel)
         log(f"  {name:20s} {oname:9s} f32 {nr}x{NAZ}: max|k-p| = "
-            f"{max(errs):.3e}  / scale = {rel:.3e}")
+            f"{max(errs):.3e}  / scale = {rel:.3e}  (scale "
+            f"{max(scales):.3e})")
     if not worst <= F32_TOL:
         raise AssertionError(f"{name}: f32 kernel/plain mismatch "
                              f"{worst:.3e} > {F32_TOL}")
@@ -315,6 +350,26 @@ def parity_f32_flagship(sim) -> dict:
     calls = op_calls(sim.stepper.ops, f, (st.qplus, st.qminus), bodies,
                      st.omega_frame, dt)
     return measure(calls, f, NR)
+
+
+def artvisc_calls(ctx, f, dt):
+    """name -> (kernel call, plain call, output names, inputs) of
+    artvisc_sn on one state."""
+    from fargocpt_torch.ops import kernels as K
+    args = (ctx, f["sigma"], f["vrad"], f["vaz"], f["energy"], dt)
+    return {"artvisc_sn": (lambda: K.artvisc_sn(*args),
+                           lambda: K.artvisc_sn_plain(*args),
+                           ("vrad", "vaz", "energy"),
+                           [f["sigma"], f["vrad"], f["vaz"], f["energy"],
+                            ctx.cols])}
+
+
+def parity_f32_pds70(sim) -> dict:
+    """artvisc_sn against its plain version at 1024x3072 on the perturbed
+    PDS70 gas state."""
+    f = perturbed(sim)
+    return measure(artvisc_calls(sim.stepper.ops, f,
+                                 sim.stepper.cfl_dt(sim.state)), f, NR)
 
 
 def parity_f32_split(sim) -> tuple[dict, dict]:
@@ -394,6 +449,12 @@ def parity_f64_ragged(device) -> None:
     calls = op_calls(ctx, f, q, bodies, t(0.4), t(0.003))
     for name, (kern, plain, names, _) in calls.items():
         check(name, "", kern(), plain(), names)
+    for dissipation in (True, False):
+        c = K.KernelContext(phys.with_(artificial_viscosity_dissipation=(
+            dissipation)), constants, geometry, torch.float64, device)
+        kern, plain, names, _ = artvisc_calls(c, f, t(0.01))["artvisc_sn"]
+        check("artvisc_sn", f" dissipation={dissipation}", kern(), plain(),
+              names)
 
     dt, omega = t(0.01), t(0.3)
     shifts = torch.tensor(rng.integers(-2 * naz, 2 * naz, nr),
@@ -423,12 +484,11 @@ def parity_f64_ragged(device) -> None:
 
 # --- phase 3 -----------------------------------------------------------------
 
-def run_slice(sim, warmup=20, steps=120) -> dict:
+def run_slice(sim, warmup=10, steps=60) -> dict:
     """The flagship's steps on its route, with the launch counters set to 0
     just before and read just after: every op of the route at least once a
     step, the other route's ops never."""
     from fargocpt_torch.ops import kernels as K
-    from fargocpt_torch.sim import reachable_tensors
     route = sim.stepper.ops.route
     nr = sim.geometry.nrad
     K.reset_launches()
@@ -444,13 +504,27 @@ def run_slice(sim, warmup=20, steps=120) -> dict:
     launches = dict(K.LAUNCHES)
     other = [op for r, ops in ROUTE_OPS.items() if r != route for op in ops]
     for name in K.OPS:
-        if name in other:
+        if name in other or name == "artvisc_sn":
             if launches[name] != 0:
                 raise AssertionError(f"{route} route at {nr} rings launched "
                                      f"{name} {launches[name]} times")
         elif launches[name] < warmup + steps:
             raise AssertionError(f"kernel {name} launched {launches[name]} "
                                  f"times in {warmup + steps} steps")
+    check_state(sim)
+    mean_dt = float(sim.time - t_start) / steps
+    per_step = seconds / steps
+    return {"route": route, "launches": launches, "seconds": seconds,
+            "per_step": per_step, "mcell": nr * NAZ / per_step / 1e6,
+            "mean_dt": mean_dt,
+            "s_per_orbit": 2.0 * math.pi / mean_dt * per_step}
+
+
+PDS70_OPS = ("transport", "artvisc_sn")
+
+
+def check_state(sim) -> None:
+    from fargocpt_torch.sim import reachable_tensors
     f = sim.fields
     for name in ("sigma", "vrad", "vaz", "energy"):
         if not bool(torch.isfinite(getattr(f, name)).all()):
@@ -461,12 +535,85 @@ def run_slice(sim, warmup=20, steps=120) -> dict:
               if tsr.device.type != "cuda"]
     if on_cpu:
         raise AssertionError(f"tensors left on the CPU: {on_cpu[:10]}")
+
+
+def check_pds70_launches(launches, steps) -> None:
+    """One transport and one artvisc_sn launch a step, no other kernel."""
+    for name, n in launches.items():
+        want = steps if name in PDS70_OPS else 0
+        if n != want:
+            raise AssertionError(f"PDS70 gas: kernel {name} launched {n} "
+                                 f"times in {steps} steps, expected {want}")
+
+
+def run_pds70(sim, warmup=3, steps=15, run_steps=15) -> dict:
+    """The PDS70 gas steps through calculate_time_step + step_once, then
+    through the run path (advance_to to a time about ``run_steps`` steps
+    ahead), each with the launch counters set to 0 just before and read
+    just after."""
+    from fargocpt_torch.ops import kernels as K
+    st = sim.stepper
+    nr, naz = sim.geometry.nrad, sim.geometry.naz
+    for _ in range(warmup):
+        sim.step_once(sim.calculate_time_step())
+    torch.cuda.synchronize()
+    K.reset_launches()
+    fld0, pv0 = st.fld.iterations, st.pvte.refreshes
+    t_start = sim.time.clone()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sim.step_once(sim.calculate_time_step())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    check_pds70_launches(launches, steps)
     mean_dt = float(sim.time - t_start) / steps
     per_step = seconds / steps
-    return {"route": route, "launches": launches, "seconds": seconds,
-            "per_step": per_step, "mcell": nr * NAZ / per_step / 1e6,
-            "mean_dt": mean_dt,
-            "s_per_orbit": 2.0 * math.pi / mean_dt * per_step}
+    res = {"launches": launches, "seconds": seconds, "per_step": per_step,
+           "mcell": nr * naz / per_step / 1e6, "mean_dt": mean_dt,
+           "s_per_orbit": 2.0 * math.pi / mean_dt * per_step,
+           "fld_iterations_per_step": (st.fld.iterations - fld0) / steps,
+           "pvte_refreshes_per_step": (st.pvte.refreshes - pv0) / steps,
+           "sg_kernel_rebuilds": st.selfgravity.rebuilds}
+
+    # the run path: each step's CFL refresh serves its step
+    K.reset_launches()
+    fld0, pv0 = st.fld.iterations, st.pvte.refreshes
+    target = sim.time + run_steps * mean_dt
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, time_, last_dt, n, *_ = st.advance_to(sim.state, sim.time,
+                                                 sim.last_dt, target)
+    torch.cuda.synchronize()
+    run_seconds = time.perf_counter() - t0
+    sim.state, sim.time, sim.last_dt = state, time_, last_dt
+    sim.n_hydro_iter += n
+    check_pds70_launches(dict(K.LAUNCHES), n)
+    res.update({"run_steps": n, "run_per_step": run_seconds / n,
+                "run_mcell": nr * naz / (run_seconds / n) / 1e6,
+                "run_fld_iterations_per_step":
+                    (st.fld.iterations - fld0) / n,
+                "run_pvte_refreshes_per_step":
+                    (st.pvte.refreshes - pv0) / n})
+    check_state(sim)
+    return res
+
+
+def log_pds70(res, gpu) -> None:
+    log(f"  launches {res['launches']}")
+    log(f"  PDS70 gas {NR}x{NAZ} float32, calculate_time_step + step_once: "
+        f"{res['per_step'] * 1e3:.4f} ms/step, {res['mcell']:.2f} "
+        f"Mcell-updates/s, mean dt {res['mean_dt']:.4e}, "
+        f"{res['s_per_orbit']:.2f} s per orbit at r = 1; FLD "
+        f"{res['fld_iterations_per_step']:.2f} SOR iterations/step, PVTE "
+        f"{res['pvte_refreshes_per_step']:.2f} refreshes/step [{gpu}]")
+    log(f"  PDS70 gas {NR}x{NAZ} float32, run path (advance_to, "
+        f"{res['run_steps']} steps): {res['run_per_step'] * 1e3:.4f} "
+        f"ms/step, {res['run_mcell']:.2f} Mcell-updates/s; FLD "
+        f"{res['run_fld_iterations_per_step']:.2f} SOR iterations/step, "
+        f"PVTE {res['run_pvte_refreshes_per_step']:.2f} refreshes/step; "
+        f"self-gravity kernel rebuilds so far "
+        f"{res['sg_kernel_rebuilds']} [{gpu}]")
 
 
 def log_slice(res, nr, gpu) -> None:
@@ -477,7 +624,7 @@ def log_slice(res, nr, gpu) -> None:
         f"r = 1 [{gpu}]")
 
 
-def route_turns(sim, warmup=10, steps=100) -> dict:
+def route_turns(sim, warmup=5, steps=50) -> dict:
     """ms per step of ``sim`` through each transport route in turns
     (split, whole, whole, split), in this process. The whole-transport
     kernel takes any NR: at 1000 rings it is the route the port took
@@ -501,7 +648,7 @@ def route_turns(sim, warmup=10, steps=100) -> dict:
     return times
 
 
-def host_sync_cost(sim, steps=40) -> float:
+def host_sync_cost(sim, steps=20) -> float:
     """Seconds per step that one host read of a device scalar adds (the
     landing test of the host time loop)."""
     def loop(sync):
@@ -520,9 +667,9 @@ def host_sync_cost(sim, steps=40) -> float:
 
 # --- phase 4 -----------------------------------------------------------------
 
-def trajectory(nr, naz, dtype, steps, budget) -> dict:
-    gpu = flagship(nr, naz, dtype, "cuda")
-    cpu = flagship(nr, naz, dtype, "cpu")
+def trajectory(nr, naz, dtype, steps, budget, setup=flagship) -> dict:
+    gpu = setup(nr, naz, dtype, "cuda")
+    cpu = setup(nr, naz, dtype, "cpu")
     for _ in range(steps):
         dt = gpu.calculate_time_step()
         gpu.step_once(dt)
@@ -534,7 +681,8 @@ def trajectory(nr, naz, dtype, steps, budget) -> dict:
         b = getattr(cpu.fields, name).double()
         scale = torch.linalg.norm(vaz_ref if name == "vrad" else b)
         errs[name] = float(torch.linalg.norm(a - b) / scale)
-    log(f"  {nr}x{naz} {dtype} {gpu.stepper.ops.route} route, {steps} steps "
+    log(f"  {setup.__name__} {nr}x{naz} {dtype} {gpu.stepper.ops.route} "
+        f"route, {steps} steps "
         f"(t = {float(gpu.time):.4e}): "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + f"  (budget {budget:.0e})")
@@ -542,6 +690,33 @@ def trajectory(nr, naz, dtype, steps, budget) -> dict:
         if not err < budget:
             raise AssertionError(f"trajectory {nr}x{naz} {dtype}: {name} "
                                  f"rel-L2 {err:.3e} >= {budget}")
+    return errs
+
+
+def newton_budget(nr, naz, steps, budget=1e-4) -> dict:
+    """The PDS70 gas setup on the GPU with one warm PVTE Newton step
+    against three, on the first run's dt sequence."""
+    one = pds70(nr, naz, "float32", "cuda")
+    three = pds70(nr, naz, "float32", "cuda")
+    three.stepper.pvte.n_newton = 3
+    for _ in range(steps):
+        dt = one.calculate_time_step()
+        one.step_once(dt)
+        three.step_once(dt)
+    errs = {}
+    for name in ("sigma", "vrad", "vaz", "energy"):
+        a = getattr(one.fields, name).double()
+        b = getattr(three.fields, name).double()
+        scale = torch.linalg.norm(three.fields.vaz.double() if name == "vrad"
+                                  else b)
+        errs[name] = float(torch.linalg.norm(a - b) / scale)
+    log(f"  PDS70 gas {nr}x{naz} float32, {steps} steps: PVTE n_newton 1 vs "
+        "3: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"  (budget {budget:.0e}, warm vs cold)")
+    for name, err in errs.items():
+        if not err < budget:
+            raise AssertionError(f"n_newton 1 vs 3: {name} rel-L2 {err:.3e}"
+                                 f" >= {budget}")
     return errs
 
 
@@ -574,10 +749,16 @@ def main() -> int:
     measured = parity_f32_flagship(sim)
     split_measured, route_ms = parity_f32_split(sim_split)
     measured.update(split_measured)
+    t0 = time.perf_counter()
+    sim_pds = pds70(NR, NAZ, "float32", "cuda")
+    log(f"  PDS70 gas {NR}x{NAZ} float32 built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    measured.update(parity_f32_pds70(sim_pds))
     parity_f64_ragged(torch.device("cuda"))
     log(f"  phase 2 done at {time.perf_counter() - t_main:.1f} s")
 
-    log("== 3. the slice: flagship Simulation on the GPU, both routes")
+    log("== 3. the slices: flagship Simulation on the GPU, both routes; "
+        "PDS70 gas")
     res = {"whole": run_slice(sim), "split": run_slice(sim_split)}
     log_slice(res["whole"], NR, gpu)
     log_slice(res["split"], NR_SPLIT, gpu)
@@ -588,6 +769,9 @@ def main() -> int:
     sync = host_sync_cost(sim)
     log(f"  host sync of one device scalar per step: {sync * 1e3:.4f} ms "
         f"[{gpu}]")
+    del sim_split
+    res["pds70"] = run_pds70(sim_pds)
+    log_pds70(res["pds70"], gpu)
     log(f"  phase 3 done at {time.perf_counter() - t_main:.1f} s")
 
     log("== 4. trajectory: GPU kernels vs CPU plain path")
@@ -595,18 +779,25 @@ def main() -> int:
     trajectory(128, 256, "float64", 20, 1e-9)
     trajectory(250, 512, "float32", 200, 1e-3)
     trajectory(130, 256, "float64", 20, 1e-9)
+    trajectory(64, 128, "float32", 200, 1e-3, setup=pds70)
+    trajectory(64, 128, "float64", 20, 1e-9, setup=pds70)
+    newton = newton_budget(128, 384, 200)
     log(f"  phase 4 done at {time.perf_counter() - t_main:.1f} s")
 
-    # launches: each kernel's count from the run of its own route's path
-    # (the whole route for cfl, sources and viscous_kick as well)
+    # launches: each kernel's count from the run of its own path (the
+    # whole route for cfl, sources and viscous_kick as well, the PDS70 gas
+    # step for artvisc_sn)
     def route_of(name):
+        if name == "artvisc_sn":
+            return "pds70"
         return "split" if name in ROUTE_OPS["split"] else "whole"
     kernels = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
                 "replaces": KERNELS[name][1],
                 "launches": res[route_of(name)]["launches"][name],
                 **measured[name]}
                for name in K.OPS]
-    log(json.dumps({"transport_routes_ms": route_ms,
+    log(json.dumps({"pvte_newton_1_vs_3_rel_l2": newton,
+                    "transport_routes_ms": route_ms,
                     f"step_ms_in_turns_at_{NR_SPLIT}": turns,
                     "slices": {r: {k: v for k, v in x.items()
                                    if k != "launches"}

@@ -68,6 +68,56 @@ def nbody_potential(phys: Physics, constants, g: Geom,
     return pot
 
 
+def disk_on_body_accel(phys: Physics, constants, g: Geom,
+                       bodies: BodiesOnGrid, n_bodies: int,
+                       cell_x: torch.Tensor, cell_y: torch.Tensor,
+                       scale_height: torch.Tensor, sigma: torch.Tensor):
+    """Acceleration of each body by the gas of the active rings 1..NR-2
+    (reference src/Force.cpp:23-122 ``ComputeDiskOnPlanetAccel``), with
+    the Klahr & Kley cubic smoothing. Body values are cast to the field
+    dtype first. Returns (ax, ay) of length N_bodies."""
+    dt = cell_x.dtype
+    bx, by = bodies.x.to(dt), bodies.y.to(dt)
+    brs = bodies.cubic_smoothing_radius.to(dt)
+    nr = g.nrad
+    sig = sigma
+    if phys.correct_disk_selfgravity:
+        # only the non-axisymmetric disk pulls (reference src/Force.cpp:64-66)
+        sig = sigma - torch.mean(sigma, dim=-1, keepdim=True)
+    cellmass = g.surf * sig
+    axs, ays = [], []
+    for k in range(n_bodies):
+        body_r = torch.sqrt(bx[k] ** 2 + by[k] ** 2)
+        smooth = smoothing_length(phys, scale_height, k, body_r)
+        dx = cell_x - bx[k]
+        dy = cell_y - by[k]
+        d_sm2 = dx * dx + dy * dy + smooth * smooth
+        d_sm = torch.sqrt(d_sm2)
+        r_sm = brs[k]
+        q = d_sm / torch.where(r_sm > 0.0, r_sm, torch.ones_like(r_sm))
+        klahr = torch.where((r_sm > 0.0) & (d_sm < r_sm),
+                            -(3.0 * q ** 4 - 4.0 * q ** 3),
+                            torch.ones_like(q))
+        w = constants.G * cellmass * d_sm2 ** -1.5 * klahr
+        axs.append(torch.sum((w * dx)[1:nr - 1]))
+        ays.append(torch.sum((w * dy)[1:nr - 1]))
+    if phys.planet_orbit_disk_test:
+        # body 0 orbits in a fixed potential (reference
+        # src/Pframeforce.cpp:218-221)
+        axs[0], ays[0] = torch.zeros_like(axs[0]), torch.zeros_like(ays[0])
+    return torch.stack(axs), torch.stack(ays)
+
+
+def indirect_term_disk(bodies: BodiesOnGrid, n_center: int, disk_ax,
+                       disk_ay):
+    """-(sum m_k a_k) / (sum m_k) over the hydro-frame-centre bodies
+    (reference src/frame_of_reference.cpp:69-93)."""
+    m = bodies.mass[:n_center]
+    mc = torch.sum(m)
+    return (-torch.sum(m * disk_ax[:n_center].to(m.dtype)) / mc,
+            -torch.sum(m * disk_ay[:n_center].to(m.dtype)) / mc)
+
+
 def indirect_term_nbody(constants, bodies: BodiesOnGrid, n_center: int,
                         n_bodies: int):
     """Euler-mode N-body indirect term (reference

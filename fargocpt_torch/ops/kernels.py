@@ -1,15 +1,17 @@
 """The fused ops of the time step, each as a hand-written CUDA kernel
 (``csrc/*.cu``) and as its plain PyTorch version composed from the ported
-ops: CFL, sources, viscous kick, and the FARGO transport by one of two
-routes (``transport.route``): the whole transport as one op, or the split
-route's two ops, ``radial_momenta_sweep`` and ``fargo_theta``, with the
-glue between them as PyTorch ops.
+ops: CFL, sources, viscous kick, the FARGO transport by one of two routes
+(``transport.route``): the whole transport as one op, or the split route's
+two ops, ``radial_momenta_sweep`` and ``fargo_theta``, with the glue
+between them as PyTorch ops; and the Stone-Norman artificial viscosity
+substep, ``artvisc_sn``, which the steps outside the fused viscous kick's
+gate run (the PVTE setups).
 
 Each op's entry point (``cfl``, ``sources``, ``viscous_kick``,
-``transport``, ``radial_momenta_sweep``, ``fargo_theta``) takes the plain
-version only for tensors on the CPU; for a CUDA tensor it launches the
-kernel or raises. There is no fallback from a failed build or launch to the
-plain version.
+``transport``, ``radial_momenta_sweep``, ``fargo_theta``, ``artvisc_sn``)
+takes the plain version only for tensors on the CPU; for a CUDA tensor it
+launches the kernel or raises. There is no fallback from a failed build or
+launch to the plain version.
 
 The kernels are built at first use with ``nvcc`` into
 ``build/fargocpt_torch/`` at the root of the checkout, as one shared
@@ -44,7 +46,7 @@ from . import artvisc, cfl as cfl_ops, energy as energy_ops, eos, gravity, \
 from .common import Geom
 
 OPS = ("cfl", "sources", "viscous_kick", "transport",
-       "radial_momenta_sweep", "fargo_theta")
+       "radial_momenta_sweep", "fargo_theta", "artvisc_sn")
 LAUNCHES = {name: 0 for name in OPS}
 
 
@@ -147,12 +149,14 @@ class KernelContext(nn.Module):
 # plain PyTorch versions (the definitions the kernels are held to)
 # ---------------------------------------------------------------------------
 
-def derived(ctx: KernelContext, sigma, energy):
-    """Sound speed, pressure and scale height (AspectRatioMode 0)."""
+def derived(ctx: KernelContext, sigma, energy, pvte_vals=None):
+    """Sound speed, pressure and scale height (AspectRatioMode 0), with the
+    PVTE grids ``pvte_vals`` when given."""
     phys, constants, g = ctx.phys, ctx.constants, ctx.g
-    cs = eos.sound_speed(phys, constants, g, sigma, energy, ctx.cs_iso)
-    press = eos.pressure(phys, constants, sigma, energy, cs)
-    h = eos.scale_height(phys, constants, g, cs)
+    cs = eos.sound_speed(phys, constants, g, sigma, energy, ctx.cs_iso,
+                         pvte_vals)
+    press = eos.pressure(phys, constants, sigma, energy, cs, pvte_vals)
+    h = eos.scale_height(phys, constants, g, cs, pvte_vals)
     return cs, press, h
 
 
@@ -229,6 +233,11 @@ def fargo_theta_plain(ctx: KernelContext, qs, vres, vconst, nshift, dt,
     """Azimuthal sweeps + integer roll of the split route; (K, NR, NAZ)."""
     return tr_ops.fargo_theta(ctx.phys, ctx.g, qs, vres, vconst, nshift, dt,
                               two_pass)
+
+
+def artvisc_sn_plain(ctx: KernelContext, sigma, vrad, vaz, energy, dt):
+    """The Stone-Norman artificial viscosity. Returns (vrad, vaz, energy)."""
+    return artvisc.update_sn(ctx.phys, ctx.g, sigma, vrad, vaz, energy, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -636,3 +645,26 @@ def fargo_theta(ctx: KernelContext, qs, vres, vconst, nshift, dt,
              scratch], [g.dphi],
             [nr, naz, k, ctx.phys.flux_limiter_type, int(two_pass)])
     return out
+
+
+def artvisc_sn(ctx: KernelContext, sigma, vrad, vaz, energy, dt):
+    """The Stone-Norman artificial viscosity substep. Returns (vrad, vaz,
+    energy)."""
+    if sigma.device.type == "cpu":
+        return artvisc_sn_plain(ctx, sigma, vrad, vaz, energy, dt)
+    phys, g = ctx.phys, ctx.g
+    nr, naz = g.nrad, g.naz
+    for name, t, shape in (("sigma", sigma, (nr, naz)),
+                           ("vrad", vrad, (nr + 1, naz)),
+                           ("vaz", vaz, (nr, naz)),
+                           ("energy", energy, (nr, naz)),
+                           ("cols", ctx.cols, (nr + 1, N_COLS))):
+        _check(name, t, shape, sigma)
+    outs = [torch.empty_like(vrad), torch.empty_like(vaz),
+            torch.empty_like(energy)]
+    dissipation = phys.is_adiabatic and phys.artificial_viscosity_dissipation
+    _launch("artvisc_sn", sigma,
+            [sigma, vrad, vaz, energy, ctx.cols, _scalars(sigma, [dt])]
+            + outs, [phys.artificial_viscosity_factor ** 2, g.invdphi],
+            [nr, naz, int(dissipation)])
+    return tuple(outs)

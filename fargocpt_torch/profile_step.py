@@ -1,26 +1,36 @@
-"""Where the flagship step's device time goes, on one CUDA GPU.
+"""Where a step's device time goes, on one CUDA GPU.
 
-    python -m fargocpt_torch.profile_step [--nrad 1024 1000] [--naz 3072]
+    python -m fargocpt_torch.profile_step [--setup flagship|pds70_gas]
+        [--nrad 1024 1000] [--naz 3072] [--steps 120]
 
-For each grid: the flagship Simulation in float32, 20 warm-up steps, the
-wall time of 120 steps (host clock around synchronised work), then a
+For each grid: the setup's Simulation in float32 (``flagship`` by
+default, or the PDS70 gas setup), 20 warm-up steps, the wall time of
+``--steps`` steps (host clock around synchronised work), then a
 ``torch.profiler`` window of 20 steps. Prints per grid the device time per
-step of each hand-written kernel (grouped by op) and of the PyTorch glue,
-the launches per step, and the device's busy share of the wall time; the
-last line is all of it as one JSON object. Needs a CUDA device.
+step of each hand-written kernel (grouped by op) and of the PyTorch ops
+(with their heaviest kernels), the launches per step, and the device's
+busy share of the wall time. A second window of 20 steps wraps the step's
+phases (``PHASES``: the PVTE refresh, FLD, self-gravity, the opacity, ...)
+in ``record_function`` ranges and prints the device time of each; ranges
+nest (the opacity runs inside FLD and SubStep3). The last line is all of
+it as one JSON object. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 import torch
 
-from .flagship import flagship
+from .flagship import flagship, pds70_gas
+
+SETUPS = {"flagship": flagship, "pds70_gas": pds70_gas}
 
 # device kernel name fragment -> the op whose CUDA source defines it
 KERNEL_OPS = (("rms_kernel", "radial_momenta_sweep"),
@@ -32,7 +42,8 @@ KERNEL_OPS = (("rms_kernel", "radial_momenta_sweep"),
               ("vk_stress_kernel", "viscous_kick"),
               ("vk_update_kernel", "viscous_kick"),
               ("sources_kernel", "sources"), ("cfl_cells_kernel", "cfl"),
-              ("cfl_final_kernel", "cfl"), ("vmean_kernel", "cfl"))
+              ("cfl_final_kernel", "cfl"), ("vmean_kernel", "cfl"),
+              ("artvisc_sn_kernel", "artvisc_sn"))
 
 
 def op_of(kernel_name: str) -> str:
@@ -42,18 +53,65 @@ def op_of(kernel_name: str) -> str:
     return "pytorch glue"
 
 
-def _device_us(event) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
+def _device_us(event, attrs=("self_device_time_total",
+                              "self_cuda_time_total")) -> float:
+    for attr in attrs:
         if hasattr(event, attr):
             return float(getattr(event, attr))
     return 0.0
 
 
-def profile_grid(nrad: int, naz: int, warmup: int = 20, steps: int = 120,
+def phases():
+    """(owner, attribute, label) of the functions a step calls, each timed
+    as one profiler range."""
+    from .ops import (boundary, cfl, energy, fld, gravity, kernels, opacity,
+                      pvte, selfgravity, sources, viscosity)
+    return (
+        (pvte.PVTE, "gamma_mu", "PVTE refresh"),
+        (fld.FLDSolver, "radiative_diffusion", "FLD substep"),
+        (fld.FLDSolver, "solve", "FLD SOR solve"),
+        (selfgravity.SelfGravity, "accelerations", "self-gravity FFT"),
+        (selfgravity.SelfGravity, "update_kernel", "self-gravity kernel"),
+        (opacity, "opacity", "opacity"),
+        (energy, "substep3", "SubStep3"),
+        (sources, "update_with_sourceterms", "sources"),
+        (gravity, "nbody_potential", "N-body potential"),
+        (gravity, "disk_on_body_accel", "disk on star"),
+        (viscosity, "viscous_stress_tensor", "viscous stress"),
+        (viscosity, "update_velocities_with_viscosity", "viscous update"),
+        (cfl, "condition_cfl", "CFL condition"),
+        (kernels, "artvisc_sn", "artvisc_sn op"),
+        (kernels, "transport", "transport op"),
+        (boundary, "apply_boundary_conditions", "boundaries"),
+    )
+
+
+@contextmanager
+def ranges(targets):
+    """Wraps each target in a ``record_function`` range while inside."""
+    saved = []
+    for owner, name, label in targets:
+        fn = getattr(owner, name)
+
+        def wrapped(*a, _fn=fn, _label=label, **kw):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **kw)
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, functools.wraps(fn)(wrapped))
+    try:
+        yield
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def profile_grid(nrad: int, naz: int, setup: str = "flagship",
+                 warmup: int = 20, steps: int = 120,
                  window: int = 20) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from .sim import Simulation
-    sim = Simulation(flagship(nrad, naz), dtype="float32")
+    sim = Simulation(SETUPS[setup](nrad, naz), dtype="float32")
 
     def run(n):
         for _ in range(n):
@@ -84,16 +142,37 @@ def profile_grid(nrad: int, naz: int, warmup: int = 20, steps: int = 120,
         row["launches_per_step"] += e.count / window
         row["kernels"][e.key[:80]] = us / 1e3 / window
     device_ms = sum(r["device_ms_per_step"] for r in ops.values())
-    return {"grid": f"{nrad}x{naz}", "route": sim.stepper.ops.route,
+
+    targets = phases()
+    labels = {label for _, _, label in targets}
+    with ranges(targets), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        run(window)
+        torch.cuda.synchronize()
+    # the host-side range events: their device time sums the kernels
+    # launched inside (the device-side annotation of the same name spans
+    # first kernel to last, idle gaps included, and is left out)
+    phase_ms = {}
+    for e in prof.events():
+        if e.name in labels and e.device_type == torch.autograd.DeviceType.CPU:
+            row = phase_ms.setdefault(e.name, {"device_ms_per_step": 0.0,
+                                               "calls_per_step": 0.0})
+            row["device_ms_per_step"] += _device_us(
+                e, ("device_time_total", "cuda_time_total")) / 1e3 / window
+            row["calls_per_step"] += 1.0 / window
+    return {"setup": setup, "grid": f"{nrad}x{naz}",
+            "route": sim.stepper.ops.route,
             "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms if device_ms else None,
-            "ops": ops}
+            "ops": ops, "phases": phase_ms}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nrad", type=int, nargs="+", default=[1024, 1000])
     ap.add_argument("--naz", type=int, default=3072)
+    ap.add_argument("--setup", choices=sorted(SETUPS), default="flagship")
+    ap.add_argument("--steps", type=int, default=120)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
@@ -104,9 +183,9 @@ def main(argv=None) -> int:
     print(gpu, flush=True)
     results = []
     for nrad in args.nrad:
-        r = profile_grid(nrad, args.naz)
+        r = profile_grid(nrad, args.naz, args.setup, steps=args.steps)
         results.append(r)
-        print(f"{r['grid']} float32, {r['route']} route: wall "
+        print(f"{args.setup} {r['grid']} float32, {r['route']} route: wall "
               f"{r['wall_ms_per_step']:.4f} ms/step, device "
               f"{r['device_ms_per_step']:.4f} ms/step", flush=True)
         if not r["ops"]:
@@ -115,9 +194,14 @@ def main(argv=None) -> int:
                               key=lambda kv: -kv[1]["device_ms_per_step"]):
             print(f"  {op:22s} {row['launches_per_step']:6.1f} launches  "
                   f"{row['device_ms_per_step']:.4f} ms", flush=True)
-            if op != "pytorch glue":
-                for name, ms in row["kernels"].items():
-                    print(f"      {ms:.4f} ms  {name}", flush=True)
+            heaviest = sorted(row["kernels"].items(), key=lambda kv: -kv[1])
+            for name, ms in heaviest[:12]:
+                print(f"      {ms:.4f} ms  {name}", flush=True)
+        print("  phases (device time of the ranges; they nest):", flush=True)
+        for label, row in sorted(r["phases"].items(),
+                                 key=lambda kv: -kv[1]["device_ms_per_step"]):
+            print(f"  {label:22s} {row['calls_per_step']:6.2f} calls  "
+                  f"{row['device_ms_per_step']:.4f} ms", flush=True)
     print(json.dumps({"gpu": gpu, "results": results}))
     return 0
 

@@ -8,7 +8,9 @@ Shapes:
 ``system_state_from_numpy`` / ``system_state_to_numpy`` carry a state
 across packages as a flat dict of numpy arrays keyed by dotted names
 (``"fields.sigma"``, ``"nbody.x"``, ``"monitor_acc.mass_delta"``, ...),
-so a run can start from another implementation's state.
+so a run can start from another implementation's state. The optional
+parts are keyed by position: ``"pvte_guess.0"``, ``"pvte_guess.1"``,
+``"fld_sor"``, ``"sg_kernel.0"`` .. ``"sg_kernel.3"``.
 """
 
 from __future__ import annotations
@@ -62,6 +64,17 @@ class SystemState:
     corot_ref_x: torch.Tensor
     corot_ref_y: torch.Tensor
     monitor_acc: MonitorAccum
+    # (gamma_eff, mu) of the newest PVTE refresh, the warm start of the
+    # next one (float32 PVTE runs; None otherwise)
+    pvte_guess: tuple | None = None
+    # [omega, direction, old_iterations] of the FLD SOR auto-omega walk
+    # (reference src/fld.cpp:698-700; None unless
+    # RadiativeDiffusionAutoOmega)
+    fld_sor: torch.Tensor | None = None
+    # (k_r_hat, k_t_hat, last_aspect_ratio, since_last) of the adiabatic
+    # self-gravity kernel refresh (reference selfgravity.cpp:186-214);
+    # since_last is a host int
+    sg_kernel: tuple | None = None
 
     def replace(self, **kw) -> "SystemState":
         return replace(self, **kw)
@@ -69,14 +82,18 @@ class SystemState:
 
 _GROUPS = {"fields": FieldState, "nbody": NBodyState,
            "monitor_acc": MonitorAccum}
+_OPTIONAL = ("pvte_guess", "fld_sor", "sg_kernel")
 _NBODY_KEYS = {"nbody.x", "nbody.y", "nbody.vx", "nbody.vy", "nbody.mass",
                "corot_ref_x", "corot_ref_y"}
 
 
 def state_keys() -> list[str]:
-    """The dotted names of every tensor of a ``SystemState``."""
+    """The dotted names of every tensor of a ``SystemState`` without its
+    optional parts."""
     keys = []
     for f in dc_fields(SystemState):
+        if f.name in _OPTIONAL:
+            continue
         group = _GROUPS.get(f.name)
         if group is None:
             keys.append(f.name)
@@ -89,40 +106,59 @@ def system_state_from_numpy(tree: dict[str, np.ndarray],
                             device: torch.device | str,
                             dtype: torch.dtype) -> SystemState:
     """Build a ``SystemState`` on ``device`` from a flat numpy dict. Field
-    and scalar entries take ``dtype``; body entries are float64."""
+    and scalar entries take ``dtype`` (the self-gravity spectra its complex
+    type); body entries are float64. The optional parts are set when the
+    dict holds them."""
     missing = set(state_keys()) - set(tree)
     if missing:
         raise KeyError(f"state dict lacks {sorted(missing)}")
+    cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
 
-    def t(key):
-        dt = torch.float64 if key in _NBODY_KEYS else dtype
+    def t(key, dt=None):
+        dt = dt or (torch.float64 if key in _NBODY_KEYS else dtype)
         return torch.tensor(np.asarray(tree[key]), dtype=dt, device=device)
 
     parts = {}
     for f in dc_fields(SystemState):
         group = _GROUPS.get(f.name)
+        if f.name in _OPTIONAL:
+            continue
         if group is None:
             parts[f.name] = t(f.name)
         else:
             parts[f.name] = group(**{g.name: t(f"{f.name}.{g.name}")
                                      for g in dc_fields(group)})
+    if "pvte_guess.0" in tree:
+        parts["pvte_guess"] = (t("pvte_guess.0"), t("pvte_guess.1"))
+    if "fld_sor" in tree:
+        parts["fld_sor"] = t("fld_sor")
+    if "sg_kernel.0" in tree:
+        parts["sg_kernel"] = (t("sg_kernel.0", cdtype),
+                              t("sg_kernel.1", cdtype), t("sg_kernel.2"),
+                              int(tree["sg_kernel.3"]))
     return SystemState(**parts)
 
 
-def state_tensors(state: SystemState) -> dict[str, torch.Tensor]:
-    """Flat dict of every tensor in ``state`` (no copies)."""
+def _flat(state: SystemState) -> dict:
     out = {}
     for f in dc_fields(SystemState):
         value = getattr(state, f.name)
         if f.name in _GROUPS:
             for g in dc_fields(value):
                 out[f"{f.name}.{g.name}"] = getattr(value, g.name)
-        else:
+        elif isinstance(value, tuple):
+            out.update({f"{f.name}.{k}": v for k, v in enumerate(value)})
+        elif value is not None:
             out[f.name] = value
     return out
 
 
+def state_tensors(state: SystemState) -> dict[str, torch.Tensor]:
+    """Flat dict of every tensor in ``state`` (no copies)."""
+    return {k: v for k, v in _flat(state).items() if torch.is_tensor(v)}
+
+
 def system_state_to_numpy(state: SystemState) -> dict[str, np.ndarray]:
-    """Flat numpy dict of every tensor in ``state`` (copied to the host)."""
-    return {k: v.detach().cpu().numpy()
-            for k, v in state_tensors(state).items()}
+    """Flat numpy dict of every entry of ``state`` (copied to the host)."""
+    return {k: v.detach().cpu().numpy() if torch.is_tensor(v)
+            else np.asarray(v) for k, v in _flat(state).items()}

@@ -1,8 +1,11 @@
 """The CUDA kernels of fargocpt_torch against their plain PyTorch versions
 on the same GPU tensors, at a ragged 130x200 float64 grid, with the
 tolerances of tests/test_torch_kernels.py (rtol 1e-12 cfl, 1e-11 sources
-and transport, 1e-10 viscous kick) and rtol 1e-11 for the split route's
-two kernels; and a split-route Simulation step through those two kernels.
+and transport, 1e-10 viscous kick), rtol 1e-11 for the split route's two
+kernels and rtol 1e-12 for artvisc_sn (also in float32: 1e-5 of each
+output's largest magnitude); a split-route Simulation step through those
+two kernels, and a PDS70 gas step through artvisc_sn and the whole
+transport.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one. This file imports no JAX, so it runs on a GPU host that has none:
@@ -16,6 +19,7 @@ import torch
 
 from fargocpt_torch.config import Config
 from fargocpt_torch.constants import Constants
+from fargocpt_torch.flagship import pds70_gas
 from fargocpt_torch.grid import Geometry
 from fargocpt_torch.ops import gravity, kernels, transport
 from fargocpt_torch.params import Physics
@@ -210,7 +214,7 @@ def test_split_route_step_launches_the_split_kernels(cuda):
     delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
     assert delta == {"cfl": 1, "sources": 1, "viscous_kick": 1,
                      "transport": 0, "radial_momenta_sweep": 1,
-                     "fargo_theta": 1}
+                     "fargo_theta": 1, "artvisc_sn": 0}
     assert bool(torch.isfinite(sim.fields.sigma).all())
 
 
@@ -231,3 +235,45 @@ def test_kernel_refuses_non_contiguous_fields(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         kernels.cfl(ctx, half["sigma"], half["vrad"], half["vaz"],
                     half["energy"], half["qplus"], half["qminus"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dissipation", [True, False])
+def test_artvisc_sn_kernel_matches_plain(cuda, dissipation, dtype):
+    ctx = kernels.KernelContext(
+        Physics(eos="adiabatic", artificial_viscosity="sn",
+                artificial_viscosity_dissipation=dissipation),
+        Constants.from_units(Units()), Geometry.build(NR, NAZ, 0.4, 2.5,
+                                                      "Log"), dtype, cuda)
+    f = _fields(23, cuda, dtype=dtype)
+    vaz = (f["vaz"] - 1.0) * 3.0
+    args = (f["sigma"], f["vrad"] * 6.0, vaz, f["energy"],
+            torch.tensor(0.01, dtype=dtype, device=cuda))
+    before = kernels.LAUNCHES["artvisc_sn"]
+    got = kernels.artvisc_sn(ctx, *args)
+    assert kernels.LAUNCHES["artvisc_sn"] == before + 1
+    ref = kernels.artvisc_sn_plain(ctx, *args)
+    if dtype == torch.float64:
+        _close(got, ref, 1e-12, (1e-15, 1e-15, 1e-15))
+    else:
+        _close(got, ref, 0.0, [1e-5 * float(r.abs().max()) for r in ref])
+
+
+@pytest.mark.gpu
+def test_pds70_gas_step_launches_artvisc_sn_and_transport(cuda):
+    """The PDS70 gas setup (variable gamma) takes the unfused substeps: per
+    step one artvisc_sn and one whole-transport launch, and none of the
+    fused sources, viscous kick or CFL."""
+    sim = Simulation(pds70_gas(64, 128), dtype="float32")
+    assert sim.device.type == "cuda"
+    before = dict(kernels.LAUNCHES)
+    for _ in range(2):
+        sim.step_once(sim.calculate_time_step())
+    torch.cuda.synchronize()
+    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    assert delta == {"cfl": 0, "sources": 0, "viscous_kick": 0,
+                     "transport": 2, "radial_momenta_sweep": 0,
+                     "fargo_theta": 0, "artvisc_sn": 2}
+    for name in ("sigma", "vrad", "vaz", "energy"):
+        assert bool(torch.isfinite(getattr(sim.fields, name)).all())

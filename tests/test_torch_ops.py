@@ -241,8 +241,8 @@ def test_substep3(grids, fields, ramp):
 
 
 def test_substep3_rejects_unported_cooling():
-    _, tp = _phys(cooling_surface_enabled=True)
-    with pytest.raises(NotImplementedError, match="SurfaceCooling"):
+    _, tp = _phys(cooling_scurve_enabled=True)
+    with pytest.raises(NotImplementedError, match="S-curve"):
         energy_ops.check_supported(tp)
 
 

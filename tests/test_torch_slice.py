@@ -169,8 +169,8 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize("extra,feature", [
-    ({"EquationOfState": "PVTE"}, "PVTE"),
-    ({"SelfGravity": "Yes"}, "self-gravity"),
+    ({"EquationOfState": "PVTE", "PVTELookupTable": "Yes"}, "PVTE"),
+    ({"SelfGravity": "Yes"}, "self-gravity"),        # the Bessel kernel
     ({"Integrator": "leapfrog"}, "leapfrog"),
     ({"OuterBoundary": "reflecting"}, "reflecting"),
     ({"Damping": "Yes"}, "damping"),
