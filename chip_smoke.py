@@ -2,48 +2,61 @@
 
     python3 chip_smoke.py
 
-Two setups (fargocpt_torch/flagship.py). The flagship (constant gamma)
+Three setups (fargocpt_torch/flagship.py). The flagship (constant gamma)
 takes the fused kernels: cfl, sources, viscous_kick, and the transport by
-one of two routes (fargocpt_torch/ops/transport.route): the
-whole-transport kernel when NR is a multiple of 16 (1024x3072), else the
-split route's two kernels, radial_momenta_sweep and fargo_theta
-(1000x3072). The PDS70 gas setup (PVTE, FLD, FFT self-gravity, surface
+one of three routes: the whole-transport kernel when NR is a multiple of
+16 (1024x3072), else the split route's two kernels, radial_momenta_sweep
+and fargo_theta (1000x3072) (fargocpt_torch/ops/transport.route), or,
+where the caller names it (transport_route="staged"), the staged route's
+three: radial_sweep, theta_sweep once per azimuthal pass, advect_shift
+(1024x3072). The PDS70 gas setup (PVTE, FLD, FFT self-gravity, surface
 cooling) takes the unfused substeps with the artvisc_sn kernel and the
-whole-transport kernel (1024x3072). All three paths are driven here.
+whole-transport kernel (1024x3072); the whole PDS70 setup adds its
+Lagrangian dust, 16384 particles. All five paths are driven here.
 
 Phases (any failure raises, so the exit code is not 0):
   1. environment: GPU name and power limit, torch/CUDA versions, nvcc,
      and the build of the CUDA kernels from fargocpt_torch/csrc;
-  2. per-kernel parity: each of the seven kernels against its plain
-     PyTorch version on the same GPU tensors, at full size in float32 (a
-     setup's state with seeded noise: the flagship at 1024x3072 for the
-     whole route's four kernels and at 1000x3072 for the split route's
-     two, the PDS70 gas state at 1024x3072 for artvisc_sn, whose outputs
-     are measured against the plain version's increments) and at 130x200
-     float64 (seeded random fields), plus each one's time beside the plain
-     version's (CUDA events, median of 25 calls) and its least time on the
-     card: the bytes of its inputs and outputs at the memory rate against
-     the floating-point operations of its plain version (counted by
-     FlopCounter) at the float32 rate; and the split route as a whole
-     against the whole-transport kernel on the same 1000x3072 state;
-  3. the slices: the flagship Simulation on the GPU at 1024x3072 and at
-     1000x3072 float32 (10 warm-up and 60 timed steps each of
-     calculate_time_step + step_once), the 1000x3072 step through each
-     route in turns (split, whole, whole, split), and the PDS70 gas
-     Simulation at 1024x3072 float32 (3 warm-up and 15 timed steps, then
-     the run path's advance_to over about 15 steps), each with the launch
+  2. per-kernel parity: each of the ten kernels (kernels.OPS) against its
+     plain PyTorch version on the same GPU tensors, at full size in
+     float32 (a setup's state with seeded noise: the flagship at 1024x3072
+     for the whole route's four kernels and the staged route's three, at
+     1000x3072 for the split route's two, the PDS70 gas state at 1024x3072
+     for artvisc_sn, whose outputs are measured against the plain
+     version's increments; the roll of advect_shift bit for bit) and at
+     130x200 float64 (seeded random fields), plus each one's time beside
+     the plain version's (CUDA events, median of 25 calls), its least time
+     on the card: the bytes of its inputs and outputs at the memory rate
+     against the floating-point operations of its plain version (counted
+     by FlopCounter) at the float32 rate, and for advect_shift the time of
+     the one PyTorch call that computes it (torch.gather with a prebuilt
+     index); the split route as a whole against the whole-transport kernel
+     on the same 1000x3072 state, and the three routes on one 1024x3072
+     state in turns;
+  3. the slices: the flagship Simulation on the GPU at 1024x3072 on the
+     whole and on the staged route and at 1000x3072 on the split route,
+     float32 (10 warm-up and 60 timed steps each of calculate_time_step +
+     step_once), the 1000x3072 step through the split and whole routes in
+     turns and the 1024x3072 step through all three in turns, then the
+     PDS70 gas Simulation and the whole PDS70 Simulation with its 16384
+     particles at 1024x3072 float32 (3 warm-up and 10 timed steps, then
+     the run path's advance_to over about 10 steps), each with the launch
      counters set to 0 before and read after; the PDS70 lines add the FLD
-     SOR iterations and the PVTE refreshes per step;
+     SOR iterations and the PVTE refreshes per step (3 and, on the run
+     path, 2, with or without the dust), and with the dust its share of
+     the step by CUDA events and the particles alive;
   4. the trajectories against the CPU: the flagship, whole route, 256x512
      float32 for 200 steps (rel-L2 < 1e-3 per field) and 128x256 float64
      for 20 steps (rel-L2 < 1e-9); split route 250x512 float32 for 200
-     steps and 130x256 float64 for 20 steps, the same budgets; the PDS70
-     gas setup at 64x128, float32 for 200 steps and float64 for 20, the
-     same budgets. The GPU run goes through the kernels and the CPU run
-     through the plain versions, both on the GPU run's dt sequence. Then
-     the PDS70 gas setup at 128x384 float32 for 200 steps on the GPU with
-     one warm PVTE Newton step against three (rel-L2 < 1e-4, the budget
-     of a warm against a cold PVTE refresh).
+     steps and 130x256 float64 for 20 steps, staged route 256x512 and
+     128x256, the same budgets; the PDS70 gas setup and the whole PDS70
+     setup (4096 particles) at 64x128, float32 for 200 steps and float64
+     for 20, the same budgets, the swarm's r and phi held to them too. The
+     GPU run goes through the kernels and the CPU run through the plain
+     versions, both on the GPU run's dt sequence. Then the PDS70 gas setup
+     at 128x384 float32 for 200 steps on the GPU with one warm PVTE Newton
+     step against three (rel-L2 < 1e-4, the budget of a warm against a
+     cold PVTE refresh).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -69,25 +82,33 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 NR, NAZ = 1024, 3072          # whole transport route
 NR_SPLIT = 1000               # split transport route (NR % 16 != 0)
-ROUTE_OPS = {"whole": ("transport",),
-             "split": ("radial_momenta_sweep", "fargo_theta")}
+# kernels of each transport route and their launches per step (the staged
+# route sweeps once per azimuthal pass: twice with fast transport)
+ROUTE_OPS = {"whole": {"transport": 1},
+             "split": {"radial_momenta_sweep": 1, "fargo_theta": 1},
+             "staged": {"radial_sweep": 1, "theta_sweep": 2,
+                        "advect_shift": 1}}
 
+# One row per kernel of fargocpt_torch.ops.kernels.OPS (main() refuses to
+# run if the two differ): the line of the TPU kernel it replaces in
+# fargocpt_tpu/ops/pallas_kernels.py, the slice of phase 3 whose launch
+# count the last line but one reports, and the float64 tolerance at
+# 130x200 (those of tests/test_torch_kernels.py; rtol 1e-11 for the split
+# and staged routes' kernels, 1e-12 for artvisc_sn, the roll exact). The
+# source is fargocpt_torch/csrc/<name>.cu.
 KERNELS = {
-    "cfl": ("fargocpt_torch/csrc/cfl.cu",
-            "fargocpt_tpu/ops/pallas_kernels.py:838"),
-    "sources": ("fargocpt_torch/csrc/sources.cu",
-                "fargocpt_tpu/ops/pallas_kernels.py:396"),
-    "viscous_kick": ("fargocpt_torch/csrc/viscous_kick.cu",
-                     "fargocpt_tpu/ops/pallas_kernels.py:1470"),
-    "transport": ("fargocpt_torch/csrc/transport.cu",
-                  "fargocpt_tpu/ops/pallas_kernels.py:1098"),
-    "radial_momenta_sweep": ("fargocpt_torch/csrc/radial_momenta_sweep.cu",
-                             "fargocpt_tpu/ops/pallas_kernels.py:192"),
-    "fargo_theta": ("fargocpt_torch/csrc/fargo_theta.cu",
-                    "fargocpt_tpu/ops/pallas_kernels.py:495"),
-    "artvisc_sn": ("fargocpt_torch/csrc/artvisc_sn.cu",
-                   "fargocpt_tpu/ops/pallas_kernels.py:721"),
+    "cfl": (838, "whole", 1e-12),
+    "sources": (396, "whole", 1e-11),
+    "viscous_kick": (1470, "whole", 1e-10),
+    "transport": (1098, "whole", 1e-11),
+    "radial_momenta_sweep": (192, "split", 1e-11),
+    "fargo_theta": (495, "split", 1e-11),
+    "artvisc_sn": (721, "pds70_gas", 1e-12),
+    "radial_sweep": (573, "staged", 1e-11),
+    "theta_sweep": (106, "staged", 1e-11),
+    "advect_shift": (628, "staged", 0.0),
 }
+F64_RTOL = {name: row[2] for name, row in KERNELS.items()}
 # The card's published peaks (H100 SXM data sheet, at 700 W): device
 # memory rate, and float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -100,11 +121,6 @@ F32_OPS_PER_S = 67e12
 # (Rsup - Rinf ~ 2e-3 r); the two have differed by <= 6.4e-6 of the scale
 # on the perturbed flagship state
 F32_TOL = 1e-5
-# f64 at 130x200: the tolerances of tests/test_torch_kernels.py
-# (rtol 1e-11 for the split route's two kernels, 1e-12 for artvisc_sn)
-F64_RTOL = {"cfl": 1e-12, "sources": 1e-11, "viscous_kick": 1e-10,
-            "transport": 1e-11, "radial_momenta_sweep": 1e-11,
-            "fargo_theta": 1e-11, "artvisc_sn": 1e-12}
 
 
 def log(*args):
@@ -118,16 +134,32 @@ def gpu_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def flagship(nr, naz, dtype, device):
+def flagship(nr, naz, dtype, device, route=None):
     from fargocpt_torch.flagship import flagship as flagship_config
     from fargocpt_torch.sim import Simulation
-    return Simulation(flagship_config(nr, naz), dtype=dtype, device=device)
+    return Simulation(flagship_config(nr, naz), dtype=dtype, device=device,
+                      transport_route=route)
 
 
-def pds70(nr, naz, dtype, device):
-    from fargocpt_torch.flagship import pds70_gas
+def flagship_staged(nr, naz, dtype, device):
+    return flagship(nr, naz, dtype, device, route="staged")
+
+
+def pds70_gas(nr, naz, dtype, device):
+    from fargocpt_torch.flagship import pds70_gas as pds70_gas_config
     from fargocpt_torch.sim import Simulation
-    return Simulation(pds70_gas(nr, naz), dtype=dtype, device=device)
+    return Simulation(pds70_gas_config(nr, naz), dtype=dtype, device=device)
+
+
+def pds70(nr, naz, dtype, device, n_particles=16384):
+    from fargocpt_torch.flagship import pds70 as pds70_config
+    from fargocpt_torch.sim import Simulation
+    return Simulation(pds70_config(nr, naz, n_particles), dtype=dtype,
+                      device=device)
+
+
+def pds70_4096(nr, naz, dtype, device):
+    return pds70(nr, naz, dtype, device, n_particles=4096)
 
 
 def time_ms(fn, reps=25) -> float:
@@ -258,6 +290,48 @@ def split_calls(ctx, f, omega, dt):
     }
 
 
+def staged_calls(ctx, f, omega, dt, nshift=None):
+    """name -> (kernel call, plain call, output names, inputs, library
+    call) of the staged route's three ops on one state, each fed what the
+    transport feeds it: the stacked momenta to the radial sweep, its result
+    and the residual velocity to the azimuthal sweep, the twice-swept
+    batch to the roll. The roll's library call is torch.gather with the
+    index built beforehand."""
+    from fargocpt_torch.ops import kernels as K
+    from fargocpt_torch.ops import transport as tr
+    g, phys = ctx.g, ctx.phys
+    s, vr, va, e = f["sigma"], f["vrad"], f["vaz"], f["energy"]
+    vmean, own_shift, vconst = tr.fargo_shift(g, va, dt)
+    nshift = own_shift if nshift is None else nshift
+    base = tr.sigma_flux(phys, g, s, vr, dt)
+    qs0 = tr.momenta_batch(phys, g, s, vr, va, e, omega.to(s.dtype))
+    qs1 = K.radial_sweep_plain(ctx, qs0, s, vr, base, dt)
+    vres = va - vmean
+    if not phys.fast_transport:
+        vres = vres + vconst
+    qs2 = K.theta_sweep_plain(ctx, qs1, vres, dt)
+    if phys.fast_transport:
+        qs2 = K.theta_sweep_plain(ctx, qs2,
+                                  vconst.expand_as(vres).contiguous(), dt)
+    j = torch.arange(g.naz, device=s.device)
+    index = torch.remainder(j[None, :] - nshift[:, None].to(j.dtype),
+                            g.naz).expand_as(qs2).contiguous()
+    return {
+        "radial_sweep": (
+            lambda: (K.radial_sweep(ctx, qs0, s, vr, base, dt),),
+            lambda: (K.radial_sweep_plain(ctx, qs0, s, vr, base, dt),),
+            ("qs",), [qs0, s, vr, base, ctx.cols], None),
+        "theta_sweep": (
+            lambda: (K.theta_sweep(ctx, qs1, vres, dt),),
+            lambda: (K.theta_sweep_plain(ctx, qs1, vres, dt),), ("qs",),
+            [qs1, vres, ctx.cols], None),
+        "advect_shift": (
+            lambda: (K.advect_shift(qs2, nshift),),
+            lambda: (K.advect_shift_plain(qs2, nshift),), ("qs",),
+            [qs2, nshift], lambda: torch.gather(qs2, -1, index)),
+    }
+
+
 def perturbed(sim) -> dict:
     """The simulation's fields with seeded noise (the unperturbed disk is
     axisymmetric, which would leave the azimuthal stencils untested)."""
@@ -315,28 +389,37 @@ def check_f32(name, got, ref, names, f, nr) -> float:
         log(f"  {name:20s} {oname:9s} f32 {nr}x{NAZ}: max|k-p| = "
             f"{max(errs):.3e}  / scale = {rel:.3e}  (scale "
             f"{max(scales):.3e})")
-    if not worst <= F32_TOL:
+    if not worst <= (0.0 if F64_RTOL.get(name) == 0.0 else F32_TOL):
         raise AssertionError(f"{name}: f32 kernel/plain mismatch "
-                             f"{worst:.3e} > {F32_TOL}")
+                             f"{worst:.3e} > {F32_TOL} (the roll: > 0)")
     return max_abs
 
 
 def measure(calls, f, nr) -> dict:
     """Parity, times and bound of each kernel in ``calls``."""
     out = {}
-    for name, (kern, plain, names, inputs) in calls.items():
+    for name, (kern, plain, names, inputs, *library) in calls.items():
+        library = library[0] if library else None
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         max_abs = check_f32(name, got, ref, names, f, nr)
         ms, plain_ms = time_ms(kern), time_ms(plain)
+        library_ms = None
+        if library is not None:
+            if not torch.equal(library(), ref[0]):
+                raise AssertionError(f"{name}: the library call computes "
+                                     "another function")
+            library_ms = time_ms(library)
         flops = flops_of(plain)
         b = bound(inputs, got, flops)
         log(f"  {name:20s} kernel {ms:.4f} ms   plain {plain_ms:.4f} ms   "
             f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
             f"{nbytes(inputs) + nbytes(got)} B, {flops} flops = "
-            f"{flops / (nr * NAZ):.1f} per cell)")
+            f"{flops / (nr * NAZ):.1f} per cell)"
+            + ("" if library_ms is None
+               else f"   library call {library_ms:.4f} ms"))
         out[name] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-                     **b, "library_ms": None}
+                     **b, "library_ms": library_ms}
     return out
 
 
@@ -403,10 +486,42 @@ def parity_f32_split(sim) -> tuple[dict, dict]:
     return out, times
 
 
+def parity_f32_staged(sim) -> tuple[dict, dict]:
+    """The staged route's three kernels against their plain versions at
+    1024x3072 on the perturbed flagship state; then the staged route as a
+    whole against the whole-transport kernel on the same state, and the
+    three routes' times in turns. Returns (per-kernel results, route times
+    in ms)."""
+    from fargocpt_torch.ops import kernels as K
+    from fargocpt_torch.ops import transport as tr
+    st, ctx = sim.state, sim.stepper.ops
+    f = perturbed(sim)
+    dt = sim.stepper.cfl_dt(st)
+    out = measure(staged_calls(ctx, f, st.omega_frame, dt), f, NR)
+
+    shift = tr.fargo_shift(ctx.g, f["vaz"], dt)
+    args = (ctx, f["sigma"], f["vrad"], f["vaz"], f["energy"],
+            st.omega_frame, dt, shift)
+    routes = {r: (lambda r=r: K.transport(*args, route=r)) for r in K.ROUTES}
+    names = ("sigma", "vrad", "vaz", "energy", "mass_flux")
+    check_f32("staged vs whole", routes["staged"](), routes["whole"](),
+              names, f, NR)
+    order = ("staged", "split", "whole", "whole", "split", "staged")
+    t = {r: [] for r in K.ROUTES}
+    for r in order:
+        t[r].append(time_ms(routes[r]))
+    times = {r: float(np.mean(v)) for r, v in t.items()}
+    log(f"  transport at {NR}x{NAZ} f32 in turns {order}: "
+        + ", ".join(f"{r} route {times[r]:.4f} ms" for r in K.ROUTES)
+        + " (event medians of 25 calls, mean of two turns each)")
+    return out, times
+
+
 def parity_f64_ragged(device) -> None:
     """Kernel vs plain at 130x200 float64 on seeded random fields: the
-    whole route's four, then the split route's two over K = 5 and 6, both
-    limiters and one or two azimuthal sweeps, with shifts of either sign."""
+    whole route's four, then the split route's two and the staged route's
+    three over K = 5 and 6, both limiters and one or two azimuthal sweeps,
+    with shifts of either sign and beyond one turn of the ring."""
     from fargocpt_torch.constants import Constants
     from fargocpt_torch.grid import Geometry
     from fargocpt_torch.ops import kernels as K
@@ -439,7 +554,7 @@ def parity_f64_ragged(device) -> None:
     def check(name, label, got, ref, onames):
         for oname, a, b in zip(onames, got, ref):
             a, b = a.cpu().numpy(), b.cpu().numpy()
-            atol = 1e-13 * float(np.abs(b).max())
+            atol = 1e-13 * float(np.abs(b).max()) if F64_RTOL[name] else 0.0
             err = float(np.abs(a - b).max())
             log(f"  {name:20s} {oname:9s} f64 {nr}x{naz}{label}: max|k-p| = "
                 f"{err:.3e}  (rtol {F64_RTOL[name]:.0e}, atol {atol:.1e})")
@@ -466,11 +581,20 @@ def parity_f64_ragged(device) -> None:
             c = K.KernelContext(phys.with_(eos=eos_name,
                                            flux_limiter_type=limiter),
                                 constants, geometry, torch.float64, device)
+            label = f" K={6 if eos_name == 'adiabatic' else 5} " \
+                f"limiter={limiter}"
+            for fast in (True, False):
+                cf = K.KernelContext(c.phys.with_(fast_transport=fast),
+                                     constants, geometry, torch.float64,
+                                     device)
+                staged = staged_calls(cf, f, omega, dt, nshift=shifts)
+                for name, (kern, plain, names, *_) in staged.items():
+                    if fast or name == "theta_sweep":
+                        check(name, label + f" fast={fast}", kern(), plain(),
+                              names)
             calls = split_calls(c, f, omega, dt)
             for name in ("radial_momenta_sweep", "fargo_theta"):
                 kern, plain, names, inputs = calls[name]
-                label = f" K={6 if eos_name == 'adiabatic' else 5} " \
-                    f"limiter={limiter}"
                 if name == "radial_momenta_sweep":
                     check(name, label, kern(), plain(), names)
                     continue
@@ -486,8 +610,9 @@ def parity_f64_ragged(device) -> None:
 
 def run_slice(sim, warmup=10, steps=60) -> dict:
     """The flagship's steps on its route, with the launch counters set to 0
-    just before and read just after: every op of the route at least once a
-    step, the other route's ops never."""
+    just before and read just after: every op of the route its launches a
+    step (ROUTE_OPS), the fused substeps at least once a step, the other
+    routes' ops never."""
     from fargocpt_torch.ops import kernels as K
     route = sim.stepper.ops.route
     nr = sim.geometry.nrad
@@ -502,15 +627,20 @@ def run_slice(sim, warmup=10, steps=60) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    other = [op for r, ops in ROUTE_OPS.items() if r != route for op in ops]
+    n = warmup + steps
+    own = ROUTE_OPS[route]
+    other = {op for ops in ROUTE_OPS.values() for op in ops} - set(own)
     for name in K.OPS:
-        if name in other or name == "artvisc_sn":
-            if launches[name] != 0:
-                raise AssertionError(f"{route} route at {nr} rings launched "
-                                     f"{name} {launches[name]} times")
-        elif launches[name] < warmup + steps:
-            raise AssertionError(f"kernel {name} launched {launches[name]} "
-                                 f"times in {warmup + steps} steps")
+        if name in own:
+            ok = launches[name] == own[name] * n
+        elif name in other or name == "artvisc_sn":
+            ok = launches[name] == 0
+        else:
+            ok = launches[name] >= n
+        if not ok:
+            raise AssertionError(f"{route} route at {nr} rings launched "
+                                 f"{name} {launches[name]} times in {n} "
+                                 "steps")
     check_state(sim)
     mean_dt = float(sim.time - t_start) / steps
     per_step = seconds / steps
@@ -542,39 +672,81 @@ def check_pds70_launches(launches, steps) -> None:
     for name, n in launches.items():
         want = steps if name in PDS70_OPS else 0
         if n != want:
-            raise AssertionError(f"PDS70 gas: kernel {name} launched {n} "
-                                 f"times in {steps} steps, expected {want}")
+            raise AssertionError(f"PDS70: kernel {name} launched {n} times "
+                                 f"in {steps} steps, expected {want}")
 
 
-def run_pds70(sim, warmup=3, steps=15, run_steps=15) -> dict:
-    """The PDS70 gas steps through calculate_time_step + step_once, then
-    through the run path (advance_to to a time about ``run_steps`` steps
-    ahead), each with the launch counters set to 0 just before and read
-    just after."""
+class DustTimer:
+    """CUDA events around every call of the stepper's dust integration:
+    ``ms()`` is the time between them, summed over the calls so far (the
+    device's time in the dust, its waits for the host included)."""
+
+    def __init__(self, stepper):
+        self.stepper = stepper
+        self.pairs = []
+        inner = stepper._integrate_particles
+
+        def timed(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = inner(*args, **kwargs)
+            b.record()
+            self.pairs.append((a, b))
+            return out
+        stepper._integrate_particles = timed
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        total = sum(a.elapsed_time(b) for a, b in self.pairs)
+        self.pairs.clear()
+        return total
+
+    def remove(self) -> None:
+        del self.stepper._integrate_particles
+
+
+def run_pds70(sim, warmup=3, steps=10, run_steps=10) -> dict:
+    """The PDS70 steps (the gas setup, or the whole setup with its dust)
+    through calculate_time_step + step_once, then through the run path
+    (advance_to to a time about ``run_steps`` steps ahead), each with the
+    launch counters set to 0 just before and read just after. With the
+    dust: its share of each window by CUDA events, and the particles alive
+    at the end."""
     from fargocpt_torch.ops import kernels as K
     st = sim.stepper
     nr, naz = sim.geometry.nrad, sim.geometry.naz
+    dusty = sim.state.particles is not None
     for _ in range(warmup):
         sim.step_once(sim.calculate_time_step())
+    timer = DustTimer(st) if dusty else None
     torch.cuda.synchronize()
     K.reset_launches()
     fld0, pv0 = st.fld.iterations, st.pvte.refreshes
     t_start = sim.time.clone()
+    window = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    window[0].record()
     t0 = time.perf_counter()
     for _ in range(steps):
         sim.step_once(sim.calculate_time_step())
+    window[1].record()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     check_pds70_launches(launches, steps)
     mean_dt = float(sim.time - t_start) / steps
     per_step = seconds / steps
-    res = {"launches": launches, "seconds": seconds, "per_step": per_step,
+    res = {"dtype": str(sim.dtype).removeprefix("torch."),
+           "launches": launches, "seconds": seconds, "per_step": per_step,
            "mcell": nr * naz / per_step / 1e6, "mean_dt": mean_dt,
            "s_per_orbit": 2.0 * math.pi / mean_dt * per_step,
            "fld_iterations_per_step": (st.fld.iterations - fld0) / steps,
            "pvte_refreshes_per_step": (st.pvte.refreshes - pv0) / steps,
            "sg_kernel_rebuilds": st.selfgravity.rebuilds}
+    if dusty:
+        res["dust_ms_per_step"] = timer.ms() / steps
+        res["dust_share"] = res["dust_ms_per_step"] * steps \
+            / window[0].elapsed_time(window[1])
 
     # the run path: each step's CFL refresh serves its step
     K.reset_launches()
@@ -595,25 +767,56 @@ def run_pds70(sim, warmup=3, steps=15, run_steps=15) -> dict:
                     (st.fld.iterations - fld0) / n,
                 "run_pvte_refreshes_per_step":
                     (st.pvte.refreshes - pv0) / n})
+    if res["pvte_refreshes_per_step"] != 3.0 \
+            or res["run_pvte_refreshes_per_step"] != 2.0:
+        raise AssertionError(
+            f"PVTE refreshes per step {res['pvte_refreshes_per_step']} "
+            f"(step), {res['run_pvte_refreshes_per_step']} (run path); "
+            "expected 3 and 2")
+    if dusty:
+        res["run_dust_ms_per_step"] = timer.ms() / n
+        timer.remove()
+        p = sim.state.particles
+        res["particles"] = p.n
+        res["alive"] = int(p.alive.sum())
+        for name in ("r", "phi", "r_dot", "phi_dot", "stokes"):
+            if not bool(torch.isfinite(getattr(p, name)).all()):
+                raise AssertionError(f"particles.{name} is not finite")
+        # float32 with the setup's units (au, solar mass): pi m0 ~ 6e-57
+        # rounds to 0 and the stopping time is NaN, so the swarm fails the
+        # escape test on its first step and stays frozen, as in the JAX
+        # package (tests/test_torch_dust.py); float64 keeps it alive
+        if p.r.dtype == torch.float64 and not res["alive"] > 0:
+            raise AssertionError("no particle left alive")
     check_state(sim)
     return res
 
 
 def log_pds70(res, gpu) -> None:
+    label = f"PDS70 with {res['particles']} particles" \
+        if "particles" in res else "PDS70 gas"
+    dtype = res.get("dtype", "float32")
     log(f"  launches {res['launches']}")
-    log(f"  PDS70 gas {NR}x{NAZ} float32, calculate_time_step + step_once: "
+    log(f"  {label} {NR}x{NAZ} {dtype}, calculate_time_step + step_once: "
         f"{res['per_step'] * 1e3:.4f} ms/step, {res['mcell']:.2f} "
         f"Mcell-updates/s, mean dt {res['mean_dt']:.4e}, "
         f"{res['s_per_orbit']:.2f} s per orbit at r = 1; FLD "
         f"{res['fld_iterations_per_step']:.2f} SOR iterations/step, PVTE "
         f"{res['pvte_refreshes_per_step']:.2f} refreshes/step [{gpu}]")
-    log(f"  PDS70 gas {NR}x{NAZ} float32, run path (advance_to, "
+    log(f"  {label} {NR}x{NAZ} {dtype}, run path (advance_to, "
         f"{res['run_steps']} steps): {res['run_per_step'] * 1e3:.4f} "
         f"ms/step, {res['run_mcell']:.2f} Mcell-updates/s; FLD "
         f"{res['run_fld_iterations_per_step']:.2f} SOR iterations/step, "
         f"PVTE {res['run_pvte_refreshes_per_step']:.2f} refreshes/step; "
         f"self-gravity kernel rebuilds so far "
         f"{res['sg_kernel_rebuilds']} [{gpu}]")
+    if "particles" in res:
+        log(f"  the dust, by CUDA events around its call: "
+            f"{res['dust_ms_per_step']:.4f} ms/step, "
+            f"{100 * res['dust_share']:.2f}% of the timed steps' device "
+            f"span; run path {res['run_dust_ms_per_step']:.4f} ms/step; "
+            f"{res['alive']} of {res['particles']} particles alive "
+            f"[{gpu}]")
 
 
 def log_slice(res, nr, gpu) -> None:
@@ -624,16 +827,17 @@ def log_slice(res, nr, gpu) -> None:
         f"r = 1 [{gpu}]")
 
 
-def route_turns(sim, warmup=5, steps=50) -> dict:
-    """ms per step of ``sim`` through each transport route in turns
-    (split, whole, whole, split), in this process. The whole-transport
-    kernel takes any NR: at 1000 rings it is the route the port took
-    before the split route existed."""
+def route_turns(sim, order=("split", "whole", "whole", "split"), warmup=5,
+                steps=50) -> dict:
+    """ms per step of ``sim`` through each transport route of ``order`` in
+    turns, in this process. The whole-transport kernel takes any NR: at
+    1000 rings it is the route the port took before the split route
+    existed."""
     ctx = sim.stepper.ops
     own = ctx.route
-    times = {"split": [], "whole": []}
+    times = {r: [] for r in dict.fromkeys(order)}
     try:
-        for r in ("split", "whole", "whole", "split"):
+        for r in order:
             ctx.route = r
             for _ in range(warmup):
                 sim.step_once(sim.calculate_time_step())
@@ -668,6 +872,11 @@ def host_sync_cost(sim, steps=20) -> float:
 # --- phase 4 -----------------------------------------------------------------
 
 def trajectory(nr, naz, dtype, steps, budget, setup=flagship) -> dict:
+    """The GPU run through the kernels against the CPU run through the
+    plain versions on the GPU run's dt sequence: rel-L2 of each field
+    (vrad scaled by vaz) and, with a swarm, of the particles' r and phi
+    (phi's difference taken on the circle), all under ``budget``; in
+    float64 the same particles are alive in both."""
     gpu = setup(nr, naz, dtype, "cuda")
     cpu = setup(nr, naz, dtype, "cpu")
     for _ in range(steps):
@@ -681,11 +890,28 @@ def trajectory(nr, naz, dtype, steps, budget, setup=flagship) -> dict:
         b = getattr(cpu.fields, name).double()
         scale = torch.linalg.norm(vaz_ref if name == "vrad" else b)
         errs[name] = float(torch.linalg.norm(a - b) / scale)
+    swarm = ""
+    gp, cp = gpu.state.particles, cpu.state.particles
+    if gp is not None:
+        r, r_ref = gp.r.double().cpu(), cp.r.double()
+        errs["dust r"] = float(torch.linalg.norm(r - r_ref)
+                               / torch.linalg.norm(r_ref))
+        d = torch.remainder(gp.phi.double().cpu() - cp.phi.double() + math.pi,
+                            2.0 * math.pi) - math.pi
+        errs["dust phi"] = float(torch.linalg.norm(d)
+                                 / torch.linalg.norm(cp.phi.double()))
+        alive, alive_ref = gp.alive.cpu(), cp.alive
+        swarm = f"; alive {int(alive.sum())} of {gp.n} on the GPU, " \
+            f"{int(alive_ref.sum())} on the CPU"
+        if dtype == "float64" and not (torch.equal(alive, alive_ref)
+                                       and bool(alive.any())):
+            raise AssertionError(f"trajectory {nr}x{naz} {dtype}: the "
+                                 f"swarms differ or died{swarm}")
     log(f"  {setup.__name__} {nr}x{naz} {dtype} {gpu.stepper.ops.route} "
         f"route, {steps} steps "
         f"(t = {float(gpu.time):.4e}): "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-        + f"  (budget {budget:.0e})")
+        + f"  (budget {budget:.0e}){swarm}")
     for name, err in errs.items():
         if not err < budget:
             raise AssertionError(f"trajectory {nr}x{naz} {dtype}: {name} "
@@ -696,8 +922,8 @@ def trajectory(nr, naz, dtype, steps, budget, setup=flagship) -> dict:
 def newton_budget(nr, naz, steps, budget=1e-4) -> dict:
     """The PDS70 gas setup on the GPU with one warm PVTE Newton step
     against three, on the first run's dt sequence."""
-    one = pds70(nr, naz, "float32", "cuda")
-    three = pds70(nr, naz, "float32", "cuda")
+    one = pds70_gas(nr, naz, "float32", "cuda")
+    three = pds70_gas(nr, naz, "float32", "cuda")
     three.stepper.pvte.n_newton = 3
     for _ in range(steps):
         dt = one.calculate_time_step()
@@ -740,6 +966,9 @@ def main() -> int:
         f"concurrent); build+load "
         f"{time.perf_counter() - t0:.2f} s")
 
+    if set(KERNELS) != set(K.OPS):
+        raise AssertionError(f"KERNELS {sorted(KERNELS)} and kernels.OPS "
+                             f"{sorted(K.OPS)} differ")
     log("== 2. per-kernel parity (kernel vs plain on the GPU)")
     t0 = time.perf_counter()
     sim = flagship(NR, NAZ, "float32", "cuda")
@@ -749,29 +978,52 @@ def main() -> int:
     measured = parity_f32_flagship(sim)
     split_measured, route_ms = parity_f32_split(sim_split)
     measured.update(split_measured)
+    staged_measured, route3_ms = parity_f32_staged(sim)
+    measured.update(staged_measured)
     t0 = time.perf_counter()
-    sim_pds = pds70(NR, NAZ, "float32", "cuda")
+    sim_gas = pds70_gas(NR, NAZ, "float32", "cuda")
     log(f"  PDS70 gas {NR}x{NAZ} float32 built in "
         f"{time.perf_counter() - t0:.2f} s")
-    measured.update(parity_f32_pds70(sim_pds))
+    measured.update(parity_f32_pds70(sim_gas))
     parity_f64_ragged(torch.device("cuda"))
     log(f"  phase 2 done at {time.perf_counter() - t_main:.1f} s")
 
-    log("== 3. the slices: flagship Simulation on the GPU, both routes; "
-        "PDS70 gas")
-    res = {"whole": run_slice(sim), "split": run_slice(sim_split)}
+    log("== 3. the slices: flagship Simulation on the GPU, three routes; "
+        "PDS70 gas; PDS70 with its dust")
+    sim_staged = flagship_staged(NR, NAZ, "float32", "cuda")
+    res = {"whole": run_slice(sim), "split": run_slice(sim_split),
+           "staged": run_slice(sim_staged)}
     log_slice(res["whole"], NR, gpu)
     log_slice(res["split"], NR_SPLIT, gpu)
+    log_slice(res["staged"], NR, gpu)
+    del sim_staged
     turns = route_turns(sim_split)
     log(f"  {NR_SPLIT}x{NAZ} float32 in turns (split, whole, whole, split): "
         f"split route {turns['split']} ms/step, whole-transport kernel "
         f"{turns['whole']} ms/step [{gpu}]")
+    order3 = ("staged", "split", "whole", "whole", "split", "staged")
+    turns3 = route_turns(sim, order3)
+    log(f"  {NR}x{NAZ} float32 in turns {order3}: "
+        + ", ".join(f"{r} route {turns3[r]} ms/step" for r in K.ROUTES)
+        + f" [{gpu}]")
     sync = host_sync_cost(sim)
     log(f"  host sync of one device scalar per step: {sync * 1e3:.4f} ms "
         f"[{gpu}]")
-    del sim_split
-    res["pds70"] = run_pds70(sim_pds)
+    del sim_split, sim
+    res["pds70_gas"] = run_pds70(sim_gas)
+    log_pds70(res["pds70_gas"], gpu)
+    del sim_gas
+    t0 = time.perf_counter()
+    sim_dust = pds70(NR, NAZ, "float32", "cuda")
+    log(f"  PDS70 with {sim_dust.state.particles.n} particles {NR}x{NAZ} "
+        f"float32 built in {time.perf_counter() - t0:.2f} s")
+    res["pds70"] = run_pds70(sim_dust)
     log_pds70(res["pds70"], gpu)
+    del sim_dust
+    # float64 at the same width: the swarm that float32 freezes stays alive
+    res["pds70_f64"] = run_pds70(pds70(NR, NAZ, "float64", "cuda"), warmup=2,
+                                 steps=5, run_steps=5)
+    log_pds70(res["pds70_f64"], gpu)
     log(f"  phase 3 done at {time.perf_counter() - t_main:.1f} s")
 
     log("== 4. trajectory: GPU kernels vs CPU plain path")
@@ -779,26 +1031,34 @@ def main() -> int:
     trajectory(128, 256, "float64", 20, 1e-9)
     trajectory(250, 512, "float32", 200, 1e-3)
     trajectory(130, 256, "float64", 20, 1e-9)
-    trajectory(64, 128, "float32", 200, 1e-3, setup=pds70)
-    trajectory(64, 128, "float64", 20, 1e-9, setup=pds70)
+    trajectory(256, 512, "float32", 200, 1e-3, setup=flagship_staged)
+    trajectory(128, 256, "float64", 20, 1e-9, setup=flagship_staged)
+    trajectory(64, 128, "float32", 200, 1e-3, setup=pds70_gas)
+    trajectory(64, 128, "float64", 20, 1e-9, setup=pds70_gas)
+    trajectory(64, 128, "float32", 200, 1e-3, setup=pds70_4096)
+    trajectory(64, 128, "float64", 20, 1e-9, setup=pds70_4096)
     newton = newton_budget(128, 384, 200)
     log(f"  phase 4 done at {time.perf_counter() - t_main:.1f} s")
 
-    # launches: each kernel's count from the run of its own path (the
-    # whole route for cfl, sources and viscous_kick as well, the PDS70 gas
-    # step for artvisc_sn)
-    def route_of(name):
-        if name == "artvisc_sn":
-            return "pds70"
-        return "split" if name in ROUTE_OPS["split"] else "whole"
-    kernels = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
-                "replaces": KERNELS[name][1],
-                "launches": res[route_of(name)]["launches"][name],
+    # launches: each kernel's count from the run of its own path in phase 3
+    # (KERNELS: the whole route for cfl, sources and viscous_kick as well,
+    # the PDS70 gas step for artvisc_sn)
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"fargocpt_torch/csrc/{name}.cu",
+                "replaces": "fargocpt_tpu/ops/pallas_kernels.py:"
+                            f"{KERNELS[name][0]}",
+                "launches": res[KERNELS[name][1]]["launches"][name],
                 **measured[name]}
                for name in K.OPS]
+    for k in kernels:
+        if not k["launches"] > 0:
+            raise AssertionError(f"kernel {k['name']} was not launched on "
+                                 "its path")
     log(json.dumps({"pvte_newton_1_vs_3_rel_l2": newton,
-                    "transport_routes_ms": route_ms,
+                    f"transport_routes_ms_at_{NR_SPLIT}": route_ms,
+                    f"transport_routes_ms_at_{NR}": route3_ms,
                     f"step_ms_in_turns_at_{NR_SPLIT}": turns,
+                    f"step_ms_in_turns_at_{NR}": turns3,
                     "slices": {r: {k: v for k, v in x.items()
                                    if k != "launches"}
                                for r, x in res.items()}}))

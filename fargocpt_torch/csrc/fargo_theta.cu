@@ -11,7 +11,8 @@
 //
 // Bound: device memory. Least traffic: the batch and vres read once, the
 // batch written once (52 B per cell in f32 for K = 6). Design: one launch
-// per sweep, one thread per cell (i, j) that sweeps all K quantities:
+// of theta_sweep_kernel (transport.cuh, shared with theta_sweep.cu) per
+// sweep, one thread per cell (i, j) that sweeps all K quantities:
 //   two sweeps: qs -> scratch (residual velocity), scratch -> out
 //               (uniform velocity, rolled);
 //   one sweep:  qs -> out (residual velocity, rolled).
@@ -30,29 +31,6 @@ namespace fc {
 namespace {
 
 template <typename T>
-__global__ void ft_sweep_kernel(const T* __restrict__ qin,
-                                const T* __restrict__ vres,
-                                const T* __restrict__ vconst,
-                                const int* __restrict__ nshift,
-                                const T* __restrict__ cols,
-                                const T* __restrict__ scal, double dphi,
-                                int nr, int naz, int K, int kind, int uniform,
-                                int roll, T* __restrict__ qout) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)nr * naz) return;
-  const int i = (int)(idx / naz);
-  const int j = (int)(idx % naz);
-  const int c = roll ? wrap(j - wrap(nshift[i], naz), naz) : j;
-  int jj[5];                         // cells c-2 .. c+2
-  for (int d = 0; d < 5; ++d) jj[d] = wrap(c - 2 + d, naz);
-  const size_t row = (size_t)i * naz;
-  const T v0 = uniform ? vconst[i] : vres[row + c];
-  const T v1 = uniform ? vconst[i] : vres[row + jj[3]];
-  theta_sweep_cell(qin, cols, K, nr, naz, i, jj, v0, v1, scal[0], T(dphi),
-                   kind, qout, idx);
-}
-
-template <typename T>
 int launch(void* const* p, const double* fp, const int* ip, void* stream) {
   const int nr = ip[0], naz = ip[1], K = ip[2], kind = ip[3];
   const int two_pass = ip[4];
@@ -67,16 +45,16 @@ int launch(void* const* p, const double* fp, const int* ip, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned int blocks = n_blocks((size_t)nr * naz);
   if (two_pass) {
-    ft_sweep_kernel<T><<<blocks, BLOCK, 0, s>>>(
+    theta_sweep_kernel<T><<<blocks, BLOCK, 0, s>>>(
         qs, vres, vconst, nshift, cols, scal, fp[0], nr, naz, K, kind, 0, 0,
         scratch);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
-    ft_sweep_kernel<T><<<blocks, BLOCK, 0, s>>>(
+    theta_sweep_kernel<T><<<blocks, BLOCK, 0, s>>>(
         scratch, vres, vconst, nshift, cols, scal, fp[0], nr, naz, K, kind, 1,
         1, out);
   } else {
-    ft_sweep_kernel<T><<<blocks, BLOCK, 0, s>>>(
+    theta_sweep_kernel<T><<<blocks, BLOCK, 0, s>>>(
         qs, vres, vconst, nshift, cols, scal, fp[0], nr, naz, K, kind, 0, 1,
         out);
   }

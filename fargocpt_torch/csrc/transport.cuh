@@ -1,6 +1,7 @@
-// Device functions of the FARGO transport kernels: the whole-transport
-// kernel (transport.cu) and the two kernels of the split route
-// (radial_momenta_sweep.cu, fargo_theta.cu).
+// Device code of the FARGO transport kernels: the whole-transport kernel
+// (transport.cu), the two kernels of the split route
+// (radial_momenta_sweep.cu, fargo_theta.cu) and the three of the staged
+// route (radial_sweep.cu, theta_sweep.cu, advect_shift.cu).
 //
 // The advected batch is (K, NR, NAZ), ordered [rp, rm, ap, am, (energy),
 // sigma]: K = 6 adiabatic, 5 isothermal; entry K-1 is the density.
@@ -127,5 +128,39 @@ __device__ __forceinline__ void theta_sweep_cell(
     qout[(size_t)k * plane + out_idx] = qk[jj[2]] + (f0 - f1) * inv_surf;
   }
 }
+
+// One azimuthal sweep of the batch as a kernel, one thread per cell (i, j)
+// sweeping all K quantities: the launches of fargo_theta.cu (with the
+// uniform velocity and the roll as flags) and of theta_sweep.cu (neither).
+// With `roll` the thread computes the swept value of the source cell
+// (j - s_i) mod NAZ and writes it at j; with `uniform` both interfaces
+// move with vconst[i]. vconst and nshift are read only under their flag.
+namespace {
+
+template <typename T>
+__global__ void theta_sweep_kernel(const T* __restrict__ qin,
+                                   const T* __restrict__ vres,
+                                   const T* __restrict__ vconst,
+                                   const int* __restrict__ nshift,
+                                   const T* __restrict__ cols,
+                                   const T* __restrict__ scal, double dphi,
+                                   int nr, int naz, int K, int kind,
+                                   int uniform, int roll,
+                                   T* __restrict__ qout) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)nr * naz) return;
+  const int i = (int)(idx / naz);
+  const int j = (int)(idx % naz);
+  const int c = roll ? wrap(j - wrap(nshift[i], naz), naz) : j;
+  int jj[5];                         // cells c-2 .. c+2
+  for (int d = 0; d < 5; ++d) jj[d] = wrap(c - 2 + d, naz);
+  const size_t row = (size_t)i * naz;
+  const T v0 = uniform ? vconst[i] : vres[row + c];
+  const T v1 = uniform ? vconst[i] : vres[row + jj[3]];
+  theta_sweep_cell(qin, cols, K, nr, naz, i, jj, v0, v1, scal[0], T(dphi),
+                   kind, qout, idx);
+}
+
+}  // namespace
 
 }  // namespace fc

@@ -1,5 +1,9 @@
 """The setups that ``chip_smoke.py`` and ``profile_step`` run.
 
+``pds70``: ``__graft_entry__._pds70`` whole (BASELINE.json configs[4]):
+the gas setup below with its Lagrangian dust, 16384 particles of 4 sizes
+from 1 cm, the exponential midpoint integrator.
+
 ``flagship``: the JAX package's ``__graft_entry__._flagship`` (adiabatic
 disk, alpha viscosity, SN artificial viscosity, viscous heating, local beta
 cooling, FARGO transport, one star).
@@ -7,8 +11,8 @@ cooling, FARGO transport, one star).
 ``pds70_gas``: the gas part of ``__graft_entry__._pds70`` (BASELINE.json
 configs[4]): the variable-gamma PVTE equation of state, FLD radiative
 diffusion, symmetric FFT self-gravity, thermal surface cooling, viscous
-heating, SN artificial viscosity, FARGO transport, one star. Lagrangian
-dust is left out (``IntegrateParticles: no``).
+heating, SN artificial viscosity, FARGO transport, one star, without the
+dust (``IntegrateParticles: no``).
 """
 
 from __future__ import annotations
@@ -54,6 +58,13 @@ PDS70_GAS = {
     **_RUN,
 }
 
+PDS70 = {
+    **PDS70_GAS,
+    "IntegrateParticles": "yes",
+    "ParticleRadius": "1 cm", "ParticleSpeciesNumber": "4",
+    "ParticleIntegrator": "midpoint",
+}
+
 
 def flagship(nrad: int, naz: int) -> Config:
     """The flagship setup on an ``nrad`` x ``naz`` grid."""
@@ -63,3 +74,10 @@ def flagship(nrad: int, naz: int) -> Config:
 def pds70_gas(nrad: int, naz: int) -> Config:
     """The PDS70 gas setup on an ``nrad`` x ``naz`` grid."""
     return Config.from_dict(dict(PDS70_GAS, Nrad=str(nrad), Naz=str(naz)))
+
+
+def pds70(nrad: int, naz: int, n_particles: int = 16384) -> Config:
+    """The whole PDS70 setup, dust included, on an ``nrad`` x ``naz``
+    grid."""
+    return Config.from_dict(dict(PDS70, Nrad=str(nrad), Naz=str(naz),
+                                 NumberOfParticles=str(n_particles)))

@@ -1,16 +1,18 @@
 """The fused ops of the time step, each as a hand-written CUDA kernel
 (``csrc/*.cu``) and as its plain PyTorch version composed from the ported
-ops: CFL, sources, viscous kick, the FARGO transport by one of two routes
-(``transport.route``): the whole transport as one op, or the split route's
-two ops, ``radial_momenta_sweep`` and ``fargo_theta``, with the glue
-between them as PyTorch ops; and the Stone-Norman artificial viscosity
+ops: CFL, sources, viscous kick, the FARGO transport by one of three
+routes: the whole transport as one op, the split route's two ops,
+``radial_momenta_sweep`` and ``fargo_theta``, or the staged route's three,
+``radial_sweep``, ``theta_sweep`` and ``advect_shift``, each with the glue
+between its ops as PyTorch ops (``transport.route`` picks whole or split
+per grid; the staged route runs where ``KernelContext`` is built with
+``transport_route="staged"``); and the Stone-Norman artificial viscosity
 substep, ``artvisc_sn``, which the steps outside the fused viscous kick's
 gate run (the PVTE setups).
 
-Each op's entry point (``cfl``, ``sources``, ``viscous_kick``,
-``transport``, ``radial_momenta_sweep``, ``fargo_theta``, ``artvisc_sn``)
-takes the plain version only for tensors on the CPU; for a CUDA tensor it
-launches the kernel or raises. There is no fallback from a failed build or
+Each op's entry point (the names in ``OPS``) takes the plain version only
+for tensors on the CPU; for a CUDA tensor it launches the kernel or
+raises. There is no fallback from a failed build or
 launch to the plain version.
 
 The kernels are built at first use with ``nvcc`` into
@@ -46,7 +48,9 @@ from . import artvisc, cfl as cfl_ops, energy as energy_ops, eos, gravity, \
 from .common import Geom
 
 OPS = ("cfl", "sources", "viscous_kick", "transport",
-       "radial_momenta_sweep", "fargo_theta", "artvisc_sn")
+       "radial_momenta_sweep", "fargo_theta", "artvisc_sn",
+       "radial_sweep", "theta_sweep", "advect_shift")
+ROUTES = ("whole", "split", "staged")
 LAUNCHES = {name: 0 for name in OPS}
 
 
@@ -119,15 +123,20 @@ class KernelContext(nn.Module):
     """Everything the ops read besides the fields: the physics and
     constants, the ``Geom`` columns, the kernels' column table, the
     azimuth rows, the isothermal sound-speed profile, and the transport
-    route of the grid. All tensors are buffers, so ``.to(device)`` moves
-    every one of them."""
+    route: the grid's (``transport.route``) unless ``transport_route``
+    names one of ``ROUTES``. All tensors are buffers, so ``.to(device)``
+    moves every one of them."""
 
     def __init__(self, phys: Physics, constants, geometry: Geometry,
-                 dtype: torch.dtype, device: torch.device | str | None = None):
+                 dtype: torch.dtype, device: torch.device | str | None = None,
+                 transport_route: str | None = None):
         super().__init__()
+        if transport_route not in (None, *ROUTES):
+            raise ValueError(f"transport_route must be one of {ROUTES} or "
+                             f"None, got {transport_route!r}")
         self.phys = phys
         self.constants = constants
-        self.route = tr_ops.route(geometry.nrad)
+        self.route = transport_route or tr_ops.route(geometry.nrad)
         self.g = Geom(geometry, dtype, device)
         self.register_buffer("cols", torch.tensor(
             make_columns(phys, constants, geometry), dtype=dtype,
@@ -214,8 +223,8 @@ def transport_plain(ctx: KernelContext, sigma, vrad, vaz, energy,
                     omega_frame, dt, shift, route=None):
     """The composed FARGO transport by ``route`` (the context's when
     None). Returns (sigma, vrad, vaz, energy, mass_flux)."""
-    compose = tr_ops.transport_split if (route or ctx.route) == "split" \
-        else tr_ops.transport
+    compose = {"whole": tr_ops.transport, "split": tr_ops.transport_split,
+               "staged": tr_ops.transport_staged}[route or ctx.route]
     return compose(ctx.phys, ctx.g, sigma, vrad, vaz, energy,
                    omega_frame.to(sigma.dtype), dt, shift=shift)
 
@@ -233,6 +242,21 @@ def fargo_theta_plain(ctx: KernelContext, qs, vres, vconst, nshift, dt,
     """Azimuthal sweeps + integer roll of the split route; (K, NR, NAZ)."""
     return tr_ops.fargo_theta(ctx.phys, ctx.g, qs, vres, vconst, nshift, dt,
                               two_pass)
+
+
+def radial_sweep_plain(ctx: KernelContext, qs, sigma, vrad, base, dt):
+    """Radial sweep of the given batch of the staged route; (K, NR, NAZ)."""
+    return tr_ops.radial_sweep(ctx.phys, ctx.g, qs, sigma, vrad, base, dt)
+
+
+def theta_sweep_plain(ctx: KernelContext, qs, v, dt):
+    """One azimuthal sweep of the batch of the staged route; (K, NR, NAZ)."""
+    return tr_ops.theta_sweep(ctx.phys, ctx.g, qs, v, dt)
+
+
+def advect_shift_plain(qs, nshift):
+    """The per-ring integer roll of the staged route; (K, NR, NAZ)."""
+    return tr_ops.advect_shift(qs, nshift)
 
 
 def artvisc_sn_plain(ctx: KernelContext, sigma, vrad, vaz, energy, dt):
@@ -555,12 +579,20 @@ def transport(ctx: KernelContext, sigma, vrad, vaz, energy, omega_frame, dt,
               shift=None, route=None):
     """FARGO transport by ``route`` (the context's when None): on the
     whole route one op, on the split route ``radial_momenta_sweep`` and
-    ``fargo_theta`` with the glue between them. ``shift`` is
-    ``transport.fargo_shift``'s (vmean, nshift, vconst); computed here when
-    not given. Returns (sigma, vrad, vaz, energy, mass_flux)."""
+    ``fargo_theta``, on the staged route ``radial_sweep``, ``theta_sweep``
+    per pass and ``advect_shift``, with the glue between them. ``shift``
+    is ``transport.fargo_shift``'s (vmean, nshift, vconst); computed here
+    when not given. Returns (sigma, vrad, vaz, energy, mass_flux)."""
     if shift is None:
         shift = tr_ops.fargo_shift(ctx.g, vaz, dt)
-    if (route or ctx.route) == "split":
+    route = route or ctx.route
+    if route == "staged":
+        return tr_ops.transport_staged(
+            ctx.phys, ctx.g, sigma, vrad, vaz, energy,
+            omega_frame.to(sigma.dtype), dt, shift,
+            radial=partial(radial_sweep, ctx),
+            theta=partial(theta_sweep, ctx), roll=advect_shift)
+    if route == "split":
         return tr_ops.transport_split(
             ctx.phys, ctx.g, sigma, vrad, vaz, energy,
             omega_frame.to(sigma.dtype), dt, shift,
@@ -644,6 +676,63 @@ def fargo_theta(ctx: KernelContext, qs, vres, vconst, nshift, dt,
             [qs, vres, vconst, nshift, ctx.cols, _scalars(qs, [dt]), out,
              scratch], [g.dphi],
             [nr, naz, k, ctx.phys.flux_limiter_type, int(two_pass)])
+    return out
+
+
+def radial_sweep(ctx: KernelContext, qs, sigma, vrad, base, dt):
+    """The batch ``qs`` (K, NR, NAZ), any K >= 1, swept radially in
+    specific form (divided by ``sigma``) with the sigma flux ``base``
+    (NR+1, NAZ). Returns (K, NR, NAZ)."""
+    if qs.device.type == "cpu":
+        return radial_sweep_plain(ctx, qs, sigma, vrad, base, dt)
+    g = ctx.g
+    nr, naz = g.nrad, g.naz
+    k = qs.shape[0]
+    for name, t, shape in (("qs", qs, (k, nr, naz)),
+                           ("sigma", sigma, (nr, naz)),
+                           ("vrad", vrad, (nr + 1, naz)),
+                           ("base", base, (nr + 1, naz)),
+                           ("cols", ctx.cols, (nr + 1, N_COLS))):
+        _check(name, t, shape, qs)
+    out = torch.empty_like(qs)
+    _launch("radial_sweep", qs,
+            [qs, sigma, vrad, base, ctx.cols, _scalars(qs, [dt]), out], [],
+            [nr, naz, k, ctx.phys.flux_limiter_type])
+    return out
+
+
+def theta_sweep(ctx: KernelContext, qs, v, dt):
+    """One azimuthal sweep of the batch ``qs`` (K, NR, NAZ), any K >= 1,
+    entry K-1 the density, with the velocity ``v`` (NR, NAZ). Returns
+    (K, NR, NAZ)."""
+    if qs.device.type == "cpu":
+        return theta_sweep_plain(ctx, qs, v, dt)
+    g = ctx.g
+    nr, naz = g.nrad, g.naz
+    k = qs.shape[0]
+    for name, t, shape in (("qs", qs, (k, nr, naz)), ("v", v, (nr, naz)),
+                           ("cols", ctx.cols, (nr + 1, N_COLS))):
+        _check(name, t, shape, qs)
+    out = torch.empty_like(qs)
+    _launch("theta_sweep", qs, [qs, v, ctx.cols, _scalars(qs, [dt]), out],
+            [g.dphi], [nr, naz, k, ctx.phys.flux_limiter_type])
+    return out
+
+
+def advect_shift(qs, nshift):
+    """The per-ring integer roll of the batch ``qs`` (K, NR, NAZ) by
+    ``nshift`` (int32, NR; any sign and size):
+    out[k, i, j] = qs[k, i, (j - nshift[i]) mod NAZ]."""
+    if qs.device.type == "cpu":
+        return advect_shift_plain(qs, nshift)
+    if qs.dim() != 3:
+        raise ValueError(f"qs has shape {tuple(qs.shape)}, expected "
+                         "(K, NR, NAZ)")
+    k, nr, naz = qs.shape
+    _check("qs", qs, (k, nr, naz), qs)
+    _check_nshift(nshift, nr, qs)
+    out = torch.empty_like(qs)
+    _launch("advect_shift", qs, [qs, nshift, out], [], [nr, naz, k])
     return out
 
 

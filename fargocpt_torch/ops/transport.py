@@ -7,11 +7,15 @@ stacked into one (K, NR, NAZ) tensor so each sweep is one batched pass;
 every quantity divides by the same pre-sweep density snapshot. The
 per-ring integer-cell roll of the FARGO trick is a ``torch.gather``.
 
-Two routes compose the same substep, as in the JAX package
+Three routes compose the same substep, as in the JAX package
 (fargocpt_tpu/ops/transport.py:164-279): ``transport``, the whole
-transport (one CUDA kernel on the GPU), and ``transport_split``, the radial
+transport (one CUDA kernel on the GPU); ``transport_split``, the radial
 half (``radial_momenta_sweep``) and the azimuthal half (``fargo_theta``)
-as two kernels with the glue between them. ``route`` picks one per grid.
+as two kernels with the glue between them; and ``transport_staged``, stage
+by stage (``radial_sweep`` of the stacked batch, one ``theta_sweep`` per
+pass, the ``advect_shift`` roll), the branch the JAX package takes
+wherever its fused kernels are off. ``route`` picks whole or split per
+grid; the staged route runs only where a caller asks for it.
 """
 
 from __future__ import annotations
@@ -148,34 +152,63 @@ def sigma_flux(phys: Physics, g: Geom, sigma, vrad, dt):
     return dt * g.dphi * g.ra * star_radial(phys, g, sigma, vrad, dt) * vrad
 
 
-def radial_momenta_sweep(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
-                         base, dt, omega_frame):
-    """The momenta and the radial sweep of the split route
-    (fargocpt_tpu/ops/pallas_kernels.py ``radial_momenta_sweep_pallas``):
-    the stack [rp, rm, ap, am, (energy), sigma] advected radially in
-    specific form, with ``base`` = dt dphi Ra density_star vrad the sigma
-    flux through the faces. Returns (K, NR, NAZ)."""
+def momenta_batch(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
+                  omega_frame):
+    """The advected batch [rp, rm, ap, am, (energy), sigma], (K, NR, NAZ):
+    K = 6 adiabatic, 5 isothermal; entry K-1 is the density."""
     rp, rm, ap, am = compute_momenta(g, sigma, vrad, vaz, omega_frame)
     names = [rp, rm, ap, am] + ([energy] if phys.is_adiabatic else []) \
         + [sigma]
-    qs = torch.stack(names, dim=0)
+    return torch.stack(names, dim=0)
+
+
+def radial_sweep(phys: Physics, g: Geom, qs, sigma, vrad, base, dt):
+    """The radial sweep of a given batch
+    (fargocpt_tpu/ops/pallas_kernels.py ``radial_sweep_pallas``): ``qs``
+    (K, NR, NAZ) advected radially in specific form (divided by the
+    pre-sweep ``sigma``), with ``base`` = dt dphi Ra density_star vrad the
+    sigma flux through the faces. The density entry is swept like the
+    others. Returns (K, NR, NAZ)."""
     flux = star_radial(phys, g, qs / sigma, vrad, dt) * base
     return qs + (flux[..., :-1, :] - flux[..., 1:, :]) * g.inv_surf
 
 
+def radial_momenta_sweep(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
+                         base, dt, omega_frame):
+    """The momenta and the radial sweep of the split route
+    (fargocpt_tpu/ops/pallas_kernels.py ``radial_momenta_sweep_pallas``):
+    ``momenta_batch`` through ``radial_sweep``. Returns (K, NR, NAZ)."""
+    qs = momenta_batch(phys, g, sigma, vrad, vaz, energy, omega_frame)
+    return radial_sweep(phys, g, qs, sigma, vrad, base, dt)
+
+
+def theta_sweep(phys: Physics, g: Geom, qs, v, dt):
+    """One azimuthal sweep of the (K, NR, NAZ) batch with the velocity
+    ``v`` (NR, NAZ) (fargocpt_tpu/ops/pallas_kernels.py
+    ``theta_sweep_pallas``). Entry K-1 is the density: every quantity is
+    divided by it and advected with its upwind value."""
+    sig_now = qs[-1]
+    ds = star_theta(phys, g, sig_now, v, dt)
+    return van_leer_theta_batch(phys, g, qs, sig_now, ds, v, dt)
+
+
 def fargo_theta(phys: Physics, g: Geom, qs, vres, vconst, nshift, dt,
-                two_pass: bool):
+                two_pass: bool, sweep=None, roll=None):
     """The azimuthal half of the transport
     (fargocpt_tpu/ops/pallas_kernels.py ``fargo_theta_pallas``): a sweep
     of the (K, NR, NAZ) batch with the residual velocity ``vres``, with
-    ``two_pass`` a second sweep with the uniform ``vconst`` (NR, 1), then
-    the per-ring integer roll by ``nshift``. Entry K-1 is the density."""
-    passes = [vres, vconst.expand_as(vres)] if two_pass else [vres]
+    ``two_pass`` a second sweep with the uniform ``vconst`` (NR, 1)
+    expanded to (NR, NAZ), then the per-ring integer roll by ``nshift``.
+    Each sweep takes its density from the batch as the sweep before left
+    it. ``sweep`` and ``roll`` stand in for ``theta_sweep`` (without its
+    first two arguments) and ``advect_shift``."""
+    sweep = sweep or partial(theta_sweep, phys, g)
+    roll = roll or advect_shift
+    passes = [vres, vconst.expand_as(vres).contiguous()] if two_pass \
+        else [vres]
     for v in passes:
-        sig_now = qs[-1]
-        ds = star_theta(phys, g, sig_now, v, dt)
-        qs = van_leer_theta_batch(phys, g, qs, sig_now, ds, v, dt)
-    return advect_shift(qs, nshift)
+        qs = sweep(qs, v, dt)
+    return roll(qs, nshift)
 
 
 def transport(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
@@ -186,10 +219,7 @@ def transport(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
     Returns (sigma, vrad, vaz, energy, mass_flux) with mass_flux the
     radial mass flux through the faces, (NR+1, NAZ)."""
     density_star = star_radial(phys, g, sigma, vrad, dt)
-    rp, rm, ap, am = compute_momenta(g, sigma, vrad, vaz, omega_frame)
-    names = [rp, rm, ap, am] + ([energy] if phys.is_adiabatic else []) \
-        + [sigma]
-    qs = torch.stack(names, dim=0)
+    qs = momenta_batch(phys, g, sigma, vrad, vaz, energy, omega_frame)
     qs, flux = van_leer_radial_batch(phys, g, qs, sigma, density_star,
                                      vrad, dt)
     return _azimuthal_half(phys, g, qs, vrad, vaz, energy, omega_frame, dt,
@@ -199,7 +229,7 @@ def transport(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
 
 def _azimuthal_half(phys: Physics, g: Geom, qs, vrad, vaz, energy,
                     omega_frame, dt, shift, theta):
-    """What both routes do after the radial sweep of the batch ``qs``: the
+    """What every route does after the radial sweep of the batch ``qs``: the
     residual velocity, the azimuthal sweeps and roll (``theta``, as
     ``fargo_theta`` without its first two arguments), and the velocities.
     Returns (sigma, vrad, vaz, energy)."""
@@ -233,3 +263,24 @@ def transport_split(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
     qs = radial(sigma, vrad, vaz, energy, base, dt, omega_frame)
     return _azimuthal_half(phys, g, qs, vrad, vaz, energy, omega_frame, dt,
                            shift, theta) + (base,)
+
+
+def transport_staged(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
+                     omega_frame, dt, shift=None, radial=None, theta=None,
+                     roll=None):
+    """The staged route of the transport substep, the stage-by-stage
+    branch of fargocpt_tpu/ops/transport.py:213-279: the sigma flux
+    ``base``, the momenta stacked into the batch, the radial sweep of the
+    batch, the residual velocity, one azimuthal sweep per pass, the roll,
+    the velocities. ``radial``, ``theta`` and ``roll`` stand in for
+    ``radial_sweep``, ``theta_sweep`` (both without their first two
+    arguments) and ``advect_shift`` (the GPU passes its kernels);
+    ``shift`` is as in ``transport``. Returns (sigma, vrad, vaz, energy,
+    mass_flux)."""
+    radial = radial or partial(radial_sweep, phys, g)
+    base = sigma_flux(phys, g, sigma, vrad, dt)
+    qs = momenta_batch(phys, g, sigma, vrad, vaz, energy, omega_frame)
+    qs = radial(qs, sigma, vrad, base, dt)
+    return _azimuthal_half(
+        phys, g, qs, vrad, vaz, energy, omega_frame, dt, shift,
+        partial(fargo_theta, phys, g, sweep=theta, roll=roll)) + (base,)

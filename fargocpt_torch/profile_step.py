@@ -1,19 +1,21 @@
 """Where a step's device time goes, on one CUDA GPU.
 
-    python -m fargocpt_torch.profile_step [--setup flagship|pds70_gas]
-        [--nrad 1024 1000] [--naz 3072] [--steps 120]
+    python -m fargocpt_torch.profile_step [--setup flagship|pds70_gas|pds70]
+        [--route whole|split|staged] [--nrad 1024 1000] [--naz 3072]
+        [--steps 120]
 
 For each grid: the setup's Simulation in float32 (``flagship`` by
-default, or the PDS70 gas setup), 20 warm-up steps, the wall time of
-``--steps`` steps (host clock around synchronised work), then a
-``torch.profiler`` window of 20 steps. Prints per grid the device time per
-step of each hand-written kernel (grouped by op) and of the PyTorch ops
-(with their heaviest kernels), the launches per step, and the device's
-busy share of the wall time. A second window of 20 steps wraps the step's
-phases (``PHASES``: the PVTE refresh, FLD, self-gravity, the opacity, ...)
-in ``record_function`` ranges and prints the device time of each; ranges
-nest (the opacity runs inside FLD and SubStep3). The last line is all of
-it as one JSON object. Needs a CUDA device.
+default, the PDS70 gas setup, or the whole PDS70 setup with its dust), on
+the grid's transport route or the one ``--route`` names, 20 warm-up steps,
+the wall time of ``--steps`` steps (host clock around synchronised work),
+then a ``torch.profiler`` window of 20 steps. Prints per grid the device
+time per step of each hand-written kernel (grouped by op) and of the
+PyTorch ops (with their heaviest kernels), the launches per step, and the
+device's busy share of the wall time. A second window of 20 steps wraps
+the step's phases (``phases()``: the PVTE refresh, FLD, self-gravity, the
+opacity, the dust, ...) in ``record_function`` ranges and prints the device
+time of each; ranges nest (the opacity runs inside FLD and SubStep3). The
+last line is all of it as one JSON object. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,13 +30,18 @@ from contextlib import contextmanager
 
 import torch
 
-from .flagship import flagship, pds70_gas
+from .flagship import flagship, pds70, pds70_gas
+from .ops.kernels import ROUTES
 
-SETUPS = {"flagship": flagship, "pds70_gas": pds70_gas}
+SETUPS = {"flagship": flagship, "pds70_gas": pds70_gas, "pds70": pds70}
 
-# device kernel name fragment -> the op whose CUDA source defines it
+# device kernel name fragment -> the op whose CUDA source launches it
+# (fargo_theta on the split route and theta_sweep on the staged route
+# launch one kernel)
 KERNEL_OPS = (("rms_kernel", "radial_momenta_sweep"),
-              ("ft_sweep_kernel", "fargo_theta"),
+              ("theta_sweep_kernel", "fargo_theta / theta_sweep"),
+              ("radial_sweep_kernel", "radial_sweep"),
+              ("advect_shift_kernel", "advect_shift"),
               ("tr_radial_kernel", "transport"),
               ("tr_theta_kernel", "transport"),
               ("tr_final_kernel", "transport"),
@@ -64,9 +71,11 @@ def _device_us(event, attrs=("self_device_time_total",
 def phases():
     """(owner, attribute, label) of the functions a step calls, each timed
     as one profiler range."""
+    from . import step
     from .ops import (boundary, cfl, energy, fld, gravity, kernels, opacity,
                       pvte, selfgravity, sources, viscosity)
     return (
+        (step.HydroStep, "_integrate_particles", "dust"),
         (pvte.PVTE, "gamma_mu", "PVTE refresh"),
         (fld.FLDSolver, "radiative_diffusion", "FLD substep"),
         (fld.FLDSolver, "solve", "FLD SOR solve"),
@@ -108,10 +117,11 @@ def ranges(targets):
 
 def profile_grid(nrad: int, naz: int, setup: str = "flagship",
                  warmup: int = 20, steps: int = 120,
-                 window: int = 20) -> dict:
+                 window: int = 20, route: str | None = None) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from .sim import Simulation
-    sim = Simulation(SETUPS[setup](nrad, naz), dtype="float32")
+    sim = Simulation(SETUPS[setup](nrad, naz), dtype="float32",
+                     transport_route=route)
 
     def run(n):
         for _ in range(n):
@@ -172,6 +182,9 @@ def main(argv=None) -> int:
     ap.add_argument("--nrad", type=int, nargs="+", default=[1024, 1000])
     ap.add_argument("--naz", type=int, default=3072)
     ap.add_argument("--setup", choices=sorted(SETUPS), default="flagship")
+    ap.add_argument("--route", choices=ROUTES,
+                    default=None, help="the transport route (default: the "
+                    "grid's own)")
     ap.add_argument("--steps", type=int, default=120)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -183,7 +196,8 @@ def main(argv=None) -> int:
     print(gpu, flush=True)
     results = []
     for nrad in args.nrad:
-        r = profile_grid(nrad, args.naz, args.setup, steps=args.steps)
+        r = profile_grid(nrad, args.naz, args.setup, steps=args.steps,
+                         route=args.route)
         results.append(r)
         print(f"{args.setup} {r['grid']} float32, {r['route']} route: wall "
               f"{r['wall_ms_per_step']:.4f} ms/step, device "

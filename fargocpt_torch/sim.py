@@ -8,14 +8,18 @@
 
 Everything lives on ``device``, the GPU (``"cuda"``) unless the caller
 asks for ``device="cpu"``; ``"cuda"`` without a card raises.
+``transport_route`` sends the FARGO transport down a named route
+(``ops/kernels.ROUTES``) where the grid would pick its own.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time as _time
+import warnings
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -25,6 +29,7 @@ from .constants import Constants
 from .grid import Geometry
 from .nbody import system as nbody_sys
 from .params import physics_from_config
+from .particles import dust
 from .state import FieldState, SystemState
 from .step import HydroStep, check_supported, make_ref_values
 
@@ -67,7 +72,8 @@ class Simulation:
     """End-to-end simulation: config -> grid -> ICs -> stepping."""
 
     def __init__(self, cfg: Config, outdir: str | None = None,
-                 dtype: str = "float64", device: str | torch.device = "cuda"):
+                 dtype: str = "float64", device: str | torch.device = "cuda",
+                 transport_route: str | None = None):
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
         self.dtype = DTYPES[dtype]
@@ -105,13 +111,18 @@ class Simulation:
         self.geometry = Geometry.from_config(cfg)
         self.settings = RunSettings.from_config(cfg, outdir)
 
+        # the particle keys are consulted even when particles are off (the
+        # reference always reads them, src/parameters.cpp:854-932)
+        pp, particles = self._setup_particles(cfg)
         fields = initial.build_initial_state(
             self.phys, self.constants, self.geometry, dtype=self.dtype,
             device=self.device)
         self.stepper = HydroStep(
             self.phys, self.constants, self.geometry, make_ref_values(fields),
             self.bodies, self.n_hydroframe, dtype=self.dtype,
-            device=self.device, units=self.units)
+            device=self.device, units=self.units,
+            transport_route=transport_route,
+            particle_params=pp if self.phys.integrate_particles else None)
         sg = self.stepper.selfgravity
         if sg is not None:
             # equilibrium v_az with the axisymmetric self-gravity pull
@@ -126,6 +137,8 @@ class Simulation:
         self.stepper.set_ref_values(make_ref_values(fields))
         self.state: SystemState = self.stepper.initial_system_state(
             fields, nbody_sys.make_state(nb_init, self.device))
+        if self.phys.integrate_particles:
+            self.state = self.state.replace(particles=particles)
 
         self.time = self._scalar(0.0)
         self.last_dt = self._scalar(self.settings.first_dt)
@@ -138,6 +151,50 @@ class Simulation:
         # every config key has been consulted by now; a leftover key is a
         # typo (reference src/main.cpp:110)
         cfg.exit_on_unknown_key()
+
+    def _setup_particles(self, cfg: Config):
+        """Parse the particle configuration and build the initial swarm
+        (reference src/parameters.cpp particle section + particles.cpp:516)."""
+        n = cfg.get("NumberOfParticles", 0, type=int)
+        n_species = max(cfg.get("ParticleSpeciesNumber", 1, type=int), 1)
+        radius0 = cfg.get("ParticleRadius", 100.0 / self.units.length,
+                          dim=u.DIM_LENGTH, type=float)
+        factor = cfg.get("ParticleRadiusIncreaseFactor", 10.0, type=float)
+        density = cfg.get("ParticleDensity", 2.65 / self.units.density,
+                          dim=u.DIM_DENSITY, type=float)
+        rmin_p = cfg.get("ParticleMinimumRadius", self.geometry.rmin,
+                         dim=u.DIM_LENGTH, type=float)
+        rmax_p = cfg.get("ParticleMaximumRadius", self.geometry.rmax,
+                         dim=u.DIM_LENGTH, type=float)
+        cartesian = cfg.get_flag("CartesianParticles", False)
+        integrator = cfg.get_lowercase("ParticleIntegrator", "midpoint")
+        if cartesian and integrator.startswith("m"):
+            # exponential midpoint is polar-only (reference
+            # parameters.cpp:927-932)
+            warnings.warn("CartesianParticles is only supported by the "
+                          "adaptive integrator; disabled for midpoint")
+            cartesian = False
+        pp = dust.ParticleParams(
+            density=density,
+            cartesian=cartesian,
+            gas_drag=cfg.get_flag("ParticleGasDragEnabled", True),
+            disk_gravity=cfg.get_flag("ParticleDiskGravityEnabled", False),
+            diffusion=cfg.get_flag("ParticleDustDiffusion", False),
+            integrator=integrator,
+            min_escape_radius=cfg.get("ParticleMinimumEscapeRadius", rmin_p,
+                                      dim=u.DIM_LENGTH, type=float),
+            max_escape_radius=cfg.get("ParticleMaximumEscapeRadius", rmax_p,
+                                      dim=u.DIM_LENGTH, type=float))
+        sizes = radius0 * factor ** (np.arange(n) % n_species)
+        particles = dust.init_particles(
+            n, rmin_p, rmax_p,
+            cfg.get("ParticleSurfaceDensitySlope",
+                    self.phys.sigma_slope, type=float),
+            sizes, self.constants.G * self.phys.hydro_center_mass,
+            eccentricity=cfg.get("ParticleEccentricity", 0.0, type=float),
+            seed=cfg.get("RandomSeed", 1337, type=int),
+            dtype=self.dtype, device=self.device)
+        return pp, particles
 
     def _scalar(self, value) -> torch.Tensor:
         return torch.tensor(value, dtype=self.dtype, device=self.device)

@@ -10,7 +10,8 @@ across packages as a flat dict of numpy arrays keyed by dotted names
 (``"fields.sigma"``, ``"nbody.x"``, ``"monitor_acc.mass_delta"``, ...),
 so a run can start from another implementation's state. The optional
 parts are keyed by position: ``"pvte_guess.0"``, ``"pvte_guess.1"``,
-``"fld_sor"``, ``"sg_kernel.0"`` .. ``"sg_kernel.3"``.
+``"fld_sor"``, ``"sg_kernel.0"`` .. ``"sg_kernel.3"``; the dust swarm by
+field: ``"particles.r"``, ``"particles.alive"``, ...
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from .nbody.system import NBodyState
+from .particles.dust import ParticleState
 
 
 @dataclass(frozen=True)
@@ -75,6 +77,8 @@ class SystemState:
     # self-gravity kernel refresh (reference selfgravity.cpp:186-214);
     # since_last is a host int
     sg_kernel: tuple | None = None
+    # the dust swarm (IntegrateParticles; None otherwise)
+    particles: ParticleState | None = None
 
     def replace(self, **kw) -> "SystemState":
         return replace(self, **kw)
@@ -82,7 +86,7 @@ class SystemState:
 
 _GROUPS = {"fields": FieldState, "nbody": NBodyState,
            "monitor_acc": MonitorAccum}
-_OPTIONAL = ("pvte_guess", "fld_sor", "sg_kernel")
+_OPTIONAL = ("pvte_guess", "fld_sor", "sg_kernel", "particles")
 _NBODY_KEYS = {"nbody.x", "nbody.y", "nbody.vx", "nbody.vy", "nbody.mass",
                "corot_ref_x", "corot_ref_y"}
 
@@ -107,8 +111,8 @@ def system_state_from_numpy(tree: dict[str, np.ndarray],
                             dtype: torch.dtype) -> SystemState:
     """Build a ``SystemState`` on ``device`` from a flat numpy dict. Field
     and scalar entries take ``dtype`` (the self-gravity spectra its complex
-    type); body entries are float64. The optional parts are set when the
-    dict holds them."""
+    type, the particles' ``alive`` bool); body entries are float64. The
+    optional parts are set when the dict holds them."""
     missing = set(state_keys()) - set(tree)
     if missing:
         raise KeyError(f"state dict lacks {sorted(missing)}")
@@ -136,6 +140,11 @@ def system_state_from_numpy(tree: dict[str, np.ndarray],
         parts["sg_kernel"] = (t("sg_kernel.0", cdtype),
                               t("sg_kernel.1", cdtype), t("sg_kernel.2"),
                               int(tree["sg_kernel.3"]))
+    if "particles.r" in tree:
+        parts["particles"] = ParticleState(**{
+            f.name: t(f"particles.{f.name}",
+                      torch.bool if f.name == "alive" else None)
+            for f in dc_fields(ParticleState)})
     return SystemState(**parts)
 
 
@@ -143,7 +152,7 @@ def _flat(state: SystemState) -> dict:
     out = {}
     for f in dc_fields(SystemState):
         value = getattr(state, f.name)
-        if f.name in _GROUPS:
+        if f.name in _GROUPS or isinstance(value, ParticleState):
             for g in dc_fields(value):
                 out[f"{f.name}.{g.name}"] = getattr(value, g.name)
         elif isinstance(value, tuple):

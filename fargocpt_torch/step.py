@@ -17,7 +17,10 @@ its TPU-only dtype and NAZ % 128 terms):
 
 Self-gravity kicks the gas first; FLD radiative diffusion follows the
 substeps. Then the boundary conditions and the FARGO transport, whose
-route is fixed when the ``HydroStep`` is built (``ops/transport.route``).
+route is fixed when the ``HydroStep`` is built (``ops/transport.route``,
+or the ``transport_route`` the caller names). The dust swarm
+(``particles/dust.py``) is integrated against the step-start gas fields,
+after the N-body kick and before the frame rotation.
 The ops dispatch on the tensors' device (``ops/kernels.py``): the plain
 PyTorch versions on the CPU, the CUDA kernels on a GPU.
 
@@ -54,12 +57,15 @@ from .ops.fld import FLDConfig, FLDSolver
 from .ops.pvte import PVTE
 from .ops.selfgravity import SMOOTHING_MODES, SelfGravity
 from .params import Physics, LEAPFROG, ARTVISC_SN, ARTVISC_TW
+from .particles import dust
 from .state import (FieldState, MonitorAccum, SystemState, N_MASS_DELTA,
                     MD_FLOOR_CREATE, MD_INNER_IN, MD_INNER_OUT, MD_OUTER_IN,
                     MD_OUTER_OUT)
 
 
-def check_supported(phys: Physics, bodies: list[BodyConfig]) -> None:
+def check_supported(phys: Physics, bodies: list[BodyConfig],
+                    particle_params: dust.ParticleParams | None = None
+                    ) -> None:
     """Raise NotImplementedError for every feature outside the ported
     slice, naming it."""
     unsupported = {
@@ -70,7 +76,9 @@ def check_supported(phys: Physics, bodies: list[BodyConfig]) -> None:
         "self-gravity in SelfGravityMode besselkernel (Bessel-kernel "
         "self-gravity)": phys.self_gravity
             and phys.self_gravity_mode not in SMOOTHING_MODES,
-        "dust particles": phys.integrate_particles,
+        "dust diffusion (ParticleDustDiffusion)":
+            phys.integrate_particles and particle_params is not None
+            and particle_params.diffusion,
         "planets (more than one N-body body)": len(bodies) > 1,
         "the leapfrog integrator": phys.hydro_integrator == LEAPFROG,
         "damping zones": phys.damping,
@@ -141,11 +149,13 @@ class HydroStep(nn.Module):
                  geometry: Geometry, ref_values: RefValues,
                  bodies: list[BodyConfig] | None = None,
                  n_hydroframe: int = 1, *, dtype: torch.dtype,
-                 device: torch.device | str, units=None):
+                 device: torch.device | str, units=None,
+                 transport_route: str | None = None,
+                 particle_params: dust.ParticleParams | None = None):
         super().__init__()
         bodies = bodies if bodies is not None else \
             [BodyConfig(name="DefaultStar", mass=phys.hydro_center_mass)]
-        check_supported(phys, bodies)
+        check_supported(phys, bodies, particle_params)
         self.phys = phys
         self.constants = constants
         self.units = units
@@ -154,15 +164,18 @@ class HydroStep(nn.Module):
         self.n_hydroframe = n_hydroframe
         self.gates = gates(phys)
         self.ops = kernels.KernelContext(phys, constants, geometry, dtype,
-                                         device)
+                                         device, transport_route)
         for name in ("sigma0", "energy0", "vrad0", "vaz0"):
             self.register_buffer(
                 f"ref_{name}", getattr(ref_values, name).to(device, dtype))
         needs_units = phys.variable_gamma or phys.cooling_surface_enabled \
-            or phys.radiative_diffusion
+            or phys.radiative_diffusion or phys.integrate_particles
         if needs_units and units is None:
-            raise ValueError("PVTE, surface cooling and FLD need the run's "
-                             "units")
+            raise ValueError("PVTE, surface cooling, FLD and the dust need "
+                             "the run's units")
+        self.particle_params = particle_params or dust.ParticleParams()
+        self.dust_grid = dust.DustGrid(geometry, dtype, device) \
+            if phys.integrate_particles else None
         self.pvte = PVTE(phys, units, dtype, device) \
             if phys.variable_gamma else None
         # the JAX package builds no FLD solver for a non-adiabatic EoS
@@ -263,6 +276,29 @@ class HydroStep(nn.Module):
         sigma, vrad, vaz, energy = self._apply_bcs(
             fields.sigma, fields.vrad, fields.vaz, fields.energy, omega)
         return FieldState(sigma=sigma, vrad=vrad, vaz=vaz, energy=energy)
+
+    def _integrate_particles(self, sigma, vrad, vaz, energy, nb, particles,
+                             omega_frame, dt):
+        """Drag + gravity integration of the swarm against the given gas
+        fields (fargocpt_tpu/step.py:1274-1304). The temperature is the one
+        the reference's particles sample (per-cell gamma and mu with PVTE):
+        for the step-start fields the PVTE grids come from the memo, with
+        no refresh of their own."""
+        phys, constants = self.phys, self.constants
+        pp = self.particle_params
+        _, press, h0 = self.derived(sigma, energy)
+        temp = eos.temperature(phys, constants, sigma, energy, press,
+                               self.pvte_vals(sigma, energy))
+        rho_mid = sigma / (phys.density_factor * h0)
+        integ = dust.integrate_rk45 if pp.integrator.startswith(
+            ("e", "a", "r")) else dust.integrate_expmid
+        sg_accel = None
+        if pp.disk_gravity and self.selfgravity is not None:
+            sg_accel = self.selfgravity.accelerations(sigma)
+        return integ(phys, pp, constants, self.units, self.dust_grid,
+                     particles, rho_mid, temp, vrad, vaz,
+                     self.bodies_on_grid(nb), self.n_bodies, omega_frame, dt,
+                     sg_accel=sg_accel)
 
     # ------------------------------------------------------------------
     def _substeps(self, sigma, vrad, vaz, energy, pot_it, time, dt,
@@ -380,6 +416,15 @@ class HydroStep(nn.Module):
         nb = nbody_sys.kick(nb, it_x, it_y, dt)
         pot_it = (it_x, it_y) if phys.indirect_term_disk_on_disk else it_nb
 
+        # dust particles (reference :178-182 particles::integrate), which
+        # then rotate with the frame (reference particles::rotate)
+        particles = state.particles
+        if phys.integrate_particles and particles is not None:
+            particles = self._integrate_particles(
+                sigma, vrad, vaz, energy, nb, particles, omega_frame, dt)
+            particles = particles.replace(phi=torch.remainder(
+                particles.phi - omega_frame * dt, 2.0 * math.pi))
+
         nb = nbody_sys.rotate(nb, omega_frame * dt)
         frame_angle = state.frame_angle + omega_frame * dt
 
@@ -432,7 +477,8 @@ class HydroStep(nn.Module):
         return state.replace(
             fields=FieldState(sigma=sigma, vrad=vrad, vaz=vaz, energy=energy),
             qplus=qplus, qminus=qminus, nbody=nb, frame_angle=frame_angle,
-            monitor_acc=monitor_acc, fld_sor=sor, sg_kernel=sg_kernel)
+            monitor_acc=monitor_acc, fld_sor=sor, sg_kernel=sg_kernel,
+            particles=particles)
 
     def cfl_dt(self, state: SystemState) -> torch.Tensor:
         """CFL time step as a 0-d tensor (reference src/cfl.cpp:185-382);

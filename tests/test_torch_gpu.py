@@ -3,9 +3,11 @@ on the same GPU tensors, at a ragged 130x200 float64 grid, with the
 tolerances of tests/test_torch_kernels.py (rtol 1e-12 cfl, 1e-11 sources
 and transport, 1e-10 viscous kick), rtol 1e-11 for the split route's two
 kernels and rtol 1e-12 for artvisc_sn (also in float32: 1e-5 of each
-output's largest magnitude); a split-route Simulation step through those
-two kernels, and a PDS70 gas step through artvisc_sn and the whole
-transport.
+output's largest magnitude) and for the staged route's radial_sweep and
+theta_sweep (advect_shift bit for bit); a split-route and a staged-route
+Simulation step through their kernels, a PDS70 gas step through artvisc_sn
+and the whole transport, and the whole PDS70 setup with its dust swarm on
+the device against the same run on the CPU.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one. This file imports no JAX, so it runs on a GPU host that has none:
@@ -19,11 +21,11 @@ import torch
 
 from fargocpt_torch.config import Config
 from fargocpt_torch.constants import Constants
-from fargocpt_torch.flagship import pds70_gas
+from fargocpt_torch.flagship import FLAGSHIP, pds70, pds70_gas
 from fargocpt_torch.grid import Geometry
 from fargocpt_torch.ops import gravity, kernels, transport
 from fargocpt_torch.params import Physics
-from fargocpt_torch.sim import Simulation
+from fargocpt_torch.sim import Simulation, reachable_tensors
 from fargocpt_torch.units import Units
 
 torch.set_num_threads(2)
@@ -130,11 +132,11 @@ def test_viscous_kick_kernel_matches_plain(cuda, compress, artvisc_on,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", ["whole", "split"])
+@pytest.mark.parametrize("route", ["whole", "split", "staged"])
 @pytest.mark.parametrize("fast", [True, False])
 @pytest.mark.parametrize("adiabatic", [True, False])
 def test_transport_kernel_matches_plain(cuda, adiabatic, fast, route):
-    """Either route at 130 rings (the whole-transport kernel takes any NR)
+    """Each route at 130 rings (the whole-transport kernel takes any NR)
     against the plain whole transport."""
     ctx = _ctx(dict(eos="adiabatic" if adiabatic else "isothermal",
                     adiabatic_index=1.4, aspectratio_ref=0.05,
@@ -145,10 +147,12 @@ def test_transport_kernel_matches_plain(cuda, adiabatic, fast, route):
     args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], omega, dt, shift)
     before = dict(kernels.LAUNCHES)
     got = kernels.transport(ctx, *args, route=route)
-    ops = ("transport",) if route == "whole" else ("radial_momenta_sweep",
-                                                   "fargo_theta")
+    ops = {"whole": {"transport": 1},
+           "split": {"radial_momenta_sweep": 1, "fargo_theta": 1},
+           "staged": {"radial_sweep": 1, "theta_sweep": 2 if fast else 1,
+                      "advect_shift": 1}}[route]
     assert {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS} == \
-        {op: int(op in ops) for op in kernels.OPS}
+        {op: ops.get(op, 0) for op in kernels.OPS}
     _close(got, kernels.transport_plain(ctx, *args, route="whole"),
            1e-11, (1e-14, 1e-13, 1e-13, 1e-14, 1e-15))
 
@@ -212,9 +216,85 @@ def test_split_route_step_launches_the_split_kernels(cuda):
     sim.step_once(sim.calculate_time_step())
     torch.cuda.synchronize()
     delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
-    assert delta == {"cfl": 1, "sources": 1, "viscous_kick": 1,
-                     "transport": 0, "radial_momenta_sweep": 1,
-                     "fargo_theta": 1, "artvisc_sn": 0}
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {
+        "cfl": 1, "sources": 1, "viscous_kick": 1,
+        "radial_momenta_sweep": 1, "fargo_theta": 1}
+    assert bool(torch.isfinite(sim.fields.sigma).all())
+
+
+def _batch(seed, k_quant, device, dtype=torch.float64):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return (t(rng.random((k_quant, NR, NAZ)) + 0.5),
+            t((rng.random((NR, NAZ)) - 0.5) * 0.05),
+            t((rng.random((NR + 1, NAZ)) - 0.5) * 0.05))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("limiter", [0, 1])
+@pytest.mark.parametrize("k_quant", [1, 5, 6])
+def test_radial_sweep_kernel_matches_plain(cuda, k_quant, limiter):
+    """Any K >= 1 and any contents: the divisor is a field of its own, not
+    the batch's last entry."""
+    ctx = _ctx(dict(flux_limiter_type=limiter), cuda)
+    qs, _, vrad = _batch(29, k_quant, cuda)
+    sigma = _batch(31, 1, cuda)[0][0]
+    dt = _one(0.01, cuda)
+    base = transport.sigma_flux(ctx.phys, ctx.g, sigma, vrad, dt)
+    before = kernels.LAUNCHES["radial_sweep"]
+    got = kernels.radial_sweep(ctx, qs, sigma, vrad, base, dt)
+    assert kernels.LAUNCHES["radial_sweep"] == before + 1
+    ref = kernels.radial_sweep_plain(ctx, qs, sigma, vrad, base, dt)
+    _close([got], [ref], 1e-11, [1e-13 * float(ref.abs().max())])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("limiter", [0, 1])
+@pytest.mark.parametrize("k_quant", [1, 5, 6])
+def test_theta_sweep_kernel_matches_plain(cuda, k_quant, limiter):
+    ctx = _ctx(dict(flux_limiter_type=limiter), cuda)
+    qs, v, _ = _batch(37, k_quant, cuda)
+    before = kernels.LAUNCHES["theta_sweep"]
+    got = kernels.theta_sweep(ctx, qs, v, _one(0.01, cuda))
+    assert kernels.LAUNCHES["theta_sweep"] == before + 1
+    ref = kernels.theta_sweep_plain(ctx, qs, v, _one(0.01, cuda))
+    _close([got], [ref], 1e-11, [1e-13 * float(ref.abs().max())])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k_quant", [1, 6])
+def test_advect_shift_kernel_equals_plain(cuda, k_quant, dtype):
+    """Bit for bit, with shifts of either sign and beyond one turn."""
+    qs = _batch(41, k_quant, cuda, dtype)[0]
+    rng = np.random.default_rng(43)
+    nshift = torch.tensor(rng.integers(-2 * NAZ, 2 * NAZ, NR),
+                          dtype=torch.int32, device=cuda)
+    before = kernels.LAUNCHES["advect_shift"]
+    got = kernels.advect_shift(qs, nshift)
+    assert kernels.LAUNCHES["advect_shift"] == before + 1
+    assert torch.equal(got, kernels.advect_shift_plain(qs, nshift))
+    with pytest.raises(ValueError, match="nshift"):
+        kernels.advect_shift(qs, nshift.long())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["FARGO", "Standard"])
+def test_staged_route_step_launches_the_staged_kernels(cuda, scheme):
+    """``transport_route="staged"``: per step one radial_sweep, one
+    theta_sweep per azimuthal pass and one advect_shift, never another
+    transport kernel."""
+    cfg = Config.from_dict(dict(FLAGSHIP, Nrad="64", Naz="128",
+                                Transport=scheme))
+    sim = Simulation(cfg, transport_route="staged")
+    assert sim.stepper.ops.route == "staged"
+    before = dict(kernels.LAUNCHES)
+    sim.step_once(sim.calculate_time_step())
+    torch.cuda.synchronize()
+    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {
+        "cfl": 1, "sources": 1, "viscous_kick": 1, "radial_sweep": 1,
+        "theta_sweep": 2 if scheme == "FARGO" else 1, "advect_shift": 1}
     assert bool(torch.isfinite(sim.fields.sigma).all())
 
 
@@ -272,8 +352,34 @@ def test_pds70_gas_step_launches_artvisc_sn_and_transport(cuda):
         sim.step_once(sim.calculate_time_step())
     torch.cuda.synchronize()
     delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
-    assert delta == {"cfl": 0, "sources": 0, "viscous_kick": 0,
-                     "transport": 2, "radial_momenta_sweep": 0,
-                     "fargo_theta": 0, "artvisc_sn": 2}
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {"transport": 2,
+                                                     "artvisc_sn": 2}
     for name in ("sigma", "vrad", "vaz", "energy"):
         assert bool(torch.isfinite(getattr(sim.fields, name)).all())
+
+
+@pytest.mark.gpu
+def test_pds70_swarm_lives_and_moves_on_the_device(cuda):
+    """The whole PDS70 setup in float64 at 32x64 with 512 particles: every
+    tensor of the run on the card, the swarm included; five steps on the
+    card against the same steps on the CPU (the GPU's dt sequence): the
+    swarm at rtol 1e-9 (r_dot at 1e-9 of its largest value), ``alive``
+    equal and whole."""
+    gpu = Simulation(pds70(32, 64, n_particles=512))
+    cpu = Simulation(pds70(32, 64, n_particles=512), device="cpu")
+    for _ in range(5):
+        dt = gpu.calculate_time_step()
+        gpu.step_once(dt)
+        cpu.step_once(dt.cpu())
+    found = dict(reachable_tensors(gpu))
+    assert "sim.state.particles.r" in found
+    assert "sim.stepper.dust_grid.cell.pos" in found
+    assert {t.device.type for t in found.values()} == {"cuda"}
+    gp, cp = gpu.state.particles, cpu.state.particles
+    assert bool(gp.alive.all()) and torch.equal(gp.alive.cpu(), cp.alive)
+    assert bool((gp.stokes > 0).all())
+    for name in ("r", "phi", "r_dot", "phi_dot", "stokes"):
+        ref = getattr(cp, name).numpy()
+        atol = 1e-9 * np.abs(ref).max() if name == "r_dot" else 0.0
+        np.testing.assert_allclose(getattr(gp, name).cpu().numpy(), ref,
+                                   rtol=1e-9, atol=atol, err_msg=name)

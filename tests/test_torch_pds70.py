@@ -206,7 +206,7 @@ def test_flagship_with_one_pds70_feature(extra):
 
 
 @pytest.mark.parametrize("extra,feature", [
-    ({"IntegrateParticles": "yes"}, "dust"),
+    ({"IntegrateParticles": "yes", "ParticleDustDiffusion": "yes"}, "dust"),
     ({"SelfGravityMode": "besselkernel"}, "Bessel"),
     ({"PVTELookupTable": "yes"}, "PVTELookupTable"),
     ({"Integrator": "leapfrog"}, "leapfrog"),
