@@ -30,9 +30,13 @@ Phases (any failure raises, so the exit code is not 0):
      against the floating-point operations of its plain version (counted
      by FlopCounter) at the float32 rate, and for advect_shift the time of
      the one PyTorch call that computes it (torch.gather with a prebuilt
-     index); the split route as a whole against the whole-transport kernel
-     on the same 1000x3072 state, and the three routes on one 1024x3072
-     state in turns;
+     index); the whole-transport kernel and advect_shift launch by launch
+     (torch.profiler: each launch's device time, the bytes it must move and
+     the memory rate that makes, the wrapper's share of the event time);
+     the whole-transport kernel at two more shapes that cross the edges of
+     its tiles (37x1030 and 20x7, float64 and float32); the split route as
+     a whole against the whole-transport kernel on the same 1000x3072
+     state, and the three routes on one 1024x3072 state in turns;
   3. the slices: the flagship Simulation on the GPU at 1024x3072 on the
      whole and on the staged route and at 1000x3072 on the split route,
      float32 (10 warm-up and 60 timed steps each of calculate_time_step +
@@ -80,6 +84,14 @@ sys.path.insert(0, HERE)
 import torch  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
+# event_ms: the median over 25 calls of the time between CUDA events around
+# a call; perturbed: a simulation's fields with seeded noise (the
+# unperturbed disk is axisymmetric, which would leave the azimuthal
+# stencils untested)
+from fargocpt_torch.profile_ops import (  # noqa: E402
+    HBM_BYTES_PER_S, LAUNCH_PLANES, event_ms as time_ms, perturbed,
+    profile_op)
+
 NR, NAZ = 1024, 3072          # whole transport route
 NR_SPLIT = 1000               # split transport route (NR % 16 != 0)
 # kernels of each transport route and their launches per step (the staged
@@ -109,9 +121,9 @@ KERNELS = {
     "advect_shift": (628, "staged", 0.0),
 }
 F64_RTOL = {name: row[2] for name, row in KERNELS.items()}
-# The card's published peaks (H100 SXM data sheet, at 700 W): device
-# memory rate, and float32 outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
+# The card's published peaks (H100 SXM data sheet, at 700 W): the device
+# memory rate is profile_ops' HBM_BYTES_PER_S; float32 outside the tensor
+# cores:
 F32_OPS_PER_S = 67e12
 
 # f32 at full size, as a fraction of each output's scale (velocities are
@@ -160,22 +172,6 @@ def pds70(nr, naz, dtype, device, n_particles=16384):
 
 def pds70_4096(nr, naz, dtype, device):
     return pds70(nr, naz, dtype, device, n_particles=4096)
-
-
-def time_ms(fn, reps=25) -> float:
-    """Median over ``reps`` calls of the device time of ``fn``."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 # --- phase 2 -----------------------------------------------------------------
@@ -332,21 +328,20 @@ def staged_calls(ctx, f, omega, dt, nshift=None):
     }
 
 
-def perturbed(sim) -> dict:
-    """The simulation's fields with seeded noise (the unperturbed disk is
-    axisymmetric, which would leave the azimuthal stencils untested)."""
-    st = sim.state
-    gen = torch.Generator(device=st.fields.sigma.device).manual_seed(7)
-
-    def noisy(t, rel=0.0, add=0.0):
-        u = 2.0 * torch.rand(t.shape, generator=gen, device=t.device,
-                             dtype=t.dtype) - 1.0
-        return t * (1.0 + rel * u) + add * u
-
-    return {"sigma": noisy(st.fields.sigma, rel=1e-2),
-            "vrad": noisy(st.fields.vrad, add=1e-4),
-            "vaz": noisy(st.fields.vaz, add=1e-3),
-            "energy": noisy(st.fields.energy, rel=1e-2)}
+def log_launches(name, kern, fragments, k_quant, plane_bytes, gpu) -> dict:
+    """The device time of each launch of one call of ``kern``
+    (torch.profiler), the bytes it must move and the memory rate that
+    makes, and the wrapper's share of the event time."""
+    r = profile_op(kern, fragments, k_quant, plane_bytes)
+    log(f"  {name} launch by launch: "
+        + "; ".join(f"{x['kernel']} {x['device_ms']:.4f} ms, "
+                    f"{x['bytes'] / 1e6:.1f} MB, {x['tb_per_s']:.3f} TB/s "
+                    f"({100 * x['share_of_memory_rate']:.1f}% of "
+                    f"{HBM_BYTES_PER_S / 1e12} TB/s)" for x in r["launches"])
+        + f"; device {r['device_ms']:.4f} ms of {r['event_ms']:.4f} ms by "
+        f"events (wrapper {r['wrapper_ms']:.4f} ms, host "
+        f"{r['host_ms']:.4f} ms a call) [{gpu}]")
+    return r
 
 
 def output_scales(name, oname, ref, f) -> list[float]:
@@ -423,16 +418,23 @@ def measure(calls, f, nr) -> dict:
     return out
 
 
-def parity_f32_flagship(sim) -> dict:
+def parity_f32_flagship(sim, gpu) -> dict:
     """The whole route's four kernels against their plain versions at
-    1024x3072 on the perturbed flagship state."""
+    1024x3072 on the perturbed flagship state, and the whole-transport
+    kernel's launches one by one."""
     st = sim.state
     f = perturbed(sim)
     dt = sim.stepper.cfl_dt(st)
     bodies = sim.stepper.bodies_on_grid(st.nbody)
     calls = op_calls(sim.stepper.ops, f, (st.qplus, st.qminus), bodies,
                      st.omega_frame, dt)
-    return measure(calls, f, NR)
+    out = measure(calls, f, NR)
+    out["transport"]["per_launch"] = log_launches(
+        "transport", calls["transport"][0],
+        [frag for frag in LAUNCH_PLANES if frag.startswith("tr_")],
+        6 if sim.stepper.ops.phys.is_adiabatic else 5,
+        nbytes([f["sigma"]]), gpu)
+    return out
 
 
 def artvisc_calls(ctx, f, dt):
@@ -486,7 +488,7 @@ def parity_f32_split(sim) -> tuple[dict, dict]:
     return out, times
 
 
-def parity_f32_staged(sim) -> tuple[dict, dict]:
+def parity_f32_staged(sim, gpu) -> tuple[dict, dict]:
     """The staged route's three kernels against their plain versions at
     1024x3072 on the perturbed flagship state; then the staged route as a
     whole against the whole-transport kernel on the same state, and the
@@ -497,7 +499,11 @@ def parity_f32_staged(sim) -> tuple[dict, dict]:
     st, ctx = sim.state, sim.stepper.ops
     f = perturbed(sim)
     dt = sim.stepper.cfl_dt(st)
-    out = measure(staged_calls(ctx, f, st.omega_frame, dt), f, NR)
+    calls = staged_calls(ctx, f, st.omega_frame, dt)
+    out = measure(calls, f, NR)
+    out["advect_shift"]["per_launch"] = log_launches(
+        "advect_shift", calls["advect_shift"][0], ["advect_shift"],
+        6 if ctx.phys.is_adiabatic else 5, nbytes([f["sigma"]]), gpu)
 
     shift = tr.fargo_shift(ctx.g, f["vaz"], dt)
     args = (ctx, f["sigma"], f["vrad"], f["vaz"], f["energy"],
@@ -604,6 +610,78 @@ def parity_f64_ragged(device) -> None:
                     check(name, label + f" two_pass={two_pass}",
                           (K.fargo_theta(c, *ft),),
                           (K.fargo_theta_plain(c, *ft),), names)
+
+
+def parity_tile_edges(device) -> None:
+    """The whole-transport kernel against the plain transport at shapes
+    that cross the edges of its tiles (strips of 16 rows; 512 cells of a
+    ring a block in float32, 256 in float64, plus a halo of 9): 37x1030
+    (NR off a multiple of 16, a last tile of 6 cells) and 20x7 (a ring
+    shorter than the halo), seeded random fields, shifts of either sign
+    and beyond one turn, K = 5 and 6, both limiters, one and two azimuthal
+    sweeps. float64 at the rtol of KERNELS, float32 at F32_TOL of each
+    output's scale."""
+    from fargocpt_torch.constants import Constants
+    from fargocpt_torch.grid import Geometry
+    from fargocpt_torch.ops import kernels as K
+    from fargocpt_torch.ops import transport as tr
+    from fargocpt_torch.params import Physics
+    from fargocpt_torch.units import Units
+    constants = Constants.from_units(Units())
+    names = ("sigma", "vrad", "vaz", "energy", "mass_flux")
+    for nr, naz in ((37, 1030), (20, 7)):
+        geometry = Geometry.build(nr, naz, 0.4, 2.5, "Log")
+        rng = np.random.default_rng(17)
+        raw = {"sigma": rng.random((nr, naz)) + 0.5,
+               "energy": rng.random((nr, naz)) * 1e-3 + 1e-3,
+               "vaz": (rng.random((nr, naz)) - 0.5) * 0.1 + 1.0,
+               "vrad": (rng.random((nr + 1, naz)) - 0.5) * 0.05}
+        shifts = rng.integers(-2 * naz, 2 * naz, nr)
+        for dtype in (torch.float64, torch.float32):
+            f = {k: torch.tensor(v, dtype=dtype, device=device)
+                 for k, v in raw.items()}
+            dt = torch.tensor(0.01, dtype=dtype, device=device)
+            omega = torch.tensor(0.3, dtype=torch.float64, device=device)
+            nshift = torch.tensor(shifts, dtype=torch.int32, device=device)
+            worst = 0.0
+            for eos_name in ("adiabatic", "isothermal"):
+                for limiter in (0, 1):
+                    for fast in (True, False):
+                        ctx = K.KernelContext(
+                            Physics(eos=eos_name, adiabatic_index=1.4,
+                                    aspectratio_ref=0.05,
+                                    flux_limiter_type=limiter,
+                                    fast_transport=fast),
+                            constants, geometry, dtype, device)
+                        vmean, _, vconst = tr.fargo_shift(ctx.g, f["vaz"],
+                                                          dt)
+                        args = (ctx, f["sigma"], f["vrad"], f["vaz"],
+                                f["energy"], omega, dt,
+                                (vmean, nshift, vconst))
+                        got = K.transport(*args, route="whole")
+                        ref = K.transport_plain(*args, route="whole")
+                        label = f"transport {nr}x{naz} {eos_name} " \
+                            f"limiter={limiter} fast={fast}"
+                        if dtype == torch.float64:
+                            for oname, a, b in zip(names, got, ref):
+                                np.testing.assert_allclose(
+                                    a.cpu().numpy(), b.cpu().numpy(),
+                                    rtol=F64_RTOL["transport"],
+                                    atol=1e-13 * float(b.abs().max()),
+                                    err_msg=f"{label} {oname}")
+                        for oname, a, b in zip(names, got, ref):
+                            scale = float(f["vaz"].abs().max()) \
+                                if oname in ("vrad", "vaz") \
+                                else float(b.abs().max())
+                            worst = max(worst,
+                                        float((a - b).abs().max()) / scale)
+            log(f"  transport             tile edges {nr}x{naz} "
+                f"{str(dtype).removeprefix('torch.')}, K = 5 and 6, both "
+                f"limiters, one and two sweeps: max|k-p| / scale = "
+                f"{worst:.3e}")
+            if dtype == torch.float32 and not worst <= F32_TOL:
+                raise AssertionError(f"transport at {nr}x{naz} float32: "
+                                     f"{worst:.3e} > {F32_TOL} of scale")
 
 
 # --- phase 3 -----------------------------------------------------------------
@@ -975,10 +1053,10 @@ def main() -> int:
     sim_split = flagship(NR_SPLIT, NAZ, "float32", "cuda")
     log(f"  flagship {NR}x{NAZ} and {NR_SPLIT}x{NAZ} float32 built in "
         f"{time.perf_counter() - t0:.2f} s")
-    measured = parity_f32_flagship(sim)
+    measured = parity_f32_flagship(sim, gpu)
     split_measured, route_ms = parity_f32_split(sim_split)
     measured.update(split_measured)
-    staged_measured, route3_ms = parity_f32_staged(sim)
+    staged_measured, route3_ms = parity_f32_staged(sim, gpu)
     measured.update(staged_measured)
     t0 = time.perf_counter()
     sim_gas = pds70_gas(NR, NAZ, "float32", "cuda")
@@ -986,6 +1064,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     measured.update(parity_f32_pds70(sim_gas))
     parity_f64_ragged(torch.device("cuda"))
+    parity_tile_edges(torch.device("cuda"))
     log(f"  phase 2 done at {time.perf_counter() - t_main:.1f} s")
 
     log("== 3. the slices: flagship Simulation on the GPU, three routes; "
@@ -1048,13 +1127,17 @@ def main() -> int:
                 "replaces": "fargocpt_tpu/ops/pallas_kernels.py:"
                             f"{KERNELS[name][0]}",
                 "launches": res[KERNELS[name][1]]["launches"][name],
-                **measured[name]}
+                **{k: v for k, v in measured[name].items()
+                   if k != "per_launch"}}
                for name in K.OPS]
     for k in kernels:
         if not k["launches"] > 0:
             raise AssertionError(f"kernel {k['name']} was not launched on "
                                  "its path")
     log(json.dumps({"pvte_newton_1_vs_3_rel_l2": newton,
+                    "launch_by_launch": {
+                        name: m["per_launch"] for name, m in measured.items()
+                        if "per_launch" in m},
                     f"transport_routes_ms_at_{NR_SPLIT}": route_ms,
                     f"transport_routes_ms_at_{NR}": route3_ms,
                     f"step_ms_in_turns_at_{NR_SPLIT}": turns,

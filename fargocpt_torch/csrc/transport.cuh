@@ -1,7 +1,8 @@
-// Device code of the FARGO transport kernels: the whole-transport kernel
-// (transport.cu), the two kernels of the split route
-// (radial_momenta_sweep.cu, fargo_theta.cu) and the three of the staged
-// route (radial_sweep.cu, theta_sweep.cu, advect_shift.cu).
+// Device code shared by the FARGO transport kernels with one thread per
+// cell: the two of the split route (radial_momenta_sweep.cu,
+// fargo_theta.cu) and the two sweeps of the staged route (radial_sweep.cu,
+// theta_sweep.cu). The whole-transport kernel (transport.cu) tiles the same
+// arithmetic its own way.
 //
 // The advected batch is (K, NR, NAZ), ordered [rp, rm, ap, am, (energy),
 // sigma]: K = 6 adiabatic, 5 isothermal; entry K-1 is the density.

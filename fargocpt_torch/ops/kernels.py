@@ -147,6 +147,23 @@ class KernelContext(nn.Module):
             geometry.sin_phi, dtype=dtype, device=device))
         self.register_buffer("cs_iso", eos.sound_speed_iso_profile(
             phys, constants, self.g.rb))
+        self._scratch: dict[tuple, tuple[torch.Tensor, ...]] = {}
+
+    def transport_scratch(self, like: torch.Tensor, k: int):
+        """The whole-transport kernel's scratch for fields like ``like``:
+        the radially swept batch (K, NR, NAZ) and one plane (NR, NAZ).
+        Allocated at first use and kept, one pair per dtype, K, device and
+        CUDA stream, so two calls in flight on different streams never
+        share one; calls on one stream run in order, and every call
+        overwrites all it reads."""
+        key = (like.dtype, k, like.device,
+               torch.cuda.current_stream(like.device).cuda_stream)
+        if key not in self._scratch:
+            nr, naz = self.g.nrad, self.g.naz
+            self._scratch[key] = tuple(
+                torch.empty(shape, dtype=like.dtype, device=like.device)
+                for shape in ((k, nr, naz), (nr, naz)))
+        return self._scratch[key]
 
     def cell_xy(self):
         """Cartesian cell centers (NR, NAZ)."""
@@ -424,13 +441,18 @@ def _launch(op: str, like: torch.Tensor, tensors: list[torch.Tensor],
     LAUNCHES[op] += 1
 
 
+def _device_scalar(like: torch.Tensor, v, dtype: torch.dtype) -> torch.Tensor:
+    """``v`` (a 0-d tensor or a float) as a one-element ``dtype`` tensor on
+    ``like``'s device: a view, with no launch, where it already is one."""
+    if torch.is_tensor(v):
+        return v.reshape(1).to(device=like.device, dtype=dtype)
+    return torch.full((1,), float(v), dtype=dtype, device=like.device)
+
+
 def _scalars(like: torch.Tensor, values) -> torch.Tensor:
     """Device vector of the field dtype from 0-d tensors / floats, built
     without a host round trip."""
-    parts = [v.reshape(1).to(like.dtype) if torch.is_tensor(v)
-             else torch.full((1,), float(v), dtype=like.dtype,
-                             device=like.device) for v in values]
-    return torch.cat(parts)
+    return torch.cat([_device_scalar(like, v, like.dtype) for v in values])
 
 
 # ---------------------------------------------------------------------------
@@ -614,17 +636,18 @@ def transport(ctx: KernelContext, sigma, vrad, vaz, energy, omega_frame, dt,
         _check(name, t, shape, sigma)
     _check_nshift(nshift, nr, sigma)
     k = 6 if phys.is_adiabatic else 5
-    scal = _scalars(sigma, [dt, omega_frame])
+    # the kernel reads dt in the field type and omega_frame in float64 (the
+    # state's type) and casts it: no launch to pack them
+    scal = [_device_scalar(sigma, dt, sigma.dtype),
+            _device_scalar(sigma, omega_frame, torch.float64)]
     outs = [torch.empty_like(sigma), torch.empty_like(vrad),
             torch.empty_like(vaz), torch.empty_like(energy),
             torch.empty_like(vrad)]
-    scratch = [torch.empty((k, nr, naz), dtype=sigma.dtype,
-                           device=sigma.device) for _ in range(2)]
     ip = [nr, naz, int(phys.is_adiabatic), phys.flux_limiter_type,
           int(phys.fast_transport)]
     _launch("transport", sigma,
-            [sigma, vrad, vaz, energy, ctx.cols, scal, vmean, nshift,
-             vconst] + outs + scratch, [g.dphi], ip)
+            [sigma, vrad, vaz, energy, ctx.cols, *scal, vmean, nshift,
+             vconst, *outs, *ctx.transport_scratch(sigma, k)], [g.dphi], ip)
     return tuple(outs)
 
 

@@ -1,0 +1,390 @@
+"""The whole-transport op and ``advect_shift`` alone on one CUDA GPU:
+where their time goes, launch by launch.
+
+    python -m fargocpt_torch.profile_ops [--nrad 1024] [--naz 3072]
+        [--steps] [--sass] [--save FILE] [--against FILE]
+
+On the flagship's state with seeded noise (``perturbed``), float32:
+  * the ``transport`` op (whole route): the median over 25 calls of the
+    time between CUDA events around the call (the wrapper included), the
+    device time of each of its launches (``torch.profiler``, median over 10
+    calls), the bytes each launch must move (its distinct inputs read once
+    and outputs written once, ``LAUNCH_PLANES``) and the memory rate that
+    makes, the wrapper's share (events minus device time) and the host
+    time of one call;
+  * ``advect_shift`` on the batch the staged route gives it, likewise, and
+    beside it the one PyTorch call that computes the same, ``torch.gather``
+    with a prebuilt index;
+  * a SHA-256 of each op's outputs; ``--save FILE`` writes the outputs and
+    ``--against FILE`` holds them against a saved set value for value (the
+    largest difference and the number of values that differ: -0.0 equals
+    0.0), so two checkouts can be held against each other;
+  * with ``--steps``: the flagship step and the PDS70 gas step at the same
+    size through ``profile_step.profile_grid``: wall and device time a
+    step;
+  * with ``--sass``: ``nvcc -Xptxas -v`` of transport.cu and
+    advect_shift.cu (registers, spills, shared memory per kernel) and, from
+    ``cuobjdump -sass``, each kernel's count of SASS operations and, among
+    them, of reciprocals (MUFU.RCP, one per float32 division, and
+    MUFU.RCP64H, one per float64 division).
+
+The module uses only what every checkout of the port has had (the ops'
+entry points, ``Simulation``, ``profile_step``), so a copy of it placed in
+an older checkout's ``fargocpt_torch/`` measures that checkout: two
+checkouts are compared by running them in turns on one card. The last line
+is all of it as one JSON object. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, at 700 W
+
+# device kernel name fragment -> (NR, NAZ) planes it must move for a batch
+# of K quantities: distinct inputs once, outputs once. The first three are
+# transport.cu's launches; tr_theta_kernel and tr_final_kernel were those of
+# its first version (one thread per cell and stage).
+LAUNCH_PLANES = {
+    "tr_radial_kernel": lambda k: 4 + k + 1,     # fields -> batch, flux
+    "tr_ring_kernel": lambda k: k + 1 + 5,       # batch, vaz -> 5 planes
+    "tr_vrad_kernel": lambda k: 3 + 1,           # rp, rm, sigma -> vrad
+    "tr_theta_kernel": lambda k: k + 1 + k,      # batch, vaz -> batch
+    "tr_final_kernel": lambda k: k + 4,          # batch -> 4 fields
+    "advect_shift": lambda k: 2 * k,             # batch -> batch
+}
+
+
+def perturbed(sim) -> dict:
+    """The simulation's fields with seeded noise (the unperturbed disk is
+    axisymmetric, which would leave the azimuthal stencils untested)."""
+    st = sim.state
+    gen = torch.Generator(device=st.fields.sigma.device).manual_seed(7)
+
+    def noisy(t, rel=0.0, add=0.0):
+        u = 2.0 * torch.rand(t.shape, generator=gen, device=t.device,
+                             dtype=t.dtype) - 1.0
+        return t * (1.0 + rel * u) + add * u
+
+    return {"sigma": noisy(st.fields.sigma, rel=1e-2),
+            "vrad": noisy(st.fields.vrad, add=1e-4),
+            "vaz": noisy(st.fields.vaz, add=1e-3),
+            "energy": noisy(st.fields.energy, rel=1e-2)}
+
+
+def event_ms(fn, reps=25) -> float:
+    """Median over ``reps`` calls of the time between CUDA events around
+    ``fn``."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def host_ms(fn, reps=25) -> float:
+    """Median host time of one call of ``fn`` (enqueue only: the device is
+    idle at the start and is not waited for)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def launch_times(fn, fragments, calls=10) -> list[dict]:
+    """The device kernels whose name holds one of ``fragments``, in launch
+    order within one call of ``fn``: name and median device time in ms over
+    ``calls`` profiled calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(3):       # the profiler now and then drops device events
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        found = sorted(
+            ((e.time_range.start, e.name, e.time_range.elapsed_us())
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(f in e.name for f in fragments)), key=lambda x: x[0])
+        if found and len(found) % calls == 0:
+            break
+    else:
+        raise RuntimeError(f"the profiler saw {len(found)} launches of "
+                           f"{fragments} in {calls} calls, three times")
+    per_call = len(found) // calls
+    out = []
+    for pos in range(per_call):
+        rows = found[pos::per_call]
+        names = {name for _, name, _ in rows}
+        if len(names) != 1:
+            raise RuntimeError(f"launch {pos} has several names: {names}")
+        out.append({"kernel": rows[0][1],
+                    "device_ms": float(np.median([us for *_, us in rows]))
+                    / 1e3})
+    return out
+
+
+def short_name(kernel: str) -> str:
+    m = re.search(r"(\w+_kernel)", kernel)
+    return m.group(1) if m else kernel[:40]
+
+
+def with_bytes(launches, k, plane_bytes) -> list[dict]:
+    """Adds to each launch the bytes it must move and the rate achieved."""
+    for row in launches:
+        planes = next((fn(k) for frag, fn in LAUNCH_PLANES.items()
+                       if frag in row["kernel"]), None)
+        row["kernel"] = short_name(row["kernel"])
+        if planes is not None:
+            row["bytes"] = planes * plane_bytes
+            row["tb_per_s"] = row["bytes"] / (row["device_ms"] * 1e-3) / 1e12
+            row["share_of_memory_rate"] = row["tb_per_s"] * 1e12 \
+                / HBM_BYTES_PER_S
+    return launches
+
+
+def digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def profile_op(fn, fragments, k, plane_bytes) -> dict:
+    launches = with_bytes(launch_times(fn, fragments), k, plane_bytes)
+    events = event_ms(fn)
+    device = sum(row["device_ms"] for row in launches)
+    return {"event_ms": events, "device_ms": device,
+            "wrapper_ms": events - device, "host_ms": host_ms(fn),
+            "launches": launches}
+
+
+def differences(outputs: dict, saved: dict) -> dict:
+    """Per output: how many values differ from the saved set's and the
+    largest absolute difference."""
+    out = {}
+    for name, t in outputs.items():
+        ref = saved[name].to(t.device)
+        out[name] = {"values_that_differ": int((t != ref).sum()),
+                     "max_abs_diff": float((t.double() - ref.double())
+                                           .abs().max())}
+    return out
+
+
+def profile_ops(nrad: int, naz: int, save=None, against=None) -> dict:
+    from .flagship import flagship
+    from .ops import kernels as K
+    from .ops import transport as tr
+    from .sim import Simulation
+    sim = Simulation(flagship(nrad, naz), dtype="float32")
+    st, ctx = sim.state, sim.stepper.ops
+    g, phys = ctx.g, ctx.phys
+    f = perturbed(sim)
+    s, vr, va, e = f["sigma"], f["vrad"], f["vaz"], f["energy"]
+    dt = sim.stepper.cfl_dt(st)
+    omega = st.omega_frame
+    shift = tr.fargo_shift(g, va, dt)
+    k = 6 if phys.is_adiabatic else 5
+    plane_bytes = s.numel() * s.element_size()
+
+    def transport():
+        return K.transport(ctx, s, vr, va, e, omega, dt, shift,
+                           route="whole")
+
+    res = {"grid": f"{nrad}x{naz}", "dtype": "float32", "K": k,
+           "transport": profile_op(
+               transport, [f for f in LAUNCH_PLANES if f.startswith("tr_")],
+               k, plane_bytes)}
+    names = ("sigma", "vrad", "vaz", "energy", "mass_flux")
+    outputs = {f"transport.{n}": t for n, t in zip(names, transport())}
+    res["transport"]["sha256"] = digest(outputs.values())
+
+    # the batch as the staged route hands it to the roll
+    vmean, nshift, vconst = shift
+    qs = tr.momenta_batch(phys, g, s, vr, va, e, omega.to(s.dtype))
+    qs = K.radial_sweep_plain(ctx, qs, s, vr,
+                              tr.sigma_flux(phys, g, s, vr, dt), dt)
+    qs = K.theta_sweep_plain(ctx, qs, va - vmean, dt)
+    qs = K.theta_sweep_plain(
+        ctx, qs, vconst.expand_as(va).contiguous(), dt)
+    j = torch.arange(naz, device=s.device)
+    index = torch.remainder(j[None, :] - nshift[:, None].to(j.dtype),
+                            naz).expand_as(qs).contiguous()
+
+    def roll():
+        return K.advect_shift(qs, nshift)
+
+    res["advect_shift"] = profile_op(roll, ("advect_shift",), k, plane_bytes)
+    outputs["advect_shift.qs"] = roll()
+    res["advect_shift"]["sha256"] = digest([outputs["advect_shift.qs"]])
+    if save:
+        torch.save({n: t.cpu() for n, t in outputs.items()}, save)
+    if against:
+        res["against"] = differences(outputs, torch.load(against))
+    if not torch.equal(roll(), torch.gather(qs, -1, index)):
+        raise AssertionError("advect_shift differs from torch.gather")
+    turns = {"advect_shift": [], "gather": []}
+    for name in ("gather", "advect_shift", "advect_shift", "gather"):
+        turns[name].append(event_ms(
+            roll if name == "advect_shift"
+            else lambda: torch.gather(qs, -1, index)))
+    res["advect_shift"]["event_ms_in_turns"] = turns
+    res["nshift_min_max"] = [int(nshift.min()), int(nshift.max())]
+    return res
+
+
+def profile_steps(nrad: int, naz: int) -> dict:
+    """Wall and device time a step of the flagship (whole route) and of
+    the PDS70 gas setup."""
+    from .profile_step import profile_grid
+    out = {}
+    for setup, kw in (("flagship", dict(warmup=20, steps=120, window=20)),
+                      ("pds70_gas", dict(warmup=5, steps=15, window=8))):
+        r = profile_grid(nrad, naz, setup, route="whole", **kw)
+        out[setup] = {
+            "wall_ms_per_step": r["wall_ms_per_step"],
+            "device_ms_per_step": r["device_ms_per_step"],
+            "device_busy_share": r["device_busy_share"],
+            "ops": {op: {"device_ms_per_step": row["device_ms_per_step"],
+                         "launches_per_step": row["launches_per_step"]}
+                    for op, row in r["ops"].items()}}
+    return out
+
+
+def sass_counts(names=("transport", "advect_shift")) -> dict:
+    """Per kernel of csrc/<name>.cu: registers, spills and shared memory
+    from ``nvcc -Xptxas -v``; SASS operations and reciprocals among them
+    from ``cuobjdump -sass``."""
+    from .ops import kernels as K
+    nvcc = K.find_nvcc()
+    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in names:
+            obj = Path(tmp) / f"{name}.o"
+            res = subprocess.run(
+                [nvcc, *K.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                 str(K.CSRC / f"{name}.cu"), "-o", str(obj)],
+                capture_output=True, text=True, check=True)
+            kernels = {}
+            current = None
+            for line in res.stderr.splitlines():
+                m = re.search(r"Compiling entry function '(\w+)'", line)
+                if m:
+                    current = kernels.setdefault(m.group(1), {})
+                    continue
+                if current is None:
+                    continue
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if m:
+                    current["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    current["registers"] = int(m.group(1))
+                    sm = re.search(r"(\d+) bytes smem", line)
+                    current["smem_bytes"] = int(sm.group(1)) if sm else 0
+            sass = subprocess.run([cuobjdump, "-sass", str(obj)],
+                                  capture_output=True, text=True, check=True)
+            current = None
+            for line in sass.stdout.splitlines():
+                m = re.search(r"Function : (\w+)", line)
+                if m:
+                    current = kernels.setdefault(m.group(1), {})
+                    current.update(sass_ops=0, rcp=0)
+                    continue
+                if current is None or not re.search(r"/\*[0-9a-f]{4}\*/",
+                                                    line):
+                    continue
+                current["sass_ops"] += 1
+                if "MUFU.RCP" in line:
+                    current["rcp"] += 1
+            out[name] = kernels
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--nrad", type=int, default=1024)
+    ap.add_argument("--naz", type=int, default=3072)
+    ap.add_argument("--steps", action="store_true",
+                    help="also the flagship and PDS70 gas steps")
+    ap.add_argument("--sass", action="store_true",
+                    help="also registers, spills and SASS operation counts")
+    ap.add_argument("--save", help="write the two ops' outputs to this file")
+    ap.add_argument("--against", help="hold the two ops' outputs against "
+                    "the set saved in this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_ops: needs a CUDA device", file=sys.stderr)
+        return 2
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(gpu, flush=True)
+    res = {"gpu": gpu, **profile_ops(args.nrad, args.naz, args.save,
+                                     args.against)}
+    for op in ("transport", "advect_shift"):
+        r = res[op]
+        print(f"{op} {res['grid']} float32 K={res['K']}: events "
+              f"{r['event_ms']:.4f} ms, device {r['device_ms']:.4f} ms, "
+              f"wrapper {r['wrapper_ms']:.4f} ms, host {r['host_ms']:.4f} ms,"
+              f" outputs {r['sha256']} [{gpu}]", flush=True)
+        for row in r["launches"]:
+            rate = f"{row['bytes'] / 1e6:.1f} MB, {row['tb_per_s']:.3f} " \
+                f"TB/s = {100 * row['share_of_memory_rate']:.1f}% of " \
+                f"{HBM_BYTES_PER_S / 1e12} TB/s" if "bytes" in row else ""
+            print(f"    {row['kernel']:28s} {row['device_ms']:.4f} ms  {rate}",
+                  flush=True)
+    print(f"advect_shift against torch.gather with a prebuilt index, event "
+          f"medians in turns: {res['advect_shift']['event_ms_in_turns']} "
+          f"[{gpu}]", flush=True)
+    if args.against:
+        print(f"outputs against {args.against}: {res['against']}",
+              flush=True)
+    if args.steps:
+        res["steps"] = profile_steps(args.nrad, args.naz)
+        for setup, r in res["steps"].items():
+            print(f"{setup} step {res['grid']} float32: wall "
+                  f"{r['wall_ms_per_step']:.4f} ms, device "
+                  f"{r['device_ms_per_step']:.4f} ms, transport "
+                  f"{r['ops'].get('transport', {}).get('device_ms_per_step')}"
+                  f" ms [{gpu}]", flush=True)
+    if args.sass:
+        res["sass"] = sass_counts()
+        for name, kernels in res["sass"].items():
+            for kernel, row in kernels.items():
+                m = re.search(r"\d((?:tr|advect_shift)_\w*?kernel)I(\w+?)E",
+                              kernel)
+                label = f"{m.group(1)}<{m.group(2)}>" if m else kernel[:60]
+                print(f"  {name}.cu {label}: {row}", flush=True)
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -41,10 +41,11 @@ SETUPS = {"flagship": flagship, "pds70_gas": pds70_gas, "pds70": pds70}
 KERNEL_OPS = (("rms_kernel", "radial_momenta_sweep"),
               ("theta_sweep_kernel", "fargo_theta / theta_sweep"),
               ("radial_sweep_kernel", "radial_sweep"),
-              ("advect_shift_kernel", "advect_shift"),
+              ("advect_shift_vec_kernel", "advect_shift"),
+              ("advect_shift_scalar_kernel", "advect_shift"),
               ("tr_radial_kernel", "transport"),
-              ("tr_theta_kernel", "transport"),
-              ("tr_final_kernel", "transport"),
+              ("tr_ring_kernel", "transport"),
+              ("tr_vrad_kernel", "transport"),
               ("vk_artvisc_kernel", "viscous_kick"),
               ("vk_stress_kernel", "viscous_kick"),
               ("vk_update_kernel", "viscous_kick"),

@@ -4,7 +4,10 @@ tolerances of tests/test_torch_kernels.py (rtol 1e-12 cfl, 1e-11 sources
 and transport, 1e-10 viscous kick), rtol 1e-11 for the split route's two
 kernels and rtol 1e-12 for artvisc_sn (also in float32: 1e-5 of each
 output's largest magnitude) and for the staged route's radial_sweep and
-theta_sweep (advect_shift bit for bit); a split-route and a staged-route
+theta_sweep (advect_shift bit for bit); the transport routes and the roll
+also at shapes that cross the edges of the whole-transport kernel's tiles
+and of the roll's 16-byte vectors, in both dtypes; a split-route and a
+staged-route
 Simulation step through their kernels, a PDS70 gas step through artvisc_sn
 and the whole transport, and the whole PDS70 setup with its dust swarm on
 the device against the same run on the CPU.
@@ -41,10 +44,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ctx(kw, device, nr=NR, naz=NAZ):
+def _ctx(kw, device, nr=NR, naz=NAZ, dtype=torch.float64):
     geom = Geometry.build(nr, naz, 0.4, 2.5, "Log")
     return kernels.KernelContext(Physics(**kw), Constants.from_units(Units()),
-                                 geom, torch.float64, device)
+                                 geom, dtype, device)
 
 
 def _fields(seed, device, nr=NR, naz=NAZ, dtype=torch.float64,
@@ -131,20 +134,41 @@ def test_viscous_kick_kernel_matches_plain(cuda, compress, artvisc_on,
            1e-10, (1e-13, 1e-13, 1e-16, 1e-18, 1e-18))
 
 
+# Shapes that cross every edge of the whole-transport kernel's tiles (the
+# radial stage marches up strips of 16 rows in blocks of 128 columns; a ring
+# block takes 512 cells in float32, 256 in float64, plus a halo of 9): NR on
+# and off a multiple of 16, a ring shorter than a tile, one shorter than
+# the halo, rings that leave a last tile of 3 and of 6 cells.
+TRANSPORT_SHAPES = [(130, 200), (37, 7), (48, 1030), (20, 515)]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("limiter", [0, 1])
+@pytest.mark.parametrize("nr,naz", TRANSPORT_SHAPES)
 @pytest.mark.parametrize("route", ["whole", "split", "staged"])
 @pytest.mark.parametrize("fast", [True, False])
 @pytest.mark.parametrize("adiabatic", [True, False])
-def test_transport_kernel_matches_plain(cuda, adiabatic, fast, route):
-    """Each route at 130 rings (the whole-transport kernel takes any NR)
-    against the plain whole transport."""
+def test_transport_kernel_matches_plain(cuda, adiabatic, fast, route, nr, naz,
+                                        limiter, dtype):
+    """Each route (the whole-transport kernel takes any NR) against the
+    plain whole transport: K = 6 and 5, one and two azimuthal sweeps, both
+    limiters, shifts of either sign and beyond one turn. float64 at rtol
+    1e-11; float32 at 1e-5 of each output's scale (the velocities' is
+    max|vaz|)."""
     ctx = _ctx(dict(eos="adiabatic" if adiabatic else "isothermal",
                     adiabatic_index=1.4, aspectratio_ref=0.05,
-                    fast_transport=fast), cuda)
-    f = _fields(13, cuda)
-    dt, omega = _one(0.01, cuda), _one(0.3, cuda)
-    shift = transport.fargo_shift(ctx.g, f["vaz"], dt)
-    args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], omega, dt, shift)
+                    fast_transport=fast, flux_limiter_type=limiter), cuda,
+               nr, naz, dtype)
+    f = _fields(13, cuda, nr, naz, dtype)
+    dt = torch.tensor(0.01, dtype=dtype, device=cuda)
+    omega = _one(0.3, cuda)
+    vmean, _, vconst = transport.fargo_shift(ctx.g, f["vaz"], dt)
+    nshift = torch.tensor(
+        np.random.default_rng(47).integers(-2 * naz, 2 * naz, nr),
+        dtype=torch.int32, device=cuda)
+    args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], omega, dt,
+            (vmean, nshift, vconst))
     before = dict(kernels.LAUNCHES)
     got = kernels.transport(ctx, *args, route=route)
     ops = {"whole": {"transport": 1},
@@ -153,8 +177,46 @@ def test_transport_kernel_matches_plain(cuda, adiabatic, fast, route):
                       "advect_shift": 1}}[route]
     assert {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS} == \
         {op: ops.get(op, 0) for op in kernels.OPS}
-    _close(got, kernels.transport_plain(ctx, *args, route="whole"),
-           1e-11, (1e-14, 1e-13, 1e-13, 1e-14, 1e-15))
+    ref = kernels.transport_plain(ctx, *args, route="whole")
+    if dtype == torch.float64:
+        _close(got, ref, 1e-11, (1e-14, 1e-13, 1e-13, 1e-14, 1e-15))
+    else:
+        v = float(f["vaz"].abs().max())
+        scales = [float(ref[0].abs().max()), v, v, float(ref[3].abs().max()),
+                  float(ref[4].abs().max())]
+        _close(got, ref, 0.0, [1e-5 * sc for sc in scales])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_transport_scratch_leaks_nothing_between_calls(cuda, dtype):
+    """The context keeps the whole-transport kernel's scratch: two calls in
+    a row on different inputs give bit for bit what two fresh contexts
+    give, and the second call reuses the first one's scratch."""
+    kw = dict(eos="adiabatic", adiabatic_index=1.4, aspectratio_ref=0.05)
+    dt, omega = torch.tensor(0.01, dtype=dtype, device=cuda), _one(0.3, cuda)
+
+    def call(ctx, seed):
+        f = _fields(seed, cuda, 48, 1030, dtype)
+        return kernels.transport(ctx, f["sigma"], f["vrad"], f["vaz"],
+                                 f["energy"], omega, dt, route="whole")
+
+    kept = _ctx(kw, cuda, 48, 1030, dtype)
+    first, second = call(kept, 53), call(kept, 59)
+    assert len(kept._scratch) == 1
+    for seed, got in ((53, first), (59, second)):
+        ref = call(_ctx(kw, cuda, 48, 1030, dtype), seed)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    # on another stream the scratch is another pair
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        third = call(kept, 59)
+    side.synchronize()
+    assert len(kept._scratch) == 2
+    for a, b in zip(third, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -261,21 +323,54 @@ def test_theta_sweep_kernel_matches_plain(cuda, k_quant, limiter):
     _close([got], [ref], 1e-11, [1e-13 * float(ref.abs().max())])
 
 
+def _shifts(nr, naz, device, seed=43):
+    """Shifts of either sign and beyond one turn; the first ten rings take
+    0, multiples of 4 and of 2, odd ones, whole turns."""
+    nshift = np.random.default_rng(seed).integers(-2 * naz, 2 * naz, nr)
+    nshift[:10] = [0, 4, -4, 1, -1, naz, naz + 3, -2 * naz - 2, 2, 3]
+    return torch.tensor(nshift, dtype=torch.int32, device=device)
+
+
+# NAZ on and off a multiple of the 16-byte vector (4 values in float32, 2
+# in float64: 1030 and 202 take the vector kernel in float64 only, 7 and
+# 515 the scalar kernel in both)
+SHIFT_SHAPES = [(130, 200), (37, 7), (20, 515), (16, 1030), (24, 202)]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("nr,naz", SHIFT_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("k_quant", [1, 6])
-def test_advect_shift_kernel_equals_plain(cuda, k_quant, dtype):
-    """Bit for bit, with shifts of either sign and beyond one turn."""
-    qs = _batch(41, k_quant, cuda, dtype)[0]
-    rng = np.random.default_rng(43)
-    nshift = torch.tensor(rng.integers(-2 * NAZ, 2 * NAZ, NR),
-                          dtype=torch.int32, device=cuda)
+@pytest.mark.parametrize("k_quant", [1, 5, 6])
+def test_advect_shift_kernel_equals_plain(cuda, k_quant, dtype, nr, naz):
+    """Bit for bit, with shifts of either sign, on and off a multiple of
+    the vector width, and beyond one turn."""
+    rng = np.random.default_rng(41)
+    qs = torch.tensor(rng.random((k_quant, nr, naz)), dtype=dtype,
+                      device=cuda)
+    nshift = _shifts(nr, naz, cuda)
     before = kernels.LAUNCHES["advect_shift"]
     got = kernels.advect_shift(qs, nshift)
     assert kernels.LAUNCHES["advect_shift"] == before + 1
     assert torch.equal(got, kernels.advect_shift_plain(qs, nshift))
     with pytest.raises(ValueError, match="nshift"):
         kernels.advect_shift(qs, nshift.long())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_advect_shift_takes_a_batch_off_16_byte_alignment(cuda, dtype):
+    """A contiguous batch that starts one value into its storage (and the
+    same for the output the allocator hands out aligned): the scalar
+    kernel, the same result."""
+    k_quant, nr, naz = 6, 130, 200
+    rng = np.random.default_rng(61)
+    flat = torch.tensor(rng.random(k_quant * nr * naz + 1), dtype=dtype,
+                        device=cuda)
+    qs = flat[1:].view(k_quant, nr, naz)
+    assert qs.is_contiguous() and qs.data_ptr() % 16 != 0
+    nshift = _shifts(nr, naz, cuda)
+    assert torch.equal(kernels.advect_shift(qs, nshift),
+                       kernels.advect_shift_plain(qs, nshift))
 
 
 @pytest.mark.gpu
