@@ -4,12 +4,13 @@
 
 Three setups (fargocpt_torch/flagship.py). The flagship (constant gamma)
 takes the fused kernels: cfl, sources, viscous_kick, and the transport by
-one of three routes: the whole-transport kernel when NR is a multiple of
-16 (1024x3072), else the split route's two kernels, radial_momenta_sweep
-and fargo_theta (1000x3072) (fargocpt_torch/ops/transport.route), or,
-where the caller names it (transport_route="staged"), the staged route's
-three: radial_sweep, theta_sweep once per azimuthal pass, advect_shift
-(1024x3072). The PDS70 gas setup (PVTE, FLD, FFT self-gravity, surface
+one of three routes: the whole-transport kernel on every grid
+(fargocpt_torch/ops/transport.route; 1024x3072 and 1000x3072 here) or,
+where the caller names it, the split route's two kernels,
+radial_momenta_sweep and fargo_theta (transport_route="split",
+1000x3072), or the staged route's three: radial_sweep, theta_sweep once
+per azimuthal pass, advect_shift (transport_route="staged", 1024x3072).
+The PDS70 gas setup (PVTE, FLD, FFT self-gravity, surface
 cooling) takes the unfused substeps with the artvisc_sn kernel and the
 whole-transport kernel (1024x3072); the whole PDS70 setup adds its
 Lagrangian dust, 16384 particles. All five paths are driven here.
@@ -30,17 +31,21 @@ Phases (any failure raises, so the exit code is not 0):
      against the floating-point operations of its plain version (counted
      by FlopCounter) at the float32 rate, and for advect_shift the time of
      the one PyTorch call that computes it (torch.gather with a prebuilt
-     index); the whole-transport kernel and advect_shift launch by launch
-     (torch.profiler: each launch's device time, the bytes it must move and
-     the memory rate that makes, the wrapper's share of the event time);
+     index); the whole-transport kernel, viscous_kick, sources and
+     advect_shift launch by launch (torch.profiler: each launch's device
+     time, the bytes it must move and the memory rate that makes, the
+     wrapper's share of the event time and the device launches it adds);
      the whole-transport kernel at two more shapes that cross the edges of
-     its tiles (37x1030 and 20x7, float64 and float32); the split route as
+     its tiles (37x1030 and 20x7, float64 and float32), viscous_kick and
+     sources at shapes that cross every edge of theirs (KICK_SHAPES, both
+     dtypes, SN and TW, both EoS, three bodies); the split route as
      a whole against the whole-transport kernel on the same 1000x3072
      state, and the three routes on one 1024x3072 state in turns;
   3. the slices: the flagship Simulation on the GPU at 1024x3072 on the
-     whole and on the staged route and at 1000x3072 on the split route,
+     whole and on the staged route and at 1000x3072 on the split route
+     (named) and on the route the grid takes by itself (the whole one),
      float32 (10 warm-up and 60 timed steps each of calculate_time_step +
-     step_once), the 1000x3072 step through the split and whole routes in
+     step_once; 30 at 1000x3072 whole), the 1000x3072 step through the split and whole routes in
      turns and the 1024x3072 step through all three in turns, then the
      PDS70 gas Simulation and the whole PDS70 Simulation with its 16384
      particles at 1024x3072 float32 (3 warm-up and 10 timed steps, then
@@ -89,11 +94,11 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 # unperturbed disk is axisymmetric, which would leave the azimuthal
 # stencils untested)
 from fargocpt_torch.profile_ops import (  # noqa: E402
-    HBM_BYTES_PER_S, LAUNCH_PLANES, event_ms as time_ms, perturbed,
+    HBM_BYTES_PER_S, OP_FRAGMENTS, event_ms as time_ms, perturbed,
     profile_op)
 
 NR, NAZ = 1024, 3072          # whole transport route
-NR_SPLIT = 1000               # split transport route (NR % 16 != 0)
+NR_SPLIT = 1000               # split transport route, named (NR % 16 != 0)
 # kernels of each transport route and their launches per step (the staged
 # route sweeps once per azimuthal pass: twice with fast transport)
 ROUTE_OPS = {"whole": {"transport": 1},
@@ -155,6 +160,10 @@ def flagship(nr, naz, dtype, device, route=None):
 
 def flagship_staged(nr, naz, dtype, device):
     return flagship(nr, naz, dtype, device, route="staged")
+
+
+def flagship_split(nr, naz, dtype, device):
+    return flagship(nr, naz, dtype, device, route="split")
 
 
 def pds70_gas(nr, naz, dtype, device):
@@ -340,7 +349,8 @@ def log_launches(name, kern, fragments, k_quant, plane_bytes, gpu) -> dict:
                     f"{HBM_BYTES_PER_S / 1e12} TB/s)" for x in r["launches"])
         + f"; device {r['device_ms']:.4f} ms of {r['event_ms']:.4f} ms by "
         f"events (wrapper {r['wrapper_ms']:.4f} ms, host "
-        f"{r['host_ms']:.4f} ms a call) [{gpu}]")
+        f"{r['host_ms']:.4f} ms a call, {r['pytorch_launches']:.1f} other "
+        f"device launches a call) [{gpu}]")
     return r
 
 
@@ -420,8 +430,8 @@ def measure(calls, f, nr) -> dict:
 
 def parity_f32_flagship(sim, gpu) -> dict:
     """The whole route's four kernels against their plain versions at
-    1024x3072 on the perturbed flagship state, and the whole-transport
-    kernel's launches one by one."""
+    1024x3072 on the perturbed flagship state, and the launches of the
+    whole-transport kernel, the viscous kick and the sources one by one."""
     st = sim.state
     f = perturbed(sim)
     dt = sim.stepper.cfl_dt(st)
@@ -429,11 +439,11 @@ def parity_f32_flagship(sim, gpu) -> dict:
     calls = op_calls(sim.stepper.ops, f, (st.qplus, st.qminus), bodies,
                      st.omega_frame, dt)
     out = measure(calls, f, NR)
-    out["transport"]["per_launch"] = log_launches(
-        "transport", calls["transport"][0],
-        [frag for frag in LAUNCH_PLANES if frag.startswith("tr_")],
-        6 if sim.stepper.ops.phys.is_adiabatic else 5,
-        nbytes([f["sigma"]]), gpu)
+    for name in ("transport", "viscous_kick", "sources"):
+        out[name]["per_launch"] = log_launches(
+            name, calls[name][0], OP_FRAGMENTS[name],
+            6 if sim.stepper.ops.phys.is_adiabatic else 5,
+            nbytes([f["sigma"]]), gpu)
     return out
 
 
@@ -502,7 +512,8 @@ def parity_f32_staged(sim, gpu) -> tuple[dict, dict]:
     calls = staged_calls(ctx, f, st.omega_frame, dt)
     out = measure(calls, f, NR)
     out["advect_shift"]["per_launch"] = log_launches(
-        "advect_shift", calls["advect_shift"][0], ["advect_shift"],
+        "advect_shift", calls["advect_shift"][0],
+        OP_FRAGMENTS["advect_shift"],
         6 if ctx.phys.is_adiabatic else 5, nbytes([f["sigma"]]), gpu)
 
     shift = tr.fargo_shift(ctx.g, f["vaz"], dt)
@@ -612,6 +623,99 @@ def parity_f64_ragged(device) -> None:
                           (K.fargo_theta_plain(c, *ft),), names)
 
 
+# Shapes that cross every edge of the viscous kick's and the sources' tiles
+# (16 rows x 64 columns of outputs both, the row tiles covering vrad's
+# NR + 1 rows): NR and NAZ one under, on and one over a tile, several tiles
+# with a ragged last one, NR = 4, rings of 1 and 3 cells (shorter than the
+# viscous kick's halo of 2 cells each way).
+KICK_SHAPES = ((4, 1), (4, 3), (15, 63), (16, 64), (17, 65), (31, 64),
+               (32, 65), (33, 130))
+
+
+def kick_tile_edges(device) -> None:
+    """viscous_kick and sources against their plain versions over
+    KICK_SHAPES on seeded random fields (a patch of near-floor cells where
+    the ring is long enough), SN and TW artificial viscosity, both EoS,
+    a star and two planets with cubic smoothing radii inside the grid.
+    float64 at the rtol of KERNELS, float32 at F32_TOL of each output's
+    scale (the velocities': max|vaz|, or the output's own where the kick
+    on a near-floor cell makes it larger)."""
+    from fargocpt_torch.constants import Constants
+    from fargocpt_torch.grid import Geometry
+    from fargocpt_torch.ops import kernels as K
+    from fargocpt_torch.ops.gravity import BodiesOnGrid
+    from fargocpt_torch.params import Physics
+    from fargocpt_torch.units import Units
+    constants = Constants.from_units(Units())
+    outputs = {"viscous_kick": ("vrad", "vaz", "energy", "qplus", "qminus"),
+               "sources": ("vrad", "vaz")}
+    f64_atol = {"viscous_kick": (1e-13, 1e-13, 1e-16, 1e-18, 1e-18),
+                "sources": (1e-13, 1e-13)}
+    for dtype in (torch.float64, torch.float32):
+        worst = dict.fromkeys(outputs, 0.0)
+        for nr, naz in KICK_SHAPES:
+            geometry = Geometry.build(nr, naz, 0.4, 2.5, "Log")
+            rng = np.random.default_rng(19)
+            sigma = rng.random((nr, naz)) + 0.5
+            sigma[nr // 3, 3:7] = 5e-6
+            raw = {"sigma": sigma,
+                   "energy": rng.random((nr, naz)) * 1e-3 + 1e-3,
+                   "vaz": (rng.random((nr, naz)) - 0.5) * 0.1 + 1.0,
+                   "vrad": (rng.random((nr + 1, naz)) - 0.5) * 0.05}
+            f = {k: torch.tensor(v, dtype=dtype, device=device)
+                 for k, v in raw.items()}
+            t64 = lambda a: torch.tensor(a, dtype=torch.float64,  # noqa: E731
+                                         device=device)
+            bodies = BodiesOnGrid(x=t64([0.0, 1.0, -0.4]),
+                                  y=t64([0.0, 0.3, 1.1]),
+                                  mass=t64([1.0, 1e-3, 3e-4]),
+                                  cubic_smoothing_radius=t64([0.0, 0.3, 0.2]))
+            dt = torch.tensor(0.003, dtype=dtype, device=device)
+            fields = (f["sigma"], f["vrad"], f["vaz"], f["energy"])
+            for eos_name in ("adiabatic", "isothermal"):
+                for artvisc in ("sn", "tw"):
+                    ctx = K.KernelContext(
+                        Physics(eos=eos_name, adiabatic_index=1.4,
+                                viscous_alpha=1e-3, aspectratio_ref=0.05,
+                                flaring_index=0.25,
+                                artificial_viscosity=artvisc,
+                                heating_viscous=True,
+                                cooling_beta_enabled=True, cooling_beta=10.0,
+                                minimum_temperature=1e-6, sigma0=1.0,
+                                sigma_floor=1e-6, thickness_smoothing=0.6,
+                                imposed_disk_drift=1e-4),
+                        constants, geometry, dtype, device)
+                    calls = {
+                        "viscous_kick": (ctx, *fields, dt, 0.0),
+                        "sources": (ctx, *fields, bodies,
+                                    (t64(1e-3), t64(-2e-3)), t64(0.4), dt)}
+                    for name, args in calls.items():
+                        got = getattr(K, name)(*args)
+                        ref = getattr(K, name + "_plain")(*args)
+                        label = f"{name} {nr}x{naz} {eos_name} {artvisc}"
+                        for oname, a, b, atol in zip(outputs[name], got, ref,
+                                                     f64_atol[name]):
+                            if dtype == torch.float64:
+                                np.testing.assert_allclose(
+                                    a.cpu().numpy(), b.cpu().numpy(),
+                                    rtol=F64_RTOL[name], atol=atol,
+                                    err_msg=f"{label} {oname}")
+                            scale = float(b.abs().max())
+                            if oname in ("vrad", "vaz"):
+                                scale = max(scale,
+                                            float(f["vaz"].abs().max()))
+                            err = float((a - b).abs().max())
+                            if err > 0.0:
+                                worst[name] = max(worst[name], err / scale)
+        for name, w in worst.items():
+            log(f"  {name:20s}  tile edges {KICK_SHAPES} "
+                f"{str(dtype).removeprefix('torch.')}, SN and TW, both EoS: "
+                f"max|k-p| / scale = {w:.3e}")
+            if dtype == torch.float32 and not w <= F32_TOL:
+                raise AssertionError(f"{name} across its tile edges, "
+                                     f"float32: {w:.3e} > {F32_TOL} of scale")
+
+
 def parity_tile_edges(device) -> None:
     """The whole-transport kernel against the plain transport at shapes
     that cross the edges of its tiles (strips of 16 rows; 512 cells of a
@@ -620,7 +724,9 @@ def parity_tile_edges(device) -> None:
     shorter than the halo), seeded random fields, shifts of either sign
     and beyond one turn, K = 5 and 6, both limiters, one and two azimuthal
     sweeps. float64 at the rtol of KERNELS, float32 at F32_TOL of each
-    output's scale."""
+    output's scale. Then the viscous kick and the sources across the edges
+    of theirs (``kick_tile_edges``)."""
+    kick_tile_edges(device)
     from fargocpt_torch.constants import Constants
     from fargocpt_torch.grid import Geometry
     from fargocpt_torch.ops import kernels as K
@@ -1050,7 +1156,7 @@ def main() -> int:
     log("== 2. per-kernel parity (kernel vs plain on the GPU)")
     t0 = time.perf_counter()
     sim = flagship(NR, NAZ, "float32", "cuda")
-    sim_split = flagship(NR_SPLIT, NAZ, "float32", "cuda")
+    sim_split = flagship_split(NR_SPLIT, NAZ, "float32", "cuda")
     log(f"  flagship {NR}x{NAZ} and {NR_SPLIT}x{NAZ} float32 built in "
         f"{time.perf_counter() - t0:.2f} s")
     measured = parity_f32_flagship(sim, gpu)
@@ -1067,7 +1173,8 @@ def main() -> int:
     parity_tile_edges(torch.device("cuda"))
     log(f"  phase 2 done at {time.perf_counter() - t_main:.1f} s")
 
-    log("== 3. the slices: flagship Simulation on the GPU, three routes; "
+    log("== 3. the slices: flagship Simulation on the GPU, three routes "
+        "and 1000 rings on the default route; "
         "PDS70 gas; PDS70 with its dust")
     sim_staged = flagship_staged(NR, NAZ, "float32", "cuda")
     res = {"whole": run_slice(sim), "split": run_slice(sim_split),
@@ -1076,6 +1183,14 @@ def main() -> int:
     log_slice(res["split"], NR_SPLIT, gpu)
     log_slice(res["staged"], NR, gpu)
     del sim_staged
+    # the route a grid with NR off a multiple of 16 takes by itself
+    sim_1000 = flagship(NR_SPLIT, NAZ, "float32", "cuda")
+    if sim_1000.stepper.ops.route != "whole":
+        raise AssertionError(f"{NR_SPLIT} rings took the "
+                             f"{sim_1000.stepper.ops.route} route")
+    res["whole_1000"] = run_slice(sim_1000, steps=30)
+    log_slice(res["whole_1000"], NR_SPLIT, gpu)
+    del sim_1000
     turns = route_turns(sim_split)
     log(f"  {NR_SPLIT}x{NAZ} float32 in turns (split, whole, whole, split): "
         f"split route {turns['split']} ms/step, whole-transport kernel "
@@ -1108,8 +1223,8 @@ def main() -> int:
     log("== 4. trajectory: GPU kernels vs CPU plain path")
     trajectory(256, 512, "float32", 200, 1e-3)
     trajectory(128, 256, "float64", 20, 1e-9)
-    trajectory(250, 512, "float32", 200, 1e-3)
-    trajectory(130, 256, "float64", 20, 1e-9)
+    trajectory(250, 512, "float32", 200, 1e-3, setup=flagship_split)
+    trajectory(130, 256, "float64", 20, 1e-9, setup=flagship_split)
     trajectory(256, 512, "float32", 200, 1e-3, setup=flagship_staged)
     trajectory(128, 256, "float64", 20, 1e-9, setup=flagship_staged)
     trajectory(64, 128, "float32", 200, 1e-3, setup=pds70_gas)

@@ -449,6 +449,16 @@ def _device_scalar(like: torch.Tensor, v, dtype: torch.dtype) -> torch.Tensor:
     return torch.full((1,), float(v), dtype=dtype, device=like.device)
 
 
+def _scalar_as_held(like: torch.Tensor, v) -> tuple[torch.Tensor, int]:
+    """``v`` (a 0-d tensor or a float) as a one-element tensor on ``like``'s
+    device in the type the caller holds it in, and whether that is float64
+    rather than ``like``'s type: a tensor in either is a view, with no
+    launch; anything else becomes float64."""
+    if torch.is_tensor(v) and v.dtype == like.dtype:
+        return _device_scalar(like, v, like.dtype), 0
+    return _device_scalar(like, v, torch.float64), 1
+
+
 def _scalars(like: torch.Tensor, values) -> torch.Tensor:
     """Device vector of the field dtype from 0-d tensors / floats, built
     without a host round trip."""
@@ -493,6 +503,7 @@ def cfl(ctx: KernelContext, sigma, vrad, vaz, energy, qplus, qminus):
 
 
 _SMOOTH_MODE = {"zero": 0, "scalar": 1, "cell": 2}
+MAX_BODIES = 512        # the per-body table of a block's shared memory
 
 
 def smoothing_modes(phys: Physics, n_bodies: int) -> tuple[str, ...]:
@@ -502,6 +513,17 @@ def smoothing_modes(phys: Physics, n_bodies: int) -> tuple[str, ...]:
         "zero" if (phys.compatibility_no_star_smoothing and k == 0)
         else "scalar" if phys.compatibility_smoothing_planetloc
         else "cell" for k in range(n_bodies))
+
+
+def _body_vector(name: str, t: torch.Tensor, n: int,
+                 like: torch.Tensor) -> torch.Tensor:
+    """A per-body tensor as the kernel reads it: float64, contiguous, (n,),
+    on ``like``'s device. The N-body state's tensors already are, so this
+    is a view of them and launches nothing."""
+    if tuple(t.shape) != (n,):
+        raise ValueError(f"bodies.{name} has shape {tuple(t.shape)}, "
+                         f"expected {(n,)}")
+    return t.to(device=like.device, dtype=torch.float64).contiguous()
 
 
 def sources(ctx: KernelContext, sigma, vrad, vaz, energy,
@@ -523,32 +545,29 @@ def sources(ctx: KernelContext, sigma, vrad, vaz, energy,
                            ("sin_row", ctx.sin_row, (naz,))):
         _check(name, t, shape, sigma)
     n_bodies = bodies.x.shape[0]
+    if not 1 <= n_bodies <= MAX_BODIES:
+        raise ValueError(f"sources: the kernel takes 1 to {MAX_BODIES} "
+                         f"bodies, got {n_bodies}")
     modes = smoothing_modes(phys, n_bodies)
-    dt_ = sigma.dtype
-    bx, by = bodies.x.to(dt_), bodies.y.to(dt_)
-    sm_scalar = torch.zeros_like(bx)
-    if "scalar" in modes:
-        body_r = torch.sqrt(bx ** 2 + by ** 2)
-        sm_scalar = phys.thickness_smoothing * (
-            phys.aspectratio_ref * body_r ** (1.0 + phys.flaring_index))
-    # filled on the device: a host list would cost a stream sync per call
-    mode_col = torch.full((n_bodies,), float(_SMOOTH_MODE[modes[-1]]),
-                          dtype=dt_, device=sigma.device)
-    if modes[0] != modes[-1]:
-        mode_col[0] = float(_SMOOTH_MODE[modes[0]])
-    per_body = torch.stack([bodies.mass.to(dt_), bx, by,
-                            bodies.cubic_smoothing_radius.to(dt_), sm_scalar,
-                            mode_col], dim=1).reshape(-1)
-    scal = torch.cat([_scalars(sigma, [dt, omega_frame, indirect[0],
-                                       indirect[1]]), per_body])
+    # the kernel reads the bodies' float64 tensors, dt in the field type and
+    # the frame rate and indirect terms as the caller holds them, and casts
+    # them where the plain version does: no launch to pack them
+    per_body = [_body_vector(name, getattr(bodies, name), n_bodies, sigma)
+                for name in ("x", "y", "mass", "cubic_smoothing_radius")]
+    held = [_scalar_as_held(sigma, v)
+            for v in (omega_frame, indirect[0], indirect[1])]
+    scal = [_device_scalar(sigma, dt, sigma.dtype)] + [t for t, _ in held]
+    scalar_f64 = sum(is64 << k for k, (_, is64) in enumerate(held))
     vrad_out = torch.empty_like(vrad)
     vaz_out = torch.empty_like(vaz)
-    fp = [phys.adiabatic_index, phys.thickness_smoothing, ctx.constants.G]
+    fp = [phys.adiabatic_index, phys.thickness_smoothing, ctx.constants.G,
+          phys.aspectratio_ref, phys.flaring_index]
     ip = [nr, naz, int(phys.is_adiabatic), n_bodies,
-          int(phys.imposed_disk_drift != 0.0)]
+          int(phys.imposed_disk_drift != 0.0), _SMOOTH_MODE[modes[0]],
+          _SMOOTH_MODE[modes[-1]], scalar_f64]
     _launch("sources", sigma, [sigma, energy, vaz, vrad, ctx.cols,
-                               ctx.cos_row, ctx.sin_row, scal, vrad_out,
-                               vaz_out], fp, ip)
+                               ctx.cos_row, ctx.sin_row, *scal, *per_body,
+                               vrad_out, vaz_out], fp, ip)
     return vrad_out, vaz_out
 
 
@@ -572,13 +591,16 @@ def viscous_kick(ctx: KernelContext, sigma, vrad, vaz, energy, dt, time,
                            ("energy", energy, (nr, naz)),
                            ("cols", ctx.cols, (nr + 1, N_COLS))):
         _check(name, t, shape, sigma)
+    # dt is read from the device; 1/beta is a static float unless the
+    # cooling ramp makes it a tensor of the time
+    dt_dev = _device_scalar(sigma, dt, sigma.dtype)
     beta_inv = energy_ops.beta_inverse(phys, time)
-    scal = _scalars(sigma, [dt, beta_inv])
-    new = lambda t: torch.empty_like(t)   # noqa: E731
-    vrad_out, vaz_out, e_out = new(vrad), new(vaz), new(energy)
-    qp, qm = new(sigma), new(sigma)
-    scratch = [new(sigma), new(vrad), new(vaz)] + [new(sigma)
-                                                   for _ in range(4)]
+    beta_dev = torch.is_tensor(beta_inv)
+    beta_ptr = _device_scalar(sigma, beta_inv, sigma.dtype) if beta_dev \
+        else dt_dev
+    outs = [torch.empty_like(vrad), torch.empty_like(vaz),
+            torch.empty_like(energy), torch.empty_like(sigma),
+            torch.empty_like(sigma)]
     gam = phys.adiabatic_index
     av = {ARTVISC_SN: 1, ARTVISC_TW: 2}.get(phys.artificial_viscosity, 0)
     fp = [gam, phys.viscous_alpha, phys.constant_viscosity,
@@ -587,14 +609,16 @@ def viscous_kick(ctx: KernelContext, sigma, vrad, vaz, energy, dt, time,
           phys.minimum_temperature,
           eos.finite_in(phys.maximum_temperature, sigma.dtype),
           phys.mu, constants.R, constants.sigma_sb, constants.c,
-          10.0 * phys.sigma0 * phys.sigma_floor, g.invdphi]
+          10.0 * phys.sigma0 * phys.sigma_floor, g.invdphi,
+          0.0 if beta_dev else beta_inv]
     ip = [nr, naz, int(phys.is_adiabatic), av,
           int(phys.artificial_viscosity_dissipation), int(compress),
-          int(phys.heating_viscous), int(phys.cooling_beta_enabled)]
+          int(phys.heating_viscous), int(phys.cooling_beta_enabled),
+          int(beta_dev)]
     _launch("viscous_kick", sigma,
-            [sigma, vrad, vaz, energy, ctx.cols, scal, vrad_out, vaz_out,
-             e_out, qp, qm] + scratch, fp, ip)
-    return vrad_out, vaz_out, e_out, qp, qm
+            [sigma, vrad, vaz, energy, ctx.cols, dt_dev, beta_ptr, *outs],
+            fp, ip)
+    return tuple(outs)
 
 
 def transport(ctx: KernelContext, sigma, vrad, vaz, energy, omega_frame, dt,

@@ -138,12 +138,15 @@ def fargo_shift(g: Geom, vaz, dt):
 
 
 def route(nrad: int) -> str:
-    """The transport route of a grid with ``nrad`` rings, as the JAX
-    package's gate picks it (fargocpt_tpu/ops/transport.py:183-191):
-    ``"whole"`` when NR is a multiple of 16, else ``"split"``. The TPU's
-    other conditions (float32 only, NAZ a multiple of 128) are not carried
-    over: CUDA takes any dtype and width."""
-    return "whole" if nrad % 16 == 0 else "split"
+    """The transport route a grid with ``nrad`` rings takes by itself:
+    ``"whole"``, whatever NR. The JAX package sends NR off a multiple of 16
+    to its split route (fargocpt_tpu/ops/transport.py:183-191), but 16 is
+    the row tile of its whole-transport TPU kernel; like that kernel's
+    other conditions (float32 only, NAZ a multiple of 128) it is not
+    carried over: the CUDA kernel takes any NR, NAZ and dtype. The split
+    and staged routes run where the caller names them
+    (``transport_route``)."""
+    return "whole"
 
 
 def sigma_flux(phys: Physics, g: Geom, sigma, vrad, dt):

@@ -1,17 +1,22 @@
-"""The whole-transport op and ``advect_shift`` alone on one CUDA GPU:
-where their time goes, launch by launch.
+"""The flagship's four fused ops and ``advect_shift`` alone on one CUDA
+GPU: where their time goes, launch by launch.
 
     python -m fargocpt_torch.profile_ops [--nrad 1024] [--naz 3072]
-        [--steps] [--sass] [--save FILE] [--against FILE]
+        [--ops transport,viscous_kick,...] [--steps] [--sass]
+        [--save FILE] [--against FILE] [--define NAME=n,...]
+        [--variants "NAME=n,...;NAME=n;..."]
 
-On the flagship's state with seeded noise (``perturbed``), float32:
-  * the ``transport`` op (whole route): the median over 25 calls of the
-    time between CUDA events around the call (the wrapper included), the
-    device time of each of its launches (``torch.profiler``, median over 10
-    calls), the bytes each launch must move (its distinct inputs read once
-    and outputs written once, ``LAUNCH_PLANES``) and the memory rate that
-    makes, the wrapper's share (events minus device time) and the host
-    time of one call;
+On the flagship's state with seeded noise (``perturbed``), float32, for
+each op of ``--ops`` (default: all of ``OP_NAMES``):
+  * ``transport`` (whole route), ``viscous_kick``, ``sources``, ``cfl``:
+    the median over 25 calls of the time between CUDA events around the
+    call (the wrapper included), the device time of each of its launches
+    (``torch.profiler``, median over 10 calls), the bytes each launch must
+    move (its distinct inputs read once and outputs written once,
+    ``LAUNCH_PLANES``) and the memory rate that makes, the wrapper's share
+    (events minus device time), the host time of one call, and the device
+    launches a call makes besides the op's own kernels (PyTorch kernels,
+    copies and fills that its wrapper adds);
   * ``advect_shift`` on the batch the staged route gives it, likewise, and
     beside it the one PyTorch call that computes the same, ``torch.gather``
     with a prebuilt index;
@@ -21,12 +26,21 @@ On the flagship's state with seeded noise (``perturbed``), float32:
     0.0), so two checkouts can be held against each other;
   * with ``--steps``: the flagship step and the PDS70 gas step at the same
     size through ``profile_step.profile_grid``: wall and device time a
-    step;
-  * with ``--sass``: ``nvcc -Xptxas -v`` of transport.cu and
-    advect_shift.cu (registers, spills, shared memory per kernel) and, from
-    ``cuobjdump -sass``, each kernel's count of SASS operations and, among
-    them, of reciprocals (MUFU.RCP, one per float32 division, and
-    MUFU.RCP64H, one per float64 division).
+    step, device time and launches a step of each op;
+  * with ``--sass``: ``nvcc -Xptxas -v`` of each op's source (registers,
+    spills, shared memory per kernel) and, from ``cuobjdump -sass``, each
+    kernel's count of SASS operations and, among them, of reciprocals
+    (MUFU.RCP, one per float32 division, and MUFU.RCP64H, one per float64
+    division), square roots (MUFU.SQRT, MUFU.RSQ and their 64H forms) and
+    exponentials (MUFU.EX2);
+  * with ``--variants``: the ops of ``--ops`` once more for each variant of
+    the CUDA sources, on the same inputs: a variant
+    rewrites ``constexpr int NAME = <number>;`` in a copy of ``csrc/`` to
+    the given numbers and is built beside the checkout's own kernels; the
+    checkout's are measured before the first and after the last, each in
+    a process of its own (``--define NAME=n,...`` is one such variant).
+    Per variant: device and event time of each op and how many values of
+    its outputs differ from the checkout's.
 
 The module uses only what every checkout of the port has had (the ops'
 entry points, ``Simulation``, ``profile_step``), so a copy of it placed in
@@ -52,10 +66,14 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, at 700 W
 
+OP_NAMES = ("transport", "viscous_kick", "sources", "cfl", "advect_shift")
+
 # device kernel name fragment -> (NR, NAZ) planes it must move for a batch
 # of K quantities: distinct inputs once, outputs once. The first three are
 # transport.cu's launches; tr_theta_kernel and tr_final_kernel were those of
-# its first version (one thread per cell and stage).
+# its first version (one thread per cell and stage), and vk_artvisc_kernel,
+# vk_stress_kernel and vk_update_kernel those of the viscous kick's first
+# version, which handed its intermediates through device memory.
 LAUNCH_PLANES = {
     "tr_radial_kernel": lambda k: 4 + k + 1,     # fields -> batch, flux
     "tr_ring_kernel": lambda k: k + 1 + 5,       # batch, vaz -> 5 planes
@@ -63,7 +81,20 @@ LAUNCH_PLANES = {
     "tr_theta_kernel": lambda k: k + 1 + k,      # batch, vaz -> batch
     "tr_final_kernel": lambda k: k + 4,          # batch -> 4 fields
     "advect_shift": lambda k: 2 * k,             # batch -> batch
+    "vk_tile_kernel": lambda k: 4 + 5,           # fields -> 5 planes
+    "vk_artvisc_kernel": lambda k: 4 + 3,        # fields -> e1, vr1, va1
+    "vk_stress_kernel": lambda k: 4 + 4,         # sigma, 3 -> 4 planes
+    "vk_update_kernel": lambda k: 8 + 5,         # sigma, 7 -> 5 planes
+    "sources_kernel": lambda k: 4 + 2,           # fields -> vrad, vaz
+    "vmean_kernel": lambda k: 1,                 # vaz -> (NR,)
+    "cfl_cells_kernel": lambda k: 6,             # fields, Q+, Q- -> partials
+    "cfl_final_kernel": lambda k: 0,             # partials -> dt
 }
+# each op's device kernel name fragments
+OP_FRAGMENTS = {"transport": ("tr_",), "viscous_kick": ("vk_",),
+                "sources": ("sources_kernel",),
+                "cfl": ("vmean_kernel", "cfl_"),
+                "advect_shift": ("advect_shift",)}
 
 
 def perturbed(sim) -> dict:
@@ -112,10 +143,11 @@ def host_ms(fn, reps=25) -> float:
     return float(np.median(times))
 
 
-def launch_times(fn, fragments, calls=10) -> list[dict]:
+def launch_times(fn, fragments, calls=10) -> tuple[list[dict], float]:
     """The device kernels whose name holds one of ``fragments``, in launch
     order within one call of ``fn``: name and median device time in ms over
-    ``calls`` profiled calls."""
+    ``calls`` profiled calls. Also the other device events (PyTorch's
+    kernels, copies and fills) a call makes."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     for _ in range(3):       # the profiler now and then drops device events
@@ -125,11 +157,12 @@ def launch_times(fn, fragments, calls=10) -> list[dict]:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
         found = sorted(
             ((e.time_range.start, e.name, e.time_range.elapsed_us())
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(f in e.name for f in fragments)), key=lambda x: x[0])
+             for e in device if any(f in e.name for f in fragments)),
+            key=lambda x: x[0])
         if found and len(found) % calls == 0:
             break
     else:
@@ -145,7 +178,7 @@ def launch_times(fn, fragments, calls=10) -> list[dict]:
         out.append({"kernel": rows[0][1],
                     "device_ms": float(np.median([us for *_, us in rows]))
                     / 1e3})
-    return out
+    return out, (len(device) - len(found)) / calls
 
 
 def short_name(kernel: str) -> str:
@@ -159,7 +192,7 @@ def with_bytes(launches, k, plane_bytes) -> list[dict]:
         planes = next((fn(k) for frag, fn in LAUNCH_PLANES.items()
                        if frag in row["kernel"]), None)
         row["kernel"] = short_name(row["kernel"])
-        if planes is not None:
+        if planes:
             row["bytes"] = planes * plane_bytes
             row["tb_per_s"] = row["bytes"] / (row["device_ms"] * 1e-3) / 1e12
             row["share_of_memory_rate"] = row["tb_per_s"] * 1e12 \
@@ -175,12 +208,13 @@ def digest(tensors) -> str:
 
 
 def profile_op(fn, fragments, k, plane_bytes) -> dict:
-    launches = with_bytes(launch_times(fn, fragments), k, plane_bytes)
+    launches, others = launch_times(fn, fragments)
+    launches = with_bytes(launches, k, plane_bytes)
     events = event_ms(fn)
     device = sum(row["device_ms"] for row in launches)
     return {"event_ms": events, "device_ms": device,
             "wrapper_ms": events - device, "host_ms": host_ms(fn),
-            "launches": launches}
+            "pytorch_launches": others, "launches": launches}
 
 
 def differences(outputs: dict, saved: dict) -> dict:
@@ -195,7 +229,8 @@ def differences(outputs: dict, saved: dict) -> dict:
     return out
 
 
-def profile_ops(nrad: int, naz: int, save=None, against=None) -> dict:
+def profile_ops(nrad: int, naz: int, save=None, against=None,
+                ops=OP_NAMES) -> dict:
     from .flagship import flagship
     from .ops import kernels as K
     from .ops import transport as tr
@@ -210,51 +245,134 @@ def profile_ops(nrad: int, naz: int, save=None, against=None) -> dict:
     shift = tr.fargo_shift(g, va, dt)
     k = 6 if phys.is_adiabatic else 5
     plane_bytes = s.numel() * s.element_size()
+    bodies = sim.stepper.bodies_on_grid(st.nbody)
+    zero = torch.zeros((), dtype=torch.float64, device=s.device)
+    # the step hands the viscous kick its time as a 0-d tensor
+    now = torch.zeros((), dtype=s.dtype, device=s.device)
 
-    def transport():
-        return K.transport(ctx, s, vr, va, e, omega, dt, shift,
-                           route="whole")
+    # op -> (call, names of its outputs)
+    calls = {
+        "transport": (lambda: K.transport(ctx, s, vr, va, e, omega, dt, shift,
+                                          route="whole"),
+                      ("sigma", "vrad", "vaz", "energy", "mass_flux")),
+        "viscous_kick": (lambda: K.viscous_kick(ctx, s, vr, va, e, dt, now),
+                         ("vrad", "vaz", "energy", "qplus", "qminus")),
+        "sources": (lambda: K.sources(ctx, s, vr, va, e, bodies,
+                                      (zero, zero), omega, dt),
+                    ("vrad", "vaz")),
+        "cfl": (lambda: (K.cfl(ctx, s, vr, va, e, st.qplus, st.qminus),),
+                ("dt",)),
+    }
+    res = {"grid": f"{nrad}x{naz}", "dtype": "float32", "K": k}
+    outputs = {}
+    for op, (call, names) in calls.items():
+        if op not in ops:
+            continue
+        res[op] = profile_op(call, OP_FRAGMENTS[op], k, plane_bytes)
+        own = {f"{op}.{n}": t for n, t in zip(names, call())}
+        res[op]["sha256"] = digest(own.values())
+        outputs.update(own)
 
-    res = {"grid": f"{nrad}x{naz}", "dtype": "float32", "K": k,
-           "transport": profile_op(
-               transport, [f for f in LAUNCH_PLANES if f.startswith("tr_")],
-               k, plane_bytes)}
-    names = ("sigma", "vrad", "vaz", "energy", "mass_flux")
-    outputs = {f"transport.{n}": t for n, t in zip(names, transport())}
-    res["transport"]["sha256"] = digest(outputs.values())
+    if "advect_shift" in ops:
+        # the batch as the staged route hands it to the roll
+        vmean, nshift, vconst = shift
+        qs = tr.momenta_batch(phys, g, s, vr, va, e, omega.to(s.dtype))
+        qs = K.radial_sweep_plain(ctx, qs, s, vr,
+                                  tr.sigma_flux(phys, g, s, vr, dt), dt)
+        qs = K.theta_sweep_plain(ctx, qs, va - vmean, dt)
+        qs = K.theta_sweep_plain(
+            ctx, qs, vconst.expand_as(va).contiguous(), dt)
+        j = torch.arange(naz, device=s.device)
+        index = torch.remainder(j[None, :] - nshift[:, None].to(j.dtype),
+                                naz).expand_as(qs).contiguous()
 
-    # the batch as the staged route hands it to the roll
-    vmean, nshift, vconst = shift
-    qs = tr.momenta_batch(phys, g, s, vr, va, e, omega.to(s.dtype))
-    qs = K.radial_sweep_plain(ctx, qs, s, vr,
-                              tr.sigma_flux(phys, g, s, vr, dt), dt)
-    qs = K.theta_sweep_plain(ctx, qs, va - vmean, dt)
-    qs = K.theta_sweep_plain(
-        ctx, qs, vconst.expand_as(va).contiguous(), dt)
-    j = torch.arange(naz, device=s.device)
-    index = torch.remainder(j[None, :] - nshift[:, None].to(j.dtype),
-                            naz).expand_as(qs).contiguous()
+        def roll():
+            return K.advect_shift(qs, nshift)
 
-    def roll():
-        return K.advect_shift(qs, nshift)
-
-    res["advect_shift"] = profile_op(roll, ("advect_shift",), k, plane_bytes)
-    outputs["advect_shift.qs"] = roll()
-    res["advect_shift"]["sha256"] = digest([outputs["advect_shift.qs"]])
+        res["advect_shift"] = profile_op(roll, OP_FRAGMENTS["advect_shift"],
+                                         k, plane_bytes)
+        outputs["advect_shift.qs"] = roll()
+        res["advect_shift"]["sha256"] = digest([outputs["advect_shift.qs"]])
+        if not torch.equal(roll(), torch.gather(qs, -1, index)):
+            raise AssertionError("advect_shift differs from torch.gather")
+        turns = {"advect_shift": [], "gather": []}
+        for name in ("gather", "advect_shift", "advect_shift", "gather"):
+            turns[name].append(event_ms(
+                roll if name == "advect_shift"
+                else lambda: torch.gather(qs, -1, index)))
+        res["advect_shift"]["event_ms_in_turns"] = turns
+        res["nshift_min_max"] = [int(nshift.min()), int(nshift.max())]
     if save:
         torch.save({n: t.cpu() for n, t in outputs.items()}, save)
     if against:
-        res["against"] = differences(outputs, torch.load(against))
-    if not torch.equal(roll(), torch.gather(qs, -1, index)):
-        raise AssertionError("advect_shift differs from torch.gather")
-    turns = {"advect_shift": [], "gather": []}
-    for name in ("gather", "advect_shift", "advect_shift", "gather"):
-        turns[name].append(event_ms(
-            roll if name == "advect_shift"
-            else lambda: torch.gather(qs, -1, index)))
-    res["advect_shift"]["event_ms_in_turns"] = turns
-    res["nshift_min_max"] = [int(nshift.min()), int(nshift.max())]
+        saved = torch.load(against)
+        res["against"] = differences(
+            {n: t for n, t in outputs.items() if n in saved}, saved)
     return res
+
+
+def build_variant(defines: dict[str, int], workdir: Path) -> None:
+    """Points the kernel build at a copy of ``csrc/`` in which each
+    ``constexpr int NAME = <number>;`` of ``defines`` has the given number
+    (an empty dict: the checkout's own sources), and loads that library in
+    place of the one loaded before."""
+    from .ops import kernels as K
+    own = Path(__file__).resolve().parent / "csrc"
+    if defines:
+        K.CSRC = workdir / "_".join(f"{k}{v}" for k, v in defines.items())
+        K.CSRC.mkdir()
+        found = set()
+        for src in own.iterdir():
+            text = src.read_text()
+            for name, value in defines.items():
+                text, n = re.subn(rf"(constexpr int {name} = )\d+;",
+                                  rf"\g<1>{value};", text)
+                if n:
+                    found.add(name)
+            (K.CSRC / src.name).write_text(text)
+        if found != set(defines):
+            raise ValueError(f"no 'constexpr int NAME = n;' for "
+                             f"{sorted(set(defines) - found)} in {own}")
+    else:
+        K.CSRC = own
+    K._LIB = None
+    K.build()
+
+
+def parse_defines(spec: str) -> dict[str, int]:
+    """"NAME=n,NAME=n" as a dict."""
+    return {k: int(v) for k, v in (kv.split("=") for kv in spec.split(",")
+                                   if kv)}
+
+
+def profile_variants(nrad: int, naz: int, ops, variants: str) -> list[dict]:
+    """The ops' times with the checkout's kernels, with each variant of
+    ``variants`` ("NAME=n,NAME=n;NAME=n;...") and with the checkout's once
+    more, each in a process of its own (``--define``) on the same inputs;
+    each variant's outputs held against the checkout's."""
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        base = str(Path(tmp) / "base.pt")
+        turns = [""] + [v for v in variants.split(";") if v] + [""]
+        for n, spec in enumerate(turns):
+            cmd = [sys.executable, "-m", "fargocpt_torch.profile_ops",
+                   "--nrad", str(nrad), "--naz", str(naz), "--ops",
+                   ",".join(ops), "--save" if n == 0 else "--against", base]
+            if spec:
+                cmd += ["--define", spec]
+            out = subprocess.run(cmd, capture_output=True, text=True,
+                                 cwd=Path(__file__).resolve().parent.parent)
+            if out.returncode != 0:
+                rows.append({"variant": spec, "failed": out.stderr[-400:]})
+                continue
+            res = json.loads(out.stdout.strip().splitlines()[-1])
+            rows.append({"variant": spec or "checkout", **{
+                op: {"device_ms": res[op]["device_ms"],
+                     "event_ms": res[op]["event_ms"]} for op in ops},
+                "values_that_differ": sum(
+                    d["values_that_differ"]
+                    for d in res.get("against", {}).values())})
+    return rows
 
 
 def profile_steps(nrad: int, naz: int) -> dict:
@@ -275,10 +393,17 @@ def profile_steps(nrad: int, naz: int) -> dict:
     return out
 
 
-def sass_counts(names=("transport", "advect_shift")) -> dict:
+MUFU_KINDS = {"rcp": "MUFU.RCP", "sqrt": "MUFU.SQRT", "rsq": "MUFU.RSQ",
+              "ex2": "MUFU.EX2"}
+
+
+def sass_counts(names=("transport", "advect_shift", "viscous_kick",
+                       "sources", "cfl")) -> dict:
     """Per kernel of csrc/<name>.cu: registers, spills and shared memory
-    from ``nvcc -Xptxas -v``; SASS operations and reciprocals among them
-    from ``cuobjdump -sass``."""
+    from ``nvcc -Xptxas -v``; SASS operations and, among them, reciprocals,
+    square roots, reciprocal square roots and exponentials (``MUFU_KINDS``;
+    the 64H forms of float64 count with their kind) from
+    ``cuobjdump -sass``."""
     from .ops import kernels as K
     nvcc = K.find_nvcc()
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
@@ -315,54 +440,41 @@ def sass_counts(names=("transport", "advect_shift")) -> dict:
                 m = re.search(r"Function : (\w+)", line)
                 if m:
                     current = kernels.setdefault(m.group(1), {})
-                    current.update(sass_ops=0, rcp=0)
+                    current.update(sass_ops=0, **{k: 0 for k in MUFU_KINDS})
                     continue
                 if current is None or not re.search(r"/\*[0-9a-f]{4}\*/",
                                                     line):
                     continue
                 current["sass_ops"] += 1
-                if "MUFU.RCP" in line:
-                    current["rcp"] += 1
+                for kind, op in MUFU_KINDS.items():
+                    if op in line:
+                        current[kind] += 1
             out[name] = kernels
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--nrad", type=int, default=1024)
-    ap.add_argument("--naz", type=int, default=3072)
-    ap.add_argument("--steps", action="store_true",
-                    help="also the flagship and PDS70 gas steps")
-    ap.add_argument("--sass", action="store_true",
-                    help="also registers, spills and SASS operation counts")
-    ap.add_argument("--save", help="write the two ops' outputs to this file")
-    ap.add_argument("--against", help="hold the two ops' outputs against "
-                    "the set saved in this file")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("profile_ops: needs a CUDA device", file=sys.stderr)
-        return 2
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(gpu, flush=True)
+def report(args, ops, gpu) -> dict:
+    """Measures and prints what ``args`` ask for; returns all of it."""
     res = {"gpu": gpu, **profile_ops(args.nrad, args.naz, args.save,
-                                     args.against)}
-    for op in ("transport", "advect_shift"):
+                                     args.against, ops)}
+    for op in ops:
         r = res[op]
         print(f"{op} {res['grid']} float32 K={res['K']}: events "
               f"{r['event_ms']:.4f} ms, device {r['device_ms']:.4f} ms, "
               f"wrapper {r['wrapper_ms']:.4f} ms, host {r['host_ms']:.4f} ms,"
-              f" outputs {r['sha256']} [{gpu}]", flush=True)
+              f" {r['pytorch_launches']:.1f} other device launches a call, "
+              f"outputs {r['sha256']} [{gpu}]", flush=True)
         for row in r["launches"]:
             rate = f"{row['bytes'] / 1e6:.1f} MB, {row['tb_per_s']:.3f} " \
                 f"TB/s = {100 * row['share_of_memory_rate']:.1f}% of " \
                 f"{HBM_BYTES_PER_S / 1e12} TB/s" if "bytes" in row else ""
             print(f"    {row['kernel']:28s} {row['device_ms']:.4f} ms  {rate}",
                   flush=True)
-    print(f"advect_shift against torch.gather with a prebuilt index, event "
-          f"medians in turns: {res['advect_shift']['event_ms_in_turns']} "
-          f"[{gpu}]", flush=True)
+    if "advect_shift" in ops:
+        print(f"advect_shift against torch.gather with a prebuilt index, "
+              f"event medians in turns: "
+              f"{res['advect_shift']['event_ms_in_turns']} [{gpu}]",
+              flush=True)
     if args.against:
         print(f"outputs against {args.against}: {res['against']}",
               flush=True)
@@ -371,17 +483,69 @@ def main(argv=None) -> int:
         for setup, r in res["steps"].items():
             print(f"{setup} step {res['grid']} float32: wall "
                   f"{r['wall_ms_per_step']:.4f} ms, device "
-                  f"{r['device_ms_per_step']:.4f} ms, transport "
-                  f"{r['ops'].get('transport', {}).get('device_ms_per_step')}"
-                  f" ms [{gpu}]", flush=True)
+                  f"{r['device_ms_per_step']:.4f} ms, "
+                  f"{sum(x['launches_per_step'] for x in r['ops'].values()):.2f}"
+                  f" launches a step; "
+                  + "; ".join(f"{op} {x['launches_per_step']:.2f} launches "
+                              f"{x['device_ms_per_step']:.4f} ms"
+                              for op, x in r["ops"].items())
+                  + f" [{gpu}]", flush=True)
+    if args.variants:
+        res["variants"] = profile_variants(args.nrad, args.naz, ops,
+                                           args.variants)
+        for row in res["variants"]:
+            if "failed" in row:
+                print(f"  variant {row['variant']} failed: {row['failed']}",
+                      flush=True)
+                continue
+            print(f"  variant {row['variant']}: "
+                  + "; ".join(f"{op} device {row[op]['device_ms']:.4f} ms, "
+                              f"events {row[op]['event_ms']:.4f} ms"
+                              for op in ops)
+                  + f"; {row['values_that_differ']} values differ from the "
+                  f"checkout's [{gpu}]", flush=True)
     if args.sass:
         res["sass"] = sass_counts()
         for name, kernels in res["sass"].items():
             for kernel, row in kernels.items():
-                m = re.search(r"\d((?:tr|advect_shift)_\w*?kernel)I(\w+?)E",
-                              kernel)
+                m = re.search(r"\d([a-z_]+?_kernel)I(\w+?)E", kernel)
                 label = f"{m.group(1)}<{m.group(2)}>" if m else kernel[:60]
                 print(f"  {name}.cu {label}: {row}", flush=True)
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--nrad", type=int, default=1024)
+    ap.add_argument("--naz", type=int, default=3072)
+    ap.add_argument("--ops", default=",".join(OP_NAMES),
+                    help="the ops to take, comma-separated (default: all)")
+    ap.add_argument("--steps", action="store_true",
+                    help="also the flagship and PDS70 gas steps")
+    ap.add_argument("--sass", action="store_true",
+                    help="also registers, spills and SASS operation counts")
+    ap.add_argument("--save", help="write the ops' outputs to this file")
+    ap.add_argument("--against", help="hold the ops' outputs against the "
+                    "set saved in this file")
+    ap.add_argument("--define", help="take the ops with this variant of "
+                    'the CUDA sources, e.g. "VK_TH=8,VK_TW=128"')
+    ap.add_argument("--variants", help='variants of the CUDA sources to '
+                    'take the ops with, e.g. "VK_TH=8;VK_TH=32,VK_TW=128"')
+    args = ap.parse_args(argv)
+    ops = tuple(args.ops.split(","))
+    if set(ops) - set(OP_NAMES):
+        ap.error(f"--ops takes names of {OP_NAMES}")
+    if not torch.cuda.is_available():
+        print("profile_ops: needs a CUDA device", file=sys.stderr)
+        return 2
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(gpu, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        if args.define:
+            build_variant(parse_defines(args.define), Path(tmp))
+        res = report(args, ops, gpu)
     print(json.dumps(res))
     return 0
 

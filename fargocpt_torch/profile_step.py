@@ -46,9 +46,7 @@ KERNEL_OPS = (("rms_kernel", "radial_momenta_sweep"),
               ("tr_radial_kernel", "transport"),
               ("tr_ring_kernel", "transport"),
               ("tr_vrad_kernel", "transport"),
-              ("vk_artvisc_kernel", "viscous_kick"),
-              ("vk_stress_kernel", "viscous_kick"),
-              ("vk_update_kernel", "viscous_kick"),
+              ("vk_tile_kernel", "viscous_kick"),
               ("sources_kernel", "sources"), ("cfl_cells_kernel", "cfl"),
               ("cfl_final_kernel", "cfl"), ("vmean_kernel", "cfl"),
               ("artvisc_sn_kernel", "artvisc_sn"))

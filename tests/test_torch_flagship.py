@@ -1,7 +1,7 @@
 """The port's flagship setup (``fargocpt_torch/flagship.py``, which
 ``chip_smoke.py`` and ``python -m fargocpt_torch.profile_step`` run) is the
 JAX package's ``__graft_entry__._flagship``: the same Physics and Geometry
-once each Simulation is built, on both transport routes' grids. The one
+once each Simulation is built, at NR on and off a multiple of 16. The one
 extra key, ``FirstDT``, is run control and reaches neither."""
 
 import dataclasses
@@ -45,5 +45,5 @@ def test_flagship_is_the_jax_flagship(nrad):
     ts = Simulation(flagship(nrad, 32), device="cpu")
     _assert_same(js.phys, ts.phys, "physics")
     _assert_same(js.geometry, ts.geometry, "geometry")
-    assert ts.stepper.ops.route == transport.route(nrad)
+    assert ts.stepper.ops.route == transport.route(nrad) == "whole"
     assert "Nrad" not in FLAGSHIP and "Naz" not in FLAGSHIP

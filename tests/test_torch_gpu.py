@@ -6,7 +6,10 @@ kernels and rtol 1e-12 for artvisc_sn (also in float32: 1e-5 of each
 output's largest magnitude) and for the staged route's radial_sweep and
 theta_sweep (advect_shift bit for bit); the transport routes and the roll
 also at shapes that cross the edges of the whole-transport kernel's tiles
-and of the roll's 16-byte vectors, in both dtypes; a split-route and a
+and of the roll's 16-byte vectors, in both dtypes; the viscous kick and the
+sources at shapes that cross every edge of their tiles, in both
+dtypes and every branch, on a side stream, and with the device launches of
+a call counted (the kernel and nothing else); a split-route and a
 staged-route
 Simulation step through their kernels, a PDS70 gas step through artvisc_sn
 and the whole transport, and the whole PDS70 setup with its dust swarm on
@@ -132,6 +135,212 @@ def test_viscous_kick_kernel_matches_plain(cuda, compress, artvisc_on,
     _close(kernels.viscous_kick(ctx, *args, compress=compress),
            kernels.viscous_kick_plain(ctx, *args, compress=compress),
            1e-10, (1e-13, 1e-13, 1e-16, 1e-18, 1e-18))
+
+
+# Shapes that cross every edge of the viscous kick's and the sources' tiles
+# (16 rows x 64 columns of outputs both; the row tiles cover NR + 1 rows
+# of vrad): NR and NAZ one under, on and one over a tile, several tiles
+# with a ragged last one, NR = 4 (only ghost rings and one face), rings of
+# 1 and 3 cells (shorter than the viscous kick's halo of 2 each way).
+KICK_SHAPES = [(4, 1), (4, 3), (15, 63), (16, 64), (17, 65), (31, 64),
+               (32, 65), (33, 130), (130, 200)]
+
+VK_PHYS = dict(adiabatic_index=1.4, viscous_alpha=1e-3, aspectratio_ref=0.05,
+               flaring_index=0.25, artificial_viscosity_dissipation=True,
+               heating_viscous=True, cooling_beta_enabled=True,
+               cooling_beta=10.0, minimum_temperature=1e-6, sigma0=1.0,
+               sigma_floor=1e-6)
+
+
+def _close_by_dtype(got, ref, dtype, rtol, atols, scales):
+    """float64 at ``rtol`` / ``atols``; float32 at 1e-5 of each output's
+    scale."""
+    if dtype == torch.float64:
+        _close(got, ref, rtol, atols)
+    else:
+        _close(got, ref, 0.0, [1e-5 * sc for sc in scales])
+
+
+def _vk_scales(f, ref):
+    """The velocities' scale is max|vaz|, or the output's own where the
+    kick on a near-floor cell (sigma 5e-6) makes it hundreds of that; the
+    other outputs' is their own."""
+    v = float(f["vaz"].abs().max())
+    return [max(v, float(r.abs().max())) for r in ref[:2]] \
+        + [max(float(r.abs().max()), 1e-30) for r in ref[2:]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nr,naz", KICK_SHAPES)
+@pytest.mark.parametrize("artvisc_on", ["sn", "tw"])
+@pytest.mark.parametrize("adiabatic", [True, False])
+def test_viscous_kick_kernel_across_tile_edges(cuda, adiabatic, artvisc_on,
+                                               nr, naz, dtype):
+    ctx = _ctx(dict(VK_PHYS, eos="adiabatic" if adiabatic else "isothermal",
+                    artificial_viscosity=artvisc_on), cuda, nr, naz, dtype)
+    f = _fields(11, cuda, nr, naz, dtype, floor_cells=naz >= 7)
+    args = (f["sigma"], f["vrad"], f["vaz"], f["energy"],
+            torch.tensor(0.003, dtype=dtype, device=cuda), 0.0)
+    before = kernels.LAUNCHES["viscous_kick"]
+    got = kernels.viscous_kick(ctx, *args)
+    assert kernels.LAUNCHES["viscous_kick"] == before + 1
+    ref = kernels.viscous_kick_plain(ctx, *args)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+    _close_by_dtype(got, ref, dtype, 1e-10,
+                    (1e-13, 1e-13, 1e-16, 1e-18, 1e-18), _vk_scales(f, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("branch", [
+    dict(artificial_viscosity_dissipation=False),
+    dict(heating_viscous=False),
+    dict(cooling_beta_enabled=False),
+    dict(viscous_alpha=0.0, constant_viscosity=1e-5),
+    dict(artificial_viscosity="none"),
+    dict(artificial_viscosity="tw", artificial_viscosity_dissipation=False),
+    dict(cooling_beta_ramp_up=5.0),
+])
+@pytest.mark.parametrize("compress", [True, False])
+def test_viscous_kick_kernel_branches(cuda, compress, branch, dtype):
+    """Every switch of the op off once, on a grid of several tiles; with
+    the cooling ramp 1/beta is a tensor of the time, read on the device."""
+    ctx = _ctx(dict(VK_PHYS, eos="adiabatic", artificial_viscosity="sn")
+               | branch, cuda, 33, 130, dtype)
+    f = _fields(11, cuda, 33, 130, dtype, floor_cells=True)
+    time = torch.tensor(1.5, dtype=dtype, device=cuda)
+    args = (f["sigma"], f["vrad"], f["vaz"], f["energy"],
+            torch.tensor(0.003, dtype=dtype, device=cuda), time)
+    got = kernels.viscous_kick(ctx, *args, compress=compress)
+    ref = kernels.viscous_kick_plain(ctx, *args, compress=compress)
+    _close_by_dtype(got, ref, dtype, 1e-10,
+                    (1e-13, 1e-13, 1e-16, 1e-18, 1e-18), _vk_scales(f, ref))
+    if "cooling_beta_ramp_up" in branch:
+        # the same ramp at a float time: 1/beta as a static parameter
+        again = kernels.viscous_kick(ctx, *args[:5], 1.5, compress=compress)
+        _close_by_dtype(again, ref, dtype, 1e-10,
+                        (1e-13, 1e-13, 1e-16, 1e-18, 1e-18),
+                        _vk_scales(f, ref))
+
+
+def _planets(n_bodies, device):
+    """A star and one or two planets inside the grid, each planet with a
+    cubic smoothing radius that reaches some cells."""
+    return gravity.BodiesOnGrid(
+        x=_one([0.0, 1.0, -0.4][:n_bodies], device),
+        y=_one([0.0, 0.3, 1.1][:n_bodies], device),
+        mass=_one([1.0, 1e-3, 3e-4][:n_bodies], device),
+        cubic_smoothing_radius=_one([0.0, 0.3, 0.2][:n_bodies], device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nr,naz", KICK_SHAPES)
+@pytest.mark.parametrize("n_bodies,planetloc", [(2, False), (3, False),
+                                                (3, True)])
+@pytest.mark.parametrize("adiabatic", [True, False])
+def test_sources_kernel_across_tile_edges(cuda, adiabatic, n_bodies,
+                                          planetloc, nr, naz, dtype):
+    """Two and three bodies with cubic smoothing radii inside the grid,
+    eps*H per cell or the scalar eps*h at the planet (no smoothing for the
+    star)."""
+    ctx = _ctx(dict(eos="adiabatic" if adiabatic else "isothermal",
+                    adiabatic_index=1.4, thickness_smoothing=0.6,
+                    aspectratio_ref=0.05, flaring_index=0.25,
+                    imposed_disk_drift=1e-4,
+                    compatibility_smoothing_planetloc=planetloc,
+                    compatibility_no_star_smoothing=planetloc), cuda, nr, naz,
+               dtype)
+    f = _fields(5, cuda, nr, naz, dtype)
+    bodies = _planets(n_bodies, cuda)
+    if (nr, naz) == (130, 200):
+        cell_x, cell_y = ctx.cell_xy()
+        d = torch.sqrt((cell_x - 1.0) ** 2 + (cell_y - 0.3) ** 2)
+        assert bool((d < 0.3).any())
+    args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], bodies,
+            (_one(1e-3, cuda), _one(-2e-3, cuda)), _one(0.4, cuda),
+            torch.tensor(0.003, dtype=dtype, device=cuda))
+    before = kernels.LAUNCHES["sources"]
+    got = kernels.sources(ctx, *args)
+    assert kernels.LAUNCHES["sources"] == before + 1
+    ref = kernels.sources_plain(ctx, *args)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+    v = float(f["vaz"].abs().max())
+    _close_by_dtype(got, ref, dtype, 1e-11, (1e-13, 1e-13), [v, v])
+
+
+def _step_like_args(ctx, f, dtype, device):
+    """The two ops' arguments as the step hands them over: dt, the time and
+    the frame rate 0-d tensors of the field type, the indirect terms and
+    the bodies in float64."""
+    dt = torch.tensor(0.003, dtype=dtype, device=device)
+    fields = (f["sigma"], f["vrad"], f["vaz"], f["energy"])
+    zero = _one(0.0, device)
+    return {"viscous_kick": (ctx, *fields, dt,
+                             torch.tensor(0.5, dtype=dtype, device=device)),
+            "sources": (ctx, *fields, _planets(2, device), (zero, zero),
+                        torch.tensor(0.4, dtype=dtype, device=device), dt)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["viscous_kick", "sources"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kick_ops_on_a_side_stream(cuda, dtype, op):
+    """A call on a stream other than the default one gives bit for bit
+    what the default stream gives."""
+    ctx = _ctx(dict(VK_PHYS, eos="adiabatic", artificial_viscosity="sn",
+                    thickness_smoothing=0.6), cuda, 33, 130, dtype)
+    f = _fields(23, cuda, 33, 130, dtype)
+    args = _step_like_args(ctx, f, dtype, cuda)[op]
+    fn = getattr(kernels, op)
+    ref = fn(*args)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = fn(*args)
+    side.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["viscous_kick", "sources"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kick_ops_launch_their_kernel_and_nothing_else(cuda, dtype, op):
+    """With the arguments the step gives them the wrappers pack nothing:
+    the only device activity of a call is the op's one kernel (the output
+    allocations launch nothing)."""
+    from torch.profiler import ProfilerActivity, profile
+    ctx = _ctx(dict(VK_PHYS, eos="adiabatic", artificial_viscosity="sn",
+                    thickness_smoothing=0.6), cuda, 33, 130, dtype)
+    f = _fields(23, cuda, 33, 130, dtype)
+    args = _step_like_args(ctx, f, dtype, cuda)[op]
+    fn = getattr(kernels, op)
+    fn(*args)
+    calls = 5
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    # what the host asked of the device (every request is recorded) ...
+    asked = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and ("LaunchKernel" in e.name or "Memcpy" in e.name
+                  or "Memset" in e.name)]
+    assert len(asked) == calls and all("LaunchKernel" in n for n in asked), \
+        asked
+    # ... and what ran there (the profiler now and then drops one of these)
+    ran = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    fragment = {"viscous_kick": "vk_tile_kernel",
+                "sources": "sources_kernel"}[op]
+    assert 1 <= len(ran) <= calls and all(fragment in n for n in ran), ran
 
 
 # Shapes that cross every edge of the whole-transport kernel's tiles (the
@@ -261,8 +470,9 @@ def test_fargo_theta_kernel_matches_plain(cuda, k_quant, limiter, two_pass):
 
 @pytest.mark.gpu
 def test_split_route_step_launches_the_split_kernels(cuda):
-    """A Simulation whose NR is not a multiple of 16 steps through
-    radial_momenta_sweep and fargo_theta, never the whole transport."""
+    """A Simulation on the split route (named: every grid takes the whole
+    route by itself) steps through radial_momenta_sweep and fargo_theta,
+    never the whole transport."""
     cfg = Config.from_dict({
         "EquationOfState": "Ideal", "AdiabaticIndex": "1.4",
         "AspectRatio": "0.05", "ViscousAlpha": "0.001",
@@ -271,7 +481,8 @@ def test_split_route_step_launches_the_split_kernels(cuda):
         "Rmin": "0.4", "Rmax": "2.5", "RadialSpacing": "Log",
         "InnerBoundary": "outflow", "OuterBoundary": "outflow",
         "Transport": "FARGO"})
-    sim = Simulation(cfg)
+    assert Simulation(cfg).stepper.ops.route == "whole"
+    sim = Simulation(cfg, transport_route="split")
     assert sim.device.type == "cuda"
     assert sim.stepper.ops.route == "split"
     before = dict(kernels.LAUNCHES)

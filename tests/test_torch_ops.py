@@ -240,6 +240,34 @@ def test_substep3(grids, fields, ramp):
     _close(got, ref, atol=1e-20)
 
 
+@pytest.mark.parametrize("time", [0.0, 1.5])
+def test_substep3_takes_the_time_as_a_float(grids, fields, time):
+    """The cooling ramp at a Python-float time, as the initial Q+/Q- are
+    seeded (time 0.0): the same numbers as with a tensor, and as JAX's."""
+    jg, tg = grids
+    jp, tp = _phys(cooling_beta_ramp_up=5.0)
+    jc, tc = _constants()
+    f = fields
+    nu = f["energy"] * 1e-3
+    h = f["energy"] * 0.05
+    stress_t = visc.viscous_stress_tensor(tp, tg, T(f["sigma"]),
+                                          T(f["vrad"]), T(f["vaz"]), T(nu))
+    args = (tp, tc, tg, T(f["sigma"]), T(f["energy"]), T(nu), *stress_t,
+            T(h))
+    got = energy_ops.substep3(*args, time, T(0.003))
+    for a, b in zip(got, energy_ops.substep3(*args, T(time), T(0.003))):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert isinstance(energy_ops.beta_inverse(tp, time), float)
+    sig_j = J(f["sigma"])
+    ref = j_energy.substep3(
+        jp, jc, jg, sig_j, J(f["energy"]), J(f["vrad"]), J(f["vaz"]), J(nu),
+        *[J(s.numpy()) for s in stress_t], J(h), sig_j, J(f["energy"]),
+        jnp.zeros_like(sig_j), jnp.float64(time), jnp.float64(0.003))
+    _close(got, ref, atol=1e-20)
+    if time == 0.0:         # the ramp starts from no cooling at all
+        assert energy_ops.beta_inverse(tp, time) == 0.0
+
+
 def test_substep3_rejects_unported_cooling():
     _, tp = _phys(cooling_scurve_enabled=True)
     with pytest.raises(NotImplementedError, match="S-curve"):

@@ -105,6 +105,35 @@ def test_ten_steps_match_jax():
         np.asarray(js.state.monitor_acc.mass_delta), rtol=1e-10, atol=1e-30)
 
 
+def test_cooling_beta_ramp_up_matches_jax():
+    """The flagship with the cooling ramp (CoolingBetaRampUp), whose seed of
+    Q+ / Q- evaluates the ramp at the float time 0.0: five steps at 32x64
+    against the JAX package."""
+    cfg = dict(FLAGSHIP, Nrad="32", Naz="64", CoolingBetaRampUp="5.0")
+    js = JSimulation(JConfig.from_dict(dict(cfg)))
+    ts = Simulation(Config.from_dict(dict(cfg)), device="cpu")
+    assert ts.stepper.phys.cooling_beta_ramp_up == 5.0
+    _assert_fields(ts.state, js.state, vrad_atol=1e-9)
+    for _ in range(5):
+        dj = js.calculate_time_step()
+        dt = ts.calculate_time_step()
+        np.testing.assert_allclose(float(dt), dj, rtol=1e-12)
+        js.step_once(dj)
+        ts.step_once(dt)
+    np.testing.assert_allclose(float(ts.time), js.time, rtol=1e-12)
+    _assert_fields(ts.state, js.state, vrad_atol=1e-9)
+    # the ramp is on: after five steps the time is a tiny part of the ramp's
+    # length and the cooling has not begun, where the flagship without the
+    # ramp cools from its first step
+    plain = Simulation(Config.from_dict(dict(cfg, CoolingBetaRampUp="0.0")),
+                       device="cpu")
+    for _ in range(5):
+        plain.step_once(plain.calculate_time_step())
+    assert float(ts.time) < 1e-3 * 5.0
+    assert (float(ts.state.qminus.abs().max())
+            < 1e-6 * float(plain.state.qminus.abs().max()))
+
+
 def test_seeded_from_jax_state(pair):
     js, _ = pair
     tree = jax_state_tree(js.state)

@@ -6,11 +6,15 @@ the CPU in float64.
   a 40x256 grid (NR not a multiple of 16, NAZ a multiple of 128), over
   K = 5 and 6, both limiters and one or two azimuthal sweeps, with shifts
   of either sign: rtol 1e-12, atol 1e-14, the tolerances of that file.
-- The route of a grid against the JAX package's gate.
-- The split composition against the JAX package's jnp transport (rtol
-  1e-11, as tests/test_torch_kernels.py holds the whole route).
-- The flagship Simulation at 40x128 (split route) against the JAX
-  Simulation for 10 steps, with the tolerances of tests/test_torch_slice.py.
+- The route a grid takes by itself: the whole route for every NR, shown
+  beside the route the JAX package's gate takes (NR off a multiple of 16
+  goes to its split route: a tile of its TPU kernel, not carried over).
+- The split composition, and the whole route's plain version at NR = 33
+  and NR = 1000, against the JAX package's jnp transport (rtol 1e-11, as
+  tests/test_torch_kernels.py holds the whole route).
+- The flagship Simulation at 40x128 on the split route (named) and on the
+  default route against the JAX Simulation for 10 steps, with the
+  tolerances of tests/test_torch_slice.py.
 
 The CUDA kernels themselves are held to these plain versions on the GPU by
 tests/test_torch_gpu.py.
@@ -49,10 +53,11 @@ def _phys_kw(adiabatic=True, limiter=0, fast=True):
                 flux_limiter_type=limiter, fast_transport=fast)
 
 
-def _ctx(kw, nr=NR, naz=NAZ):
+def _ctx(kw, nr=NR, naz=NAZ, route=None):
     geom = Geometry.build(nr, naz, 0.4, 2.5, "Log")
     return kernels.KernelContext(Physics(**kw), Constants.from_units(Units()),
-                                 geom, torch.float64, "cpu")
+                                 geom, torch.float64, "cpu",
+                                 transport_route=route)
 
 
 def _jax_geom(nr=NR, naz=NAZ, dtype=jnp.float64):
@@ -141,7 +146,10 @@ class _Took(Exception):
 def test_route_matches_the_jax_gate(monkeypatch, nr):
     """The JAX package's transport, run as on the TPU (float32, NAZ a
     multiple of 128, the kernels stubbed to report which one it reached),
-    takes the route that ``transport.route`` names."""
+    takes its whole-transport kernel where NR is a multiple of 16, the row
+    tile of that kernel, and its split route elsewhere. The port's kernel
+    has no such tile: ``transport.route`` names the whole route for every
+    NR, and the other routes are there by name."""
     def took(name):
         def stub(*args, **kwargs):
             raise _Took(name)
@@ -156,8 +164,11 @@ def test_route_matches_the_jax_gate(monkeypatch, nr):
         j_transport.transport(JPhysics(), jg, f["sigma"], f["vrad"],
                               f["vaz"], f["energy"], jnp.float32(0.0),
                               jnp.float32(0.01))
-    assert transport.route(nr) == str(took_route.value)
-    assert _ctx(_phys_kw(), nr, naz).route == str(took_route.value)
+    assert str(took_route.value) == ("whole" if nr % 16 == 0 else "split")
+    assert transport.route(nr) == "whole"
+    assert _ctx(_phys_kw(), nr, naz).route == "whole"
+    for named in kernels.ROUTES:
+        assert _ctx(_phys_kw(), nr, naz, route=named).route == named
 
 
 @pytest.mark.parametrize("fast", [True, False])
@@ -172,8 +183,37 @@ def test_split_composition_matches_jax_transport(adiabatic, fast):
         JPhysics(**kw), jg, *[jnp.asarray(f[k]) for k in
                              ("sigma", "vrad", "vaz", "energy")],
         jnp.float64(omega), jnp.float64(dt))
-    ctx = _ctx(kw)
+    ctx = _ctx(kw, route="split")
     assert ctx.route == "split"
+    got = kernels.transport(ctx, T(f["sigma"]), T(f["vrad"]), T(f["vaz"]),
+                            T(f["energy"]), T(omega), T(dt))
+    assert all(kernels.LAUNCHES[op] == 0 for op in kernels.OPS)
+    for name, g, r, atol in zip(
+            ("sigma", "vrad", "vaz", "energy", "mass_flux"), got, ref,
+            (1e-14, 1e-13, 1e-13, 1e-14, 1e-15)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-11,
+                                   atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("fast", [True, False])
+@pytest.mark.parametrize("nr,naz", [(33, 40), (1000, 12)])
+def test_whole_route_off_a_multiple_of_16_matches_jax_transport(nr, naz,
+                                                                fast):
+    """The route every grid now takes, at NR off a multiple of 16 (where
+    the JAX package's float64 path is its jnp transport): the whole
+    route's plain version against ``transport()``, at the tolerances the
+    split composition is held to."""
+    kw = _phys_kw(fast=fast)
+    jg = _jax_geom(nr, naz)
+    f = _fields(17, nr, naz)
+    f["energy"] = f["energy"] * 1e-3
+    dt, omega = 0.01, 0.3
+    ref = j_transport.transport(
+        JPhysics(**kw), jg, *[jnp.asarray(f[k]) for k in
+                             ("sigma", "vrad", "vaz", "energy")],
+        jnp.float64(omega), jnp.float64(dt))
+    ctx = _ctx(kw, nr, naz)
+    assert ctx.route == "whole"
     got = kernels.transport(ctx, T(f["sigma"]), T(f["vrad"]), T(f["vaz"]),
                             T(f["energy"]), T(omega), T(dt))
     assert all(kernels.LAUNCHES[op] == 0 for op in kernels.OPS)
@@ -200,12 +240,11 @@ FLAGSHIP_40 = {
 }
 
 
-def test_flagship_on_the_split_route_matches_jax():
-    """Ten flagship steps at 40x128 through the split route; tolerances of
-    tests/test_torch_slice.py (rtol 1e-10, v_rad atol 1e-9 max|v_rad|)."""
+def _ten_flagship_steps_match_jax(route):
     js = JSimulation(JConfig.from_dict(dict(FLAGSHIP_40)))
-    ts = Simulation(Config.from_dict(dict(FLAGSHIP_40)), device="cpu")
-    assert ts.stepper.ops.route == "split"
+    ts = Simulation(Config.from_dict(dict(FLAGSHIP_40)), device="cpu",
+                    transport_route=route)
+    assert ts.stepper.ops.route == (route or "whole")
     for _ in range(10):
         dj = js.calculate_time_step()
         dt = ts.calculate_time_step()
@@ -226,3 +265,15 @@ def test_flagship_on_the_split_route_matches_jax():
     np.testing.assert_allclose(
         ts.state.monitor_acc.mass_delta.numpy(),
         np.asarray(js.state.monitor_acc.mass_delta), rtol=1e-10, atol=1e-30)
+
+
+def test_flagship_on_the_split_route_matches_jax():
+    """Ten flagship steps at 40x128 through the split route; tolerances of
+    tests/test_torch_slice.py (rtol 1e-10, v_rad atol 1e-9 max|v_rad|)."""
+    _ten_flagship_steps_match_jax("split")
+
+
+def test_flagship_at_40_rings_on_the_default_route_matches_jax():
+    """The same ten steps on the route the grid takes by itself, the whole
+    route, at the same tolerances."""
+    _ten_flagship_steps_match_jax(None)

@@ -256,7 +256,7 @@ def test_stand_ins_are_called_per_stage():
 
 def test_route_keyword():
     assert _ctx(_phys_kw()).route == "whole"
-    assert _ctx(_phys_kw(), nr=40).route == "split"
+    assert _ctx(_phys_kw(), nr=40).route == "whole"
     assert _ctx(_phys_kw(), nr=40, route="staged").route == "staged"
     assert _ctx(_phys_kw(), route="split").route == "split"
     with pytest.raises(ValueError, match="transport_route"):
