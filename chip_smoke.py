@@ -31,14 +31,18 @@ Phases (any failure raises, so the exit code is not 0):
      against the floating-point operations of its plain version (counted
      by FlopCounter) at the float32 rate, and for advect_shift the time of
      the one PyTorch call that computes it (torch.gather with a prebuilt
-     index); the whole-transport kernel, viscous_kick, sources and
-     advect_shift launch by launch (torch.profiler: each launch's device
-     time, the bytes it must move and the memory rate that makes, the
-     wrapper's share of the event time and the device launches it adds);
-     the whole-transport kernel at two more shapes that cross the edges of
-     its tiles (37x1030 and 20x7, float64 and float32), viscous_kick and
-     sources at shapes that cross every edge of theirs (KICK_SHAPES, both
-     dtypes, SN and TW, both EoS, three bodies); the split route as
+     index); the whole-transport kernel, viscous_kick, sources, cfl,
+     advect_shift, theta_sweep and fargo_theta launch by launch
+     (torch.profiler: each launch's device time, the bytes it must move and
+     the memory rate that makes, the wrapper's share of the event time and
+     the device launches it adds); the whole-transport kernel at two more
+     shapes that cross the edges of its tiles (37x1030 and 20x7, float64
+     and float32), viscous_kick and sources at shapes that cross every edge
+     of theirs (KICK_SHAPES, both dtypes, SN and TW, both EoS, three
+     bodies), cfl, theta_sweep and fargo_theta at shapes that cross every
+     edge of their ring blocks and tiles (CFL_SHAPES, THETA_SHAPES: NR = 3,
+     rings of 1 and 7 cells, both dtypes, K = 1, 2, 5, 6, cfl with planted
+     NaN and zero-energy cells); the split route as
      a whole against the whole-transport kernel on the same 1000x3072
      state, and the three routes on one 1024x3072 state in turns;
   3. the slices: the flagship Simulation on the GPU at 1024x3072 on the
@@ -439,7 +443,7 @@ def parity_f32_flagship(sim, gpu) -> dict:
     calls = op_calls(sim.stepper.ops, f, (st.qplus, st.qminus), bodies,
                      st.omega_frame, dt)
     out = measure(calls, f, NR)
-    for name in ("transport", "viscous_kick", "sources"):
+    for name in ("transport", "viscous_kick", "sources", "cfl"):
         out[name]["per_launch"] = log_launches(
             name, calls[name][0], OP_FRAGMENTS[name],
             6 if sim.stepper.ops.phys.is_adiabatic else 5,
@@ -467,7 +471,7 @@ def parity_f32_pds70(sim) -> dict:
                                  sim.stepper.cfl_dt(sim.state)), f, NR)
 
 
-def parity_f32_split(sim) -> tuple[dict, dict]:
+def parity_f32_split(sim, gpu) -> tuple[dict, dict]:
     """The split route's two kernels against their plain versions at
     1000x3072 on the perturbed flagship state; then the split route as a
     whole against the whole-transport kernel on the same state (outputs
@@ -477,7 +481,11 @@ def parity_f32_split(sim) -> tuple[dict, dict]:
     st, ctx = sim.state, sim.stepper.ops
     f = perturbed(sim)
     dt = sim.stepper.cfl_dt(st)
-    out = measure(split_calls(ctx, f, st.omega_frame, dt), f, NR_SPLIT)
+    calls = split_calls(ctx, f, st.omega_frame, dt)
+    out = measure(calls, f, NR_SPLIT)
+    out["fargo_theta"]["per_launch"] = log_launches(
+        "fargo_theta", calls["fargo_theta"][0], OP_FRAGMENTS["fargo_theta"],
+        6 if ctx.phys.is_adiabatic else 5, nbytes([f["sigma"]]), gpu)
 
     shift = tr.fargo_shift(ctx.g, f["vaz"], dt)
     args = (ctx, f["sigma"], f["vrad"], f["vaz"], f["energy"],
@@ -511,10 +519,10 @@ def parity_f32_staged(sim, gpu) -> tuple[dict, dict]:
     dt = sim.stepper.cfl_dt(st)
     calls = staged_calls(ctx, f, st.omega_frame, dt)
     out = measure(calls, f, NR)
-    out["advect_shift"]["per_launch"] = log_launches(
-        "advect_shift", calls["advect_shift"][0],
-        OP_FRAGMENTS["advect_shift"],
-        6 if ctx.phys.is_adiabatic else 5, nbytes([f["sigma"]]), gpu)
+    for name in ("theta_sweep", "advect_shift"):
+        out[name]["per_launch"] = log_launches(
+            name, calls[name][0], OP_FRAGMENTS[name],
+            6 if ctx.phys.is_adiabatic else 5, nbytes([f["sigma"]]), gpu)
 
     shift = tr.fargo_shift(ctx.g, f["vaz"], dt)
     args = (ctx, f["sigma"], f["vrad"], f["vaz"], f["energy"],
@@ -716,6 +724,115 @@ def kick_tile_edges(device) -> None:
                                      f"float32: {w:.3e} > {F32_TOL} of scale")
 
 
+# Shapes that cross every edge of cfl's ring blocks (one block of 256
+# threads a ring; a ring's vaz in shared memory up to 40 KB: 10240 cells in
+# float32, 5120 in float64) and of the azimuthal ring tiles of theta_sweep
+# and fargo_theta (a block holds 512 cells in float32, 256 in float64: 508
+# and 252 output cells with one sweep, 504 and 248 with two, and a halo of
+# 2 cells a sweep each way): NR = 3 (one active ring), rings of 1 and 7
+# cells, NAZ under and over a block, a tile and the shared-memory limit,
+# several tiles with a ragged last one.
+CFL_SHAPES = ((3, 1), (3, 7), (20, 7), (37, 1030), (6, 255), (6, 257),
+              (4, 5120), (4, 5121), (3, 10240), (3, 10241))
+THETA_SHAPES = ((3, 1), (3, 7), (20, 7), (37, 1030), (4, 247), (4, 253),
+                (4, 503), (4, 509))
+
+
+def sweep_cfl_tile_edges(device) -> None:
+    """cfl, theta_sweep and fargo_theta against their plain versions over
+    CFL_SHAPES and THETA_SHAPES on seeded random inputs: cfl with fast
+    transport on and off and with a NaN or a zero energy planted in the
+    last active ring (dt NaN and 0 in both versions); the sweeps at K = 1,
+    2, 5 and 6, both limiters, fargo_theta with one and two sweeps and
+    shifts of either sign and beyond one turn. float64 at the rtol of
+    KERNELS, float32 at F32_TOL (cfl's dt relative, each plane of a batch
+    by its own max)."""
+    from fargocpt_torch.constants import Constants
+    from fargocpt_torch.grid import Geometry
+    from fargocpt_torch.ops import kernels as K
+    from fargocpt_torch.params import Physics
+    from fargocpt_torch.units import Units
+    constants = Constants.from_units(Units())
+    for dtype in (torch.float64, torch.float32):
+        label = str(dtype).removeprefix("torch.")
+        t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa
+        worst = {"cfl": 0.0, "theta_sweep": 0.0, "fargo_theta": 0.0}
+        for nr, naz in CFL_SHAPES:
+            geometry = Geometry.build(nr, naz, 0.4, 2.5, "Log")
+            rng = np.random.default_rng(29)
+            raw = [rng.random((nr, naz)) + 0.5,
+                   (rng.random((nr + 1, naz)) - 0.5) * 0.05,
+                   (rng.random((nr, naz)) - 0.5) * 0.1 + 1.0,
+                   rng.random((nr, naz)) * 1e-3 + 1e-3,
+                   rng.random((nr, naz)) * 1e-6, rng.random((nr, naz)) * 1e-6]
+            for fast in (True, False):
+                ctx = K.KernelContext(
+                    Physics(eos="adiabatic", adiabatic_index=1.4,
+                            viscous_alpha=1e-3, aspectratio_ref=0.05,
+                            artificial_viscosity="sn", fast_transport=fast),
+                    constants, geometry, dtype, device)
+                for plant in ("none", "nan", "zero_energy"):
+                    f = [t(a) for a in raw]
+                    if plant == "nan":
+                        f[0][nr - 2, naz // 2] = float("nan")
+                    elif plant == "zero_energy":
+                        f[3][nr - 2, naz - 1] = 0.0
+                    got, ref = float(K.cfl(ctx, *f)), float(K.cfl_plain(ctx, *f))
+                    want = {"nan": math.isnan(got),
+                            "zero_energy": got == 0.0}.get(plant, True)
+                    if plant == "none":
+                        worst["cfl"] = max(worst["cfl"], abs(got - ref) / ref)
+                    np.testing.assert_allclose(
+                        got, ref, rtol=F64_RTOL["cfl"] if dtype ==
+                        torch.float64 else F32_TOL,
+                        err_msg=f"cfl {nr}x{naz} {label} {plant} fast={fast}")
+                    if not want:
+                        raise AssertionError(f"cfl {nr}x{naz} {label} {plant}"
+                                             f": dt = {got}")
+        for nr, naz in THETA_SHAPES:
+            geometry = Geometry.build(nr, naz, 0.4, 2.5, "Log")
+            for k in (1, 2, 5, 6):
+                rng = np.random.default_rng(37)
+                qs = t(rng.random((k, nr, naz)) + 0.5)
+                v = t((rng.random((nr, naz)) - 0.5) * 0.05)
+                vconst = t((rng.random((nr, 1)) - 0.5) * 0.02)
+                nshift = torch.tensor(
+                    rng.integers(-2 * naz - 3, 2 * naz + 3, nr),
+                    dtype=torch.int32, device=device)
+                dt = t(0.01)
+                for limiter in (0, 1):
+                    ctx = K.KernelContext(Physics(flux_limiter_type=limiter),
+                                          constants, geometry, dtype, device)
+                    pairs = {"theta_sweep": [(K.theta_sweep(ctx, qs, v, dt),
+                                              K.theta_sweep_plain(ctx, qs, v,
+                                                                  dt))]}
+                    pairs["fargo_theta"] = [
+                        (K.fargo_theta(ctx, qs, v, vconst, nshift, dt, two),
+                         K.fargo_theta_plain(ctx, qs, v, vconst, nshift, dt,
+                                             two)) for two in (False, True)]
+                    for name, results in pairs.items():
+                        for got, ref in results:
+                            where = f"{name} {nr}x{naz} {label} K={k} " \
+                                f"limiter={limiter}"
+                            if dtype == torch.float64:
+                                np.testing.assert_allclose(
+                                    got.cpu().numpy(), ref.cpu().numpy(),
+                                    rtol=F64_RTOL[name],
+                                    atol=1e-13 * float(ref.abs().max()),
+                                    err_msg=where)
+                            for j in range(k):
+                                worst[name] = max(worst[name], float(
+                                    (got[j] - ref[j]).abs().max()
+                                    / ref[j].abs().max()))
+        for name, w in worst.items():
+            shapes = CFL_SHAPES if name == "cfl" else THETA_SHAPES
+            log(f"  {name:20s}  tile edges {shapes} {label}: max|k-p| / "
+                f"scale = {w:.3e}")
+            if dtype == torch.float32 and not w <= F32_TOL:
+                raise AssertionError(f"{name} across its tile edges, "
+                                     f"float32: {w:.3e} > {F32_TOL} of scale")
+
+
 def parity_tile_edges(device) -> None:
     """The whole-transport kernel against the plain transport at shapes
     that cross the edges of its tiles (strips of 16 rows; 512 cells of a
@@ -724,9 +841,11 @@ def parity_tile_edges(device) -> None:
     shorter than the halo), seeded random fields, shifts of either sign
     and beyond one turn, K = 5 and 6, both limiters, one and two azimuthal
     sweeps. float64 at the rtol of KERNELS, float32 at F32_TOL of each
-    output's scale. Then the viscous kick and the sources across the edges
-    of theirs (``kick_tile_edges``)."""
+    output's scale. Before it the viscous kick and the sources across the
+    edges of theirs (``kick_tile_edges``), and cfl and the azimuthal sweeps
+    across theirs (``sweep_cfl_tile_edges``)."""
     kick_tile_edges(device)
+    sweep_cfl_tile_edges(device)
     from fargocpt_torch.constants import Constants
     from fargocpt_torch.grid import Geometry
     from fargocpt_torch.ops import kernels as K
@@ -1160,7 +1279,7 @@ def main() -> int:
     log(f"  flagship {NR}x{NAZ} and {NR_SPLIT}x{NAZ} float32 built in "
         f"{time.perf_counter() - t0:.2f} s")
     measured = parity_f32_flagship(sim, gpu)
-    split_measured, route_ms = parity_f32_split(sim_split)
+    split_measured, route_ms = parity_f32_split(sim_split, gpu)
     measured.update(split_measured)
     staged_measured, route3_ms = parity_f32_staged(sim, gpu)
     measured.update(staged_measured)

@@ -9,15 +9,15 @@
 // compute_star_theta). Input and output: the batch (K, NR, NAZ), any
 // K >= 1, entry K-1 the density: every quantity is divided by it and
 // advected with its upwind value; v (NR, NAZ) is the sweep velocity at the
-// cells' lower interfaces.
+// cells' lower interfaces, read per cell.
 //
 // Bound: device memory. Least traffic: the batch and v read once, the
-// batch written once (52 B per cell in f32 for K = 6). Design: the ring
-// sweep of fargo_theta.cu without its roll and its uniform velocity, one
-// launch of the same kernel (theta_sweep_kernel in transport.cuh): one
-// thread per cell (i, j) sweeps all K quantities, reading the five
-// neighbours j-2..j+2 of each plane; neighbouring threads read
-// neighbouring addresses, and the reuse of the stencil is left to L1.
+// batch written once (52 B per cell in f32 for K = 6). Design: one launch
+// of the ring-tile kernel of transport.cuh (theta_ring_kernel, shared with
+// fargo_theta.cu) with one sweep and no roll: a block holds 512 output
+// cells of a ring (256 in f64) and a halo of 2 each way in shared memory,
+// derives each quotient by the density once and each interface's upwind
+// value once, with the upwind slope only.
 //
 // scal = [dt] on the device.
 #include "transport.cuh"
@@ -27,12 +27,10 @@ namespace {
 
 template <typename T>
 int launch(void* const* p, const double* fp, const int* ip, void* stream) {
-  const int nr = ip[0], naz = ip[1], K = ip[2], kind = ip[3];
-  theta_sweep_kernel<T>
-      <<<n_blocks((size_t)nr * naz), BLOCK, 0, (cudaStream_t)stream>>>(
-          (const T*)p[0], (const T*)p[1], nullptr, nullptr, (const T*)p[2],
-          (const T*)p[3], fp[0], nr, naz, K, kind, 0, 0, (T*)p[4]);
-  return (int)cudaGetLastError();
+  return launch_theta_ring<T>((const T*)p[0], (const T*)p[1], nullptr,
+                              nullptr, (const T*)p[2], (const T*)p[3], fp[0],
+                              ip[0], ip[1], ip[2], ip[3], 1, (T*)p[4],
+                              (cudaStream_t)stream);
 }
 
 }  // namespace

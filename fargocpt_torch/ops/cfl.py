@@ -19,15 +19,11 @@ def shear_limit(phys: Physics, g: Geom, vmean: torch.Tensor) -> torch.Tensor:
     return torch.min((phys.cfl * g.dphi / denom)[:g.nrad - 2])
 
 
-def condition_cfl(phys: Physics, g: Geom, sigma, vrad, vaz, energy, cs, nu,
-                  qplus, qminus) -> torch.Tensor:
-    """Returns the CFL dt as a 0-d tensor."""
-    if phys.stabilize_viscosity == 2:
-        raise NotImplementedError("StabilizeViscosity 2 is not ported yet")
-    nr = g.nrad
-    vmean = torch.mean(vaz, dim=-1, keepdim=True)
-    dt_shear = shear_limit(phys, g, vmean)
-
+def inverse_dt_squared(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
+                       cs, nu, qplus, qminus, vmean) -> torch.Tensor:
+    """The per-cell sum of the squared inverse-dt terms (NR, NAZ), with
+    ``vmean`` (NR, 1) the rings' mean of ``vaz``. A cell reads its own ring
+    and the face above it, nothing of another ring."""
     lf = 0.6 if phys.hydro_integrator == LEAPFROG else 1.0
     dxrad = g.dxrad
     dxaz = g.rb * g.dphi
@@ -59,7 +55,19 @@ def condition_cfl(phys: Physics, g: Geom, sigma, vrad, vaz, energy, cs, nu,
     else:
         invdt6 = torch.zeros_like(invdt1)
 
-    inv_sq = invdt1 ** 2 + invdt2 ** 2 + invdt3 ** 2 + invdt4 ** 2 \
+    return invdt1 ** 2 + invdt2 ** 2 + invdt3 ** 2 + invdt4 ** 2 \
         + invdt5 ** 2 + invdt6 ** 2
+
+
+def condition_cfl(phys: Physics, g: Geom, sigma, vrad, vaz, energy, cs, nu,
+                  qplus, qminus) -> torch.Tensor:
+    """Returns the CFL dt as a 0-d tensor."""
+    if phys.stabilize_viscosity == 2:
+        raise NotImplementedError("StabilizeViscosity 2 is not ported yet")
+    nr = g.nrad
+    vmean = torch.mean(vaz, dim=-1, keepdim=True)
+    dt_shear = shear_limit(phys, g, vmean)
+    inv_sq = inverse_dt_squared(phys, g, sigma, vrad, vaz, energy, cs, nu,
+                                qplus, qminus, vmean)
     dt_cell = phys.cfl / torch.sqrt(inv_sq)
     return torch.minimum(dt_shear, torch.min(dt_cell[1:nr - 1]))

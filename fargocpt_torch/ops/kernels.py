@@ -165,6 +165,18 @@ class KernelContext(nn.Module):
                 for shape in ((k, nr, naz), (nr, naz)))
         return self._scratch[key]
 
+    def cfl_counter(self, like: torch.Tensor) -> torch.Tensor:
+        """The cfl kernel's block counter: one int32, zero between calls
+        (the kernel's last block sets it back to 0). Made at first use and
+        kept per device and CUDA stream, like the transport's scratch, so
+        two calls in flight on different streams never share one."""
+        key = ("cfl", like.device,
+               torch.cuda.current_stream(like.device).cuda_stream)
+        if key not in self._scratch:
+            self._scratch[key] = torch.zeros(1, dtype=torch.int32,
+                                             device=like.device)
+        return self._scratch[key]
+
     def cell_xy(self):
         """Cartesian cell centers (NR, NAZ)."""
         return self.g.rb * self.cos_row[None, :], \
@@ -386,8 +398,6 @@ def build() -> BuildInfo:
             fn.restype = ctypes.c_int
     lib.fc_error_string.argtypes = [ctypes.c_int]
     lib.fc_error_string.restype = ctypes.c_char_p
-    lib.fc_cfl_n_partial.argtypes = []
-    lib.fc_cfl_n_partial.restype = ctypes.c_int
     _LIB = lib
     BUILD = BuildInfo(library=lib_path, nvcc=nvcc, seconds=seconds)
     return BUILD
@@ -416,17 +426,18 @@ def _check_nshift(nshift: torch.Tensor, nr: int, like: torch.Tensor) -> None:
 
 
 def _launch(op: str, like: torch.Tensor, tensors: list[torch.Tensor],
-            fp: list[float], ip: list[int]) -> None:
-    """Call fc_<op>_<dtype> on the current stream; raise on a CUDA error."""
+            fp: list[float], ip: list[int], min_nr: int = 4) -> None:
+    """Call fc_<op>_<dtype> on the current stream; raise on a CUDA error.
+    ``ip`` starts with NR and NAZ; the op takes NR >= ``min_nr``."""
     if like.device.type != "cuda":
         raise RuntimeError(f"{op}: the CUDA kernel needs CUDA tensors, got "
                            f"{like.device}")
     if like.dtype not in _SUFFIX:
         raise TypeError(f"{op}: kernels take float32 or float64, got "
                         f"{like.dtype}")
-    if ip[0] < 4 or ip[1] < 1:
-        raise ValueError(f"{op}: the kernels need NR >= 4 and NAZ >= 1, got "
-                         f"{ip[0]} x {ip[1]}")
+    if ip[0] < min_nr or ip[1] < 1:
+        raise ValueError(f"{op}: the kernel needs NR >= {min_nr} and "
+                         f"NAZ >= 1, got {ip[0]} x {ip[1]}")
     build()
     fn = getattr(_LIB, f"fc_{op}_{_SUFFIX[like.dtype]}")
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
@@ -485,10 +496,8 @@ def cfl(ctx: KernelContext, sigma, vrad, vaz, energy, qplus, qminus):
                            ("qminus", qminus, (nr, naz)),
                            ("cols", ctx.cols, (nr + 1, N_COLS))):
         _check(name, t, shape, sigma)
-    vmean = torch.empty(nr, dtype=sigma.dtype, device=sigma.device)
-    build()
-    partial = torch.empty(_LIB.fc_cfl_n_partial(), dtype=sigma.dtype,
-                          device=sigma.device)
+    # the ring means and the ring maxima
+    scratch = torch.empty(2 * nr, dtype=sigma.dtype, device=sigma.device)
     out = torch.empty((), dtype=sigma.dtype, device=sigma.device)
     lf = 0.6 if phys.hydro_integrator == LEAPFROG else 1.0
     fp = [phys.adiabatic_index, phys.viscous_alpha, phys.constant_viscosity,
@@ -498,7 +507,8 @@ def cfl(ctx: KernelContext, sigma, vrad, vaz, energy, qplus, qminus):
           int(phys.artificial_viscosity == ARTVISC_SN),
           int(phys.fast_transport)]
     _launch("cfl", sigma, [sigma, energy, vrad, vaz, qplus, qminus,
-                           ctx.cols, vmean, partial, out], fp, ip)
+                           ctx.cols, scratch, ctx.cfl_counter(sigma), out],
+            fp, ip, min_nr=3)
     return out
 
 
@@ -718,11 +728,11 @@ def fargo_theta(ctx: KernelContext, qs, vres, vconst, nshift, dt,
         _check(name, t, shape, qs)
     _check_nshift(nshift, nr, qs)
     out = torch.empty_like(qs)
-    scratch = torch.empty_like(qs) if two_pass else out
     _launch("fargo_theta", qs,
-            [qs, vres, vconst, nshift, ctx.cols, _scalars(qs, [dt]), out,
-             scratch], [g.dphi],
-            [nr, naz, k, ctx.phys.flux_limiter_type, int(two_pass)])
+            [qs, vres, vconst, nshift, ctx.cols,
+             _device_scalar(qs, dt, qs.dtype), out], [g.dphi],
+            [nr, naz, k, ctx.phys.flux_limiter_type, int(two_pass)],
+            min_nr=1)
     return out
 
 
@@ -761,8 +771,9 @@ def theta_sweep(ctx: KernelContext, qs, v, dt):
                            ("cols", ctx.cols, (nr + 1, N_COLS))):
         _check(name, t, shape, qs)
     out = torch.empty_like(qs)
-    _launch("theta_sweep", qs, [qs, v, ctx.cols, _scalars(qs, [dt]), out],
-            [g.dphi], [nr, naz, k, ctx.phys.flux_limiter_type])
+    _launch("theta_sweep", qs,
+            [qs, v, ctx.cols, _device_scalar(qs, dt, qs.dtype), out],
+            [g.dphi], [nr, naz, k, ctx.phys.flux_limiter_type], min_nr=1)
     return out
 
 

@@ -1,14 +1,17 @@
-"""The flagship's four fused ops and ``advect_shift`` alone on one CUDA
-GPU: where their time goes, launch by launch.
+"""The flagship's four fused ops, ``advect_shift`` and the two azimuthal
+sweeps alone on one CUDA GPU: where their time goes, launch by launch.
 
     python -m fargocpt_torch.profile_ops [--nrad 1024] [--naz 3072]
-        [--ops transport,viscous_kick,...] [--steps] [--sass]
-        [--save FILE] [--against FILE] [--define NAME=n,...]
+        [--ops transport,viscous_kick,...] [--steps] [--routes whole,...]
+        [--sass] [--save FILE] [--against FILE] [--define NAME=n,...]
         [--variants "NAME=n,...;NAME=n;..."]
 
 On the flagship's state with seeded noise (``perturbed``), float32, for
 each op of ``--ops`` (default: all of ``OP_NAMES``):
-  * ``transport`` (whole route), ``viscous_kick``, ``sources``, ``cfl``:
+  * ``transport`` (whole route), ``viscous_kick``, ``sources``, ``cfl``,
+    and ``theta_sweep`` and ``fargo_theta`` on the batches the staged and
+    the split route give them (the radially swept momenta; fargo_theta
+    with both sweeps and the roll):
     the median over 25 calls of the time between CUDA events around the
     call (the wrapper included), the device time of each of its launches
     (``torch.profiler``, median over 10 calls), the bytes each launch must
@@ -23,10 +26,14 @@ each op of ``--ops`` (default: all of ``OP_NAMES``):
   * a SHA-256 of each op's outputs; ``--save FILE`` writes the outputs and
     ``--against FILE`` holds them against a saved set value for value (the
     largest difference and the number of values that differ: -0.0 equals
-    0.0), so two checkouts can be held against each other;
-  * with ``--steps``: the flagship step and the PDS70 gas step at the same
-    size through ``profile_step.profile_grid``: wall and device time a
-    step, device time and launches a step of each op;
+    0.0), so two checkouts can be held against each other; with cfl,
+    theta_sweep or fargo_theta among the ops, the outputs include those of
+    the op at the shapes of ``EDGE_SHAPES``, which cross the edges of its
+    blocks, in both dtypes on seeded random inputs (``edge_outputs``);
+  * with ``--steps``: the flagship step on each route of ``--routes``
+    (default: the whole route) and the PDS70 gas step at the same size
+    through ``profile_step.profile_grid``: wall and device time a step,
+    device time and launches a step of each op;
   * with ``--sass``: ``nvcc -Xptxas -v`` of each op's source (registers,
     spills, shared memory per kernel) and, from ``cuobjdump -sass``, each
     kernel's count of SASS operations and, among them, of reciprocals
@@ -66,7 +73,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, at 700 W
 
-OP_NAMES = ("transport", "viscous_kick", "sources", "cfl", "advect_shift")
+OP_NAMES = ("transport", "viscous_kick", "sources", "cfl", "advect_shift",
+            "theta_sweep", "fargo_theta")
 
 # device kernel name fragment -> (NR, NAZ) planes it must move for a batch
 # of K quantities: distinct inputs once, outputs once. The first three are
@@ -86,15 +94,29 @@ LAUNCH_PLANES = {
     "vk_stress_kernel": lambda k: 4 + 4,         # sigma, 3 -> 4 planes
     "vk_update_kernel": lambda k: 8 + 5,         # sigma, 7 -> 5 planes
     "sources_kernel": lambda k: 4 + 2,           # fields -> vrad, vaz
+    "cfl_ring_kernel": lambda k: 6,              # fields, Q+, Q- -> dt
     "vmean_kernel": lambda k: 1,                 # vaz -> (NR,)
     "cfl_cells_kernel": lambda k: 6,             # fields, Q+, Q- -> partials
     "cfl_final_kernel": lambda k: 0,             # partials -> dt
+    # theta_sweep and fargo_theta: theta_ring_kernel, one launch a call;
+    # theta_sweep_kernel was the earlier one thread a cell and sweep
+    "theta_ring_kernel": lambda k: 2 * k + 1,    # batch, v -> batch
+    "theta_sweep_kernel": lambda k: 2 * k + 1,
 }
 # each op's device kernel name fragments
 OP_FRAGMENTS = {"transport": ("tr_",), "viscous_kick": ("vk_",),
                 "sources": ("sources_kernel",),
                 "cfl": ("vmean_kernel", "cfl_"),
-                "advect_shift": ("advect_shift",)}
+                "advect_shift": ("advect_shift",),
+                "theta_sweep": ("theta_",), "fargo_theta": ("theta_",)}
+
+# (NR, NAZ) of the tile-edge outputs of cfl, theta_sweep and fargo_theta:
+# rings of 1 and 7 cells, NAZ under and over a tile of either dtype and
+# sweep count (508 and 504 cells in float32, 252 and 248 in float64),
+# several tiles with a ragged last one; NR >= 4, which every checkout of
+# the port takes
+EDGE_SHAPES = ((4, 1), (4, 7), (20, 7), (37, 1030), (4, 247), (4, 253),
+               (4, 503), (4, 509))
 
 
 def perturbed(sim) -> dict:
@@ -219,13 +241,73 @@ def profile_op(fn, fragments, k, plane_bytes) -> dict:
 
 def differences(outputs: dict, saved: dict) -> dict:
     """Per output: how many values differ from the saved set's and the
-    largest absolute difference."""
+    largest absolute difference (a NaN on both sides does not differ)."""
     out = {}
     for name, t in outputs.items():
         ref = saved[name].to(t.device)
-        out[name] = {"values_that_differ": int((t != ref).sum()),
-                     "max_abs_diff": float((t.double() - ref.double())
-                                           .abs().max())}
+        both_nan = torch.isnan(t) & torch.isnan(ref)
+        diff = (t.double() - ref.double()).abs().masked_fill(both_nan, 0.0)
+        out[name] = {"values_that_differ": int(((t != ref) & ~both_nan).sum()),
+                     "max_abs_diff": float(diff.max())}
+    return out
+
+
+def edge_outputs(ops) -> dict:
+    """The outputs of cfl, theta_sweep and fargo_theta (those of ``ops``)
+    at each of ``EDGE_SHAPES`` in float32 and float64, on seeded random
+    inputs: cfl also with a NaN and with a zero energy planted in the last
+    active ring, the sweeps at K = 1, 2, 5, 6, fargo_theta with one and two
+    sweeps and shifts of either sign and beyond one turn."""
+    from .constants import Constants
+    from .grid import Geometry
+    from .ops import kernels as K
+    from .params import Physics
+    from .units import Units
+    constants = Constants.from_units(Units())
+    out = {}
+    for nr, naz in EDGE_SHAPES:
+        geometry = Geometry.build(nr, naz, 0.4, 2.5, "Log")
+        for dtype in (torch.float32, torch.float64):
+            tag = f"{nr}x{naz}.{str(dtype).removeprefix('torch.')}"
+
+            def t(a, dtype=dtype):
+                return torch.tensor(a, dtype=dtype, device="cuda")
+            ctx = K.KernelContext(
+                Physics(eos="adiabatic", adiabatic_index=1.4,
+                        viscous_alpha=1e-3, aspectratio_ref=0.05,
+                        artificial_viscosity="sn"),
+                constants, geometry, dtype, "cuda")
+            if "cfl" in ops:
+                rng = np.random.default_rng((nr, naz))
+                f = [t(rng.random((nr, naz)) + 0.5),
+                     t((rng.random((nr + 1, naz)) - 0.5) * 0.05),
+                     t((rng.random((nr, naz)) - 0.5) * 0.1 + 1.0),
+                     t(rng.random((nr, naz)) * 1e-3 + 1e-3),
+                     t(rng.random((nr, naz)) * 1e-6),
+                     t(rng.random((nr, naz)) * 1e-6)]
+                for plant in ("none", "nan", "zero_energy"):
+                    g = [x.clone() for x in f]
+                    if plant == "nan":
+                        g[0][nr - 2, naz // 2] = float("nan")
+                    elif plant == "zero_energy":
+                        g[3][nr - 2, naz - 1] = 0.0
+                    out[f"edge.cfl.{tag}.{plant}"] = K.cfl(ctx, *g)
+            for k in (1, 2, 5, 6):
+                rng = np.random.default_rng((nr, naz, k))
+                qs = t(rng.random((k, nr, naz)) + 0.5)
+                v = t((rng.random((nr, naz)) - 0.5) * 0.05)
+                vconst = t((rng.random((nr, 1)) - 0.5) * 0.02)
+                nshift = torch.tensor(
+                    rng.integers(-2 * naz - 3, 2 * naz + 3, nr),
+                    dtype=torch.int32, device="cuda")
+                dt = t(0.01)
+                if "theta_sweep" in ops:
+                    out[f"edge.theta_sweep.{tag}.K{k}"] = \
+                        K.theta_sweep(ctx, qs, v, dt)
+                if "fargo_theta" in ops:
+                    for two in (False, True):
+                        out[f"edge.fargo_theta.{tag}.K{k}.two_pass{two}"] = \
+                            K.fargo_theta(ctx, qs, v, vconst, nshift, dt, two)
     return out
 
 
@@ -263,6 +345,22 @@ def profile_ops(nrad: int, naz: int, save=None, against=None,
         "cfl": (lambda: (K.cfl(ctx, s, vr, va, e, st.qplus, st.qminus),),
                 ("dt",)),
     }
+    if {"theta_sweep", "fargo_theta"} & set(ops):
+        # what the staged and the split route hand the azimuthal sweeps:
+        # the radially swept momenta and the residual velocity
+        vmean, nshift, vconst = shift
+        base = tr.sigma_flux(phys, g, s, vr, dt)
+        vres = va - vmean if phys.fast_transport else va - vmean + vconst
+        qs_staged = K.radial_sweep_plain(
+            ctx, tr.momenta_batch(phys, g, s, vr, va, e, omega.to(s.dtype)),
+            s, vr, base, dt)
+        qs_split = K.radial_momenta_sweep_plain(ctx, s, vr, va, e, base, dt,
+                                                omega)
+        calls["theta_sweep"] = (
+            lambda: (K.theta_sweep(ctx, qs_staged, vres, dt),), ("qs",))
+        calls["fargo_theta"] = (
+            lambda: (K.fargo_theta(ctx, qs_split, vres, vconst, nshift, dt,
+                                   phys.fast_transport),), ("qs",))
     res = {"grid": f"{nrad}x{naz}", "dtype": "float32", "K": k}
     outputs = {}
     for op, (call, names) in calls.items():
@@ -302,6 +400,10 @@ def profile_ops(nrad: int, naz: int, save=None, against=None,
                 else lambda: torch.gather(qs, -1, index)))
         res["advect_shift"]["event_ms_in_turns"] = turns
         res["nshift_min_max"] = [int(nshift.min()), int(nshift.max())]
+    if {"cfl", "theta_sweep", "fargo_theta"} & set(ops):
+        edges = edge_outputs(ops)
+        res["edge_sha256"] = digest(edges.values())
+        outputs.update(edges)
     if save:
         torch.save({n: t.cpu() for n, t in outputs.items()}, save)
     if against:
@@ -375,15 +477,19 @@ def profile_variants(nrad: int, naz: int, ops, variants: str) -> list[dict]:
     return rows
 
 
-def profile_steps(nrad: int, naz: int) -> dict:
-    """Wall and device time a step of the flagship (whole route) and of
-    the PDS70 gas setup."""
+def profile_steps(nrad: int, naz: int, routes=("whole",)) -> dict:
+    """Wall and device time a step of the flagship on each of ``routes``
+    (keys "flagship" for the whole route, "flagship_<route>" for another)
+    and of the PDS70 gas setup."""
     from .profile_step import profile_grid
     out = {}
-    for setup, kw in (("flagship", dict(warmup=20, steps=120, window=20)),
-                      ("pds70_gas", dict(warmup=5, steps=15, window=8))):
-        r = profile_grid(nrad, naz, setup, route="whole", **kw)
-        out[setup] = {
+    runs = [("flagship" if r == "whole" else f"flagship_{r}", "flagship", r,
+             dict(warmup=20, steps=120, window=20)) for r in routes]
+    runs.append(("pds70_gas", "pds70_gas", "whole",
+                 dict(warmup=5, steps=15, window=8)))
+    for name, setup, route, kw in runs:
+        r = profile_grid(nrad, naz, setup, route=route, **kw)
+        out[name] = {
             "wall_ms_per_step": r["wall_ms_per_step"],
             "device_ms_per_step": r["device_ms_per_step"],
             "device_busy_share": r["device_busy_share"],
@@ -398,7 +504,7 @@ MUFU_KINDS = {"rcp": "MUFU.RCP", "sqrt": "MUFU.SQRT", "rsq": "MUFU.RSQ",
 
 
 def sass_counts(names=("transport", "advect_shift", "viscous_kick",
-                       "sources", "cfl")) -> dict:
+                       "sources", "cfl", "theta_sweep", "fargo_theta")) -> dict:
     """Per kernel of csrc/<name>.cu: registers, spills and shared memory
     from ``nvcc -Xptxas -v``; SASS operations and, among them, reciprocals,
     square roots, reciprocal square roots and exponentials (``MUFU_KINDS``;
@@ -475,11 +581,19 @@ def report(args, ops, gpu) -> dict:
               f"event medians in turns: "
               f"{res['advect_shift']['event_ms_in_turns']} [{gpu}]",
               flush=True)
+    if "edge_sha256" in res:
+        print(f"tile-edge outputs {res['edge_sha256']} [{gpu}]", flush=True)
     if args.against:
-        print(f"outputs against {args.against}: {res['against']}",
+        own = {n: d for n, d in res["against"].items()
+               if not n.startswith("edge.")}
+        edge = [d for n, d in res["against"].items() if n.startswith("edge.")]
+        print(f"outputs against {args.against}: {own}; tile-edge outputs: "
+              f"{len(edge)} held, "
+              f"{sum(d['values_that_differ'] for d in edge)} values differ",
               flush=True)
     if args.steps:
-        res["steps"] = profile_steps(args.nrad, args.naz)
+        res["steps"] = profile_steps(args.nrad, args.naz,
+                                     tuple(args.routes.split(",")))
         for setup, r in res["steps"].items():
             print(f"{setup} step {res['grid']} float32: wall "
                   f"{r['wall_ms_per_step']:.4f} ms, device "
@@ -522,6 +636,9 @@ def main(argv=None) -> int:
                     help="the ops to take, comma-separated (default: all)")
     ap.add_argument("--steps", action="store_true",
                     help="also the flagship and PDS70 gas steps")
+    ap.add_argument("--routes", default="whole",
+                    help="the flagship step's transport routes with --steps, "
+                    "comma-separated (default: whole)")
     ap.add_argument("--sass", action="store_true",
                     help="also registers, spills and SASS operation counts")
     ap.add_argument("--save", help="write the ops' outputs to this file")

@@ -39,7 +39,7 @@ SETUPS = {"flagship": flagship, "pds70_gas": pds70_gas, "pds70": pds70}
 # (fargo_theta on the split route and theta_sweep on the staged route
 # launch one kernel)
 KERNEL_OPS = (("rms_kernel", "radial_momenta_sweep"),
-              ("theta_sweep_kernel", "fargo_theta / theta_sweep"),
+              ("theta_ring_kernel", "fargo_theta / theta_sweep"),
               ("radial_sweep_kernel", "radial_sweep"),
               ("advect_shift_vec_kernel", "advect_shift"),
               ("advect_shift_scalar_kernel", "advect_shift"),
@@ -47,8 +47,7 @@ KERNEL_OPS = (("rms_kernel", "radial_momenta_sweep"),
               ("tr_ring_kernel", "transport"),
               ("tr_vrad_kernel", "transport"),
               ("vk_tile_kernel", "viscous_kick"),
-              ("sources_kernel", "sources"), ("cfl_cells_kernel", "cfl"),
-              ("cfl_final_kernel", "cfl"), ("vmean_kernel", "cfl"),
+              ("sources_kernel", "sources"), ("cfl_ring_kernel", "cfl"),
               ("artvisc_sn_kernel", "artvisc_sn"))
 
 

@@ -9,8 +9,12 @@ also at shapes that cross the edges of the whole-transport kernel's tiles
 and of the roll's 16-byte vectors, in both dtypes; the viscous kick and the
 sources at shapes that cross every edge of their tiles, in both
 dtypes and every branch, on a side stream, and with the device launches of
-a call counted (the kernel and nothing else); a split-route and a
-staged-route
+a call counted (the kernel and nothing else); cfl, theta_sweep and
+fargo_theta at shapes that cross every edge of their ring blocks and tiles
+(NR = 3, rings of 1 and 7 cells, NAZ below and above a tile and around the
+size up to which cfl keeps a ring in shared memory, K = 1, 2, 5, 6 and 9),
+in both dtypes, cfl with planted NaN and zero-energy cells, each launching
+its one kernel and nothing else; a split-route and a staged-route
 Simulation step through their kernels, a PDS70 gas step through artvisc_sn
 and the whole transport, and the whole PDS70 setup with its dust swarm on
 the device against the same run on the CPU.
@@ -150,6 +154,178 @@ VK_PHYS = dict(adiabatic_index=1.4, viscous_alpha=1e-3, aspectratio_ref=0.05,
                heating_viscous=True, cooling_beta_enabled=True,
                cooling_beta=10.0, minimum_temperature=1e-6, sigma0=1.0,
                sigma_floor=1e-6)
+
+
+# Shapes that cross every edge of cfl's ring blocks (one block of 256
+# threads a ring, rings 0..NR-2; the ring's vaz in shared memory up to
+# 40 KB, 10240 cells in float32 and 5120 in float64): NR = 3 (one active
+# ring, one ring pair), rings of 1 and 7 cells, NAZ under and over the
+# block's 256 threads and on and over the shared-memory limit of each dtype.
+CFL_SHAPES = [(3, 1), (3, 7), (20, 7), (37, 1030), (6, 255), (6, 257),
+              (4, 5120), (4, 5121), (3, 10240), (3, 10241)]
+
+
+def _cfl_fields(nr, naz, dtype, device, plant):
+    f = _fields(29, device, nr, naz, dtype)
+    i = nr - 2                      # the last active ring
+    if plant == "nan":
+        f["sigma"][i, naz // 2] = float("nan")
+    elif plant == "zero_energy":
+        # an infinite inverse dt from the heating term: dt = 0
+        f["energy"][i, naz - 1] = 0.0
+    return f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("plant", ["none", "nan", "zero_energy"])
+@pytest.mark.parametrize("nr,naz", CFL_SHAPES)
+@pytest.mark.parametrize("fast", [True, False])
+def test_cfl_kernel_across_tile_edges(cuda, fast, nr, naz, plant, dtype):
+    """float64 at rtol 1e-12; float32 at 1e-5; a NaN carried through, a
+    zero-energy cell giving dt = 0 in both."""
+    ctx = _ctx(dict(eos="adiabatic", adiabatic_index=1.4, viscous_alpha=1e-3,
+                    aspectratio_ref=0.05, artificial_viscosity="sn",
+                    fast_transport=fast), cuda, nr, naz, dtype)
+    f = _cfl_fields(nr, naz, dtype, cuda, plant)
+    args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], f["qplus"],
+            f["qminus"])
+    before = kernels.LAUNCHES["cfl"]
+    got = kernels.cfl(ctx, *args)
+    assert kernels.LAUNCHES["cfl"] == before + 1
+    ref = kernels.cfl_plain(ctx, *args)
+    assert got.shape == ref.shape == () and got.dtype == dtype
+    if plant == "nan":
+        assert bool(torch.isnan(got))
+    elif plant == "zero_energy":
+        assert float(got) == 0.0
+    np.testing.assert_allclose(float(got), float(ref),
+                               rtol=1e-12 if dtype == torch.float64
+                               else 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cfl_counter_resets_between_calls_and_streams(cuda, dtype):
+    """The kernel's last block sets its counter back to 0: calls in a row
+    on different grids' fields give what fresh contexts give, on the
+    default stream and on another one (which keeps a counter of its own)."""
+    kw = dict(eos="adiabatic", adiabatic_index=1.4, viscous_alpha=1e-3,
+              aspectratio_ref=0.05, artificial_viscosity="sn")
+    kept = _ctx(kw, cuda, 37, 1030, dtype)
+
+    def call(ctx, seed):
+        f = _fields(seed, cuda, 37, 1030, dtype)
+        return kernels.cfl(ctx, f["sigma"], f["vrad"], f["vaz"],
+                           f["energy"], f["qplus"], f["qminus"])
+
+    firsts = [call(kept, seed) for seed in (3, 5, 7)]
+    for seed, got in zip((3, 5, 7), firsts):
+        assert torch.equal(got, call(_ctx(kw, cuda, 37, 1030, dtype), seed))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = call(kept, 5)
+    side.synchronize()
+    assert torch.equal(again, firsts[1])
+    counters = [t for key, t in kept._scratch.items() if key[0] == "cfl"]
+    assert len(counters) == 2
+    assert all(int(t) == 0 for t in counters)
+
+
+# Shapes that cross every edge of the azimuthal ring tiles of theta_sweep
+# and fargo_theta (a block holds 512 cells in float32, 256 in float64: 508
+# and 252 output cells with one sweep, 504 and 248 with two, and a halo of
+# 2 cells a sweep each way): NR = 3, rings of 1 and 7 cells (shorter than
+# the halo), NAZ under and over a tile of either dtype and sweep count, a
+# ring of several tiles with a ragged last one.
+THETA_SHAPES = [(3, 1), (3, 7), (20, 7), (37, 1030), (4, 247), (4, 253),
+                (4, 503), (4, 509)]
+THETA_OPS = ("theta_sweep", "fargo_theta_one", "fargo_theta_two")
+
+
+def _theta_inputs(nr, naz, k_quant, dtype, device, seed=37):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    qs = t(rng.random((k_quant, nr, naz)) + 0.5)
+    v = t((rng.random((nr, naz)) - 0.5) * 0.05)
+    vconst = t((rng.random((nr, 1)) - 0.5) * 0.02)
+    nshift = rng.integers(-2 * naz - 3, 2 * naz + 3, nr)
+    nshift[:3] = [0, -1, naz + 2][:nr]
+    return qs, v, vconst, torch.tensor(nshift, dtype=torch.int32,
+                                       device=device)
+
+
+def _theta_call(op, ctx, qs, v, vconst, nshift, dt, plain=False):
+    if op == "theta_sweep":
+        fn = kernels.theta_sweep_plain if plain else kernels.theta_sweep
+        return fn(ctx, qs, v, dt)
+    fn = kernels.fargo_theta_plain if plain else kernels.fargo_theta
+    return fn(ctx, qs, v, vconst, nshift, dt, op == "fargo_theta_two")
+
+
+def _close_batch(got, ref, dtype):
+    """float64 at rtol 1e-11; float32 at 1e-5 of each plane's largest
+    magnitude."""
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    if dtype == torch.float64:
+        _close([got], [ref], 1e-11, [1e-13 * float(ref.abs().max())])
+    else:
+        for k in range(ref.shape[0]):
+            _close([got[k]], [ref[k]], 0.0,
+                   [1e-5 * float(ref[k].abs().max())])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("limiter", [0, 1])
+@pytest.mark.parametrize("k_quant", [1, 2, 5, 6])
+@pytest.mark.parametrize("nr,naz", THETA_SHAPES)
+@pytest.mark.parametrize("op", THETA_OPS)
+def test_theta_ops_across_tile_edges(cuda, op, nr, naz, k_quant, limiter,
+                                     dtype):
+    """One sweep without the roll (theta_sweep), one and two sweeps with
+    it (fargo_theta), shifts of either sign and beyond one turn."""
+    ctx = _ctx(dict(flux_limiter_type=limiter), cuda, nr, naz, dtype)
+    args = _theta_inputs(nr, naz, k_quant, dtype, cuda)
+    dt = torch.tensor(0.01, dtype=dtype, device=cuda)
+    name = op[:11]
+    before = kernels.LAUNCHES[name]
+    got = _theta_call(op, ctx, *args, dt)
+    assert kernels.LAUNCHES[name] == before + 1
+    _close_batch(got, _theta_call(op, ctx, *args, dt, plain=True), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("op", THETA_OPS)
+def test_theta_ops_take_a_batch_beyond_48_kb_of_shared_memory(cuda, op,
+                                                              dtype):
+    """K = 9: a tile of 512 (256) cells needs more shared memory than a
+    block gets unasked; the kernel asks for it."""
+    ctx = _ctx({}, cuda, 6, 1030, dtype)
+    args = _theta_inputs(6, 1030, 9, dtype, cuda)
+    dt = torch.tensor(0.01, dtype=dtype, device=cuda)
+    _close_batch(_theta_call(op, ctx, *args, dt),
+                 _theta_call(op, ctx, *args, dt, plain=True), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("op", THETA_OPS)
+def test_theta_ops_allocate_only_their_output(cuda, op, dtype):
+    """No scratch batch: a call's peak allocation is its output."""
+    ctx = _ctx({}, cuda, 37, 1030, dtype)
+    args = _theta_inputs(37, 1030, 6, dtype, cuda)
+    dt = torch.tensor(0.01, dtype=dtype, device=cuda)
+    _theta_call(op, ctx, *args, dt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = _theta_call(op, ctx, *args, dt)
+    torch.cuda.synchronize()
+    out_bytes = -(-out.numel() * out.element_size() // 512) * 512
+    assert torch.cuda.max_memory_allocated() - before == out_bytes
 
 
 def _close_by_dtype(got, ref, dtype, rtol, atols, scales):
@@ -307,6 +483,27 @@ def test_kick_ops_on_a_side_stream(cuda, dtype, op):
         assert torch.equal(a, b)
 
 
+def _device_activity(fn, args, calls=5):
+    """What ``calls`` calls of ``fn`` asked of the device (every launch,
+    copy and fill the host requested) and the names of the device kernels
+    that ran (the profiler now and then drops one of these)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    asked = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and ("LaunchKernel" in e.name or "Memcpy" in e.name
+                  or "Memset" in e.name)]
+    ran = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return asked, ran
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", ["viscous_kick", "sources"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -314,32 +511,44 @@ def test_kick_ops_launch_their_kernel_and_nothing_else(cuda, dtype, op):
     """With the arguments the step gives them the wrappers pack nothing:
     the only device activity of a call is the op's one kernel (the output
     allocations launch nothing)."""
-    from torch.profiler import ProfilerActivity, profile
     ctx = _ctx(dict(VK_PHYS, eos="adiabatic", artificial_viscosity="sn",
                     thickness_smoothing=0.6), cuda, 33, 130, dtype)
     f = _fields(23, cuda, 33, 130, dtype)
     args = _step_like_args(ctx, f, dtype, cuda)[op]
-    fn = getattr(kernels, op)
-    fn(*args)
     calls = 5
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn(*args)
-        torch.cuda.synchronize()
-    # what the host asked of the device (every request is recorded) ...
-    asked = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CPU
-             and ("LaunchKernel" in e.name or "Memcpy" in e.name
-                  or "Memset" in e.name)]
+    asked, ran = _device_activity(getattr(kernels, op), args, calls)
     assert len(asked) == calls and all("LaunchKernel" in n for n in asked), \
         asked
-    # ... and what ran there (the profiler now and then drops one of these)
-    ran = [e.name for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
     fragment = {"viscous_kick": "vk_tile_kernel",
                 "sources": "sources_kernel"}[op]
+    assert 1 <= len(ran) <= calls and all(fragment in n for n in ran), ran
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["cfl", *THETA_OPS])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cfl_and_theta_ops_launch_one_kernel_and_nothing_else(cuda, dtype,
+                                                              op):
+    """With the arguments the step gives them (dt a 0-d tensor of the
+    field type) cfl, theta_sweep and fargo_theta with either two_pass make
+    one launch a call, of their own kernel, and no copy or fill."""
+    ctx = _ctx(dict(eos="adiabatic", adiabatic_index=1.4,
+                    viscous_alpha=1e-3, aspectratio_ref=0.05,
+                    artificial_viscosity="sn"), cuda, 33, 130, dtype)
+    dt = torch.tensor(0.003, dtype=dtype, device=cuda)
+    if op == "cfl":
+        f = _fields(23, cuda, 33, 130, dtype)
+        fn, args = kernels.cfl, (ctx, f["sigma"], f["vrad"], f["vaz"],
+                                 f["energy"], f["qplus"], f["qminus"])
+    else:
+        qs, v, vconst, nshift = _theta_inputs(33, 130, 6, dtype, cuda)
+        fn = lambda: _theta_call(op, ctx, qs, v, vconst, nshift, dt)  # noqa
+        args = ()
+    calls = 5
+    asked, ran = _device_activity(fn, args, calls)
+    assert len(asked) == calls and all("LaunchKernel" in n for n in asked), \
+        asked
+    fragment = "cfl_ring_kernel" if op == "cfl" else "theta_ring_kernel"
     assert 1 <= len(ran) <= calls and all(fragment in n for n in ran), ran
 
 
