@@ -32,7 +32,8 @@ Phases (any failure raises, so the exit code is not 0):
      by FlopCounter) at the float32 rate, and for advect_shift the time of
      the one PyTorch call that computes it (torch.gather with a prebuilt
      index); the whole-transport kernel, viscous_kick, sources, cfl,
-     advect_shift, theta_sweep and fargo_theta launch by launch
+     advect_shift, theta_sweep, fargo_theta, radial_momenta_sweep and
+     radial_sweep launch by launch
      (torch.profiler: each launch's device time, the bytes it must move and
      the memory rate that makes, the wrapper's share of the event time and
      the device launches it adds); the whole-transport kernel at two more
@@ -42,7 +43,10 @@ Phases (any failure raises, so the exit code is not 0):
      bodies), cfl, theta_sweep and fargo_theta at shapes that cross every
      edge of their ring blocks and tiles (CFL_SHAPES, THETA_SHAPES: NR = 3,
      rings of 1 and 7 cells, both dtypes, K = 1, 2, 5, 6, cfl with planted
-     NaN and zero-energy cells); the split route as
+     NaN and zero-energy cells), radial_momenta_sweep and radial_sweep at
+     shapes that cross every edge of the radial column march's strips and
+     blocks (RADIAL_SHAPES: NR = 3 to 33, NAZ = 1 to 129 and 37x1030, both
+     dtypes, both EoS and K = 1, 2, 5, 6, both limiters); the split route as
      a whole against the whole-transport kernel on the same 1000x3072
      state, and the three routes on one 1024x3072 state in turns;
   3. the slices: the flagship Simulation on the GPU at 1024x3072 on the
@@ -98,8 +102,8 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 # unperturbed disk is axisymmetric, which would leave the azimuthal
 # stencils untested)
 from fargocpt_torch.profile_ops import (  # noqa: E402
-    HBM_BYTES_PER_S, OP_FRAGMENTS, event_ms as time_ms, perturbed,
-    profile_op)
+    HBM_BYTES_PER_S, OP_FRAGMENTS, RADIAL_SHAPES, event_ms as time_ms,
+    perturbed, profile_op, radial_calls, radial_inputs)
 
 NR, NAZ = 1024, 3072          # whole transport route
 NR_SPLIT = 1000               # split transport route, named (NR % 16 != 0)
@@ -483,9 +487,10 @@ def parity_f32_split(sim, gpu) -> tuple[dict, dict]:
     dt = sim.stepper.cfl_dt(st)
     calls = split_calls(ctx, f, st.omega_frame, dt)
     out = measure(calls, f, NR_SPLIT)
-    out["fargo_theta"]["per_launch"] = log_launches(
-        "fargo_theta", calls["fargo_theta"][0], OP_FRAGMENTS["fargo_theta"],
-        6 if ctx.phys.is_adiabatic else 5, nbytes([f["sigma"]]), gpu)
+    for name in ("radial_momenta_sweep", "fargo_theta"):
+        out[name]["per_launch"] = log_launches(
+            name, calls[name][0], OP_FRAGMENTS[name],
+            6 if ctx.phys.is_adiabatic else 5, nbytes([f["sigma"]]), gpu)
 
     shift = tr.fargo_shift(ctx.g, f["vaz"], dt)
     args = (ctx, f["sigma"], f["vrad"], f["vaz"], f["energy"],
@@ -519,7 +524,7 @@ def parity_f32_staged(sim, gpu) -> tuple[dict, dict]:
     dt = sim.stepper.cfl_dt(st)
     calls = staged_calls(ctx, f, st.omega_frame, dt)
     out = measure(calls, f, NR)
-    for name in ("theta_sweep", "advect_shift"):
+    for name in ("radial_sweep", "theta_sweep", "advect_shift"):
         out[name]["per_launch"] = log_launches(
             name, calls[name][0], OP_FRAGMENTS[name],
             6 if ctx.phys.is_adiabatic else 5, nbytes([f["sigma"]]), gpu)
@@ -833,6 +838,60 @@ def sweep_cfl_tile_edges(device) -> None:
                                      f"float32: {w:.3e} > {F32_TOL} of scale")
 
 
+def radial_tile_edges(device) -> None:
+    """radial_momenta_sweep and radial_sweep against their plain versions
+    over RADIAL_SHAPES (the radial column march: a thread marches up a
+    strip of 16 rows, a block holds 128 columns) on seeded random inputs
+    with vrad of both signs: radial_momenta_sweep isothermal and adiabatic,
+    radial_sweep at K = 1, 2, 5 and 6, both limiters. float64 at the rtol
+    of KERNELS, float32 at F32_TOL of each plane's scale."""
+    from fargocpt_torch.constants import Constants
+    from fargocpt_torch.grid import Geometry
+    from fargocpt_torch.ops import kernels as K
+    from fargocpt_torch.params import Physics
+    from fargocpt_torch.units import Units
+    constants = Constants.from_units(Units())
+    cases = (("radial_momenta_sweep", 5), ("radial_momenta_sweep", 6),
+             ("radial_sweep", 1), ("radial_sweep", 2), ("radial_sweep", 5),
+             ("radial_sweep", 6))
+    for dtype in (torch.float64, torch.float32):
+        label = str(dtype).removeprefix("torch.")
+        worst = {"radial_momenta_sweep": 0.0, "radial_sweep": 0.0}
+        for nr, naz in RADIAL_SHAPES:
+            geometry = Geometry.build(nr, naz, 0.4, 2.5, "Log")
+            for name, k in cases:
+                f = radial_inputs(nr, naz, k, dtype, device)
+                for limiter in (0, 1):
+                    ctx = K.KernelContext(
+                        Physics(eos="isothermal" if k == 5 else "adiabatic",
+                                adiabatic_index=1.4, aspectratio_ref=0.05,
+                                flux_limiter_type=limiter),
+                        constants, geometry, dtype, device)
+                    kern, plain = radial_calls(ctx, f)[name]
+                    got, ref = kern(), plain()
+                    where = f"{name} {nr}x{naz} {label} K={k} " \
+                        f"limiter={limiter}"
+                    if dtype == torch.float64:
+                        np.testing.assert_allclose(
+                            got.cpu().numpy(), ref.cpu().numpy(),
+                            rtol=F64_RTOL[name],
+                            atol=1e-13 * float(ref.abs().max()),
+                            err_msg=where)
+                    for j in range(got.shape[0]):
+                        worst[name] = max(worst[name], float(
+                            (got[j] - ref[j]).abs().max()
+                            / ref[j].abs().max()))
+        for name, w in worst.items():
+            batches = "both EoS" if name == "radial_momenta_sweep" \
+                else "K = 1, 2, 5, 6"
+            log(f"  {name:20s}  strip edges {len(RADIAL_SHAPES)} shapes "
+                f"(NR 3-33 x NAZ 1-129, 37x1030) {label}, {batches}, both "
+                f"limiters: max|k-p| / scale = {w:.3e}")
+            if dtype == torch.float32 and not w <= F32_TOL:
+                raise AssertionError(f"{name} across its strip edges, "
+                                     f"float32: {w:.3e} > {F32_TOL} of scale")
+
+
 def parity_tile_edges(device) -> None:
     """The whole-transport kernel against the plain transport at shapes
     that cross the edges of its tiles (strips of 16 rows; 512 cells of a
@@ -842,10 +901,12 @@ def parity_tile_edges(device) -> None:
     and beyond one turn, K = 5 and 6, both limiters, one and two azimuthal
     sweeps. float64 at the rtol of KERNELS, float32 at F32_TOL of each
     output's scale. Before it the viscous kick and the sources across the
-    edges of theirs (``kick_tile_edges``), and cfl and the azimuthal sweeps
-    across theirs (``sweep_cfl_tile_edges``)."""
+    edges of theirs (``kick_tile_edges``), cfl and the azimuthal sweeps
+    across theirs (``sweep_cfl_tile_edges``) and the radial sweeps across
+    theirs (``radial_tile_edges``)."""
     kick_tile_edges(device)
     sweep_cfl_tile_edges(device)
+    radial_tile_edges(device)
     from fargocpt_torch.constants import Constants
     from fargocpt_torch.grid import Geometry
     from fargocpt_torch.ops import kernels as K

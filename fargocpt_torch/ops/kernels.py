@@ -688,8 +688,8 @@ def transport(ctx: KernelContext, sigma, vrad, vaz, energy, omega_frame, dt,
 def radial_momenta_sweep(ctx: KernelContext, sigma, vrad, vaz, energy, base,
                          dt, omega_frame):
     """The momenta [rp, rm, ap, am, (energy), sigma] built from the fields
-    and swept radially with the sigma flux ``base`` (NR+1, NAZ). Returns
-    (K, NR, NAZ), K = 6 adiabatic, 5 isothermal."""
+    and swept radially with the sigma flux ``base`` (NR+1, NAZ), NR >= 3.
+    Returns (K, NR, NAZ), K = 6 adiabatic, 5 isothermal."""
     if sigma.device.type == "cpu":
         return radial_momenta_sweep_plain(ctx, sigma, vrad, vaz, energy,
                                           base, dt, omega_frame)
@@ -707,7 +707,8 @@ def radial_momenta_sweep(ctx: KernelContext, sigma, vrad, vaz, energy, base,
     _launch("radial_momenta_sweep", sigma,
             [sigma, vrad, vaz, energy, base, ctx.cols,
              _scalars(sigma, [dt, omega_frame]), out], [],
-            [nr, naz, int(phys.is_adiabatic), phys.flux_limiter_type])
+            [nr, naz, int(phys.is_adiabatic), phys.flux_limiter_type],
+            min_nr=3)
     return out
 
 
@@ -737,9 +738,9 @@ def fargo_theta(ctx: KernelContext, qs, vres, vconst, nshift, dt,
 
 
 def radial_sweep(ctx: KernelContext, qs, sigma, vrad, base, dt):
-    """The batch ``qs`` (K, NR, NAZ), any K >= 1, swept radially in
-    specific form (divided by ``sigma``) with the sigma flux ``base``
-    (NR+1, NAZ). Returns (K, NR, NAZ)."""
+    """The batch ``qs`` (K, NR, NAZ), any K >= 1 and NR >= 3, swept
+    radially in specific form (divided by ``sigma``) with the sigma flux
+    ``base`` (NR+1, NAZ). Returns (K, NR, NAZ)."""
     if qs.device.type == "cpu":
         return radial_sweep_plain(ctx, qs, sigma, vrad, base, dt)
     g = ctx.g
@@ -754,7 +755,7 @@ def radial_sweep(ctx: KernelContext, qs, sigma, vrad, base, dt):
     out = torch.empty_like(qs)
     _launch("radial_sweep", qs,
             [qs, sigma, vrad, base, ctx.cols, _scalars(qs, [dt]), out], [],
-            [nr, naz, k, ctx.phys.flux_limiter_type])
+            [nr, naz, k, ctx.phys.flux_limiter_type], min_nr=3)
     return out
 
 

@@ -1,5 +1,6 @@
-"""The flagship's four fused ops, ``advect_shift`` and the two azimuthal
-sweeps alone on one CUDA GPU: where their time goes, launch by launch.
+"""The flagship's four fused ops, ``advect_shift``, the two azimuthal
+sweeps and the two radial sweeps alone on one CUDA GPU: where their time
+goes, launch by launch.
 
     python -m fargocpt_torch.profile_ops [--nrad 1024] [--naz 3072]
         [--ops transport,viscous_kick,...] [--steps] [--routes whole,...]
@@ -9,9 +10,11 @@ sweeps alone on one CUDA GPU: where their time goes, launch by launch.
 On the flagship's state with seeded noise (``perturbed``), float32, for
 each op of ``--ops`` (default: all of ``OP_NAMES``):
   * ``transport`` (whole route), ``viscous_kick``, ``sources``, ``cfl``,
-    and ``theta_sweep`` and ``fargo_theta`` on the batches the staged and
-    the split route give them (the radially swept momenta; fargo_theta
-    with both sweeps and the roll):
+    ``theta_sweep`` and ``fargo_theta`` on the batches the staged and the
+    split route give them (the radially swept momenta; fargo_theta with
+    both sweeps and the roll), and ``radial_momenta_sweep`` and
+    ``radial_sweep`` on what the split and the staged route give them (the
+    fields and the sigma flux; the stacked momenta, sigma and the flux):
     the median over 25 calls of the time between CUDA events around the
     call (the wrapper included), the device time of each of its launches
     (``torch.profiler``, median over 10 calls), the bytes each launch must
@@ -28,8 +31,9 @@ each op of ``--ops`` (default: all of ``OP_NAMES``):
     largest difference and the number of values that differ: -0.0 equals
     0.0), so two checkouts can be held against each other; with cfl,
     theta_sweep or fargo_theta among the ops, the outputs include those of
-    the op at the shapes of ``EDGE_SHAPES``, which cross the edges of its
-    blocks, in both dtypes on seeded random inputs (``edge_outputs``);
+    the op at the shapes of ``EDGE_SHAPES``, with a radial sweep those at
+    ``RADIAL_SHAPES``, which cross the edges of its blocks and strips, in
+    both dtypes on seeded random inputs (``edge_outputs``);
   * with ``--steps``: the flagship step on each route of ``--routes``
     (default: the whole route) and the PDS70 gas step at the same size
     through ``profile_step.profile_grid``: wall and device time a step,
@@ -74,7 +78,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, at 700 W
 
 OP_NAMES = ("transport", "viscous_kick", "sources", "cfl", "advect_shift",
-            "theta_sweep", "fargo_theta")
+            "theta_sweep", "fargo_theta", "radial_momenta_sweep",
+            "radial_sweep")
 
 # device kernel name fragment -> (NR, NAZ) planes it must move for a batch
 # of K quantities: distinct inputs once, outputs once. The first three are
@@ -102,13 +107,22 @@ LAUNCH_PLANES = {
     # theta_sweep_kernel was the earlier one thread a cell and sweep
     "theta_ring_kernel": lambda k: 2 * k + 1,    # batch, v -> batch
     "theta_sweep_kernel": lambda k: 2 * k + 1,
+    # radial_momenta_sweep and radial_sweep: radial_march_kernel with the
+    # MarchFields and the MarchBatch source, one launch a call; rms_kernel
+    # and radial_sweep_kernel were the earlier one thread a value or cell
+    "MarchFields": lambda k: 5 + k,              # fields, base -> batch
+    "MarchBatch": lambda k: 2 * k + 3,           # batch, sigma, vrad, base
+    "rms_kernel": lambda k: 5 + k,               #   -> batch
+    "radial_sweep_kernel": lambda k: 2 * k + 3,
 }
 # each op's device kernel name fragments
 OP_FRAGMENTS = {"transport": ("tr_",), "viscous_kick": ("vk_",),
                 "sources": ("sources_kernel",),
                 "cfl": ("vmean_kernel", "cfl_"),
                 "advect_shift": ("advect_shift",),
-                "theta_sweep": ("theta_",), "fargo_theta": ("theta_",)}
+                "theta_sweep": ("theta_",), "fargo_theta": ("theta_",),
+                "radial_momenta_sweep": ("MarchFields", "rms_kernel"),
+                "radial_sweep": ("MarchBatch", "radial_sweep_kernel")}
 
 # (NR, NAZ) of the tile-edge outputs of cfl, theta_sweep and fargo_theta:
 # rings of 1 and 7 cells, NAZ under and over a tile of either dtype and
@@ -117,6 +131,13 @@ OP_FRAGMENTS = {"transport": ("tr_",), "viscous_kick": ("vk_",),
 # the port takes
 EDGE_SHAPES = ((4, 1), (4, 7), (20, 7), (37, 1030), (4, 247), (4, 253),
                (4, 503), (4, 509))
+# (NR, NAZ) of the strip-edge outputs of the radial sweeps (a thread
+# marches up a strip of 16 rows, a block holds 128 columns): NR from the
+# smallest grid the ops take through one under, on and one over a strip to
+# two strips and a row, NAZ 1 and 7 and one under, on and one over a block,
+# and several blocks with a ragged last one
+RADIAL_SHAPES = tuple((nr, naz) for nr in (3, 4, 15, 16, 17, 33)
+                      for naz in (1, 7, 127, 128, 129)) + ((37, 1030),)
 
 
 def perturbed(sim) -> dict:
@@ -204,18 +225,24 @@ def launch_times(fn, fragments, calls=10) -> tuple[list[dict], float]:
 
 
 def short_name(kernel: str) -> str:
+    """The kernel's name, with the radial march's source policy."""
     m = re.search(r"(\w+_kernel)", kernel)
-    return m.group(1) if m else kernel[:40]
+    if not m:
+        return kernel[:40]
+    src = re.search(r"(March\w+)<", kernel)
+    return m.group(1) + (f"<{src.group(1)}>" if src else "")
 
 
 def with_bytes(launches, k, plane_bytes) -> list[dict]:
-    """Adds to each launch the bytes it must move and the rate achieved."""
+    """Adds to each launch the bytes it must move, the least time that
+    takes at the memory rate and the rate achieved."""
     for row in launches:
         planes = next((fn(k) for frag, fn in LAUNCH_PLANES.items()
                        if frag in row["kernel"]), None)
         row["kernel"] = short_name(row["kernel"])
         if planes:
             row["bytes"] = planes * plane_bytes
+            row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
             row["tb_per_s"] = row["bytes"] / (row["device_ms"] * 1e-3) / 1e12
             row["share_of_memory_rate"] = row["tb_per_s"] * 1e12 \
                 / HBM_BYTES_PER_S
@@ -252,12 +279,47 @@ def differences(outputs: dict, saved: dict) -> dict:
     return out
 
 
+def radial_inputs(nr: int, naz: int, k_quant: int, dtype, device) -> dict:
+    """Seeded random inputs of the radial sweeps: the fields (vrad of both
+    signs), a batch of K planes, dt and the frame rate."""
+    rng = np.random.default_rng((nr, naz, k_quant))
+
+    def t(a, dt=dtype):
+        return torch.tensor(a, dtype=dt, device=device)
+    return {"sigma": t(rng.random((nr, naz)) + 0.5),
+            "vrad": t((rng.random((nr + 1, naz)) - 0.5) * 0.05),
+            "vaz": t((rng.random((nr, naz)) - 0.5) * 0.1 + 1.0),
+            "energy": t(rng.random((nr, naz)) * 1e-3 + 1e-3),
+            "qs": t(rng.random((k_quant, nr, naz)) + 0.5),
+            "dt": t(0.01), "omega": t(0.3, torch.float64)}
+
+
+def radial_calls(ctx, f) -> dict:
+    """The radial sweep ops on the inputs ``f`` (``radial_inputs``), each
+    as (kernel call, plain call): radial_momenta_sweep on the fields with
+    the context's EoS, radial_sweep on the batch; both with the sigma flux
+    of the fields."""
+    from .ops import kernels as K
+    from .ops import transport as tr
+    s, vr, dt = f["sigma"], f["vrad"], f["dt"]
+    base = tr.sigma_flux(ctx.phys, ctx.g, s, vr, dt)
+    rms = (s, vr, f["vaz"], f["energy"], base, dt, f["omega"])
+    rs = (f["qs"], s, vr, base, dt)
+    return {"radial_momenta_sweep": (
+                lambda: K.radial_momenta_sweep(ctx, *rms),
+                lambda: K.radial_momenta_sweep_plain(ctx, *rms)),
+            "radial_sweep": (lambda: K.radial_sweep(ctx, *rs),
+                             lambda: K.radial_sweep_plain(ctx, *rs))}
+
+
 def edge_outputs(ops) -> dict:
     """The outputs of cfl, theta_sweep and fargo_theta (those of ``ops``)
     at each of ``EDGE_SHAPES`` in float32 and float64, on seeded random
     inputs: cfl also with a NaN and with a zero energy planted in the last
     active ring, the sweeps at K = 1, 2, 5, 6, fargo_theta with one and two
-    sweeps and shifts of either sign and beyond one turn."""
+    sweeps and shifts of either sign and beyond one turn; and those of
+    radial_momenta_sweep (both EoS) and radial_sweep (K = 1, 2, 5, 6) at
+    each of ``RADIAL_SHAPES``, both limiters."""
     from .constants import Constants
     from .grid import Geometry
     from .ops import kernels as K
@@ -308,6 +370,33 @@ def edge_outputs(ops) -> dict:
                     for two in (False, True):
                         out[f"edge.fargo_theta.{tag}.K{k}.two_pass{two}"] = \
                             K.fargo_theta(ctx, qs, v, vconst, nshift, dt, two)
+    radial = [op for op in ("radial_momenta_sweep", "radial_sweep")
+              if op in ops]
+    # the radial wrappers before the column march refused NR < 4, though
+    # their kernels take any NR: they are held at NR = 3 as well
+    launch = K._launch
+    K._launch = lambda *a, **kw: launch(*a, **{**kw, "min_nr": 3})
+    try:
+        for nr, naz in RADIAL_SHAPES if radial else ():
+            geometry = Geometry.build(nr, naz, 0.4, 2.5, "Log")
+            for dtype in (torch.float32, torch.float64):
+                tag = f"{nr}x{naz}.{str(dtype).removeprefix('torch.')}"
+                for limiter in (0, 1):
+                    for eos, k in (("adiabatic", 6), ("isothermal", 5),
+                                   ("adiabatic", 1), ("adiabatic", 2)):
+                        ctx = K.KernelContext(
+                            Physics(eos=eos, adiabatic_index=1.4,
+                                    aspectratio_ref=0.05,
+                                    flux_limiter_type=limiter),
+                            constants, geometry, dtype, "cuda")
+                        calls = radial_calls(
+                            ctx, radial_inputs(nr, naz, k, dtype, "cuda"))
+                        for op in radial:
+                            if op == "radial_sweep" or k >= 5:
+                                out[f"edge.{op}.{tag}.K{k}.limiter"
+                                    f"{limiter}"] = calls[op][0]()
+    finally:
+        K._launch = launch
     return out
 
 
@@ -345,6 +434,16 @@ def profile_ops(nrad: int, naz: int, save=None, against=None,
         "cfl": (lambda: (K.cfl(ctx, s, vr, va, e, st.qplus, st.qminus),),
                 ("dt",)),
     }
+    if {"radial_momenta_sweep", "radial_sweep"} & set(ops):
+        # what the split and the staged route hand the radial sweeps: the
+        # fields and the sigma flux, the stacked momenta
+        base = tr.sigma_flux(phys, g, s, vr, dt)
+        qs0 = tr.momenta_batch(phys, g, s, vr, va, e, omega.to(s.dtype))
+        calls["radial_momenta_sweep"] = (
+            lambda: (K.radial_momenta_sweep(ctx, s, vr, va, e, base, dt,
+                                            omega),), ("qs",))
+        calls["radial_sweep"] = (
+            lambda: (K.radial_sweep(ctx, qs0, s, vr, base, dt),), ("qs",))
     if {"theta_sweep", "fargo_theta"} & set(ops):
         # what the staged and the split route hand the azimuthal sweeps:
         # the radially swept momenta and the residual velocity
@@ -400,7 +499,8 @@ def profile_ops(nrad: int, naz: int, save=None, against=None,
                 else lambda: torch.gather(qs, -1, index)))
         res["advect_shift"]["event_ms_in_turns"] = turns
         res["nshift_min_max"] = [int(nshift.min()), int(nshift.max())]
-    if {"cfl", "theta_sweep", "fargo_theta"} & set(ops):
+    if {"cfl", "theta_sweep", "fargo_theta", "radial_momenta_sweep",
+            "radial_sweep"} & set(ops):
         edges = edge_outputs(ops)
         res["edge_sha256"] = digest(edges.values())
         outputs.update(edges)
@@ -504,7 +604,8 @@ MUFU_KINDS = {"rcp": "MUFU.RCP", "sqrt": "MUFU.SQRT", "rsq": "MUFU.RSQ",
 
 
 def sass_counts(names=("transport", "advect_shift", "viscous_kick",
-                       "sources", "cfl", "theta_sweep", "fargo_theta")) -> dict:
+                       "sources", "cfl", "theta_sweep", "fargo_theta",
+                       "radial_momenta_sweep", "radial_sweep")) -> dict:
     """Per kernel of csrc/<name>.cu: registers, spills and shared memory
     from ``nvcc -Xptxas -v``; SASS operations and, among them, reciprocals,
     square roots, reciprocal square roots and exponentials (``MUFU_KINDS``;
@@ -571,7 +672,8 @@ def report(args, ops, gpu) -> dict:
               f" {r['pytorch_launches']:.1f} other device launches a call, "
               f"outputs {r['sha256']} [{gpu}]", flush=True)
         for row in r["launches"]:
-            rate = f"{row['bytes'] / 1e6:.1f} MB, {row['tb_per_s']:.3f} " \
+            rate = f"{row['bytes'] / 1e6:.1f} MB (bound " \
+                f"{row['bound_ms']:.4f} ms), {row['tb_per_s']:.3f} " \
                 f"TB/s = {100 * row['share_of_memory_rate']:.1f}% of " \
                 f"{HBM_BYTES_PER_S / 1e12} TB/s" if "bytes" in row else ""
             print(f"    {row['kernel']:28s} {row['device_ms']:.4f} ms  {rate}",

@@ -37,10 +37,11 @@ SETUPS = {"flagship": flagship, "pds70_gas": pds70_gas, "pds70": pds70}
 
 # device kernel name fragment -> the op whose CUDA source launches it
 # (fargo_theta on the split route and theta_sweep on the staged route
-# launch one kernel)
-KERNEL_OPS = (("rms_kernel", "radial_momenta_sweep"),
+# launch one kernel; radial_momenta_sweep and radial_sweep launch one
+# kernel template, radial_march_kernel, with two source policies)
+KERNEL_OPS = (("MarchFields", "radial_momenta_sweep"),
               ("theta_ring_kernel", "fargo_theta / theta_sweep"),
-              ("radial_sweep_kernel", "radial_sweep"),
+              ("MarchBatch", "radial_sweep"),
               ("advect_shift_vec_kernel", "advect_shift"),
               ("advect_shift_scalar_kernel", "advect_shift"),
               ("tr_radial_kernel", "transport"),

@@ -14,7 +14,10 @@ fargo_theta at shapes that cross every edge of their ring blocks and tiles
 (NR = 3, rings of 1 and 7 cells, NAZ below and above a tile and around the
 size up to which cfl keeps a ring in shared memory, K = 1, 2, 5, 6 and 9),
 in both dtypes, cfl with planted NaN and zero-energy cells, each launching
-its one kernel and nothing else; a split-route and a staged-route
+its one kernel and nothing else; radial_momenta_sweep (both EoS) and
+radial_sweep (K = 1, 2, 5, 6) at shapes that cross every edge of the
+radial column march's strips and blocks (RADIAL_SHAPES), both limiters,
+both dtypes; a split-route and a staged-route
 Simulation step through their kernels, a PDS70 gas step through artvisc_sn
 and the whole transport, and the whole PDS70 setup with its dust swarm on
 the device against the same run on the CPU.
@@ -35,6 +38,8 @@ from fargocpt_torch.flagship import FLAGSHIP, pds70, pds70_gas
 from fargocpt_torch.grid import Geometry
 from fargocpt_torch.ops import gravity, kernels, transport
 from fargocpt_torch.params import Physics
+from fargocpt_torch.profile_ops import RADIAL_SHAPES, radial_calls, \
+    radial_inputs
 from fargocpt_torch.sim import Simulation, reachable_tensors
 from fargocpt_torch.units import Units
 
@@ -728,6 +733,33 @@ def test_radial_sweep_kernel_matches_plain(cuda, k_quant, limiter):
     assert kernels.LAUNCHES["radial_sweep"] == before + 1
     ref = kernels.radial_sweep_plain(ctx, qs, sigma, vrad, base, dt)
     _close([got], [ref], 1e-11, [1e-13 * float(ref.abs().max())])
+
+
+# radial_sweep at K = 1 and 2 (one plane at a time), 5 and 6 (all at once);
+# radial_momenta_sweep isothermal (K = 5) and adiabatic (K = 6)
+RADIAL_CASES = [("radial_sweep", 1), ("radial_sweep", 2), ("radial_sweep", 5),
+                ("radial_sweep", 6), ("radial_momenta_sweep", 5),
+                ("radial_momenta_sweep", 6)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("limiter", [0, 1])
+@pytest.mark.parametrize("nr,naz", RADIAL_SHAPES)
+@pytest.mark.parametrize("op,k_quant", RADIAL_CASES)
+def test_radial_ops_across_strip_edges(cuda, op, k_quant, nr, naz, limiter,
+                                       dtype):
+    """The column march across the edges of its strips of 16 rows and its
+    blocks of 128 columns, vrad of both signs: one launch a call."""
+    ctx = _ctx(dict(eos="isothermal" if k_quant == 5 else "adiabatic",
+                    adiabatic_index=1.4, aspectratio_ref=0.05,
+                    flux_limiter_type=limiter), cuda, nr, naz, dtype)
+    kern, plain = radial_calls(
+        ctx, radial_inputs(nr, naz, k_quant, dtype, cuda))[op]
+    before = kernels.LAUNCHES[op]
+    got = kern()
+    assert kernels.LAUNCHES[op] == before + 1
+    _close_batch(got, plain(), dtype)
 
 
 @pytest.mark.gpu
