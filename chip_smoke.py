@@ -73,7 +73,17 @@ Phases (any failure raises, so the exit code is not 0):
      versions, both on the GPU run's dt sequence. Then the PDS70 gas setup
      at 128x384 float32 for 200 steps on the GPU with one warm PVTE Newton
      step against three (rel-L2 < 1e-4, the budget of a warm against a
-     cold PVTE refresh).
+     cold PVTE refresh);
+  5. the command line: ``python -m fargocpt_torch start`` (in this process,
+     so the launch counters are readable) on examples/adiabatic_disk.yml at
+     1024x3072 float32 for two snapshots (about 70 steps), with the counters
+     set to 0 just before and read just after (cfl, sources, viscous_kick
+     and the whole-transport kernel launched, no other kernel) and the
+     native snapshot writer in use; then one snapshot and ``restart last``
+     to the second in another directory, which tools/compare_output.py
+     --rtol 0 must find bit for bit the first run's, file for file; each
+     interval's wall and steps/s, and one snapshot write's seconds and
+     bytes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -1310,6 +1320,132 @@ def newton_budget(nr, naz, steps, budget=1e-4) -> dict:
     return errs
 
 
+# --- phase 5 -----------------------------------------------------------------
+
+# examples/adiabatic_disk.yml at the flagship's full size, one monitor
+# interval a snapshot; MonitorTimestep 0.15 is ~40 steps from FirstDT 1e-3,
+# then ~31 at the CFL limit; BitwiseExactRestarting writes Q+/Q-, which the
+# CFL reads, so a restart replays the trajectory bit for bit
+CLI_SETUP = {"Nrad": NR, "Naz": NAZ, "Nmonitor": 1, "FirstDT": 1e-3,
+             "MonitorTimestep": 0.15, "BitwiseExactRestarting": "yes"}
+# the kernels of the flagship on the whole route; the rest stay at 0
+CLI_OPS = ("cfl", "sources", "viscous_kick", "transport")
+
+
+def cli_setup(path, n_snapshots) -> str:
+    import yaml
+    cfg = yaml.safe_load(open(os.path.join(HERE, "examples",
+                                           "adiabatic_disk.yml")))
+    cfg.update(CLI_SETUP, Nsnapshots=n_snapshots)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return str(path)
+
+
+def run_cli(argv) -> float:
+    """``python -m fargocpt_torch`` in this process, so the launch counters
+    are readable; returns its wall time."""
+    from fargocpt_torch.__main__ import main as cli_main
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"fargocpt_torch {' '.join(argv)} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def command_line(work, gpu) -> dict:
+    """Run A: ``start --dtype float32`` through two snapshots, with the
+    launch counters set to 0 just before and read just after (the four
+    flagship kernels launched, no other). Run B: one snapshot, then
+    ``restart last`` to the second; tools/compare_output.py --rtol 0 holds
+    every file of B against A. Then one snapshot write timed alone."""
+    from fargocpt_torch import output as out
+    from fargocpt_torch.native import AsyncFileWriter
+    from fargocpt_torch.ops import kernels as K
+    from fargocpt_torch.sim import Simulation
+    if not AsyncFileWriter().is_native:
+        raise AssertionError("the native snapshot writer did not build")
+    two = cli_setup(os.path.join(work, "two.yml"), 2)
+    one = cli_setup(os.path.join(work, "one.yml"), 1)
+    dir_a, dir_b = os.path.join(work, "a"), os.path.join(work, "b")
+    K.reset_launches()
+    wall_a = run_cli(["start", two, "--dtype", "float32", "-o", dir_a])
+    launches = dict(K.LAUNCHES)
+    for name in K.OPS:
+        if (launches[name] > 0) != (name in CLI_OPS):
+            raise AssertionError(f"the command line launched {name} "
+                                 f"{launches[name]} times")
+    with open(os.path.join(dir_a, "logs", "log_0.txt")) as f:
+        if "snapshot writer: native" not in f.read():
+            raise AssertionError("the command line did not use the native "
+                                 "snapshot writer")
+    wall_b = run_cli(["start", one, "--dtype", "float32", "-o", dir_b])
+    wall_r = run_cli(["restart", "last", two, "--dtype", "float32", "-o",
+                      dir_b])
+    cmp = subprocess.run(
+        [sys.executable, os.path.join(HERE, "tools", "compare_output.py"),
+         dir_a, dir_b, "--rtol", "0"], capture_output=True, text=True,
+        timeout=300)
+    files = [ln.strip() for ln in cmp.stdout.splitlines()
+             if ln.startswith("  ")]
+    if cmp.returncode != 0 or not files \
+            or any(": OK " not in ln for ln in files):
+        raise AssertionError("restart not bit for bit:\n" + cmp.stdout)
+    rows = np.atleast_2d(np.loadtxt(os.path.join(
+        dir_a, "monitor", "timestepLogging.dat")))
+    misc = out.load_misc(os.path.join(dir_a, "snapshots", "2"))
+    check_state_arrays(dir_a)
+
+    # one snapshot write alone, on a fresh state at the same size
+    sim = Simulation.from_file(two, dtype="float32")
+    writer = out.OutputWriter(sim, os.path.join(work, "timing"))
+    writer.write_snapshot("warm", register=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbytes = writer.write_snapshot("timed", register=False)
+    write_s = time.perf_counter() - t0
+    writer.close()
+    res = {"grid": f"{NR}x{NAZ}", "dtype": "float32",
+           "launches": launches,
+           "steps_per_interval": [round(w * 1e3 / ms) for w, ms
+                                  in zip(rows[:, 3], rows[:, 4])],
+           "hydro_steps": misc["n_hydro_iter"],
+           "advance_s_per_interval": rows[:, 3].tolist(),
+           "ms_per_step": rows[:, 4].tolist(),
+           "steps_per_s": (1e3 / rows[:, 4]).tolist(),
+           "command_wall_s": {"start_two": wall_a, "start_one": wall_b,
+                              "restart_last": wall_r},
+           "snapshot_write_s": write_s, "snapshot_bytes": nbytes,
+           "restart_bitwise": True, "files_compared": len(files)}
+    log(f"  command line {NR}x{NAZ} float32 (examples/adiabatic_disk.yml, "
+        f"MonitorTimestep {CLI_SETUP['MonitorTimestep']}): "
+        f"{misc['n_hydro_iter']} hydro steps in 2 intervals, advance "
+        f"{', '.join(f'{x:.4f}' for x in res['advance_s_per_interval'])} s "
+        f"a monitor interval, "
+        f"{', '.join(f'{x:.1f}' for x in res['steps_per_s'])} steps/s; "
+        f"whole commands: start (2 snapshots) {wall_a:.2f} s, start (1) "
+        f"{wall_b:.2f} s, restart last {wall_r:.2f} s [{gpu}]")
+    log(f"  one snapshot write: {write_s:.4f} s, {nbytes} bytes "
+        f"({nbytes / write_s / 1e9:.3f} GB/s) [{gpu}]")
+    log(f"  restart: run B (1 snapshot + restart last) against run A: "
+        f"{len(files)} files, every one OK at rtol 0 (bit for bit)")
+    log("  launches in run A: " + ", ".join(
+        f"{k} {launches[k]}" for k in CLI_OPS))
+    return res
+
+
+def check_state_arrays(outdir) -> None:
+    """The last snapshot's fields are finite, sigma positive."""
+    sdir = os.path.join(outdir, "snapshots", "2")
+    for name in ("Sigma", "vrad", "vazi", "energy"):
+        arr = np.fromfile(os.path.join(sdir, f"{name}.dat"), np.float64)
+        if not np.isfinite(arr).all():
+            raise AssertionError(f"snapshot 2: {name} is not finite")
+    if not (np.fromfile(os.path.join(sdir, "Sigma.dat")) > 0).all():
+        raise AssertionError("snapshot 2: sigma <= 0 somewhere")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA "
@@ -1414,6 +1550,13 @@ def main() -> int:
     newton = newton_budget(128, 384, 200)
     log(f"  phase 4 done at {time.perf_counter() - t_main:.1f} s")
 
+    log("== 5. the command line: python -m fargocpt_torch start / restart "
+        "at full size, the restart bit for bit")
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
+        res_cli = command_line(work, gpu)
+    log(f"  phase 5 done at {time.perf_counter() - t_main:.1f} s")
+
     # launches: each kernel's count from the run of its own path in phase 3
     # (KERNELS: the whole route for cfl, sources and viscous_kick as well,
     # the PDS70 gas step for artvisc_sn)
@@ -1437,6 +1580,7 @@ def main() -> int:
                     f"transport_routes_ms_at_{NR}": route3_ms,
                     f"step_ms_in_turns_at_{NR_SPLIT}": turns,
                     f"step_ms_in_turns_at_{NR}": turns3,
+                    "command_line": res_cli,
                     "slices": {r: {k: v for k, v in x.items()
                                    if k != "launches"}
                                for r, x in res.items()}}))

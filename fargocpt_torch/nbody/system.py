@@ -218,3 +218,40 @@ def kick(state: NBodyState, ax, ay, dt) -> NBodyState:
     return state.replace(vx=state.vx + dt * ax.to(state.vx.dtype),
                          vy=state.vy + dt * ay.to(state.vy.dtype))
 
+
+def orbital_elements(x, y, vx, vy, m_central, m_body, G):
+    """Keplerian elements from state vectors
+    (reference src/nbody/planet.cpp:488-570). numpy, host-side."""
+    m = m_central + m_body
+    h = x * vy - y * vx
+    d = np.sqrt(x * x + y * y)
+    if d == 0.0 or h == 0.0:
+        return dict(a=0.0, e=0.0, period=0.0, mean_anomaly=0.0,
+                    true_anomaly=0.0, eccentric_anomaly=0.0,
+                    pericenter_angle=0.0)
+    Ax = x * vy * vy - y * vx * vy - G * m * x / d
+    Ay = y * vx * vx - x * vx * vy - G * m * y / d
+    e = math.sqrt(Ax * Ax + Ay * Ay) / (G * m)
+    a = h * h / (G * m) / (1.0 - e * e)
+    if e >= 1.0 or a <= 0.0:
+        return dict(a=0.0, e=0.0, period=0.0, mean_anomaly=0.0,
+                    true_anomaly=0.0, eccentric_anomaly=0.0,
+                    pericenter_angle=0.0)
+    period = 2.0 * math.pi * math.sqrt(a ** 3 / (G * m))
+    if e != 0.0:
+        E = math.acos(np.clip((1.0 - d / a) / e, -1.0, 1.0))
+    else:
+        E = 0.0
+    if (x * y * (vy * vy - vx * vx) + vx * vy * (x * x - y * y)) < 0:
+        E = -E
+    M = E - e * math.sin(E)
+    if e != 0.0:
+        V = math.acos(np.clip((a * (1.0 - e * e) / d - 1.0) / e, -1.0, 1.0))
+    else:
+        V = 0.0
+    if x * vx + y * vy < 0:
+        V = -V
+    peri = math.atan2(Ay, Ax) if e != 0.0 else 0.0
+    return dict(a=float(a), e=float(e), period=float(period),
+                mean_anomaly=float(M), true_anomaly=float(V),
+                eccentric_anomaly=float(E), pericenter_angle=float(peri))

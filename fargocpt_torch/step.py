@@ -224,6 +224,20 @@ class HydroStep(nn.Module):
             if not self._memo_shared:
                 self._pv_memo.clear()
 
+    @contextmanager
+    def detached(self, guess=None):
+        """A PVTE scope apart from any step in progress, for diagnostics
+        between or during steps (the output, a signal's report): refreshes
+        warm from ``guess``, and the memo and chain of the step are put
+        back afterwards, so a diagnostic never changes the trajectory."""
+        saved = self._pv_memo, self._pv_chain, self._memo_shared
+        self._pv_memo, self._memo_shared = [], False
+        try:
+            with self._pvte_scope(guess):
+                yield
+        finally:
+            self._pv_memo, self._pv_chain, self._memo_shared = saved
+
     def pvte_vals(self, sigma, energy):
         """(gamma_eff, mu, gamma1) of (sigma, energy), refreshed once per
         distinct pair within a scope; the midplane density takes H from
@@ -263,6 +277,18 @@ class HydroStep(nn.Module):
         return gravity.BodiesOnGrid(x=nb.x, y=nb.y, mass=nb.mass,
                                     cubic_smoothing_radius=torch.zeros_like(
                                         nb.x))
+
+    def disk_torques(self, state: SystemState) -> torch.Tensor:
+        """Torque of the gas disk on each body, m_k (x_k a_y - y_k a_x)
+        (reference src/output.cpp ``write_torques`` path via
+        ComputeDiskOnNbodyAccel); call it inside ``detached``."""
+        f, nb = state.fields, state.nbody
+        _, _, h = self.derived(f.sigma, f.energy)
+        cell_x, cell_y = self.ops.cell_xy()
+        ax, ay = gravity.disk_on_body_accel(
+            self.phys, self.constants, self.g, self.bodies_on_grid(nb),
+            self.n_bodies, cell_x, cell_y, h, f.sigma)
+        return nb.mass * (nb.x * ay.to(nb.x.dtype) - nb.y * ax.to(nb.x.dtype))
 
     def _apply_bcs(self, sigma, vrad, vaz, energy, omega_frame):
         return boundary.apply_boundary_conditions(
@@ -493,12 +519,15 @@ class HydroStep(nn.Module):
                 self.phys, self.g, f.sigma, f.vrad, f.vaz, f.energy, cs,
                 self.viscosity_grid(cs, h), state.qplus, state.qminus)
 
-    def advance_to(self, state: SystemState, time, last_dt, t_target):
+    def advance_to(self, state: SystemState, time, last_dt, t_target,
+                   max_steps: int | None = None):
         """Advance to ``t_target`` with the reference's dt rules
         (src/simulation.cpp:505-560): dt = min(CFL_max_var * last_dt,
         cfl_dt), stretched or clamped to land on ``t_target``; ``last_dt``
         carries the unclamped dt. One host sync per step: the landing test.
-        Each step's CFL and step share their PVTE memo.
+        Each step's CFL and step share their PVTE memo. ``max_steps`` stops
+        it after that many steps, short of ``t_target`` if need be (the
+        command line's ``-N``).
 
         Returns (state, time, last_dt, n_steps, dt_min, dt_max, dt_sum,
         dt_sum_sq), the scalars as 0-d tensors except n_steps."""
@@ -526,7 +555,8 @@ class HydroStep(nn.Module):
                 dmax = torch.maximum(dmax, step_dt)
                 dsum = dsum + step_dt
                 dsq = dsq + step_dt * step_dt
-                if bool(clamp):
+                if bool(clamp) or (max_steps is not None
+                                   and n >= max_steps):
                     return state, time, last_dt, n, dmin, dmax, dsum, dsq
         finally:
             self._memo_shared = False

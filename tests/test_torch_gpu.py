@@ -20,7 +20,9 @@ radial column march's strips and blocks (RADIAL_SHAPES), both limiters,
 both dtypes; a split-route and a staged-route
 Simulation step through their kernels, a PDS70 gas step through artvisc_sn
 and the whole transport, and the whole PDS70 setup with its dust swarm on
-the device against the same run on the CPU.
+the device against the same run on the CPU; the output written from card
+tensors against the CPU writer's bytes, and a restart on the card bit for
+bit.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one. This file imports no JAX, so it runs on a GPU host that has none:
@@ -930,3 +932,53 @@ def test_pds70_swarm_lives_and_moves_on_the_device(cuda):
         atol = 1e-9 * np.abs(ref).max() if name == "r_dot" else 0.0
         np.testing.assert_allclose(getattr(gp, name).cpu().numpy(), ref,
                                    rtol=1e-9, atol=atol, err_msg=name)
+
+
+def _flagship_cfg(snapshots):
+    return Config.from_dict(dict(FLAGSHIP, Nrad="64", Naz="128",
+                                 Nsnapshots=str(snapshots),
+                                 MonitorTimestep="0.02",
+                                 BitwiseExactRestarting="yes"))
+
+
+def _flagship_run(device, dtype, outdir, snapshots, restore_from=None):
+    from fargocpt_torch import output
+    sim = Simulation(_flagship_cfg(snapshots), dtype=dtype, device=device)
+    output.OutputWriter(sim, outdir)
+    if restore_from is not None:
+        output.restore_simulation(sim, outdir, restore_from)
+    sim.run()
+    return sim
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_output_from_the_card(cuda, dtype, tmp_path):
+    """The writer on card tensors (one pinned copy to the host a boundary)
+    writes the bytes the CPU writer writes from the same state, and a
+    restart on the card is bit for bit the uninterrupted run."""
+    from fargocpt_torch import output
+    from fargocpt_torch.state import (system_state_from_numpy,
+                                      system_state_to_numpy)
+    a = _flagship_run(cuda, dtype, tmp_path / "a", 2)
+    _flagship_run(cuda, dtype, tmp_path / "b", 1)
+    c = _flagship_run(cuda, dtype, tmp_path / "b", 2, restore_from=1)
+    sa, sc = system_state_to_numpy(a.state), system_state_to_numpy(c.state)
+    for key in sa:
+        np.testing.assert_array_equal(sc[key], sa[key], err_msg=key)
+    names = ("Sigma.dat", "vrad.dat", "vazi.dat", "energy.dat", "Qplus.dat",
+             "Qminus.dat", "misc.bin", "nbody.bin")
+    for name in names:
+        assert (tmp_path / "a" / "snapshots" / "2" / name).read_bytes() \
+            == (tmp_path / "b" / "snapshots" / "2" / name).read_bytes(), name
+    # the same state written from the CPU
+    cpu = Simulation(_flagship_cfg(2), dtype=dtype, device="cpu")
+    cpu.state = system_state_from_numpy(sa, "cpu", cpu.dtype)
+    cpu.time, cpu.last_dt = a.time.cpu(), a.last_dt.cpu()
+    cpu.n_monitor, cpu.n_hydro_iter = a.n_monitor, a.n_hydro_iter
+    output.OutputWriter(cpu, tmp_path / "cpu")
+    cpu._handle_outputs()
+    for name in names:
+        assert (tmp_path / "a" / "snapshots" / "2" / name).read_bytes() \
+            == (tmp_path / "cpu" / "snapshots" / "2" / name).read_bytes(), \
+            name

@@ -1,5 +1,6 @@
 """The framework-neutral modules copied into fargocpt_torch (units, config,
-constants, params, grid, theo) stay equal to the JAX package's: the same
+constants, params, grid, theo; log, usercfg, analysis, overview and the
+native writer's C++ source) stay equal to the JAX package's: the same
 source text, and the same Physics, Geometry, Units and Constants for the
 flagship configuration and every setup file."""
 
@@ -38,10 +39,12 @@ FLAGSHIP = {
 
 
 @pytest.mark.parametrize("name", ["units", "constants", "params", "grid",
-                                  "theo"])
+                                  "theo", "log", "usercfg", "analysis",
+                                  "overview", "native/async_writer.cpp"])
 def test_copied_module_source_is_identical(name):
-    a = (ROOT / "fargocpt_tpu" / f"{name}.py").read_text()
-    b = (ROOT / "fargocpt_torch" / f"{name}.py").read_text()
+    name = name if "." in name else f"{name}.py"
+    a = (ROOT / "fargocpt_tpu" / name).read_text()
+    b = (ROOT / "fargocpt_torch" / name).read_text()
     assert a == b
 
 
@@ -115,7 +118,9 @@ def test_neutral_objects_match(source):
 
 def test_port_never_imports_jax():
     code = ("import sys, fargocpt_torch, fargocpt_torch.sim, "
-            "fargocpt_torch.ops.kernels; "
+            "fargocpt_torch.ops.kernels, fargocpt_torch.output, "
+            "fargocpt_torch.__main__, fargocpt_torch.analysis, "
+            "fargocpt_torch.native; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'fargocpt_tpu')); "
             "print(bad); assert not bad, bad")
