@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Three setups (fargocpt_torch/flagship.py). The flagship (constant gamma)
+Four setups (fargocpt_torch/flagship.py). The flagship (constant gamma)
 takes the fused kernels: cfl, sources, viscous_kick, and the transport by
 one of three routes: the whole-transport kernel on every grid
 (fargocpt_torch/ops/transport.route; 1024x3072 and 1000x3072 here) or,
@@ -13,12 +13,17 @@ per azimuthal pass, advect_shift (transport_route="staged", 1024x3072).
 The PDS70 gas setup (PVTE, FLD, FFT self-gravity, surface
 cooling) takes the unfused substeps with the artvisc_sn kernel and the
 whole-transport kernel (1024x3072); the whole PDS70 setup adds its
-Lagrangian dust, 16384 particles. All five paths are driven here.
+Lagrangian dust, 16384 particles. The planet_disk (examples/quickstart.yml's
+physics: a locally isothermal disk with damping zones and a star and a
+ramped Jupiter with disk feedback) takes cfl, sources, viscous_kick and the
+whole-transport kernel in their isothermal variants, and the ias15 kernel
+twice a step (the N-body integrator: the indirect term's predictor and the
+drift). All six paths are driven here.
 
 Phases (any failure raises, so the exit code is not 0):
   1. environment: GPU name and power limit, torch/CUDA versions, nvcc,
      and the build of the CUDA kernels from fargocpt_torch/csrc;
-  2. per-kernel parity: each of the ten kernels (kernels.OPS) against its
+  2. per-kernel parity: each of the eleven kernels (kernels.OPS) against its
      plain PyTorch version on the same GPU tensors, at full size in
      float32 (a setup's state with seeded noise: the flagship at 1024x3072
      for the whole route's four kernels and the staged route's three, at
@@ -48,7 +53,16 @@ Phases (any failure raises, so the exit code is not 0):
      blocks (RADIAL_SHAPES: NR = 3 to 33, NAZ = 1 to 129 and 37x1030, both
      dtypes, both EoS and K = 1, 2, 5, 6, both limiters); the split route as
      a whole against the whole-transport kernel on the same 1000x3072
-     state, and the three routes on one 1024x3072 state in turns;
+     state, and the three routes on one 1024x3072 state in turns; the
+     isothermal variants of cfl, sources (a star and a 1e-3 planet at
+     r = 1 half way up its mass ramp), viscous_kick and the transport
+     (K = 5) at 1024x3072 float32 on the perturbed planet_disk state; ias15
+     against its plain version on the card in float64 (two bodies at
+     e = 0.9 and four bodies over a period, and the planet_disk's bodies
+     and step: the same substeps, the state to 1e-13), each one's ms a
+     call by events and the plain version's device launches; the four
+     kernels at the goldens' grids (97x376, 256x2, 100x2), both dtypes,
+     isothermal, SN and TW;
   3. the slices: the flagship Simulation on the GPU at 1024x3072 on the
      whole and on the staged route and at 1000x3072 on the split route
      (named) and on the route the grid takes by itself (the whole one),
@@ -58,7 +72,12 @@ Phases (any failure raises, so the exit code is not 0):
      PDS70 gas Simulation and the whole PDS70 Simulation with its 16384
      particles at 1024x3072 float32 (3 warm-up and 10 timed steps, then
      the run path's advance_to over about 10 steps), each with the launch
-     counters set to 0 before and read after; the PDS70 lines add the FLD
+     counters set to 0 before and read after; the planet_disk at 1024x3072
+     float32 (10 warm-up and 60 timed steps; cfl, sources, viscous_kick
+     and the transport once a step, ias15 twice, no other kernel), with
+     its device launches, PyTorch launches, device time and busy share a
+     step from torch.profiler and its host reads a step from CUDA's sync
+     debug mode; the PDS70 lines add the FLD
      SOR iterations and the PVTE refreshes per step (3 and, on the run
      path, 2, with or without the dust), and with the dust its share of
      the step by CUDA events and the particles alive;
@@ -73,7 +92,9 @@ Phases (any failure raises, so the exit code is not 0):
      versions, both on the GPU run's dt sequence. Then the PDS70 gas setup
      at 128x384 float32 for 200 steps on the GPU with one warm PVTE Newton
      step against three (rel-L2 < 1e-4, the budget of a warm against a
-     cold PVTE refresh);
+     cold PVTE refresh); the planet_disk at 256x512 float32 for 200 steps
+     and 128x256 float64 for 20, the same budgets, the bodies' state held
+     to them too;
   5. the command line: ``python -m fargocpt_torch start`` (in this process,
      so the launch counters are readable) on examples/adiabatic_disk.yml at
      1024x3072 float32 for two snapshots (about 70 steps), with the counters
@@ -83,7 +104,15 @@ Phases (any failure raises, so the exit code is not 0):
      to the second in another directory, which tools/compare_output.py
      --rtol 0 must find bit for bit the first run's, file for file; each
      interval's wall and steps/s, and one snapshot write's seconds and
-     bytes.
+     bytes;
+  6. the reference binary on the card: the cold_disk_planet (1e-6),
+     spreading_ring (1e-9), shocktube_sn (1e-6) and longrun_planet (1e-5)
+     goldens of tests/goldens/ in float64 through the kernels and
+     fargocpt_torch.output, each with the launch counters set to 0 before
+     and read after, their snapshots against the reference's as
+     tests/test_reference_golden.py holds them (each field's largest
+     deviation, the hydro step counts and the last dt of misc.bin), and
+     each one's wall time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -125,29 +154,34 @@ ROUTE_OPS = {"whole": {"transport": 1},
                         "advect_shift": 1}}
 
 # One row per kernel of fargocpt_torch.ops.kernels.OPS (main() refuses to
-# run if the two differ): the line of the TPU kernel it replaces in
-# fargocpt_tpu/ops/pallas_kernels.py, the slice of phase 3 whose launch
+# run if the two differ): what it replaces (the TPU kernel's line in
+# fargocpt_tpu/ops/pallas_kernels.py; for ias15, which replaces no TPU
+# kernel, the JAX package's while loop), the slice of phase 3 whose launch
 # count the last line but one reports, and the float64 tolerance at
 # 130x200 (those of tests/test_torch_kernels.py; rtol 1e-11 for the split
-# and staged routes' kernels, 1e-12 for artvisc_sn, the roll exact). The
-# source is fargocpt_torch/csrc/<name>.cu.
+# and staged routes' kernels, 1e-12 for artvisc_sn, the roll exact; ias15
+# 1e-13 of its state's scale). The source is fargocpt_torch/csrc/<name>.cu.
+PALLAS = "fargocpt_tpu/ops/pallas_kernels.py"
 KERNELS = {
-    "cfl": (838, "whole", 1e-12),
-    "sources": (396, "whole", 1e-11),
-    "viscous_kick": (1470, "whole", 1e-10),
-    "transport": (1098, "whole", 1e-11),
-    "radial_momenta_sweep": (192, "split", 1e-11),
-    "fargo_theta": (495, "split", 1e-11),
-    "artvisc_sn": (721, "pds70_gas", 1e-12),
-    "radial_sweep": (573, "staged", 1e-11),
-    "theta_sweep": (106, "staged", 1e-11),
-    "advect_shift": (628, "staged", 0.0),
+    "cfl": (f"{PALLAS}:838", "whole", 1e-12),
+    "sources": (f"{PALLAS}:396", "whole", 1e-11),
+    "viscous_kick": (f"{PALLAS}:1470", "whole", 1e-10),
+    "transport": (f"{PALLAS}:1098", "whole", 1e-11),
+    "radial_momenta_sweep": (f"{PALLAS}:192", "split", 1e-11),
+    "fargo_theta": (f"{PALLAS}:495", "split", 1e-11),
+    "artvisc_sn": (f"{PALLAS}:721", "pds70_gas", 1e-12),
+    "radial_sweep": (f"{PALLAS}:573", "staged", 1e-11),
+    "theta_sweep": (f"{PALLAS}:106", "staged", 1e-11),
+    "advect_shift": (f"{PALLAS}:628", "staged", 0.0),
+    "ias15": ("fargocpt_tpu/nbody/ias15.py:236", "planet_disk", 1e-13),
 }
 F64_RTOL = {name: row[2] for name, row in KERNELS.items()}
 # The card's published peaks (H100 SXM data sheet, at 700 W): the device
 # memory rate is profile_ops' HBM_BYTES_PER_S; float32 outside the tensor
 # cores:
 F32_OPS_PER_S = 67e12
+# float64 outside the tensor cores (the same data sheet): ias15's type
+F64_OPS_PER_S = 34e12
 
 # f32 at full size, as a fraction of each output's scale (velocities are
 # scaled by max|vaz|, as in tests/test_dtype_budget.py; every plane of a
@@ -201,6 +235,13 @@ def pds70_4096(nr, naz, dtype, device):
     return pds70(nr, naz, dtype, device, n_particles=4096)
 
 
+def planet_disk(nr, naz, dtype, device):
+    from fargocpt_torch.flagship import planet_disk as planet_disk_config
+    from fargocpt_torch.sim import Simulation
+    return Simulation(planet_disk_config(nr, naz), dtype=dtype,
+                      device=device)
+
+
 # --- phase 2 -----------------------------------------------------------------
 
 def nbytes(tensors) -> int:
@@ -243,12 +284,13 @@ def flops_of(fn) -> int:
     return fc.flops
 
 
-def bound(inputs, outputs, flops) -> dict:
+def bound(inputs, outputs, flops, ops_per_s=F32_OPS_PER_S) -> dict:
     """Least time on the card: each input read once and each output
     written once at the memory rate, against the function's operations
-    at the float32 rate; the larger of the two."""
+    at the rate of their type (float32 unless given); the larger of the
+    two."""
     t_bytes = (nbytes(inputs) + nbytes(outputs)) / HBM_BYTES_PER_S
-    t_ops = flops / F32_OPS_PER_S
+    t_ops = flops / ops_per_s
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -406,7 +448,10 @@ def check_f32(name, got, ref, names, f, nr) -> float:
         parts = [(a[k], b[k]) for k in range(b.shape[0])] \
             if oname == "qs" else [(a, b)]
         errs = [float((x - y).abs().max()) for x, y in parts]
-        rel = max(e / sc for e, sc in zip(errs, scales))
+        # an output that is zero everywhere (the isothermal energy and Q
+        # grids) must come out zero
+        rel = max(e / sc if sc > 0.0 else (0.0 if e == 0.0 else math.inf)
+                  for e, sc in zip(errs, scales))
         max_abs = max(max_abs, *errs)
         worst = max(worst, rel)
         log(f"  {name:20s} {oname:9s} f32 {nr}x{NAZ}: max|k-p| = "
@@ -453,7 +498,7 @@ def parity_f32_flagship(sim, gpu) -> dict:
     st = sim.state
     f = perturbed(sim)
     dt = sim.stepper.cfl_dt(st)
-    bodies = sim.stepper.bodies_on_grid(st.nbody)
+    bodies = sim.stepper.bodies_on_grid(st.nbody, sim.time)
     calls = op_calls(sim.stepper.ops, f, (st.qplus, st.qminus), bodies,
                      st.omega_frame, dt)
     out = measure(calls, f, NR)
@@ -980,13 +1025,228 @@ def parity_tile_edges(device) -> None:
                                      f"{worst:.3e} > {F32_TOL} of scale")
 
 
+def parity_f32_planet(sim, gpu) -> dict:
+    """The whole route's four kernels in their locally isothermal variants
+    against their plain versions at 1024x3072 on the perturbed planet_disk
+    state (K = 5: no energy plane), the sources with the star and the
+    1e-3 planet at r = 1 half way up its mass ramp; the transport launch by
+    launch."""
+    st, ctx = sim.state, sim.stepper.ops
+    f = perturbed(sim)
+    dt = sim.stepper.cfl_dt(st)
+    t_mid = 0.5 * float(sim.stepper.body_ramp_time[1])
+    bodies = sim.stepper.bodies_on_grid(st.nbody, t_mid)
+    frac = float(bodies.mass[1]) / float(st.nbody.mass[1])
+    if not abs(frac - 0.5) < 1e-12:
+        raise AssertionError(f"the planet's mass half way up its ramp is "
+                             f"{frac} of its own")
+    log(f"  planet_disk {NR}x{NAZ} float32, isothermal; the planet at "
+        f"({float(bodies.x[1]):.4f}, {float(bodies.y[1]):.4f}) with "
+        f"{frac:.3f} of its mass (t = {t_mid:.3f})")
+    calls = op_calls(ctx, f, (st.qplus, st.qminus), bodies, st.omega_frame,
+                     dt)
+    out = measure(calls, f, NR)
+    out["transport"]["per_launch"] = log_launches(
+        "transport (isothermal, K = 5)", calls["transport"][0],
+        OP_FRAGMENTS["transport"], 5, nbytes([f["sigma"]]), gpu)
+    return out
+
+
+# the shapes of the reference-binary goldens this port runs: 97x376
+# (cold_disk_planet, longrun_planet: odd NR), 256x2 (spreading_ring) and
+# 100x2 (shocktube_sn): rings of two cells
+GOLDEN_SHAPES = ((97, 376), (256, 2), (100, 2))
+
+
+def golden_grid_edges(device) -> None:
+    """cfl, sources, viscous_kick and the whole-transport kernel against
+    their plain versions at GOLDEN_SHAPES on seeded random fields, both
+    dtypes, the goldens' variants: isothermal without artificial viscosity
+    (the spreading ring), adiabatic SN (the shock tube), adiabatic TW
+    (the cold disk), a star and a planet. float64 at the rtol of KERNELS,
+    float32 at F32_TOL of each output's scale."""
+    from fargocpt_torch.constants import Constants
+    from fargocpt_torch.grid import Geometry
+    from fargocpt_torch.ops import kernels as K
+    from fargocpt_torch.ops.gravity import BodiesOnGrid
+    from fargocpt_torch.params import Physics
+    from fargocpt_torch.units import Units
+    constants = Constants.from_units(Units())
+    variants = (("isothermal", "none"), ("adiabatic", "sn"),
+                ("adiabatic", "tw"))
+    for dtype in (torch.float64, torch.float32):
+        label = str(dtype).removeprefix("torch.")
+        worst = dict.fromkeys(("cfl", "sources", "viscous_kick",
+                               "transport"), 0.0)
+        for nr, naz in GOLDEN_SHAPES:
+            geometry = Geometry.build(nr, naz, 0.4, 2.0, "Log")
+            rng = np.random.default_rng(41)
+            raw = {"sigma": rng.random((nr, naz)) + 0.5,
+                   "energy": rng.random((nr, naz)) * 1e-3 + 1e-3,
+                   "vaz": (rng.random((nr, naz)) - 0.5) * 0.1 + 1.0,
+                   "vrad": (rng.random((nr + 1, naz)) - 0.5) * 0.05}
+            t = lambda a, d=dtype: torch.tensor(  # noqa: E731
+                a, dtype=d, device=device)
+            q = (t(rng.random((nr, naz)) * 1e-6),
+                 t(rng.random((nr, naz)) * 1e-6))
+            bodies = BodiesOnGrid(
+                x=t([0.0, 1.0], torch.float64), y=t([0.0, 0.2],
+                                                    torch.float64),
+                mass=t([1.0, 5e-4], torch.float64),
+                cubic_smoothing_radius=t([0.0, 0.05], torch.float64))
+            for eos_name, artvisc in variants:
+                f = {k: t(v) for k, v in raw.items()}
+                if eos_name == "isothermal":
+                    f["energy"] = torch.zeros_like(f["energy"])
+                ctx = K.KernelContext(
+                    Physics(eos=eos_name, adiabatic_index=1.4,
+                            viscous_alpha=1e-3, aspectratio_ref=0.05,
+                            flaring_index=0.25, artificial_viscosity=artvisc,
+                            heating_viscous=True, cooling_beta_enabled=True,
+                            cooling_beta=10.0, minimum_temperature=1e-6,
+                            sigma0=1.0, sigma_floor=1e-6,
+                            thickness_smoothing=0.6),
+                    constants, geometry, dtype, device)
+                calls = op_calls(ctx, f, q if eos_name == "adiabatic" else
+                                 (torch.zeros_like(q[0]),) * 2, bodies,
+                                 t(0.0, torch.float64), t(0.003))
+                for name, (kern, plain, names, _) in calls.items():
+                    got, ref = kern(), plain()
+                    for oname, a, b in zip(names, got, ref):
+                        where = f"{name} {nr}x{naz} {label} {eos_name} " \
+                            f"{artvisc} {oname}"
+                        scale = float(b.abs().max())
+                        if oname in ("vrad", "vaz"):
+                            scale = max(scale, float(f["vaz"].abs().max()))
+                        err = float((a - b).abs().max())
+                        if dtype == torch.float64:
+                            np.testing.assert_allclose(
+                                a.cpu().numpy(), b.cpu().numpy(),
+                                rtol=F64_RTOL[name], atol=1e-13 * scale,
+                                err_msg=where)
+                        rel = err / scale if scale > 0.0 else \
+                            (0.0 if err == 0.0 else math.inf)
+                        worst[name] = max(worst[name], rel)
+        for name, w in worst.items():
+            log(f"  {name:20s}  the goldens' grids {GOLDEN_SHAPES} {label}, "
+                f"isothermal, SN, TW: max|k-p| / scale = {w:.3e}")
+            if dtype == torch.float32 and not w <= F32_TOL:
+                raise AssertionError(f"{name} at the goldens' grids, "
+                                     f"float32: {w:.3e} > {F32_TOL}")
+
+
+def ias15_bodies(case, device):
+    """(x, y, vx, vy, m) float64 on ``device`` and a period: two bodies at
+    apocentre at e = 0.9, or a star and three planets from a seed."""
+    if case == "2 bodies, e = 0.9":
+        e, m2 = 0.9, 1e-3
+        m = np.array([1.0, m2])
+        big = m.sum()
+        r, v = 1 + e, np.sqrt(big * (1 - e) / (1 + e))
+        arrs = (np.array([-(m2 / big) * r, r / big]), np.zeros(2),
+                np.zeros(2), np.array([-(m2 / big) * v, v / big]), m)
+        period = 2 * np.pi / np.sqrt(big)
+    else:
+        rng = np.random.default_rng(5)
+        a = np.array([0.7, 1.3, 2.1])
+        phi = rng.random(3) * 2 * np.pi
+        vk = np.sqrt(1.0 / a) * (1.0 + 0.1 * rng.random(3))
+        arrs = (np.concatenate([[0.0], a * np.cos(phi)]),
+                np.concatenate([[0.0], a * np.sin(phi)]),
+                np.concatenate([[0.0], -vk * np.sin(phi)]),
+                np.concatenate([[0.0], vk * np.cos(phi)]),
+                np.array([1.0, 1e-3, 3e-4, 2e-3]))
+        period = 2 * np.pi * 0.7 ** 1.5
+    return [torch.tensor(x, dtype=torch.float64, device=device)
+            for x in arrs], period
+
+
+def cuda_kernel_launches(fn) -> int:
+    """The device kernels one call of ``fn`` launches (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "Memcpy" not in e.name and "Memset" not in e.name)
+
+
+def ias15_parity(sim, gpu) -> dict:
+    """The ias15 kernel against its plain version on the card in float64:
+    two bodies at e = 0.9 and four bodies over a period in calls of a
+    tenth of it (the same accepted substeps and trial steps; the state to
+    1e-13 of its scale), each one's ms a call, kernel and plain by CUDA
+    events, and the plain version's device launches a call; then both on
+    the planet_disk's bodies and step dt (the main path's inputs), whose
+    numbers the kernels line reports."""
+    from fargocpt_torch.ops import kernels as K
+    dev = torch.device("cuda")
+    res = {}
+    cases = {c: ias15_bodies(c, dev) for c in ("2 bodies, e = 0.9",
+                                               "4 bodies")}
+    nb = sim.state.nbody
+    cases["planet_disk"] = ([nb.x, nb.y, nb.vx, nb.vy, nb.mass], None)
+    dt_step = sim.stepper.cfl_dt(sim.state)
+    # what one launch costs by events: PyTorch's fill of one value
+    one = torch.zeros(1, dtype=torch.float64, device=dev)
+    res["one_launch_ms"] = time_ms(one.zero_)
+    log(f"  one launch (a fill of one value) by events: "
+        f"{res['one_launch_ms']:.4f} ms [{gpu}]")
+    for case, ((x, y, vx, vy, m), period) in cases.items():
+        dt = dt_step if period is None else torch.tensor(
+            period / 10, dtype=torch.float64, device=dev)
+        G = sim.constants.G if period is None else 1.0
+        ks = ps = (x, y, vx, vy)
+        max_abs, steps = 0.0, []
+        for _ in range(10 if period is not None else 1):
+            counts = torch.zeros(2, dtype=torch.int32, device=dev)
+            ks = K.ias15(*ks, m, G, dt, counts=counts)
+            pc = []
+            ps = K.ias15_plain(*ps, m, G, dt, pc)
+            got = tuple(counts.tolist())
+            if got != pc[0]:
+                raise AssertionError(f"ias15 {case}: the kernel took {got} "
+                                     f"(accepted, trials), plain {pc[0]}")
+            steps.append(got)
+            for group in ((0, 1), (2, 3)):
+                scale = max(float(ps[i].abs().max()) for i in group)
+                for i in group:
+                    err = float((ks[i] - ps[i]).abs().max())
+                    max_abs = max(max_abs, err)
+                    if not err <= F64_RTOL["ias15"] * scale:
+                        raise AssertionError(
+                            f"ias15 {case}: kernel and plain differ by "
+                            f"{err:.3e} (scale {scale:.3e})")
+        args = (x, y, vx, vy, m, G, dt)
+        ms = time_ms(lambda: K.ias15(*args))
+        plain_ms = time_ms(lambda: K.ias15_plain(*args))
+        plain_launches = cuda_kernel_launches(lambda: K.ias15_plain(*args))
+        flops = flops_of(lambda: K.ias15_plain(*args))
+        outs = K.ias15(*args)
+        b = bound([x, y, vx, vy, m, dt.reshape(1)], outs, flops,
+                  F64_OPS_PER_S)
+        log(f"  ias15 {case}: {len(steps)} calls, (accepted substeps, "
+            f"trial steps) {steps} in both, max|k-p| {max_abs:.3e}; one "
+            f"call: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            f"({plain_launches} device launches), bound {b['bound_ms']:.2e} "
+            f"ms ({b['bound_by']}; {flops} float64 flops) [{gpu}]")
+        res[case] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                     **b, "library_ms": None,
+                     "plain_launches": plain_launches, "steps": steps}
+    return res
+
+
 # --- phase 3 -----------------------------------------------------------------
 
 def run_slice(sim, warmup=10, steps=60) -> dict:
     """The flagship's steps on its route, with the launch counters set to 0
     just before and read just after: every op of the route its launches a
     step (ROUTE_OPS), the fused substeps at least once a step, the other
-    routes' ops never."""
+    routes' ops, artvisc_sn and ias15 (a lone star) never."""
     from fargocpt_torch.ops import kernels as K
     route = sim.stepper.ops.route
     nr = sim.geometry.nrad
@@ -1007,7 +1267,7 @@ def run_slice(sim, warmup=10, steps=60) -> dict:
     for name in K.OPS:
         if name in own:
             ok = launches[name] == own[name] * n
-        elif name in other or name == "artvisc_sn":
+        elif name in other or name in ("artvisc_sn", "ias15"):
             ok = launches[name] == 0
         else:
             ok = launches[name] >= n
@@ -1201,6 +1461,101 @@ def log_slice(res, nr, gpu) -> None:
         f"r = 1 [{gpu}]")
 
 
+# the planet_disk step's kernels and their launches a step: ias15 twice
+# (the indirect term's predictor and the drift)
+PLANET_OPS = {"cfl": 1, "sources": 1, "viscous_kick": 1, "transport": 1,
+              "ias15": 2}
+
+
+def run_planet(sim, warmup=10, steps=60, profiled=5) -> dict:
+    """The planet_disk steps (calculate_time_step + step_once), with the
+    launch counters set to 0 just before and read just after: PLANET_OPS a
+    step, no other kernel. Then ``profiled`` steps under torch.profiler
+    (every device launch and its time: the busy share of the wall) and as
+    many with CUDA's sync debug mode counting the host reads."""
+    import warnings
+    from fargocpt_torch.ops import kernels as K
+    nr, naz = sim.geometry.nrad, sim.geometry.naz
+    K.reset_launches()
+    for _ in range(warmup):
+        sim.step_once(sim.calculate_time_step())
+    torch.cuda.synchronize()
+    t_start = sim.time.clone()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sim.step_once(sim.calculate_time_step())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    n = warmup + steps
+    for name in K.OPS:
+        if launches[name] != PLANET_OPS.get(name, 0) * n:
+            raise AssertionError(f"planet_disk launched {name} "
+                                 f"{launches[name]} times in {n} steps")
+    check_state(sim)
+    mean_dt = float(sim.time - t_start) / steps
+    per_step = seconds / steps
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(profiled):
+            sim.step_once(sim.calculate_time_step())
+        torch.cuda.synchronize()
+        wall_profiled = time.perf_counter() - t0
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    ours = ("cfl_ring_kernel", "sources_kernel", "vk_tile_kernel", "tr_",
+            "ias15_kernel")
+    own = sum(1 for e in dev if any(f in e.name for f in ours))
+    by_kernel = {}
+    for e in dev:
+        key = next((f for f in ours if f in e.name), "PyTorch ops")
+        by_kernel[key] = by_kernel.get(key, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(profiled):
+                sim.step_once(sim.calculate_time_step())
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    reads = sum(1 for w in caught if "synchroniz" in str(w.message))
+    check_state(sim)
+    return {"launches": launches, "seconds": seconds, "per_step": per_step,
+            "mcell": nr * naz / per_step / 1e6, "mean_dt": mean_dt,
+            "s_per_orbit": 2.0 * math.pi / mean_dt * per_step,
+            "device_launches_per_step": len(dev) / profiled,
+            "pytorch_launches_per_step": (len(dev) - own) / profiled,
+            "device_ms_per_step": device_ms / profiled,
+            "device_ms_by_kernel_per_step": {
+                k: v / profiled for k, v in by_kernel.items()},
+            "busy_share": device_ms / 1e3 / wall_profiled,
+            "host_reads_per_step": reads / profiled,
+            "planet_mass_felt": float(sim.stepper.bodies_on_grid(
+                sim.state.nbody, sim.time).mass[1])}
+
+
+def log_planet(res, gpu) -> None:
+    log(f"  planet_disk launches {res['launches']}")
+    log(f"  planet_disk {NR}x{NAZ} float32: {res['per_step'] * 1e3:.4f} "
+        f"ms/step (CFL + step), {res['mcell']:.1f} Mcell-updates/s, mean dt "
+        f"{res['mean_dt']:.4e}, {res['s_per_orbit']:.2f} s per orbit at "
+        f"r = 1 [{gpu}]")
+    log(f"  planet_disk a step: {res['device_launches_per_step']:.1f} "
+        f"device launches ({res['pytorch_launches_per_step']:.1f} of them "
+        f"PyTorch ops), {res['device_ms_per_step']:.4f} ms of device time ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in
+                    res["device_ms_by_kernel_per_step"].items())
+        + f"), busy {100 * res['busy_share']:.1f}% of the wall, "
+        f"{res['host_reads_per_step']:.1f} host reads; the gas feels "
+        f"{res['planet_mass_felt']:.3e} of the planet's mass [{gpu}]")
+
+
 def route_turns(sim, order=("split", "whole", "whole", "split"), warmup=5,
                 steps=50) -> dict:
     """ms per step of ``sim`` through each transport route of ``order`` in
@@ -1263,7 +1618,18 @@ def trajectory(nr, naz, dtype, steps, budget, setup=flagship) -> dict:
         a = getattr(gpu.fields, name).double().cpu()
         b = getattr(cpu.fields, name).double()
         scale = torch.linalg.norm(vaz_ref if name == "vrad" else b)
+        if float(scale) == 0.0:
+            # the locally isothermal energy: zero in both runs
+            errs[name] = 0.0 if torch.equal(a, b) else math.inf
+            continue
         errs[name] = float(torch.linalg.norm(a - b) / scale)
+    if gpu.state.nbody.n > 1:
+        a = torch.stack([getattr(gpu.state.nbody, k).cpu()
+                         for k in ("x", "y", "vx", "vy")])
+        b = torch.stack([getattr(cpu.state.nbody, k)
+                         for k in ("x", "y", "vx", "vy")])
+        errs["nbody"] = float(torch.linalg.norm(a - b)
+                              / torch.linalg.norm(b))
     swarm = ""
     gp, cp = gpu.state.particles, cpu.state.particles
     if gp is not None:
@@ -1446,6 +1812,87 @@ def check_state_arrays(outdir) -> None:
         raise AssertionError("snapshot 2: sigma <= 0 somewhere")
 
 
+# --- phase 6 -----------------------------------------------------------------
+
+# the reference-binary goldens this port reproduces, and their gates
+# (tests/test_reference_golden.py)
+GOLDENS = (("cold_disk_planet", 1e-6), ("spreading_ring", 1e-9),
+           ("shocktube_sn", 1e-6), ("longrun_planet", 1e-5))
+
+
+def golden_on_card(name, tol, work, gpu) -> dict:
+    """One golden's setup in float64 on the card through the kernels and
+    fargocpt_torch.output, its launch counters set to 0 just before and
+    read just after; its snapshots against tests/goldens/<name>/ as
+    tests/test_reference_golden.py holds them: every field's largest
+    deviation over its largest value under ``tol``, the same hydro step
+    count and last dt in misc.bin."""
+    from fargocpt_torch import output as out
+    from fargocpt_torch.config import Config
+    from fargocpt_torch.ops import kernels as K
+    from fargocpt_torch.sim import Simulation
+    golden = os.path.join(HERE, "tests", "goldens", name)
+    outdir = os.path.join(work, name)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    sim = Simulation(Config.from_file(os.path.join(golden, "setup.yml")),
+                     outdir=outdir, dtype="float64")
+    writer = out.OutputWriter(sim)
+    sim.run()
+    writer.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    nr, na = sim.geometry.nrad, sim.geometry.naz
+    ref_rad = np.loadtxt(os.path.join(golden, "used_rad.dat"))
+    if not np.allclose(sim.geometry.radii[:nr + 1], ref_rad, rtol=1e-12,
+                       atol=0.0):
+        raise AssertionError(f"{name}: the grid differs")
+    fields = [("Sigma", nr), ("vrad", nr + 1), ("vazi", nr)]
+    if os.path.exists(os.path.join(golden, "snapshots", "1", "energy.dat")):
+        fields.append(("energy", nr))
+    devs, steps = {}, {}
+    for snap in ("1", "2"):
+        for field, rows in fields:
+            g = np.fromfile(os.path.join(golden, "snapshots", snap,
+                                         f"{field}.dat"))
+            m = np.fromfile(os.path.join(outdir, "snapshots", snap,
+                                         f"{field}.dat"))
+            if not g.shape == m.shape == (rows * na,):
+                raise AssertionError(f"{name} {snap} {field}: shape")
+            devs[f"{snap}/{field}"] = float(np.max(np.abs(g - m))
+                                            / np.max(np.abs(g)))
+        misc = {}
+        for who, d in (("ref", golden), ("port", outdir)):
+            raw = open(os.path.join(d, "snapshots", snap, "misc.bin"),
+                       "rb").read()
+            misc[who] = (int(np.frombuffer(raw[40:44], np.uint32)[0]),
+                         float(np.frombuffer(raw[32:40], np.float64)[0]))
+        steps[snap] = misc
+    log(f"  {name} {nr}x{na} float64: {wall:.2f} s, {sim.n_hydro_iter} "
+        f"hydro steps; max rel dev "
+        + ", ".join(f"{k} {v:.3e}" for k, v in devs.items())
+        + f" (gate {tol:.0e}); steps and last dt (ref, port): "
+        + "; ".join(f"{s} {v['ref']} {v['port']}" for s, v in steps.items())
+        + f"; launches {launches} [{gpu}]")
+    for key, dev in devs.items():
+        if not dev < tol:
+            raise AssertionError(f"{name} {key}: max rel dev {dev:.3e} >= "
+                                 f"{tol}")
+    for snap, v in steps.items():
+        if v["ref"][0] != v["port"][0]:
+            raise AssertionError(f"{name} snapshot {snap}: {v['port'][0]} "
+                                 f"hydro steps, the reference {v['ref'][0]}")
+        if not abs(v["ref"][1] - v["port"][1]) / v["ref"][1] \
+                < max(1e-6, tol):
+            raise AssertionError(f"{name} snapshot {snap}: last dt "
+                                 f"{v['port'][1]} against {v['ref'][1]}")
+    if "planet" in name and not launches.get("ias15"):
+        raise AssertionError(f"{name}: ias15 was not launched")
+    return {"seconds": wall, "hydro_steps": sim.n_hydro_iter,
+            "max_rel_dev": devs, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA "
@@ -1485,12 +1932,21 @@ def main() -> int:
     log(f"  PDS70 gas {NR}x{NAZ} float32 built in "
         f"{time.perf_counter() - t0:.2f} s")
     measured.update(parity_f32_pds70(sim_gas))
+    t0 = time.perf_counter()
+    sim_planet = planet_disk(NR, NAZ, "float32", "cuda")
+    log(f"  planet_disk {NR}x{NAZ} float32 built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    measured_planet = parity_f32_planet(sim_planet, gpu)
+    ias15_res = ias15_parity(sim_planet, gpu)
+    measured["ias15"] = {k: v for k, v in ias15_res["planet_disk"].items()
+                         if k not in ("plain_launches", "steps")}
     parity_f64_ragged(torch.device("cuda"))
     parity_tile_edges(torch.device("cuda"))
+    golden_grid_edges(torch.device("cuda"))
     log(f"  phase 2 done at {time.perf_counter() - t_main:.1f} s")
 
     log("== 3. the slices: flagship Simulation on the GPU, three routes "
-        "and 1000 rings on the default route; "
+        "and 1000 rings on the default route; a planet in the disk; "
         "PDS70 gas; PDS70 with its dust")
     sim_staged = flagship_staged(NR, NAZ, "float32", "cuda")
     res = {"whole": run_slice(sim), "split": run_slice(sim_split),
@@ -1520,6 +1976,9 @@ def main() -> int:
     log(f"  host sync of one device scalar per step: {sync * 1e3:.4f} ms "
         f"[{gpu}]")
     del sim_split, sim
+    res["planet_disk"] = run_planet(sim_planet)
+    log_planet(res["planet_disk"], gpu)
+    del sim_planet
     res["pds70_gas"] = run_pds70(sim_gas)
     log_pds70(res["pds70_gas"], gpu)
     del sim_gas
@@ -1547,6 +2006,8 @@ def main() -> int:
     trajectory(64, 128, "float64", 20, 1e-9, setup=pds70_gas)
     trajectory(64, 128, "float32", 200, 1e-3, setup=pds70_4096)
     trajectory(64, 128, "float64", 20, 1e-9, setup=pds70_4096)
+    trajectory(256, 512, "float32", 200, 1e-3, setup=planet_disk)
+    trajectory(128, 256, "float64", 20, 1e-9, setup=planet_disk)
     newton = newton_budget(128, 384, 200)
     log(f"  phase 4 done at {time.perf_counter() - t_main:.1f} s")
 
@@ -1557,13 +2018,19 @@ def main() -> int:
         res_cli = command_line(work, gpu)
     log(f"  phase 5 done at {time.perf_counter() - t_main:.1f} s")
 
+    log("== 6. the reference binary's goldens on the card, float64, "
+        "through the kernels and fargocpt_torch.output")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_goldens_") as work:
+        res_goldens = {name: golden_on_card(name, tol, work, gpu)
+                       for name, tol in GOLDENS}
+    log(f"  phase 6 done at {time.perf_counter() - t_main:.1f} s")
+
     # launches: each kernel's count from the run of its own path in phase 3
     # (KERNELS: the whole route for cfl, sources and viscous_kick as well,
     # the PDS70 gas step for artvisc_sn)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fargocpt_torch/csrc/{name}.cu",
-                "replaces": "fargocpt_tpu/ops/pallas_kernels.py:"
-                            f"{KERNELS[name][0]}",
+                "replaces": KERNELS[name][0],
                 "launches": res[KERNELS[name][1]]["launches"][name],
                 **{k: v for k, v in measured[name].items()
                    if k != "per_launch"}}
@@ -1573,6 +2040,12 @@ def main() -> int:
             raise AssertionError(f"kernel {k['name']} was not launched on "
                                  "its path")
     log(json.dumps({"pvte_newton_1_vs_3_rel_l2": newton,
+                    "planet_disk_isothermal_kernels": {
+                        name: {k: v for k, v in m.items()
+                               if k != "per_launch"}
+                        for name, m in measured_planet.items()},
+                    "ias15": ias15_res,
+                    "goldens": res_goldens,
                     "launch_by_launch": {
                         name: m["per_launch"] for name, m in measured.items()
                         if "per_launch" in m},

@@ -8,7 +8,7 @@ conversion is exposed as plain cgs factors from units.yml.
 
 Example::
 
-    from fargocpt_tpu.analysis import Loader
+    from fargocpt_torch.analysis import Loader
     l = Loader("output/out")
     r, phi, sigma = l.gas.get("Sigma", N=5)         # code units
     sigma_cgs = sigma * l.units["mass surface density"]["factor"]

@@ -8,6 +8,12 @@ from 1 cm, the exponential midpoint integrator.
 disk, alpha viscosity, SN artificial viscosity, viscous heating, local beta
 cooling, FARGO transport, one star).
 
+``planet_disk``: ``examples/quickstart.yml``'s physics (the README's first
+setup): the locally isothermal disk (h = 0.05, alpha 1e-3, SN artificial
+viscosity), outflow boundaries with damping zones (1.10 / 0.90), FARGO
+transport, a star and a 1e-3 planet at r = 1 whose mass the gas feels
+ramped up over ten orbits, with disk feedback.
+
 ``pds70_gas``: the gas part of ``__graft_entry__._pds70`` (BASELINE.json
 configs[4]): the variable-gamma PVTE equation of state, FLD radiative
 diffusion, symmetric FFT self-gravity, thermal surface cooling, viscous
@@ -66,6 +72,26 @@ PDS70 = {
 }
 
 
+PLANET_DISK = {
+    "EquationOfState": "Isothermal",
+    "AspectRatio": "0.05", "FlaringIndex": "0.0",
+    "ViscousAlpha": "1e-3",
+    "Sigma0": "200 g/cm2", "SigmaSlope": "0.5",
+    "ArtificialViscosity": "SN", "ThicknessSmoothing": "0.6",
+    "Rmin": "0.4", "Rmax": "2.5", "RadialSpacing": "Logarithmic",
+    "InnerBoundary": "outflow", "OuterBoundary": "outflow",
+    "Damping": "Yes", "DampingInnerLimit": "1.10",
+    "DampingOuterLimit": "0.90",
+    "Transport": "FARGO", "DiskFeedback": "Yes",
+    "nbody": [
+        {"name": "star", "semi-major axis": "0.0", "mass": "1.0"},
+        {"name": "jupiter", "semi-major axis": "1.0", "mass": "1e-3",
+         "ramp-up time": "10"},
+    ],
+    **_RUN,
+}
+
+
 def flagship(nrad: int, naz: int) -> Config:
     """The flagship setup on an ``nrad`` x ``naz`` grid."""
     return Config.from_dict(dict(FLAGSHIP, Nrad=str(nrad), Naz=str(naz)))
@@ -81,3 +107,11 @@ def pds70(nrad: int, naz: int, n_particles: int = 16384) -> Config:
     grid."""
     return Config.from_dict(dict(PDS70, Nrad=str(nrad), Naz=str(naz),
                                  NumberOfParticles=str(n_particles)))
+
+
+def planet_disk(nrad: int, naz: int) -> Config:
+    """``examples/quickstart.yml``'s physics on an ``nrad`` x ``naz``
+    grid."""
+    cfg = dict(PLANET_DISK, Nrad=str(nrad), Naz=str(naz))
+    cfg["nbody"] = [dict(b) for b in PLANET_DISK["nbody"]]
+    return Config.from_dict(cfg)

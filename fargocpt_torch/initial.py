@@ -1,9 +1,14 @@
-"""Initial conditions of the power-law disk (reference src/init.cpp:
-init_gas_density :937, init_gas_energy :1257, init_gas_velocities :1467).
+"""Initial conditions (reference src/init.cpp): the power-law disk
+(init_gas_density :937, init_gas_energy :1257, init_gas_velocities
+:1467), the spreading-ring test (:346-415), the Sod shock tube with the
+ideal gas (:425-443), the pure Keplerian start, the disk-mass
+renormalisation ``SetSigma0`` (:1150-1188) and the 1-d / 2-d profile
+files of ``SigmaCondition`` / ``EnergyCondition``.
 
 Everything is built host-side in float64 numpy and cast to the run dtype on
-the target device. Only the power-law branch of ``build_initial_state`` is
-ported; the other initial-condition options raise.
+the target device. The N-body-centred conditions, ``SigmaRandomize``, the
+circumbinary ring, the secondary disk, ``CentrifugalBalance`` and the PVTE
+shock tube raise.
 """
 
 from __future__ import annotations
@@ -136,7 +141,16 @@ def gas_velocities(phys: Physics, constants: Constants,
     rb = geom.rmed
     ri = geom.rinf
     if phys.initialize_pure_keplerian:
-        raise NotImplementedError("InitializePureKeplerian is not ported yet")
+        # the reference takes Rmed for the v_rad rows too
+        # (src/init.cpp:1611-1632)
+        vaz_row = np.sqrt(G * M / rb)
+        vr_row = theo.initial_viscous_radial_speed(phys, G, rb, M)
+        vaz = np.broadcast_to((vaz_row - phys.omega_frame * rb)[:, None],
+                              (geom.nrad, geom.naz)).copy()
+        vr_full = np.zeros((geom.nrad + 1, geom.naz))
+        vr_full[:geom.nrad] = vr_row[:, None]
+        vr_full[geom.nrad] = vr_row[geom.nrad - 1]
+        return vr_full, vaz
     vaz_row = theo.initial_locally_isothermal_smoothed_v_az(phys, G, rb, M)
     vaz_row = vaz_row - phys.omega_frame * rb
     vaz = np.broadcast_to(vaz_row[:, None], (geom.nrad, geom.naz)).copy()
@@ -152,19 +166,90 @@ def gas_velocities(phys: Physics, constants: Constants,
     return vr_full, vaz
 
 
+SPREADING_RING_R0 = 1.0
+SPREADING_RING_TAU0 = 0.016
+
+
+def _spreading_ring_profile(phys: Physics, x):
+    """Speith & Kley 2003: Sigma(x) = M / (pi R0^2 tau0) x^-1/4
+    I_{1/4}(2x / tau0) exp(-(1 + x^2) / tau0)."""
+    from scipy.special import iv as bessel_iv
+    tau0 = SPREADING_RING_TAU0
+    return phys.sigma_diskmass / (np.pi * SPREADING_RING_R0 ** 2) \
+        / (tau0 * x ** 0.25) * bessel_iv(0.25, 2.0 * x / tau0) \
+        * np.exp(-(1.0 + x ** 2) / tau0)
+
+
+def spreading_ring_sigma(phys: Physics, geom: Geometry) -> np.ndarray:
+    """The viscously spreading ring (reference src/init.cpp:352-415),
+    floored at SigmaFloor times its value in the cell holding R0
+    (:361-380)."""
+    r0 = SPREADING_RING_R0
+    sigma = _spreading_ring_profile(phys, geom.rmed / r0)
+    idx = np.nonzero((geom.rsup > r0) & (geom.rinf < r0))[0]
+    r_peak = geom.rmed[idx[0]] if idx.size else geom.rmed[0]
+    floor = _spreading_ring_profile(phys, r_peak / r0) * phys.sigma_floor
+    sigma = np.maximum(sigma, floor)
+    return np.broadcast_to(sigma[:, None], (geom.nrad, geom.naz)).copy()
+
+
+def shock_tube_fields(geom: Geometry) -> tuple[np.ndarray, np.ndarray]:
+    """Sod shock tube, ideal gas (reference src/init.cpp:425-443): left
+    (Sigma, E) = (1, 2.5), right (0.125, 0.25), the jump half a unit above
+    the innermost cell centre. Returns (sigma, energy)."""
+    right = (geom.rmed - geom.rmed[0]) > 0.5
+    sig = np.where(right, 0.125, 1.0)
+    en = np.where(right, 2.0 * 0.125, 2.5)
+    shape = (geom.nrad, geom.naz)
+    return (np.broadcast_to(sig[:, None], shape).copy(),
+            np.broadcast_to(en[:, None], shape).copy())
+
+
+def renormalize_sigma(phys: Physics, geom: Geometry, sigma: np.ndarray,
+                      energy: np.ndarray):
+    """SetSigma0: rescale so the active rings hold DiskMass (reference
+    src/init.cpp:1150-1188). Returns (sigma, energy, new_sigma0)."""
+    surf = geom.surf[:, None]
+    total = float(np.sum(sigma[1:-1] * surf[1:-1]))
+    factor = phys.sigma_diskmass / total
+    sigma = sigma * factor
+    if phys.is_adiabatic:
+        energy = energy * factor
+    return sigma, energy, phys.sigma0 * factor
+
+
+def read_1d_profile(path: str, radii: np.ndarray) -> np.ndarray:
+    """A binary 1-d profile ([radius, value] rows, or the written [radius,
+    avg, min, max]) cubic-splined onto ``radii`` (reference
+    src/polargrid.cpp:360-470 ``read1D``)."""
+    from scipy.interpolate import CubicSpline
+    raw = np.fromfile(path, np.float64)
+    raw = raw.reshape(-1, 4 if raw.size % 4 == 0 else 2)
+    return CubicSpline(raw[:, 0], raw[:, 1])(radii)
+
+
+def _read_condition(condition: str, path: str, geom: Geometry):
+    """The 1d / 2d file of a Sigma/EnergyCondition; None for the profile."""
+    if condition == "1d" and path:
+        return np.broadcast_to(read_1d_profile(path, geom.rmed)[:, None],
+                               (geom.nrad, geom.naz)).copy()
+    if condition == "2d" and path:
+        return np.fromfile(path, np.float64).reshape(geom.nrad, geom.naz)
+    return None
+
+
 def build_initial_state(phys: Physics, constants: Constants, geom: Geometry,
-                        *, dtype: torch.dtype,
-                        device: torch.device | str) -> FieldState:
-    """Power-law disk initial state (reference src/init.cpp:255-341)."""
+                        *, dtype: torch.dtype, device: torch.device | str
+                        ) -> tuple[FieldState, Physics]:
+    """The initial fields (reference src/init.cpp:255-341 ``init_physics``)
+    and the Physics, whose sigma0 ``SetSigma0`` renormalises."""
     unsupported = {
-        "ShockTube": phys.shock_tube != 0,
-        "the spreading ring": phys.spreading_ring,
-        "SigmaCondition other than the profile":
-            phys.sigma_condition != "profile",
-        "EnergyCondition other than the profile":
-            phys.energy_condition != "profile",
+        "the PVTE shock tube (ShockTube 2)": phys.shock_tube == 2,
+        "SigmaCondition nbody (N-body-centred initial conditions)":
+            phys.sigma_condition == "nbody",
+        "EnergyCondition nbody (N-body-centred initial conditions)":
+            phys.energy_condition == "nbody",
         "SigmaRandomize": phys.sigma_randomize,
-        "SetSigma0": phys.sigma_adjust,
         "the circumbinary ring": phys.cbd_ring,
         "the secondary disk": phys.secondary_disk,
         "CentrifugalBalance": phys.centrifugal_balance,
@@ -172,9 +257,31 @@ def build_initial_state(phys: Physics, constants: Constants, geom: Geometry,
     for name, on in unsupported.items():
         if on:
             raise NotImplementedError(f"{name} is not ported yet")
-    sigma = powerlaw_sigma(phys, geom)
-    energy = powerlaw_energy(phys, constants, geom, sigma)
+    if phys.shock_tube == 1:
+        sigma, energy = shock_tube_fields(geom)
+    else:
+        if phys.spreading_ring:
+            sigma = spreading_ring_sigma(phys, geom)
+            energy = np.zeros_like(sigma)
+        else:
+            sigma = _read_condition(phys.sigma_condition,
+                                    phys.sigma_filename, geom)
+            if sigma is None:
+                sigma = powerlaw_sigma(phys, geom)
+            if not phys.is_adiabatic:
+                energy = np.zeros_like(sigma)
+            else:
+                energy = _read_condition(phys.energy_condition,
+                                         phys.energy_filename, geom)
+                if energy is None:
+                    energy = powerlaw_energy(phys, constants, geom, sigma)
+        if phys.sigma_adjust:
+            sigma, energy, sigma0 = renormalize_sigma(phys, geom, sigma,
+                                                      energy)
+            phys = phys.with_(sigma0=sigma0)
+    # the velocities take the standard path, the shock tube's too
+    # (src/init.cpp:330-331 runs init_gas_velocities unconditionally)
     vrad, vaz = gas_velocities(phys, constants, geom)
     t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
     return FieldState(sigma=t(sigma), vrad=t(vrad), vaz=t(vaz),
-                      energy=t(energy))
+                      energy=t(energy)), phys

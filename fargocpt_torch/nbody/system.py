@@ -3,9 +3,10 @@ kicks and rotations (reference src/nbody/planetary_system.cpp,
 src/nbody/planet.cpp, src/frame_of_reference.cpp).
 
 The body state is always float64, whatever the field dtype; the gas-side
-ops cast body values to the field dtype where they meet the grid. Only the
-lone-star case integrates (trivially): mutual-gravity integration of more
-bodies needs IAS15, which is not ported yet.
+ops cast body values to the field dtype where they meet the grid. More
+than one body integrates under mutual gravity with IAS15 (``ias15.py``;
+on the GPU its CUDA kernel, ``ops/kernels.ias15``), or with the
+fixed-substep RK4 / Cash-Karp RK5 of ``NbodyIntegrator``.
 """
 
 from __future__ import annotations
@@ -174,17 +175,80 @@ def make_state(init: dict[str, np.ndarray],
                          for k, v in init.items()})
 
 
-def integrate(state: NBodyState, G: float, dt,
+def mutual_accelerations(x, y, mass, G):
+    """Pairwise gravitational accelerations, O(N^2), N tiny."""
+    dx = x[None, :] - x[:, None]
+    dy = y[None, :] - y[:, None]
+    d2 = dx * dx + dy * dy
+    eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
+    inv_d3 = torch.where(d2 > 0.0, (d2 + eye) ** -1.5, torch.zeros_like(d2))
+    ax = G * torch.sum(mass[None, :] * dx * inv_d3, dim=1)
+    ay = G * torch.sum(mass[None, :] * dy * inv_d3, dim=1)
+    return ax, ay
+
+
+# Cash-Karp stage coefficients (reference src/RungeKutta.cpp:73-86) and
+# 5th-order weights (:88-91, corrected to y0 + h sum(b_i k_i))
+_RK5_A = (
+    (0.2,),
+    (0.075, 0.225),
+    (0.3, -0.9, 1.2),
+    (-11.0 / 54.0, 2.5, -70.0 / 27.0, 35.0 / 27.0),
+    (1631.0 / 55296.0, 175.0 / 512.0, 575.0 / 13824.0,
+     44275.0 / 110592.0, 253.0 / 4096.0),
+)
+_RK5_B = (37.0 / 378.0, 0.0, 250.0 / 621.0, 125.0 / 594.0, 0.0,
+          512.0 / 1771.0)
+
+
+def integrate(state: NBodyState, G: float, dt, n_substeps: int = 16,
               method: str = "ias15") -> NBodyState:
-    """Advance the bodies under mutual gravity by dt. A lone star does not
-    move (reference early return, fargocpt_tpu nbody/system.py:223)."""
+    """Advance the bodies under mutual gravity by exactly dt (a float or a
+    0-d tensor). ``ias15`` (the default): the adaptive Gauss-Radau
+    integrator in float64, the ``ias15`` CUDA kernel for tensors on the
+    GPU; ``rk4``: fixed-substep RK4; ``rk5``: the corrected Cash-Karp
+    tableau of the reference's dead src/RungeKutta.cpp:12-92
+    (fargocpt_tpu/nbody/system.py:208-285). A lone star does not move."""
     if method not in ("ias15", "rk4", "rk5"):
         raise ValueError(f"unknown NbodyIntegrator '{method}' "
                          "(expected ias15, rk4 or rk5)")
     if state.n == 1:
         return state
-    raise NotImplementedError(
-        "N-body integration of more than one body is not ported yet")
+    if method == "ias15":
+        from ..ops import kernels
+        x, y, vx, vy = kernels.ias15(state.x, state.y, state.vx, state.vy,
+                                     state.mass, G, dt)
+        return state.replace(x=x, y=y, vx=vx, vy=vy)
+    dt = torch.as_tensor(dt, dtype=state.x.dtype, device=state.x.device)
+    h = dt / n_substeps
+    m = state.mass
+
+    def deriv(q):
+        ax, ay = mutual_accelerations(q[0], q[1], m, G)
+        return (q[2], q[3], ax, ay)
+
+    def rk4(q):
+        k1 = deriv(q)
+        k2 = deriv(tuple(a + 0.5 * h * b for a, b in zip(q, k1)))
+        k3 = deriv(tuple(a + 0.5 * h * b for a, b in zip(q, k2)))
+        k4 = deriv(tuple(a + h * b for a, b in zip(q, k3)))
+        return tuple(a + h / 6.0 * (b1 + 2 * b2 + 2 * b3 + b4)
+                     for a, b1, b2, b3, b4 in zip(q, k1, k2, k3, k4))
+
+    def rk5(q):
+        ks = [deriv(q)]
+        for row in _RK5_A:
+            ks.append(deriv(tuple(
+                a + h * sum(c * k[i] for c, k in zip(row, ks))
+                for i, a in enumerate(q))))
+        return tuple(a + h * sum(b * k[i] for b, k in zip(_RK5_B, ks))
+                     for i, a in enumerate(q))
+
+    body = rk4 if method == "rk4" else rk5
+    q = (state.x, state.y, state.vx, state.vy)
+    for _ in range(n_substeps):
+        q = body(q)
+    return state.replace(x=q[0], y=q[1], vx=q[2], vy=q[3])
 
 
 def move_to_hydro_frame_center(state: NBodyState,
@@ -217,6 +281,43 @@ def kick(state: NBodyState, ax, ay, dt) -> NBodyState:
     dt = dt.to(state.vx.dtype)
     return state.replace(vx=state.vx + dt * ax.to(state.vx.dtype),
                          vy=state.vy + dt * ay.to(state.vy.dtype))
+
+
+def rampup_masses(state: NBodyState, ramp_time: torch.Tensor, time):
+    """The masses the gas feels, ramped over ``ramp_time`` (the ramp-up
+    periods times each body's orbital period; 0 = no ramp) at ``time``, a
+    float or a 0-d tensor (reference src/nbody/planet.cpp:166-179)."""
+    t = torch.as_tensor(time, dtype=state.mass.dtype,
+                        device=state.mass.device)
+    active = ramp_time > 0.0
+    safe = torch.where(active, ramp_time, torch.ones_like(ramp_time))
+    frac = torch.where(active & (t < ramp_time),
+                       1.0 - torch.cos(t * (math.pi / 2.0) / safe) ** 2,
+                       torch.ones_like(ramp_time))
+    return state.mass * frac
+
+
+def dist_to_primary(state: NBodyState):
+    dx = state.x - state.x[0]
+    dy = state.y - state.y[0]
+    return torch.sqrt(dx * dx + dy * dy)
+
+
+def dimensionless_roche_radius(state: NBodyState, n_iter: int = 12):
+    """L1 distance fraction x for each body orbiting the primary
+    (reference src/Theo.cpp:251-277 init_l1, Newton iteration); 0 for the
+    primary."""
+    mc = state.mass[0]
+    mo = state.mass
+    q = mc / (mc + mo)
+    ratio = mo / torch.clamp(3.0 * mc, min=1e-300)
+    x = torch.clamp(torch.sign(ratio) * torch.abs(ratio) ** (1.0 / 3.0),
+                    1e-8, 0.9)
+    for _ in range(n_iter):
+        f = q / (1.0 - x) ** 2 - (1.0 - q) / x ** 2 - q + x
+        df = 2.0 * q / (1.0 - x) ** 3 + 2.0 * (1.0 - q) / x ** 3 + 1.0
+        x = x - f / df
+    return torch.cat([torch.zeros_like(x[:1]), x[1:]])
 
 
 def orbital_elements(x, y, vx, vy, m_central, m_body, G):

@@ -94,6 +94,10 @@ class Geom(nn.Module):
             - np.asarray(geometry.rinf, np.float64)
         self.register_buffer("dxrad", torch.tensor(
             dxrad[:, None], dtype=dtype, device=device))
+        # the radii on the host, float64, for values that depend on the
+        # grid alone (the boundaries' ghost values)
+        self.host = {name: np.asarray(getattr(geometry, name), np.float64)
+                     for name in ("rmed", "ra", "rmed_ext")}
         self.dphi = float(geometry.dphi)
         self.invdphi = float(geometry.invdphi)
         self.nrad = geometry.nrad

@@ -1,5 +1,6 @@
-"""Energy source substep (SubStep3), the subset the flagship and the PDS70
-gas setup reach: viscous heating, local beta cooling, thermal surface
+"""Energy source substep (SubStep3), the subset the flagship, the PDS70
+gas setup and the planet setups reach: viscous heating, local beta cooling
+(towards the initial profile with CoolingBetaReference), thermal surface
 cooling, the radiative correction factor and the near-floor equilibrium
 (reference src/SourceEuler.cpp:496-536, :632-654, :790-820, :1018-1051).
 S-curve cooling, irradiation and the Ziampras beta variants are not ported
@@ -22,7 +23,6 @@ def check_supported(phys: Physics) -> None:
         "stellar irradiation (HeatingStar)": phys.heating_star,
         "S-curve cooling": phys.cooling_scurve_enabled,
         "CoolingBetaMethod": phys.cooling_beta_method != "no",
-        "CoolingBetaReference": phys.cooling_beta_reference,
         "CoolingBetaModel": phys.cooling_beta_model,
         "CoolingBetaFloor": phys.cooling_beta_floor,
     }
@@ -84,7 +84,7 @@ def thermal_cooling(phys: Physics, constants, temperature, tau_eff):
 
 def substep3(phys: Physics, constants, g: Geom, sigma, energy, nu,
              tau_rr, tau_pp, tau_rp, div_v, scale_height, current_time, dt,
-             units=None, pvte_vals=None):
+             units=None, pvte_vals=None, ref=None):
     """Energy update with Q+ / Q- (reference src/SourceEuler.cpp:956-1051).
     Returns (energy_new, qplus, qminus); the Q grids are divided by the
     radiative correction factor and zero on the ghost rings.
@@ -106,7 +106,11 @@ def substep3(phys: Physics, constants, g: Geom, sigma, energy, nu,
     if phys.cooling_beta_enabled:
         omega_k = torch.sqrt(constants.G * phys.hydro_center_mass
                              / g.rb ** 3)
-        qminus = qminus + energy * omega_k * beta_inverse(phys, current_time)
+        delta_e = energy
+        if phys.cooling_beta_reference:
+            delta_e = delta_e - ref[1] / ref[0] * sigma
+        qminus = qminus + delta_e * omega_k * beta_inverse(phys,
+                                                           current_time)
     if temperature is not None:
         qminus = qminus + thermal_cooling(phys, constants, temperature,
                                           tau_eff)

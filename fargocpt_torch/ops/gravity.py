@@ -121,26 +121,39 @@ def indirect_term_disk(bodies: BodiesOnGrid, n_center: int, disk_ax,
 def indirect_term_nbody(constants, bodies: BodiesOnGrid, n_center: int,
                         n_bodies: int):
     """Euler-mode N-body indirect term (reference
-    src/frame_of_reference.cpp:114-133): exactly zero when every body
-    defines the frame center; the mutual-gravity sum of more bodies is not
-    ported yet."""
+    src/frame_of_reference.cpp:114-133): the acceleration of the
+    frame-centre COM by the mutual N-body forces; exactly zero when every
+    body defines the frame centre."""
     if n_center >= n_bodies or n_bodies == 1:
         z = torch.zeros((), dtype=bodies.x.dtype, device=bodies.x.device)
         return z, z
-    raise NotImplementedError(
-        "the Euler-mode indirect term of more than one body is not ported "
-        "yet")
+    from ..nbody.system import mutual_accelerations
+    ax, ay = mutual_accelerations(bodies.x, bodies.y, bodies.mass,
+                                  constants.G)
+    m = bodies.mass[:n_center]
+    mc = torch.sum(m)
+    return (-torch.sum(m * ax[:n_center]) / mc,
+            -torch.sum(m * ay[:n_center]) / mc)
 
 
 def indirect_term_nbody_predictor(constants, nb, n_center: int,
                                   n_bodies: int, dt):
     """Predictor-mode N-body indirect term (reference
-    src/frame_of_reference.cpp:135-165). It is exactly zero when every
-    body defines the frame center; the predictor itself needs the IAS15
-    integrator, which is not ported yet."""
+    src/frame_of_reference.cpp:135-165, INDIRECT_TERM_REBOUND): the bodies
+    integrated forward by dt with IAS15 (the ``ias15`` kernel on the GPU),
+    and the frame-centre acceleration read from the COM velocity change.
+    Exactly zero when every body defines the frame centre, or dt is 0."""
     if n_center >= n_bodies or n_bodies == 1:
         z = torch.zeros((), dtype=nb.x.dtype, device=nb.x.device)
         return z, z
-    raise NotImplementedError(
-        "the predictor indirect term needs IAS15 (more than one body), "
-        "which is not ported yet")
+    from ..nbody.system import integrate
+    pred = integrate(nb, constants.G, dt)
+    m = nb.mass[:n_center]
+    mc = torch.sum(m)
+    dvx = torch.sum(m * (pred.vx[:n_center] - nb.vx[:n_center])) / mc
+    dvy = torch.sum(m * (pred.vy[:n_center] - nb.vy[:n_center])) / mc
+    dt = torch.as_tensor(dt, dtype=nb.x.dtype, device=nb.x.device)
+    safe_dt = torch.where(dt != 0.0, dt, torch.ones_like(dt))
+    zero = torch.zeros_like(dvx)
+    return (torch.where(dt != 0.0, -dvx / safe_dt, zero),
+            torch.where(dt != 0.0, -dvy / safe_dt, zero))

@@ -8,7 +8,9 @@ between its ops as PyTorch ops (``transport.route`` picks whole or split
 per grid; the staged route runs where ``KernelContext`` is built with
 ``transport_route="staged"``); and the Stone-Norman artificial viscosity
 substep, ``artvisc_sn``, which the steps outside the fused viscous kick's
-gate run (the PVTE setups).
+gate run (the PVTE setups). One more kernel replaces no TPU kernel:
+``ias15``, a whole adaptive IAS15 call of the N-body integrator on the
+device (the JAX package's ``lax.while_loop``), twice a step with planets.
 
 Each op's entry point (the names in ``OPS``) takes the plain version only
 for tensors on the CPU; for a CUDA tensor it launches the kernel or
@@ -42,6 +44,7 @@ import torch
 from torch import nn
 
 from ..grid import Geometry
+from ..nbody import ias15 as ias15_ops
 from ..params import Physics, ARTVISC_SN, ARTVISC_TW, LEAPFROG
 from . import artvisc, cfl as cfl_ops, energy as energy_ops, eos, gravity, \
     sources as src_ops, transport as tr_ops, viscosity as visc
@@ -49,7 +52,7 @@ from .common import Geom
 
 OPS = ("cfl", "sources", "viscous_kick", "transport",
        "radial_momenta_sweep", "fargo_theta", "artvisc_sn",
-       "radial_sweep", "theta_sweep", "advect_shift")
+       "radial_sweep", "theta_sweep", "advect_shift", "ias15")
 ROUTES = ("whole", "split", "staged")
 LAUNCHES = {name: 0 for name in OPS}
 
@@ -291,6 +294,12 @@ def advect_shift_plain(qs, nshift):
 def artvisc_sn_plain(ctx: KernelContext, sigma, vrad, vaz, energy, dt):
     """The Stone-Norman artificial viscosity. Returns (vrad, vaz, energy)."""
     return artvisc.update_sn(ctx.phys, ctx.g, sigma, vrad, vaz, energy, dt)
+
+
+def ias15_plain(x, y, vx, vy, m, G, dt, counts: list | None = None):
+    """One IAS15 call of ``nbody/ias15.py``: the bodies advanced by exactly
+    ``dt`` in float64. Returns (x, y, vx, vy)."""
+    return ias15_ops.integrate_ias15(x, y, vx, vy, m, G, dt, counts=counts)
 
 
 # ---------------------------------------------------------------------------
@@ -815,4 +824,45 @@ def artvisc_sn(ctx: KernelContext, sigma, vrad, vaz, energy, dt):
             [sigma, vrad, vaz, energy, ctx.cols, _scalars(sigma, [dt])]
             + outs, [phys.artificial_viscosity_factor ** 2, g.invdphi],
             [nr, naz, int(dissipation)])
+    return tuple(outs)
+
+
+IAS15_MAX_BODIES = 16   # the per-thread arrays of csrc/ias15.cu
+
+
+def ias15(x, y, vx, vy, m, G, dt, counts: torch.Tensor | None = None):
+    """The bodies (float64 (N,) tensors) advanced under mutual gravity by
+    exactly ``dt`` (a 0-d tensor of the run dtype, or a float) with the
+    adaptive IAS15 integrator, 2 <= N <= 16. On the GPU one launch runs the
+    whole call, its substeps and corrector iterations, on the device, with
+    no host read; ``counts``, an int32 (2,) tensor on the device, receives
+    (accepted substeps, trial steps). Returns (x, y, vx, vy)."""
+    if x.device.type == "cpu":
+        got = []
+        out = ias15_plain(x, y, vx, vy, m, G, dt, got)
+        if counts is not None:
+            counts.copy_(torch.tensor(got[0], dtype=torch.int32))
+        return out
+    n = x.shape[0]
+    if not 2 <= n <= IAS15_MAX_BODIES:
+        raise ValueError(f"ias15: the kernel takes 2 to {IAS15_MAX_BODIES} "
+                         f"bodies, got {n}")
+    for name, t in (("x", x), ("y", y), ("vx", vx), ("vy", vy),
+                    ("mass", m)):
+        _check(name, t, (n,), x)
+    if x.dtype != torch.float64:
+        raise TypeError(f"ias15: the bodies must be float64, got {x.dtype}")
+    # dt in the type the caller holds it (float32 or float64), read on the
+    # device: the suffix of the C function names it
+    dt_dev = dt.reshape(1) if torch.is_tensor(dt) and dt.dtype in _SUFFIX \
+        else torch.full((1,), float(dt), dtype=torch.float64,
+                        device=x.device)
+    if dt_dev.device != x.device:
+        raise ValueError(f"ias15: dt is on {dt_dev.device}, expected "
+                         f"{x.device}")
+    if counts is None:
+        counts = torch.empty(2, dtype=torch.int32, device=x.device)
+    outs = [torch.empty_like(x) for _ in range(4)]
+    _launch("ias15", dt_dev, [x, y, vx, vy, m, dt_dev, *outs, counts],
+            [G, ias15_ops.EPS_DEFAULT], [n, 1], min_nr=2)
     return tuple(outs)

@@ -85,8 +85,6 @@ def check_supported(phys) -> None:
             phys.write_ecc_changes,
         "the Roche-lobe overflow tracker (massflow_tracker.bin)":
             phys.rochelobe_overflow,
-        "the planet torque profiles (WriteTorques)":
-            phys.write_torques and phys.calculate_disk,
     }
     for name, on in unsupported.items():
         if on:
@@ -331,6 +329,8 @@ class OutputWriter:
                 if name == "Temperature" and phys.is_adiabatic:
                     continue                      # already written above
                 out[name] = self._compute_field(name)
+            if phys.write_torques and phys.calculate_disk:
+                out["_torque_planet"] = self._planet_torque_profiles()
         nb = state.nbody
         out["_nbody"] = torch.stack([nb.x, nb.y, nb.vx, nb.vy, nb.mass],
                                     dim=1).to(torch.float64)
@@ -403,6 +403,12 @@ class OutputWriter:
                 continue
             w(sdir / f"{name}.dat", host[name])
             self._write_1d(sdir, name, host[name], rmed)
+
+        # per-planet torque radial profiles (reference src/output.cpp:653-716
+        # ``write_torques``): [radius, torque] rows
+        for k, prof in enumerate(host.get("_torque_planet", ())):
+            np.stack([rmed, prof], axis=1).astype(np.float64).tofile(
+                sdir / f"torque_planet_1D_{k}.dat")
 
         self._write_misc(sdir, host["_misc"])
         host["_nbody"].tofile(sdir / "nbody.bin")
@@ -580,6 +586,34 @@ class OutputWriter:
             return torch.zeros_like(f.sigma)
         raise KeyError(f"unknown snapshot field {name!r}")
 
+    def _planet_torque_profiles(self):
+        """(N, NR): each body's gas torque summed over each ring, the
+        smoothed point-mass force of every cell with the ramped mass
+        (reference src/output.cpp:653-716; fargocpt_tpu/output.py:607-630)."""
+        import torch
+        from .ops import gravity
+        sim = self.sim
+        st = sim.stepper
+        f = sim.fields
+        _, _, h = st.derived(f.sigma, f.energy)
+        bodies = st.bodies_on_grid(sim.state.nbody, sim.time)
+        dt = f.sigma.dtype
+        bx, by = bodies.x.to(dt), bodies.y.to(dt)
+        bm = bodies.mass.to(dt)
+        cell_x, cell_y = st.ops.cell_xy()
+        cellmass = st.g.surf * f.sigma
+        profs = []
+        for k in range(st.n_bodies):
+            body_r = torch.sqrt(bx[k] ** 2 + by[k] ** 2)
+            smooth = gravity.smoothing_length(sim.phys, h, k, body_r)
+            dx = cell_x - bx[k]
+            dy = cell_y - by[k]
+            inv_d3 = (dx * dx + dy * dy + smooth * smooth) ** -1.5
+            w = sim.constants.G * cellmass * inv_d3 * bm[k]
+            torque = bx[k] * (w * dy) - by[k] * (w * dx)
+            profs.append(torch.sum(torque, dim=-1))
+        return torch.stack(profs).to(torch.float64)
+
     def _potential(self, h):
         """The bodies' potential on the grid without the indirect term."""
         import torch
@@ -589,7 +623,8 @@ class OutputWriter:
         zero = torch.zeros((), dtype=st.dtype, device=h.device)
         cell_x, cell_y = st.ops.cell_xy()
         return gravity.nbody_potential(
-            sim.phys, sim.constants, st.g, st.bodies_on_grid(sim.state.nbody),
+            sim.phys, sim.constants, st.g,
+            st.bodies_on_grid(sim.state.nbody, sim.time),
             st.n_bodies, cell_x, cell_y, h, zero, zero)
 
     def write_lightcurves(self):
@@ -681,11 +716,19 @@ class OutputWriter:
             return 2.0 * sim.geometry.rmax
         if qrl < 0.0:
             # the primary's Roche lobe about the secondary; a lone star has
-            # no secondary, and planets are not ported yet
-            if sim.state.nbody.n < 2:
+            # no secondary
+            nb = sim.state.nbody
+            if nb.n < 2:
                 return 2.0 * sim.geometry.rmax
-            raise NotImplementedError("QuantitiesRadiusLimit < 0 with "
-                                      "planets is not ported yet")
+            import torch
+            from .nbody import system as nbody_sys
+            # the L1 Newton with the roles swapped: body 1 plays the centre
+            swapped = nb.replace(x=nb.x[[1, 0]], y=nb.y[[1, 0]],
+                                 vx=nb.vx[:2], vy=nb.vy[:2],
+                                 mass=nb.mass[[1, 0]])
+            frac = nbody_sys.dimensionless_roche_radius(swapped)[1]
+            dist = torch.hypot(nb.x[1] - nb.x[0], nb.y[1] - nb.y[0])
+            return float(frac * dist)
         return float(qrl)
 
     def _compute_quantities(self) -> dict:
@@ -770,11 +813,23 @@ class OutputWriter:
         extra = {"time": sim.time.to(torch.float64),
                  "omega_frame": sim.state.omega_frame.to(torch.float64)}
         if sim.phys.calculate_disk:
+            from .nbody import system as nbody_sys
+            from .ops import quantities as quant
             with st.detached(sim.state.pvte_guess):
-                extra["torque"] = st.disk_torques(sim.state)
-        # the circumplanetary (Roche-lobe) gas mass of each companion
-        # (reference src/circumplanetary_mass.cpp:11-50) comes with the
-        # planets; the star's column is 0
+                extra["torque"] = st.disk_torques(sim.state, sim.time)
+            # the circumplanetary (Roche-lobe) gas mass of each companion
+            # (reference src/circumplanetary_mass.cpp:11-50)
+            if nb.n > 1:
+                roche = nbody_sys.dimensionless_roche_radius(nb) \
+                    * nbody_sys.dist_to_primary(nb)
+                cell_x, cell_y = st.ops.cell_xy()
+                dt = sim.fields.sigma.dtype
+                extra["mdcp"] = torch.stack([
+                    torch.zeros((), dtype=dt, device=nb.x.device)] + [
+                    quant.circumplanetary_mass(
+                        sim.constants, st.g, sim.fields.sigma, cell_x,
+                        cell_y, nb.x[k].to(dt), nb.y[k].to(dt),
+                        roche[k].to(dt)) for k in range(1, nb.n)])
         host = to_host({"bodies": torch.stack(
             [nb.x, nb.y, nb.vx, nb.vy, nb.mass]).to(torch.float64),
             **extra})
@@ -785,6 +840,7 @@ class OutputWriter:
             new = not path.exists()
             el = sim.orbital_elements(k)
             torque = float(host["torque"][k]) if "torque" in host else 0.0
+            mdcp = float(host["mdcp"][k]) if "mdcp" in host else 0.0
             with open(path, "a") as f:
                 if new:
                     cols = ["snapshot number", "monitor number", "x", "y",
@@ -808,7 +864,7 @@ class OutputWriter:
                 accreted = m - float(sim.bodies[k].mass)
                 f.write("\t".join(f"{v:.18g}" for v in [
                     sim.n_snapshot, sim.n_monitor, x, y, vx, vy, m, time,
-                    omega_frame, 0.0, el["e"], L, el["a"],
+                    omega_frame, mdcp, el["e"], L, el["a"],
                     omega_k, el["mean_anomaly"], el["eccentric_anomaly"],
                     el["true_anomaly"], el["pericenter_angle"], torque,
                     accreted, 0.0]) + "\n")

@@ -416,7 +416,7 @@ def profile_ops(nrad: int, naz: int, save=None, against=None,
     shift = tr.fargo_shift(g, va, dt)
     k = 6 if phys.is_adiabatic else 5
     plane_bytes = s.numel() * s.element_size()
-    bodies = sim.stepper.bodies_on_grid(st.nbody)
+    bodies = sim.stepper.bodies_on_grid(st.nbody, sim.time)
     zero = torch.zeros((), dtype=torch.float64, device=s.device)
     # the step hands the viscous kick its time as a 0-d tensor
     now = torch.zeros((), dtype=s.dtype, device=s.device)

@@ -1,11 +1,12 @@
 """Where a step's device time goes, on one CUDA GPU.
 
-    python -m fargocpt_torch.profile_step [--setup flagship|pds70_gas|pds70]
+    python -m fargocpt_torch.profile_step [--setup flagship|pds70_gas|pds70|planet_disk]
         [--route whole|split|staged] [--nrad 1024 1000] [--naz 3072]
         [--steps 120]
 
 For each grid: the setup's Simulation in float32 (``flagship`` by
-default, the PDS70 gas setup, or the whole PDS70 setup with its dust), on
+default, the PDS70 gas setup, the whole PDS70 setup with its dust, or the
+planet in the disk of examples/quickstart.yml), on
 the grid's transport route or the one ``--route`` names, 20 warm-up steps,
 the wall time of ``--steps`` steps (host clock around synchronised work),
 then a ``torch.profiler`` window of 20 steps. Prints per grid the device
@@ -30,10 +31,11 @@ from contextlib import contextmanager
 
 import torch
 
-from .flagship import flagship, pds70, pds70_gas
+from .flagship import flagship, pds70, pds70_gas, planet_disk
 from .ops.kernels import ROUTES
 
-SETUPS = {"flagship": flagship, "pds70_gas": pds70_gas, "pds70": pds70}
+SETUPS = {"flagship": flagship, "pds70_gas": pds70_gas, "pds70": pds70,
+          "planet_disk": planet_disk}
 
 # device kernel name fragment -> the op whose CUDA source launches it
 # (fargo_theta on the split route and theta_sweep on the staged route
@@ -49,7 +51,8 @@ KERNEL_OPS = (("MarchFields", "radial_momenta_sweep"),
               ("tr_vrad_kernel", "transport"),
               ("vk_tile_kernel", "viscous_kick"),
               ("sources_kernel", "sources"), ("cfl_ring_kernel", "cfl"),
-              ("artvisc_sn_kernel", "artvisc_sn"))
+              ("artvisc_sn_kernel", "artvisc_sn"),
+              ("ias15_kernel", "ias15"))
 
 
 def op_of(kernel_name: str) -> str:
@@ -71,8 +74,9 @@ def phases():
     """(owner, attribute, label) of the functions a step calls, each timed
     as one profiler range."""
     from . import step
-    from .ops import (boundary, cfl, energy, fld, gravity, kernels, opacity,
-                      pvte, selfgravity, sources, viscosity)
+    from .ops import (boundary, cfl, damping, energy, fld, gravity,
+                      kernels, opacity, pvte, selfgravity, sources,
+                      viscosity)
     return (
         (step.HydroStep, "_integrate_particles", "dust"),
         (pvte.PVTE, "gamma_mu", "PVTE refresh"),
@@ -84,7 +88,10 @@ def phases():
         (energy, "substep3", "SubStep3"),
         (sources, "update_with_sourceterms", "sources"),
         (gravity, "nbody_potential", "N-body potential"),
-        (gravity, "disk_on_body_accel", "disk on star"),
+        (gravity, "disk_on_body_accel", "disk on the bodies"),
+        (gravity, "indirect_term_nbody_predictor", "indirect term"),
+        (step.HydroStep, "bodies_on_grid", "bodies on the grid"),
+        (damping.DampingZones, "apply", "damping zones"),
         (viscosity, "viscous_stress_tensor", "viscous stress"),
         (viscosity, "update_velocities_with_viscosity", "viscous update"),
         (cfl, "condition_cfl", "CFL condition"),

@@ -84,23 +84,55 @@ class Simulation:
         self.dtype = DTYPES[dtype]
         self.device = _resolve_device(device)
         self.cfg = cfg
-        if cfg.get("ShockTube", 0, type=int):
-            raise NotImplementedError("ShockTube is not ported yet")
+        shock_tube = cfg.get("ShockTube", 0, type=int)
+        if shock_tube == 2:
+            raise NotImplementedError("the PVTE shock tube (ShockTube 2) is "
+                                      "not ported yet")
+        # the base-unit keys are consulted on the shock-tube branch too,
+        # which overrides them (reference src/init.cpp:446-520)
         for key in ("l0", "m0", "t0", "temp0"):
             cfg.get_raw(key)
-        self.units = u.Units.from_config_strings(
-            str(cfg.get_raw("l0", "1.0")), str(cfg.get_raw("m0", "1.0")),
-            str(cfg.get_raw("t0")) if "t0" in cfg else None,
-            str(cfg.get_raw("temp0")) if "temp0" in cfg else None)
-        self.constants = Constants.from_units(self.units)
+        if shock_tube:
+            self.units = u.shock_tube_units()
+            self.constants = Constants.shock_tube()
+        else:
+            self.units = u.Units.from_config_strings(
+                str(cfg.get_raw("l0", "1.0")), str(cfg.get_raw("m0", "1.0")),
+                str(cfg.get_raw("t0")) if "t0" in cfg else None,
+                str(cfg.get_raw("temp0")) if "temp0" in cfg else None)
+            self.constants = Constants.from_units(self.units)
         cfg.set_units(self.units)
         self.phys = physics_from_config(cfg, self.units, dtype=dtype)
 
         self.bodies = nbody_sys.parse_bodies(cfg, self.units)
-        if cfg.get("KlahrSmoothingRadius", 0.0, type=float) > 0.0 \
-                and len(self.bodies) > 1:
-            raise NotImplementedError("KlahrSmoothingRadius (planets) is not "
-                                      "ported yet")
+        # the deprecated global Klahr & Kley smoothing radius: every planet
+        # whose own cubic smoothing factor is unset takes it (reference
+        # src/nbody/planetary_system.cpp:94-115)
+        klahr_r = cfg.get("KlahrSmoothingRadius", 0.0, type=float)
+        if klahr_r > 0.0:
+            warnings.warn("KlahrSmoothingRadius is deprecated; use the "
+                          "per-body 'cubic smoothing factor'")
+            self.bodies = [
+                dataclasses.replace(b, cubic_smoothing_factor=klahr_r)
+                if (b.semi_major_axis > 1e-10
+                    and b.cubic_smoothing_factor == 0.0) else b
+                for b in self.bodies]
+        if self.phys.cic_planet:
+            # CICPLANET: a planet starts at the nearest cell-centre radius
+            # (reference src/nbody/planetary_system.cpp:198-204)
+            rmed = Geometry.from_config(cfg).rmed
+            snapped = []
+            for b in self.bodies:
+                if b.semi_major_axis > 1e-10:
+                    if b.eccentricity > 0.0:
+                        raise ValueError("CICPLANET with eccentricity > 0 "
+                                         "is not supported (as in the "
+                                         "reference)")
+                    b = dataclasses.replace(b, semi_major_axis=float(
+                        rmed[int(np.argmin(np.abs(rmed
+                                                  - b.semi_major_axis)))]))
+                snapped.append(b)
+            self.bodies = snapped
         self.n_hydroframe = nbody_sys.hydroframe_center_count(
             cfg, len(self.bodies))
         nb_init = nbody_sys.initialize_system(self.bodies, self.constants.G,
@@ -119,7 +151,7 @@ class Simulation:
         # the particle keys are consulted even when particles are off (the
         # reference always reads them, src/parameters.cpp:854-932)
         pp, particles = self._setup_particles(cfg)
-        fields = initial.build_initial_state(
+        fields, self.phys = initial.build_initial_state(
             self.phys, self.constants, self.geometry, dtype=self.dtype,
             device=self.device)
         self.stepper = HydroStep(

@@ -15,12 +15,23 @@ its TPU-only dtype and NAZ % 128 terms):
   GPU), the energy floor, viscosity, SubStep3 with surface cooling, and
   the CFL on the PVTE sound speed.
 
+Both equations of state of a constant gamma take the fused ops: the ideal
+gas and the locally isothermal disk (no energy equation: its energy grid
+stays as it starts, zero, and only an adiabatic run clamps it to the
+temperature range, as the JAX package gates it).
+
 Self-gravity kicks the gas first; FLD radiative diffusion follows the
 substeps. Then the boundary conditions and the FARGO transport, whose
 route is fixed when the ``HydroStep`` is built (``ops/transport.route``,
-or the ``transport_route`` the caller names). The dust swarm
-(``particles/dust.py``) is integrated against the step-start gas fields,
-after the N-body kick and before the frame rotation.
+or the ``transport_route`` the caller names); the damping zones
+(``ops/damping.py``) act in the step's final boundary call only. The dust
+swarm (``particles/dust.py``) is integrated against the step-start gas
+fields, after the N-body kick and before the frame rotation.
+
+Planets. The gas feels each body's ramped mass (``bodies_on_grid``), the
+bodies feel the disk (``DiskFeedback``) and the frame's indirect terms,
+and drift under their mutual gravity by IAS15 (the ``ias15`` kernel on the
+GPU, twice a step: the indirect term's predictor and the drift).
 The ops dispatch on the tensors' device (``ops/kernels.py``): the plain
 PyTorch versions on the CPU, the CUDA kernels on a GPU.
 
@@ -51,6 +62,7 @@ from .nbody import system as nbody_sys
 from .nbody.system import BodyConfig, NBodyState
 from .ops import artvisc, boundary, cfl as cfl_ops, eos, gravity, kernels, \
     sources as src_ops, viscosity as visc_ops
+from .ops.damping import DampingZones
 from .ops import energy as energy_ops
 from .ops.boundary import RefValues
 from .ops.fld import FLDConfig, FLDSolver
@@ -59,8 +71,8 @@ from .ops.selfgravity import SMOOTHING_MODES, SelfGravity
 from .params import Physics, LEAPFROG, ARTVISC_SN, ARTVISC_TW
 from .particles import dust
 from .state import (FieldState, MonitorAccum, SystemState, N_MASS_DELTA,
-                    MD_FLOOR_CREATE, MD_INNER_IN, MD_INNER_OUT, MD_OUTER_IN,
-                    MD_OUTER_OUT)
+                    MD_DAMP_IN_CREATE, MD_FLOOR_CREATE, MD_INNER_IN,
+                    MD_INNER_OUT, MD_OUTER_IN, MD_OUTER_OUT)
 
 
 def check_supported(phys: Physics, bodies: list[BodyConfig],
@@ -69,8 +81,7 @@ def check_supported(phys: Physics, bodies: list[BodyConfig],
     """Raise NotImplementedError for every feature outside the ported
     slice, naming it."""
     unsupported = {
-        "EquationOfState other than Ideal (adiabatic) or PVTE":
-            not phys.is_adiabatic,
+        "the polytropic EquationOfState": phys.is_polytropic,
         "the PVTE lookup table (PVTELookupTable)":
             phys.variable_gamma and phys.pvte_lookup_table,
         "self-gravity in SelfGravityMode besselkernel (Bessel-kernel "
@@ -79,9 +90,7 @@ def check_supported(phys: Physics, bodies: list[BodyConfig],
         "dust diffusion (ParticleDustDiffusion)":
             phys.integrate_particles and particle_params is not None
             and particle_params.diffusion,
-        "planets (more than one N-body body)": len(bodies) > 1,
         "the leapfrog integrator": phys.hydro_integrator == LEAPFROG,
-        "damping zones": phys.damping,
         "AspectRatioMode != 0": phys.aspectratio_mode != 0,
         "AlphaMode != 0": phys.alpha_mode != 0,
         "StabilizeViscosity": phys.stabilize_viscosity != 0,
@@ -165,6 +174,22 @@ class HydroStep(nn.Module):
         self.gates = gates(phys)
         self.ops = kernels.KernelContext(phys, constants, geometry, dtype,
                                          device, transport_route)
+        # per-body ramp-up times (ramp-up periods x the period of the initial
+        # orbit) and cubic smoothing factors, float64 as the bodies are
+        # (fargocpt_tpu/step.py:156-161)
+        periods = [2.0 * math.pi * math.sqrt(
+            b.semi_major_axis ** 3 / (constants.G * phys.hydro_center_mass))
+            if b.semi_major_axis > 0 else 0.0 for b in bodies]
+        self.register_buffer("body_ramp_time", torch.tensor(
+            [b.ramp_up_time for b in bodies], dtype=torch.float64,
+            device=device) * torch.tensor(periods, dtype=torch.float64,
+                                          device=device))
+        self.register_buffer("body_cubic_factor", torch.tensor(
+            [b.cubic_smoothing_factor for b in bodies], dtype=torch.float64,
+            device=device))
+        self.any_cubic = any(b.cubic_smoothing_factor != 0.0 for b in bodies)
+        self.damping = DampingZones(phys, constants, geometry, dtype,
+                                    device) if phys.damping else None
         for name in ("sigma0", "energy0", "vrad0", "vaz0"):
             self.register_buffer(
                 f"ref_{name}", getattr(ref_values, name).to(device, dtype))
@@ -270,15 +295,27 @@ class HydroStep(nn.Module):
     def viscosity_grid(self, cs, h):
         return visc_ops.kinematic_viscosity(self.phys, self.g, cs, h)
 
-    def bodies_on_grid(self, nb: NBodyState) -> gravity.BodiesOnGrid:
-        """Body data the gas-side ops need. A lone star has no orbit to
-        ramp its mass over, and no Roche lobe: its Klahr cubic smoothing
-        radius is zero."""
-        return gravity.BodiesOnGrid(x=nb.x, y=nb.y, mass=nb.mass,
-                                    cubic_smoothing_radius=torch.zeros_like(
-                                        nb.x))
+    def bodies_on_grid(self, nb: NBodyState, time) -> gravity.BodiesOnGrid:
+        """Body data the gas-side ops need at ``time`` (a float or a 0-d
+        tensor): the masses ramped up, and the Klahr cubic smoothing radius
+        (Roche radius x distance to the primary x the body's factor); all
+        float64 tensors on the device (fargocpt_tpu/step.py:498-509)."""
+        if self.n_bodies == 1:
+            # a lone star: no orbit to ramp its mass over, no Roche lobe
+            return gravity.BodiesOnGrid(
+                x=nb.x, y=nb.y, mass=nb.mass,
+                cubic_smoothing_radius=torch.zeros_like(nb.x))
+        mass = nbody_sys.rampup_masses(nb, self.body_ramp_time, time)
+        if self.any_cubic:
+            cubic = nbody_sys.dimensionless_roche_radius(nb) \
+                * nbody_sys.dist_to_primary(nb) * self.body_cubic_factor
+        else:
+            # no cubic smoothing: the finite Roche radii times zero factors
+            cubic = torch.zeros_like(nb.x)
+        return gravity.BodiesOnGrid(x=nb.x, y=nb.y, mass=mass,
+                                    cubic_smoothing_radius=cubic)
 
-    def disk_torques(self, state: SystemState) -> torch.Tensor:
+    def disk_torques(self, state: SystemState, time=0.0) -> torch.Tensor:
         """Torque of the gas disk on each body, m_k (x_k a_y - y_k a_x)
         (reference src/output.cpp ``write_torques`` path via
         ComputeDiskOnNbodyAccel); call it inside ``detached``."""
@@ -286,25 +323,57 @@ class HydroStep(nn.Module):
         _, _, h = self.derived(f.sigma, f.energy)
         cell_x, cell_y = self.ops.cell_xy()
         ax, ay = gravity.disk_on_body_accel(
-            self.phys, self.constants, self.g, self.bodies_on_grid(nb),
+            self.phys, self.constants, self.g, self.bodies_on_grid(nb, time),
             self.n_bodies, cell_x, cell_y, h, f.sigma)
         return nb.mass * (nb.x * ay.to(nb.x.dtype) - nb.y * ax.to(nb.x.dtype))
 
-    def _apply_bcs(self, sigma, vrad, vaz, energy, omega_frame):
-        return boundary.apply_boundary_conditions(
-            self.phys, self.constants, self.g, sigma, vrad, vaz, energy,
-            omega_frame)
+    def ref_values(self) -> RefValues:
+        return RefValues(sigma0=self.ref_sigma0, energy0=self.ref_energy0,
+                         vrad0=self.ref_vrad0, vaz0=self.ref_vaz0)
+
+    def _nu_now(self, sigma, energy):
+        cs, _, h = self.derived(sigma, energy)
+        return self.viscosity_grid(cs, h)
+
+    def _apply_bcs(self, sigma, vrad, vaz, energy, omega_frame, nu=None,
+                   final: bool = False, dt=None):
+        """The boundary conditions (fargocpt_tpu/step.py:518-583); on the
+        final application of a step (``final``) the damping zones first.
+        ``nu`` is the viscosity grid of the step's viscous substep, which
+        the viscous v_rad BC and viscous damping read (the reference's
+        data[VISCOSITY]); without it they take the current fields' grid.
+        Returns the fields and the (4,) damping mass deltas (zeros without
+        damping)."""
+        phys = self.phys
+        ref = self.ref_values()
+        dmp = torch.zeros(4, dtype=sigma.dtype, device=sigma.device)
+        if final and self.damping is not None:
+            dmp_nu = nu
+            if dmp_nu is None and phys.damping_vradial_inner == "viscous":
+                dmp_nu = self._nu_now(sigma, energy)
+            sig_before = sigma
+            sigma, vrad, vaz, energy = self.damping.apply(
+                phys, sigma, vrad, vaz, energy, ref, dt, nu=dmp_nu)
+            if sigma is not sig_before:
+                dmp = self.damping.mass_deltas(self.g, sig_before, sigma)
+        if nu is None and "viscous" in (phys.bc_vrad_inner,
+                                        phys.bc_vrad_outer):
+            nu = self._nu_now(sigma, energy)
+        fields = boundary.apply_boundary_conditions(
+            phys, self.constants, self.g, sigma, vrad, vaz, energy, ref,
+            omega_frame, nu=nu)
+        return (*fields, dmp)
 
     def apply_bcs(self, fields: FieldState) -> FieldState:
         """Standalone BC application (at init, reference src/init.cpp:337-341)."""
         omega = torch.tensor(self.phys.omega_frame, dtype=self.dtype,
                              device=fields.sigma.device)
-        sigma, vrad, vaz, energy = self._apply_bcs(
+        sigma, vrad, vaz, energy, _ = self._apply_bcs(
             fields.sigma, fields.vrad, fields.vaz, fields.energy, omega)
         return FieldState(sigma=sigma, vrad=vrad, vaz=vaz, energy=energy)
 
     def _integrate_particles(self, sigma, vrad, vaz, energy, nb, particles,
-                             omega_frame, dt):
+                             omega_frame, dt, time):
         """Drag + gravity integration of the swarm against the given gas
         fields (fargocpt_tpu/step.py:1274-1304). The temperature is the one
         the reference's particles sample (per-cell gamma and mu with PVTE):
@@ -323,7 +392,8 @@ class HydroStep(nn.Module):
             sg_accel = self.selfgravity.accelerations(sigma)
         return integ(phys, pp, constants, self.units, self.dust_grid,
                      particles, rho_mid, temp, vrad, vaz,
-                     self.bodies_on_grid(nb), self.n_bodies, omega_frame, dt,
+                     self.bodies_on_grid(nb, time), self.n_bodies,
+                     omega_frame, dt,
                      sg_accel=sg_accel)
 
     # ------------------------------------------------------------------
@@ -331,7 +401,9 @@ class HydroStep(nn.Module):
                   omega_frame, bodies, sg_kernel):
         """Self-gravity, sources, viscosity and energy (the 'kick';
         fargocpt_tpu/step.py:662-829). Returns (vrad, vaz, energy, qplus,
-        qminus, sg_kernel, pv_last), pv_last the PVTE grids of SubStep3."""
+        qminus, sg_kernel, pv_last, nu), pv_last the PVTE grids of SubStep3
+        and nu the viscosity grid of the unfused viscous substep (None with
+        the fused viscous kick)."""
         phys, constants, g, ops = self.phys, self.constants, self.g, self.ops
         fused = self.gates
         pv = self.pvte_vals(sigma, energy)
@@ -367,7 +439,7 @@ class HydroStep(nn.Module):
             vrad, vaz, energy, qplus, qminus = kernels.viscous_kick(
                 ops, sigma, vrad, vaz, energy, dt, time,
                 compress=fused["sources"])
-            return vrad, vaz, energy, qplus, qminus, sg_kernel, None
+            return vrad, vaz, energy, qplus, qminus, sg_kernel, None, None
 
         if fused["artvisc_sn"]:
             vrad, vaz, energy = kernels.artvisc_sn(ops, sigma, vrad, vaz,
@@ -395,8 +467,9 @@ class HydroStep(nn.Module):
             pv3 = self.pvte_vals(sigma, energy)
             energy, qplus, qminus = energy_ops.substep3(
                 phys, constants, g, sigma, energy, nu, trr, tpp, trp, divv, h,
-                time, dt, units=self.units, pvte_vals=pv3)
-        return vrad, vaz, energy, qplus, qminus, sg_kernel, pv3
+                time, dt, units=self.units, pvte_vals=pv3,
+                ref=(self.ref_sigma0, self.ref_energy0))
+        return vrad, vaz, energy, qplus, qminus, sg_kernel, pv3, nu
 
     def step(self, state: SystemState, time, dt) -> SystemState:
         """One Euler step. The PVTE chain starts at ``state.pvte_guess``
@@ -408,28 +481,26 @@ class HydroStep(nn.Module):
         return new_state
 
     def _step_euler(self, state: SystemState, time, dt) -> SystemState:
-        """One Euler step (reference src/simulation.cpp:148-274). ``dt`` and
-        ``time`` may be 0-d device tensors."""
+        """One Euler step (reference src/simulation.cpp:148-274,
+        fargocpt_tpu/step.py:1358-1530). ``dt`` and ``time`` may be 0-d
+        device tensors."""
         phys, constants, g = self.phys, self.constants, self.g
         f = state.fields
         sigma, vrad, vaz, energy = f.sigma, f.vrad, f.vaz, f.energy
         dt = torch.as_tensor(dt, dtype=self.dtype, device=sigma.device)
         nb = state.nbody
         omega_frame = state.omega_frame
-        bodies = self.bodies_on_grid(nb)
+        bodies = self.bodies_on_grid(nb, time)
 
-        # indirect terms (reference :154-176). With a lone star the disk's
-        # kick on it and the disk indirect term cancel, so the disk force
-        # is evaluated only where the gas potential takes the disk
-        # indirect term (IndirectTermDiskOnDisk, on with self-gravity).
-        if phys.indirect_term_mode == 0:
-            it_nb = gravity.indirect_term_nbody_predictor(
-                constants, nb, self.n_hydroframe, self.n_bodies, dt)
-        else:
-            it_nb = gravity.indirect_term_nbody(
-                constants, bodies, self.n_hydroframe, self.n_bodies)
-        it_x, it_y = it_nb
-        if phys.indirect_term_disk_on_disk and phys.disk_feedback:
+        # disk feedback on the bodies (reference :154-158). On a lone star
+        # the disk's kick and the disk indirect term cancel exactly and the
+        # frame is re-centred on it each step, so its force is evaluated
+        # only where the gas potential takes the disk indirect term
+        # (IndirectTermDiskOnDisk, on with self-gravity).
+        it_dx = it_dy = torch.zeros((), dtype=torch.float64,
+                                    device=sigma.device)
+        if phys.disk_feedback and phys.calculate_disk and (
+                self.n_bodies > 1 or phys.indirect_term_disk_on_disk):
             _, _, h0 = self.derived(sigma, energy)
             cell_x, cell_y = self.ops.cell_xy()
             dax, day = gravity.disk_on_body_accel(
@@ -438,7 +509,15 @@ class HydroStep(nn.Module):
             nb = nbody_sys.kick(nb, dax, day, dt)
             it_dx, it_dy = gravity.indirect_term_disk(
                 bodies, self.n_hydroframe, dax, day)
-            it_x, it_y = it_dx + it_nb[0], it_dy + it_nb[1]
+        # the N-body indirect term (reference :160-166): mode 0 integrates
+        # the bodies ahead with IAS15, mode 1 the Euler sum
+        if phys.indirect_term_mode == 0:
+            it_nb = gravity.indirect_term_nbody_predictor(
+                constants, nb, self.n_hydroframe, self.n_bodies, dt)
+        else:
+            it_nb = gravity.indirect_term_nbody(
+                constants, bodies, self.n_hydroframe, self.n_bodies)
+        it_x, it_y = it_dx + it_nb[0], it_dy + it_nb[1]
         nb = nbody_sys.kick(nb, it_x, it_y, dt)
         pot_it = (it_x, it_y) if phys.indirect_term_disk_on_disk else it_nb
 
@@ -447,7 +526,8 @@ class HydroStep(nn.Module):
         particles = state.particles
         if phys.integrate_particles and particles is not None:
             particles = self._integrate_particles(
-                sigma, vrad, vaz, energy, nb, particles, omega_frame, dt)
+                sigma, vrad, vaz, energy, nb, particles, omega_frame, dt,
+                time)
             particles = particles.replace(phi=torch.remainder(
                 particles.phi - omega_frame * dt, 2.0 * math.pi))
 
@@ -455,9 +535,9 @@ class HydroStep(nn.Module):
         frame_angle = state.frame_angle + omega_frame * dt
 
         # --- gas substeps ---
-        vrad, vaz, energy, qplus, qminus, sg_kernel, pv_last = self._substeps(
-            sigma, vrad, vaz, energy, pot_it, time, dt, omega_frame, bodies,
-            state.sg_kernel)
+        (vrad, vaz, energy, qplus, qminus, sg_kernel, pv_last,
+         nu_step) = self._substeps(sigma, vrad, vaz, energy, pot_it, time,
+                                   dt, omega_frame, bodies, state.sg_kernel)
 
         # FLD radiative diffusion on the stale PVTE grids of SubStep3
         # (reference fld.cpp:996-1000 reads pvte::get_* with no refresh)
@@ -469,26 +549,31 @@ class HydroStep(nn.Module):
             energy = eos.energy_floor_ceiling(phys, constants, sigma, energy,
                                               pv_last)
 
-        sigma, vrad, vaz, energy = self._apply_bcs(sigma, vrad, vaz, energy,
-                                                   omega_frame)
+        # the viscous BC reads the in-kick viscosity grid (reference
+        # data[VISCOSITY] from recalculate_viscosity, :196)
+        sigma, vrad, vaz, energy, _ = self._apply_bcs(
+            sigma, vrad, vaz, energy, omega_frame, nu=nu_step)
         sigma, vrad, vaz, energy, mass_flux = kernels.transport(
             self.ops, sigma, vrad, vaz, energy, omega_frame, dt)
         sig_pre_floor = sigma
         sigma = eos.apply_sigma_floor(phys, sigma)
         floor_created = torch.sum(
             ((sigma - sig_pre_floor) * g.surf)[1:g.nrad - 1])
-        energy = eos.energy_floor_ceiling(phys, constants, sigma, energy)
+        if phys.is_adiabatic:
+            energy = eos.energy_floor_ceiling(phys, constants, sigma, energy)
 
         # --- N-body drift (reference :218-221) ---
         nb = nbody_sys.integrate(nb, constants.G, dt,
                                  method=phys.nbody_integrator)
         nb = nbody_sys.move_to_hydro_frame_center(nb, self.n_hydroframe)
 
-        sigma, vrad, vaz, energy = self._apply_bcs(sigma, vrad, vaz, energy,
-                                                   omega_frame)
+        # the final boundary conditions, the damping zones first
+        sigma, vrad, vaz, energy, dmp = self._apply_bcs(
+            sigma, vrad, vaz, energy, omega_frame, nu=nu_step, final=True,
+            dt=dt)
 
-        # boundary / floor mass bookkeeping (reference
-        # src/TransportEuler.cpp:575-608 + src/types.h:30-60); no damping
+        # boundary / damping / floor mass bookkeeping (reference
+        # src/TransportEuler.cpp:575-608 + src/types.h:30-60)
         f_in, f_out = mass_flux[1], mass_flux[g.nrad - 1]
         inc = [torch.zeros((), dtype=sigma.dtype, device=sigma.device)] \
             * N_MASS_DELTA
@@ -496,6 +581,7 @@ class HydroStep(nn.Module):
         inc[MD_INNER_OUT] = torch.sum(torch.clamp(-f_in, min=0.0))
         inc[MD_OUTER_IN] = torch.sum(torch.clamp(-f_out, min=0.0))
         inc[MD_OUTER_OUT] = torch.sum(torch.clamp(f_out, min=0.0))
+        inc[MD_DAMP_IN_CREATE:MD_DAMP_IN_CREATE + 4] = list(dmp)
         inc[MD_FLOOR_CREATE] = floor_created
         monitor_acc = state.monitor_acc.replace(
             mass_delta=state.monitor_acc.mass_delta + torch.stack(inc))
@@ -580,12 +666,15 @@ class HydroStep(nn.Module):
             pvte_guess = None
             if self.pvte is not None and self.pvte.fast:
                 pvte_guess = self.pvte_vals(sigma, energy)[:2]
-        nu = self.viscosity_grid(cs, h)
-        trr, tpp, trp, divv = visc_ops.viscous_stress_tensor(
-            phys, g, sigma, fields.vrad, fields.vaz, nu)
-        _, qplus, qminus = energy_ops.substep3(
-            phys, constants, g, sigma, energy, nu, trr, tpp, trp, divv, h,
-            0.0, 0.0, units=self.units)
+        qplus = qminus = torch.zeros_like(sigma)
+        if phys.is_adiabatic:
+            nu = self.viscosity_grid(cs, h)
+            trr, tpp, trp, divv = visc_ops.viscous_stress_tensor(
+                phys, g, sigma, fields.vrad, fields.vaz, nu)
+            _, qplus, qminus = energy_ops.substep3(
+                phys, constants, g, sigma, energy, nu, trr, tpp, trp, divv,
+                h, 0.0, 0.0, units=self.units,
+                ref=(self.ref_sigma0, self.ref_energy0))
         k = min(phys.corotation_reference_body, self.n_bodies - 1)
         scalar = lambda v: torch.tensor(v, dtype=self.dtype,  # noqa: E731
                                         device=sigma.device)

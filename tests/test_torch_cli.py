@@ -179,3 +179,101 @@ def test_port_loader_and_run_entry(straight):
     ld = fargocpt_torch.Loader(straight)
     assert ld.snapshots == ["0", "1", "2"]
     assert fargocpt_torch.build_info().startswith("fargocpt_torch ")
+
+
+# ---------------------------------------------------------------------------
+# a planet in the disk: examples/quickstart.yml on the command line
+# ---------------------------------------------------------------------------
+
+QUICKSTART = ROOT / "examples" / "quickstart.yml"
+
+
+def quickstart_setup(path: Path, **over) -> Path:
+    """examples/quickstart.yml cut to 32x64 and two short monitor
+    intervals, with the planet torque profiles and bitwise restarts."""
+    cfg = yaml.safe_load(QUICKSTART.read_text())
+    cfg.update({"Nrad": 32, "Naz": 64, "Nsnapshots": 2, "Nmonitor": 1,
+                "MonitorTimestep": 0.05, "FirstDT": 0.01,
+                "WriteTorques": "Yes", "BitwiseExactRestarting": "yes"},
+               **over)
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def test_quickstart_starts_on_the_command_line(tmp_path):
+    """The README's first command, as it stands, five hydro steps."""
+    out = tmp_path / "quick"
+    r = _cli(["start", str(QUICKSTART), "--device", "cpu", "-N", "5", "-o",
+              str(out)])
+    assert r.returncode == 0, r.stderr
+    assert "stopped after 5 hydro steps" in r.stdout
+    for k in (0, 1):
+        assert (out / "monitor" / f"nbody{k}.dat").exists()
+    sigma = np.fromfile(out / "snapshots" / "0" / "Sigma.dat")
+    assert sigma.size == 128 * 384 and np.isfinite(sigma).all()
+
+
+def test_quickstart_restart_last_is_bitwise(tmp_path):
+    """start (two snapshots) against start (one) + ``restart last``: the
+    snapshot, the torque profiles and both bodies' monitor files bit for
+    bit."""
+    straight, cut = tmp_path / "straight", tmp_path / "cut"
+    setup = quickstart_setup(tmp_path / "quick.yml")
+    one = quickstart_setup(tmp_path / "one.yml", Nsnapshots=1)
+    r = _cli(["start", str(setup), "--device", "cpu", "-o", str(straight)])
+    assert r.returncode == 0, r.stderr
+    r = _cli(["start", str(one), "--device", "cpu", "-o", str(cut)])
+    assert r.returncode == 0, r.stderr
+    r = _cli(["restart", "last", str(setup), "--device", "cpu", "-o",
+              str(cut)])
+    assert r.returncode == 0, r.stderr
+    assert "restarted from snapshot 1" in r.stdout
+    sdir = straight / "snapshots" / "2"
+    assert (sdir / "torque_planet_1D_1.dat").exists()
+    assert compare_output.compare_dir(sdir, cut / "snapshots" / "2", 0.0)
+    for k in (0, 1):
+        a = (straight / "monitor" / f"nbody{k}.dat").read_text()
+        b = (cut / "monitor" / f"nbody{k}.dat").read_text()
+        assert a == b, f"nbody{k}.dat"
+    # the planet's row carries its circumplanetary mass and its torque
+    rows = np.loadtxt(straight / "monitor" / "nbody1.dat")
+    assert rows.shape == (3, 21)
+    assert (rows[1:, 9] >= 0.0).all() and (rows[1:, 18] != 0.0).all()
+
+
+def test_torque_profiles_match_the_jax_writer(tmp_path):
+    """``torque_planet_1D_<k>.dat`` of both writers on one state carried
+    from the JAX package after a few steps: the radius column byte for
+    byte, the ring sums to rtol 1e-13 (each package sums the azimuth in
+    its own order)."""
+    import torch
+    from fargocpt_tpu import output as jout
+    from fargocpt_tpu.config import Config as JConfig
+    from fargocpt_tpu.sim import Simulation as JSimulation
+    from fargocpt_torch.config import Config
+    from fargocpt_torch.sim import Simulation
+    from fargocpt_torch.state import system_state_from_numpy
+    from test_torch_slice import jax_state_tree
+
+    cfg = yaml.safe_load(quickstart_setup(tmp_path / "q.yml").read_text())
+    cfg["nbody"][1]["ramp-up time"] = 0.05
+    js = JSimulation(JConfig.from_dict(dict(cfg)))
+    for _ in range(4):
+        js.step_once(js.calculate_time_step())
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    jdir.mkdir()
+    tdir.mkdir()
+    jw = jout.OutputWriter(js, str(tmp_path / "jax_out"))
+    jw._write_planet_torque_profiles(jdir)
+    ts = Simulation(Config.from_dict(dict(cfg)), device="cpu")
+    ts.state = system_state_from_numpy(jax_state_tree(js.state), "cpu",
+                                       torch.float64)
+    ts.time = torch.tensor(js.time, dtype=torch.float64)
+    profs = tout.OutputWriter(ts, str(tmp_path / "torch_out")) \
+        ._planet_torque_profiles().numpy()
+    for k in range(2):
+        want = np.fromfile(jdir / f"torque_planet_1D_{k}.dat").reshape(-1, 2)
+        np.testing.assert_array_equal(ts.geometry.rmed, want[:, 0])
+        np.testing.assert_allclose(profs[k], want[:, 1], rtol=1e-13,
+                                   atol=1e-13 * np.abs(want[:, 1]).max())
+    assert np.abs(profs[1]).max() > 0.0

@@ -47,3 +47,36 @@ def test_flagship_is_the_jax_flagship(nrad):
     _assert_same(js.geometry, ts.geometry, "geometry")
     assert ts.stepper.ops.route == transport.route(nrad) == "whole"
     assert "Nrad" not in FLAGSHIP and "Naz" not in FLAGSHIP
+
+
+def test_planet_disk_is_the_quickstart_physics():
+    """``flagship.planet_disk`` is examples/quickstart.yml's physics, its
+    grid and run control aside."""
+    from pathlib import Path
+    import yaml
+    from fargocpt_torch.flagship import PLANET_DISK, planet_disk
+    quick = yaml.safe_load((Path(__file__).resolve().parent.parent
+                            / "examples" / "quickstart.yml").read_text())
+    run_control = {"Nrad", "Naz", "Nsnapshots", "Nmonitor",
+                   "MonitorTimestep", "FirstDT"}
+    mine = {k: v for k, v in PLANET_DISK.items() if k not in run_control}
+    theirs = {k: v for k, v in quick.items() if k not in run_control}
+    assert set(mine) == set(theirs)
+
+    def norm(v):
+        if isinstance(v, bool):
+            return "yes" if v else "no"
+        try:
+            return float(str(v).split()[0])
+        except ValueError:
+            return str(v).lower()
+
+    for key in mine:
+        if key == "nbody":
+            for a, b in zip(mine[key], theirs[key]):
+                assert {k: norm(v) for k, v in a.items()} == \
+                    {k: norm(v) for k, v in b.items()}
+        else:
+            assert norm(mine[key]) == norm(theirs[key]), key
+    cfg = planet_disk(16, 32)
+    assert cfg.get("Nrad", 0, type=int) == 16

@@ -982,3 +982,121 @@ def test_output_from_the_card(cuda, dtype, tmp_path):
         assert (tmp_path / "a" / "snapshots" / "2" / name).read_bytes() \
             == (tmp_path / "cpu" / "snapshots" / "2" / name).read_bytes(), \
             name
+
+
+# ---------------------------------------------------------------------------
+# ias15: a whole IAS15 call of the N-body integrator in one launch
+# ---------------------------------------------------------------------------
+
+def _ias15_bodies(case, device):
+    """(x, y, vx, vy, m) float64 on ``device`` and a period: two bodies at
+    apocentre at e = 0.9, or a star and three planets from a seed."""
+    if case == "e0.9":
+        e, m2 = 0.9, 1e-3
+        m = np.array([1.0, m2])
+        M = m.sum()
+        r, v = 1 + e, np.sqrt(M * (1 - e) / (1 + e))
+        arrs = (np.array([-(m2 / M) * r, r / M]), np.zeros(2), np.zeros(2),
+                np.array([-(m2 / M) * v, v / M]), m)
+        period = 2 * np.pi / np.sqrt(M)
+    else:
+        rng = np.random.default_rng(5)
+        a = np.array([0.7, 1.3, 2.1])
+        phi = rng.random(3) * 2 * np.pi
+        vk = np.sqrt(1.0 / a) * (1.0 + 0.1 * rng.random(3))
+        arrs = (np.concatenate([[0.0], a * np.cos(phi)]),
+                np.concatenate([[0.0], a * np.sin(phi)]),
+                np.concatenate([[0.0], -vk * np.sin(phi)]),
+                np.concatenate([[0.0], vk * np.cos(phi)]),
+                np.array([1.0, 1e-3, 3e-4, 2e-3]))
+        period = 2 * np.pi * 0.7 ** 1.5
+    return [torch.tensor(x, dtype=torch.float64, device=device)
+            for x in arrs], period
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt_dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["e0.9", "four"])
+def test_ias15_kernel_matches_plain(cuda, case, dt_dtype):
+    """Calls of a tenth of a period on the card: the kernel against the
+    plain version on the same tensors, rtol 1e-13 of each state vector's
+    scale (the sums over the bodies run in another order), and the same
+    counts of accepted substeps and trial steps."""
+    (x, y, vx, vy, m), period = _ias15_bodies(case, cuda)
+    k_state = p_state = (x, y, vx, vy)
+    for _ in range(4):
+        dt = torch.tensor(period / 10, dtype=dt_dtype, device=cuda)
+        counts = torch.zeros(2, dtype=torch.int32, device=cuda)
+        before = kernels.LAUNCHES["ias15"]
+        k_state = kernels.ias15(*k_state, m, 1.0, dt, counts=counts)
+        assert kernels.LAUNCHES["ias15"] == before + 1
+        plain_counts = []
+        p_state = kernels.ias15_plain(*p_state, m, 1.0, dt, plain_counts)
+        assert tuple(counts.tolist()) == plain_counts[0]
+        for group in ((0, 1), (2, 3)):
+            scale = max(float(p_state[i].abs().max()) for i in group)
+            for i in group:
+                torch.testing.assert_close(k_state[i], p_state[i], rtol=0,
+                                           atol=1e-13 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt_dtype", [torch.float64, torch.float32])
+def test_ias15_kernel_is_one_launch_and_no_host_read(cuda, dt_dtype):
+    """With a device dt of the run type (as the step gives it) a call asks
+    the device for one launch, its kernel's, and no copy or fill: the
+    whole adaptive call runs there, with no read back to the host."""
+    (x, y, vx, vy, m), period = _ias15_bodies("four", cuda)
+    dt = torch.tensor(period / 10, dtype=dt_dtype, device=cuda)
+    calls = 5
+    asked, ran = _device_activity(kernels.ias15, (x, y, vx, vy, m, 1.0, dt),
+                                  calls)
+    assert len(asked) == calls and all("LaunchKernel" in n for n in asked), \
+        asked
+    assert 1 <= len(ran) <= calls and all("ias15_kernel" in n for n in ran), \
+        ran
+
+
+@pytest.mark.gpu
+def test_ias15_kernel_refuses_what_it_cannot_take(cuda):
+    (x, y, vx, vy, m), _ = _ias15_bodies("four", cuda)
+    with pytest.raises(TypeError, match="float64"):
+        kernels.ias15(*(t.float() for t in (x, y, vx, vy, m)), 1.0, 0.1)
+    big = [t.repeat(5) for t in (x, y, vx, vy, m)]
+    with pytest.raises(ValueError, match="16 bodies"):
+        kernels.ias15(*big, 1.0, 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_planet_disk_step_launches_and_matches_the_cpu(cuda, dtype):
+    """The quickstart physics at 64x128: each step launches cfl, sources,
+    viscous_kick and the transport once and ias15 twice (the indirect
+    term's predictor and the drift); ten steps agree with the CPU's plain
+    versions (rtol 1e-9 in float64, 1e-4 of each field's scale in
+    float32) and the bodies too."""
+    from fargocpt_torch.flagship import planet_disk
+    gpu = Simulation(planet_disk(64, 128), dtype=dtype, device=cuda)
+    cpu = Simulation(planet_disk(64, 128), dtype=dtype, device="cpu")
+    gpu.step_once(gpu.calculate_time_step())
+    cpu.step_once(cpu.calculate_time_step())
+    before = dict(kernels.LAUNCHES)
+    for _ in range(9):
+        dt = gpu.calculate_time_step()
+        gpu.step_once(dt)
+        cpu.step_once(dt.cpu())
+    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {
+        "cfl": 9, "sources": 9, "viscous_kick": 9, "transport": 9,
+        "ias15": 18}
+    tol = 1e-9 if dtype == "float64" else 1e-4
+    for name in ("sigma", "vrad", "vaz"):
+        a = getattr(gpu.fields, name).cpu()
+        b = getattr(cpu.fields, name)
+        scale = float(b.abs().max()) if name != "vrad" else \
+            float(cpu.fields.vaz.abs().max())
+        assert float((a - b).abs().max()) <= tol * scale, name
+    for name in ("x", "y", "vx", "vy"):
+        torch.testing.assert_close(getattr(gpu.state.nbody, name).cpu(),
+                                   getattr(cpu.state.nbody, name),
+                                   rtol=0, atol=1e-12)

@@ -154,6 +154,54 @@ def test_sources_plain_matches_pallas(adiabatic):
                                atol=1e-13)
 
 
+@pytest.mark.parametrize("sn", [True, False])
+def test_cfl_plain_matches_pallas_isothermal(sn):
+    """The locally isothermal CFL (the quickstart's: SN artificial
+    viscosity; the spreading ring's: none of it)."""
+    test_cfl_plain_matches_pallas(False, sn)
+
+
+@pytest.mark.parametrize("adiabatic", [True, False])
+@pytest.mark.parametrize("ramp", [0.0, 0.5, 1.0])
+def test_sources_plain_matches_pallas_with_a_ramped_planet(adiabatic, ramp):
+    """A star and a 1e-3 planet at r = 1, inside the grid, with its mass
+    ramped to the fraction ``ramp`` (0 at the start of the ramp), and its
+    cubic smoothing radius: the per-body scalars the step hands the op."""
+    kw = _sources_kw(adiabatic)
+    jp, jc, jgeom, jg = _jax(kw)
+    f = _fields(9)
+    dt, omega, it = 0.002, 0.0, (3e-6, 1e-6)
+    mass = [1.0, 1e-3 * ramp]
+    pos = ([0.0, 1.0], [0.0, 0.0])
+    cubic = [0.0, 0.07]
+    cs_iso = j_eos.sound_speed_iso_profile(jp, jc, jg.rb)
+    cols, cos_row, sin_row, modes = pk.make_sources_prep(
+        jp, jc, jgeom, jg, cs_iso, 2, jnp.float64)
+    per_body = jnp.stack(
+        [jc.G * jnp.asarray(mass), jnp.asarray(pos[0]), jnp.asarray(pos[1]),
+         jnp.asarray(cubic), jnp.zeros(2)], axis=1).reshape(-1)
+    scal = jnp.concatenate([jnp.asarray([dt, omega, it[0], it[1]]),
+                            per_body])
+    with _interpret():
+        vr_ref, va_ref = pk.sources_fused_pallas(
+            jnp.asarray(f["sigma"]), jnp.asarray(f["energy"]),
+            jnp.asarray(f["vaz"]), jnp.asarray(f["vrad"]), cols, cos_row,
+            sin_row, scal, n_bodies=2, adiabatic=adiabatic,
+            gamma=jp.adiabatic_index, eps=jp.thickness_smoothing,
+            smooth_modes=modes)
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64)  # noqa: E731
+    bodies = gravity.BodiesOnGrid(x=f64(pos[0]), y=f64(pos[1]),
+                                  mass=f64(mass),
+                                  cubic_smoothing_radius=f64(cubic))
+    vr, va = kernels.sources(_ctx(kw), T(f["sigma"]), T(f["vrad"]),
+                             T(f["vaz"]), T(f["energy"]), bodies,
+                             (T(it[0]), T(it[1])), T(omega), T(dt))
+    np.testing.assert_allclose(vr.numpy(), np.asarray(vr_ref), rtol=1e-11,
+                               atol=1e-13)
+    np.testing.assert_allclose(va.numpy(), np.asarray(va_ref), rtol=1e-11,
+                               atol=1e-13)
+
+
 def _visc_kw(adiabatic, artvisc_on):
     return dict(eos="adiabatic" if adiabatic else "isothermal",
                 adiabatic_index=1.4, viscous_alpha=1e-3,

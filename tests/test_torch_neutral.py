@@ -45,6 +45,10 @@ def test_copied_module_source_is_identical(name):
     name = name if "." in name else f"{name}.py"
     a = (ROOT / "fargocpt_tpu" / name).read_text()
     b = (ROOT / "fargocpt_torch" / name).read_text()
+    if name == "analysis.py":
+        # the docstring's example imports the Loader of its own package
+        a = a.replace("from fargocpt_tpu.analysis import Loader",
+                      "from fargocpt_torch.analysis import Loader")
     assert a == b
 
 

@@ -284,9 +284,11 @@ def test_outflow_boundaries(grids, fields):
     vrad = f["vrad"].copy()
     vrad[2] = -np.abs(vrad[2])                  # inner: inflow kept
     vrad[NR - 2] = -np.abs(vrad[NR - 2])        # outer: inflow zeroed
+    ref_t = boundary.RefValues(sigma0=T(f["sigma"]), energy0=T(f["energy"]),
+                               vrad0=T(f["vrad"]), vaz0=T(f["vaz"]))
     got = boundary.apply_boundary_conditions(
         tp, tc, tg, T(f["sigma"]), T(vrad), T(f["vaz"]), T(f["energy"]),
-        T(0.2))
+        ref_t, T(0.2))
     ref = j_boundary.apply_boundary_conditions(
         jp, jc, jg, J(f["sigma"]), J(vrad), J(f["vaz"]), J(f["energy"]),
         ref0, jnp.float64(0.2))
@@ -294,8 +296,8 @@ def test_outflow_boundaries(grids, fields):
 
 
 def test_boundary_rejects_unported_names():
-    _, tp = _phys(bc_vrad_outer="reflecting")
-    with pytest.raises(NotImplementedError, match="reflecting"):
+    _, tp = _phys(composite_outer="centerofmass")
+    with pytest.raises(NotImplementedError, match="center-of-mass"):
         boundary.check_supported(tp)
 
 

@@ -314,7 +314,7 @@ def signed_sum_scales(rec) -> dict[str, float]:
     zero = torch.zeros((), dtype=torch.float64)
     cell_x, cell_y = st.ops.cell_xy()
     pot = gravity.nbody_potential(ts.phys, ts.constants, g,
-                                  st.bodies_on_grid(ts.state.nbody),
+                                  st.bodies_on_grid(ts.state.nbody, ts.time),
                                   st.n_bodies, cell_x, cell_y, h, zero, zero)
     grids = {
         "gravitational torque": quant.gravitational_torque_increment(
@@ -457,7 +457,6 @@ def test_loader_opens_the_port_output(runs):
     ("WriteEccentricityChange", "write_ecc_changes",
      "WriteEccentricityChange"),
     ("RocheLobeOverflow", "rochelobe_overflow", "Roche-lobe overflow"),
-    ("WriteTorques", "write_torques", "WriteTorques"),
 ])
 def test_outputs_outside_the_slice_raise(flag, attr, name):
     phys = port_sim("float64").phys
@@ -466,7 +465,7 @@ def test_outputs_outside_the_slice_raise(flag, attr, name):
         tout.check_supported(phys.with_(**{attr: True}))
 
 
-@pytest.mark.parametrize("flag", ["DistributedOutput", "WriteTorques"])
+@pytest.mark.parametrize("flag", ["DistributedOutput"])
 def test_writer_refuses_outputs_the_simulation_runs(flag, tmp_path):
     ts = port_sim("float64", **{flag: "Yes"})
     with pytest.raises(NotImplementedError, match=flag):

@@ -201,8 +201,15 @@ def test_default_device_is_the_card():
     ({"EquationOfState": "PVTE", "PVTELookupTable": "Yes"}, "PVTE"),
     ({"SelfGravity": "Yes"}, "self-gravity"),        # the Bessel kernel
     ({"Integrator": "leapfrog"}, "leapfrog"),
-    ({"OuterBoundary": "reflecting"}, "reflecting"),
-    ({"Damping": "Yes"}, "damping"),
+    ({"nbody": [{"name": "star", "semi-major axis": "0.0", "mass": "1.0"},
+                {"name": "planet", "semi-major axis": "1.0",
+                 "mass": "1e-3", "accretion efficiency": "1.0"}]},
+     "accretion"),
+    ({"Frame": "Corotating", "nbody": [
+        {"name": "star", "semi-major axis": "0.0", "mass": "1.0"},
+        {"name": "planet", "semi-major axis": "1.0", "mass": "1e-3"}]},
+     "corotating"),
+    ({"EquationOfState": "Polytropic"}, "polytropic"),
     ({"WriteMassFlow": "Yes"}, "MassFlow"),
 ])
 def test_features_outside_the_slice_raise(extra, feature):
