@@ -18,7 +18,11 @@ physics: a locally isothermal disk with damping zones and a star and a
 ramped Jupiter with disk feedback) takes cfl, sources, viscous_kick and the
 whole-transport kernel in their isothermal variants, and the ias15 kernel
 twice a step (the N-body integrator: the indirect term's predictor and the
-drift). All six paths are driven here.
+drift). The planet_torque (the reference's type-I torque test: the
+leapfrog integrator, a locally isothermal disk, a ramped 2e-5 planet)
+takes cfl and the whole-transport kernel once a step, sources and
+viscous_kick twice (the leapfrog's two kicks) and ias15 four times (two
+half drifts, two predictors). All seven paths are driven here.
 
 Phases (any failure raises, so the exit code is not 0):
   1. environment: GPU name and power limit, torch/CUDA versions, nvcc,
@@ -62,7 +66,13 @@ Phases (any failure raises, so the exit code is not 0):
      and step: the same substeps, the state to 1e-13), each one's ms a
      call by events and the plain version's device launches; the four
      kernels at the goldens' grids (97x376, 256x2, 100x2), both dtypes,
-     isothermal, SN and TW;
+     isothermal, SN and TW; the leapfrog's kernel interfaces at 1024x3072
+     float32 on the perturbed flagship state: sources with a smoothing
+     plane h_smooth and viscous_kick with its in-kick sound speed, each
+     timed with its bound counting the extra plane; sources with 513
+     bodies (two chunks of its per-body table) in both dtypes, and ias15
+     with 17 and 40 bodies (its device workspace) bit for bit with the
+     same counts, its ms a call at 17;
   3. the slices: the flagship Simulation on the GPU at 1024x3072 on the
      whole and on the staged route and at 1000x3072 on the split route
      (named) and on the route the grid takes by itself (the whole one),
@@ -77,7 +87,9 @@ Phases (any failure raises, so the exit code is not 0):
      and the transport once a step, ias15 twice, no other kernel), with
      its device launches, PyTorch launches, device time and busy share a
      step from torch.profiler and its host reads a step from CUDA's sync
-     debug mode; the PDS70 lines add the FLD
+     debug mode; the planet_torque at 1024x3072 float32 the same way (cfl
+     and the transport once a step, sources and viscous_kick twice, ias15
+     four times); the PDS70 lines add the FLD
      SOR iterations and the PVTE refreshes per step (3 and, on the run
      path, 2, with or without the dust), and with the dust its share of
      the step by CUDA events and the particles alive;
@@ -94,7 +106,14 @@ Phases (any failure raises, so the exit code is not 0):
      step against three (rel-L2 < 1e-4, the budget of a warm against a
      cold PVTE refresh); the planet_disk at 256x512 float32 for 200 steps
      and 128x256 float64 for 20, the same budgets, the bodies' state held
-     to them too;
+     to them too; the planet_torque at 256x512 float32 for 200 steps and
+     128x256 float64 for 20, the binary_gceph golden's physics (two stars,
+     the leapfrog, ideal gas with thermal cooling: the unfused substeps
+     and the sources' smoothing plane) and the quickstart disk with an
+     ideal gas, the leapfrog and a viscous inner boundary (the viscous
+     kick's in-kick sound speed) at 128x256 float64 for 20 steps, and
+     setups/PDS70.yml (an irradiating star, two planets, 2000 particles)
+     at 64x192 float64 for 20 steps with its swarm, the same budgets;
   5. the command line: ``python -m fargocpt_torch start`` (in this process,
      so the launch counters are readable) on examples/adiabatic_disk.yml at
      1024x3072 float32 for two snapshots (about 70 steps), with the counters
@@ -106,8 +125,8 @@ Phases (any failure raises, so the exit code is not 0):
      interval's wall and steps/s, and one snapshot write's seconds and
      bytes;
   6. the reference binary on the card: the cold_disk_planet (1e-6),
-     spreading_ring (1e-9), shocktube_sn (1e-6) and longrun_planet (1e-5)
-     goldens of tests/goldens/ in float64 through the kernels and
+     spreading_ring (1e-9), shocktube_sn (1e-6), longrun_planet (1e-5),
+     planet_torque (1e-6) and binary_gceph (1e-5) goldens of tests/goldens/ in float64 through the kernels and
      fargocpt_torch.output, each with the launch counters set to 0 before
      and read after, their snapshots against the reference's as
      tests/test_reference_golden.py holds them (each field's largest
@@ -164,8 +183,8 @@ ROUTE_OPS = {"whole": {"transport": 1},
 PALLAS = "fargocpt_tpu/ops/pallas_kernels.py"
 KERNELS = {
     "cfl": (f"{PALLAS}:838", "whole", 1e-12),
-    "sources": (f"{PALLAS}:396", "whole", 1e-11),
-    "viscous_kick": (f"{PALLAS}:1470", "whole", 1e-10),
+    "sources": (f"{PALLAS}:396", "planet_torque", 1e-11),
+    "viscous_kick": (f"{PALLAS}:1470", "planet_torque", 1e-10),
     "transport": (f"{PALLAS}:1098", "whole", 1e-11),
     "radial_momenta_sweep": (f"{PALLAS}:192", "split", 1e-11),
     "fargo_theta": (f"{PALLAS}:495", "split", 1e-11),
@@ -173,7 +192,7 @@ KERNELS = {
     "radial_sweep": (f"{PALLAS}:573", "staged", 1e-11),
     "theta_sweep": (f"{PALLAS}:106", "staged", 1e-11),
     "advect_shift": (f"{PALLAS}:628", "staged", 0.0),
-    "ias15": ("fargocpt_tpu/nbody/ias15.py:236", "planet_disk", 1e-13),
+    "ias15": ("fargocpt_tpu/nbody/ias15.py:236", "planet_torque", 1e-13),
 }
 F64_RTOL = {name: row[2] for name, row in KERNELS.items()}
 # The card's published peaks (H100 SXM data sheet, at 700 W): the device
@@ -240,6 +259,50 @@ def planet_disk(nr, naz, dtype, device):
     from fargocpt_torch.sim import Simulation
     return Simulation(planet_disk_config(nr, naz), dtype=dtype,
                       device=device)
+
+
+def planet_torque(nr, naz, dtype, device):
+    from fargocpt_torch.flagship import planet_torque as planet_torque_config
+    from fargocpt_torch.sim import Simulation
+    return Simulation(planet_torque_config(nr, naz), dtype=dtype,
+                      device=device)
+
+
+def from_yaml(path, nr, naz, dtype, device, **over):
+    """A setup file of the repo on an ``nr`` x ``naz`` grid."""
+    import yaml
+    from fargocpt_torch.config import Config
+    from fargocpt_torch.sim import Simulation
+    with open(os.path.join(HERE, path)) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(Nrad=nr, Naz=naz, **over)
+    cfg.pop("OutputDir", None)
+    return Simulation(Config.from_dict(cfg), dtype=dtype, device=device)
+
+
+def binary_gceph(nr, naz, dtype, device):
+    """The binary_gceph golden's physics: a gamma-Cephei-like binary, the
+    leapfrog, an ideal gas with thermal cooling."""
+    return from_yaml("tests/goldens/binary_gceph/setup.yml", nr, naz, dtype,
+                     device)
+
+
+def quickstart_adiabatic_leapfrog(nr, naz, dtype, device):
+    """examples/quickstart.yml with an ideal gas, the leapfrog and a
+    viscous inner boundary: the viscous kick's in-kick sound speed feeds
+    the boundary and kick 2's smoothing plane."""
+    return from_yaml("examples/quickstart.yml", nr, naz, dtype, device,
+                     EquationOfState="Ideal", Integrator="LeapFrog",
+                     InnerBoundary="viscous")
+
+
+def pds70_setup(nr, naz, dtype, device):
+    """setups/PDS70.yml: an irradiating star, two planets, 2000 dust
+    particles."""
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # CartesianParticles, midpoint
+        return from_yaml("setups/PDS70.yml", nr, naz, dtype, device)
 
 
 # --- phase 2 -----------------------------------------------------------------
@@ -1240,6 +1303,146 @@ def ias15_parity(sim, gpu) -> dict:
     return res
 
 
+def many_bodies(n, device):
+    """A star and n - 1 small planets on near-circular orbits between r =
+    0.6 and 2.4, from a seed: (x, y, vx, vy, m) float64 and the innermost
+    period (tests/test_torch_gpu.py's)."""
+    rng = np.random.default_rng(n)
+    a = np.linspace(0.6, 2.4, n - 1)
+    phi = rng.random(n - 1) * 2 * np.pi
+    vk = np.sqrt(1.0 / a) * (1.0 + 0.02 * rng.random(n - 1))
+    arrs = (np.concatenate([[0.0], a * np.cos(phi)]),
+            np.concatenate([[0.0], a * np.sin(phi)]),
+            np.concatenate([[0.0], -vk * np.sin(phi)]),
+            np.concatenate([[0.0], vk * np.cos(phi)]),
+            np.concatenate([[1.0], 1e-4 * (1.0 + rng.random(n - 1))]))
+    return [torch.tensor(v, dtype=torch.float64, device=device)
+            for v in arrs], 2 * np.pi * 0.6 ** 1.5
+
+
+def parity_leapfrog(sim, gpu) -> dict:
+    """The leapfrog's kernel interfaces against their plain versions:
+    sources with a smoothing plane and viscous_kick with its in-kick sound
+    speed at 1024x3072 float32 on the perturbed flagship state, each timed
+    with its bound counting the extra plane; sources with 513 bodies (two
+    chunks of its table), float32 there and float64 at 130x200; ias15 with
+    17 and 40 bodies bit for bit with the same counts, and its ms a call at
+    17 beside the plain version's."""
+    from fargocpt_torch.ops import gravity
+    from fargocpt_torch.ops import kernels as K
+    st, ctx = sim.state, sim.stepper.ops
+    f = perturbed(sim)
+    dt = sim.stepper.cfl_dt(st)
+    s, vr, va, e = f["sigma"], f["vrad"], f["vaz"], f["energy"]
+    zero = torch.zeros((), dtype=torch.float64, device=s.device)
+    gen = torch.Generator(device=s.device).manual_seed(11)
+    h_smooth = sim.stepper.derived(s, e)[2] * (
+        1.0 + 1e-2 * torch.rand(s.shape, generator=gen, device=s.device))
+    cell_x, cell_y = ctx.cell_xy()
+    planets = gravity.BodiesOnGrid(
+        x=torch.tensor([0.0, 1.0, -0.4], dtype=torch.float64,
+                       device=s.device),
+        y=torch.tensor([0.0, 0.3, 1.1], dtype=torch.float64,
+                       device=s.device),
+        mass=torch.tensor([1.0, 1e-3, 3e-4], dtype=torch.float64,
+                          device=s.device),
+        cubic_smoothing_radius=torch.tensor([0.0, 0.1, 0.05],
+                                            dtype=torch.float64,
+                                            device=s.device))
+    fields = [s, vr, va, e, ctx.cols]
+    calls = {
+        "sources_h_smooth": (
+            lambda: K.sources(ctx, s, vr, va, e, planets, (zero, zero),
+                              st.omega_frame, dt, h_smooth=h_smooth),
+            lambda: K.sources_plain(ctx, s, vr, va, e, planets,
+                                    (zero, zero), st.omega_frame, dt,
+                                    h_smooth=h_smooth),
+            ("vrad", "vaz"),
+            fields + [ctx.cos_row, ctx.sin_row, h_smooth]),
+        "viscous_kick_cs": (
+            lambda: K.viscous_kick(ctx, s, vr, va, e, dt, 0.0, want_cs=True),
+            lambda: K.viscous_kick_plain(ctx, s, vr, va, e, dt, 0.0,
+                                         want_cs=True),
+            ("vrad", "vaz", "energy", "qplus", "qminus", "cs"), fields),
+    }
+    plain_without = K.sources_plain(ctx, s, vr, va, e, planets, (zero, zero),
+                                    st.omega_frame, dt)
+    if all(torch.equal(a, b) for a, b in
+           zip(calls["sources_h_smooth"][1](), plain_without)):
+        raise AssertionError("sources: the smoothing plane changed nothing")
+    out = measure(calls, f, NR)
+
+    # 513 bodies: float32 at full size, float64 at 130x200
+    (x, y, _, _, m), _ = many_bodies(513, s.device)
+    crowd = gravity.BodiesOnGrid(x=x, y=y, mass=m,
+                                 cubic_smoothing_radius=torch.full_like(
+                                     m, 0.05) * (m < 1.0))
+    kern = lambda: K.sources(ctx, s, vr, va, e, crowd,  # noqa: E731
+                             (zero, zero), st.omega_frame, dt)
+    got, ref = kern(), K.sources_plain(ctx, s, vr, va, e, crowd,
+                                       (zero, zero), st.omega_frame, dt)
+    err = check_f32("sources", got, ref, ("vrad", "vaz"), f, NR)
+    ms = time_ms(kern, reps=5)
+    log(f"  sources with 513 bodies, {NR}x{NAZ} float32: max|k-p| "
+        f"{err:.3e}, kernel {ms:.4f} ms [{gpu}]")
+    out["sources_513_bodies"] = {"max_abs_err": err, "ms": ms}
+    from fargocpt_torch.constants import Constants
+    from fargocpt_torch.grid import Geometry
+    from fargocpt_torch.units import Units
+    ctx64 = K.KernelContext(sim.phys, Constants.from_units(Units()),
+                            Geometry.build(130, 200, 0.4, 2.5, "Log"),
+                            torch.float64, s.device)
+    rng = np.random.default_rng(5)
+    t64 = lambda a: torch.tensor(a, dtype=torch.float64,  # noqa: E731
+                                 device=s.device)
+    a64 = (t64(rng.random((130, 200)) + 0.5),
+           t64((rng.random((131, 200)) - 0.5) * 0.05),
+           t64((rng.random((130, 200)) - 0.5) * 0.1 + 1.0),
+           t64(rng.random((130, 200)) * 1e-3 + 1e-3))
+    rest = (crowd, (zero, zero), t64(0.4), t64(0.003))
+    got, ref = K.sources(ctx64, *a64, *rest), K.sources_plain(ctx64, *a64,
+                                                              *rest)
+    for g, r in zip(got, ref):
+        if not torch.allclose(g, r, rtol=F64_RTOL["sources"], atol=1e-13):
+            raise AssertionError("sources, 513 bodies, float64: kernel and "
+                                 "plain differ by "
+                                 f"{float((g - r).abs().max()):.3e}")
+
+    # ias15 beyond the thread's own arrays
+    for n in (17, 40):
+        (x, y, vx, vy, m), period = many_bodies(n, s.device)
+        dt_n = torch.tensor(period / 20, dtype=torch.float64,
+                            device=s.device)
+        ks = ps = (x, y, vx, vy)
+        steps = []
+        for _ in range(3):
+            counts = torch.zeros(2, dtype=torch.int32, device=s.device)
+            ks = K.ias15(*ks, m, 1.0, dt_n, counts=counts)
+            pc = []
+            ps = K.ias15_plain(*ps, m, 1.0, dt_n, pc)
+            if tuple(counts.tolist()) != pc[0]:
+                raise AssertionError(f"ias15 {n} bodies: the kernel took "
+                                     f"{tuple(counts.tolist())}, plain "
+                                     f"{pc[0]}")
+            steps.append(pc[0])
+            diff = max(float((a - b).abs().max()) for a, b in zip(ks, ps))
+            if diff != 0.0:
+                raise AssertionError(f"ias15 {n} bodies: kernel and plain "
+                                     f"differ by {diff:.3e}")
+        entry = {"steps": steps, "max_abs_err": 0.0}
+        if n == 17:
+            args = (x, y, vx, vy, m, 1.0, dt_n)
+            entry["ms"] = time_ms(lambda: K.ias15(*args), reps=10)
+            entry["plain_ms"] = time_ms(lambda: K.ias15_plain(*args), reps=3)
+        log(f"  ias15 {n} bodies: 3 calls of {period / 20:.4f}, (accepted, "
+            f"trials) {steps} in both, bit for bit"
+            + (f"; one call: kernel {entry['ms']:.4f} ms, plain "
+               f"{entry['plain_ms']:.4f} ms" if n == 17 else "")
+            + f" [{gpu}]")
+        out[f"ias15_{n}_bodies"] = entry
+    return out
+
+
 # --- phase 3 -----------------------------------------------------------------
 
 def run_slice(sim, warmup=10, steps=60) -> dict:
@@ -1465,14 +1668,21 @@ def log_slice(res, nr, gpu) -> None:
 # (the indirect term's predictor and the drift)
 PLANET_OPS = {"cfl": 1, "sources": 1, "viscous_kick": 1, "transport": 1,
               "ias15": 2}
+# the planet_torque's leapfrog step: the two kicks' sources and viscous
+# kick, ias15 four times (two half drifts, two predictors)
+PLANET_TORQUE_OPS = {"cfl": 1, "sources": 2, "viscous_kick": 2,
+                     "transport": 1, "ias15": 4}
 
 
-def run_planet(sim, warmup=10, steps=60, profiled=5) -> dict:
-    """The planet_disk steps (calculate_time_step + step_once), with the
-    launch counters set to 0 just before and read just after: PLANET_OPS a
-    step, no other kernel. Then ``profiled`` steps under torch.profiler
-    (every device launch and its time: the busy share of the wall) and as
-    many with CUDA's sync debug mode counting the host reads."""
+def run_planet(sim, warmup=10, steps=60, profiled=5, ops=None,
+               label="planet_disk") -> dict:
+    """A planet setup's steps (calculate_time_step + step_once), with the
+    launch counters set to 0 just before and read just after: ``ops`` a
+    step (PLANET_OPS by default), no other kernel. Then ``profiled`` steps
+    under torch.profiler (every device launch and its time: the busy share
+    of the wall) and as many with CUDA's sync debug mode counting the host
+    reads."""
+    ops = PLANET_OPS if ops is None else ops
     import warnings
     from fargocpt_torch.ops import kernels as K
     nr, naz = sim.geometry.nrad, sim.geometry.naz
@@ -1489,8 +1699,8 @@ def run_planet(sim, warmup=10, steps=60, profiled=5) -> dict:
     launches = dict(K.LAUNCHES)
     n = warmup + steps
     for name in K.OPS:
-        if launches[name] != PLANET_OPS.get(name, 0) * n:
-            raise AssertionError(f"planet_disk launched {name} "
+        if launches[name] != ops.get(name, 0) * n:
+            raise AssertionError(f"{label} launched {name} "
                                  f"{launches[name]} times in {n} steps")
     check_state(sim)
     mean_dt = float(sim.time - t_start) / steps
@@ -1526,7 +1736,8 @@ def run_planet(sim, warmup=10, steps=60, profiled=5) -> dict:
         torch.cuda.set_sync_debug_mode("default")
     reads = sum(1 for w in caught if "synchroniz" in str(w.message))
     check_state(sim)
-    return {"launches": launches, "seconds": seconds, "per_step": per_step,
+    return {"label": label, "launches": launches, "seconds": seconds,
+            "per_step": per_step,
             "mcell": nr * naz / per_step / 1e6, "mean_dt": mean_dt,
             "s_per_orbit": 2.0 * math.pi / mean_dt * per_step,
             "device_launches_per_step": len(dev) / profiled,
@@ -1541,12 +1752,13 @@ def run_planet(sim, warmup=10, steps=60, profiled=5) -> dict:
 
 
 def log_planet(res, gpu) -> None:
-    log(f"  planet_disk launches {res['launches']}")
-    log(f"  planet_disk {NR}x{NAZ} float32: {res['per_step'] * 1e3:.4f} "
+    label = res["label"]
+    log(f"  {label} launches {res['launches']}")
+    log(f"  {label} {NR}x{NAZ} float32: {res['per_step'] * 1e3:.4f} "
         f"ms/step (CFL + step), {res['mcell']:.1f} Mcell-updates/s, mean dt "
         f"{res['mean_dt']:.4e}, {res['s_per_orbit']:.2f} s per orbit at "
         f"r = 1 [{gpu}]")
-    log(f"  planet_disk a step: {res['device_launches_per_step']:.1f} "
+    log(f"  {label} a step: {res['device_launches_per_step']:.1f} "
         f"device launches ({res['pytorch_launches_per_step']:.1f} of them "
         f"PyTorch ops), {res['device_ms_per_step']:.4f} ms of device time ("
         + ", ".join(f"{k} {v:.4f}" for k, v in
@@ -1817,7 +2029,8 @@ def check_state_arrays(outdir) -> None:
 # the reference-binary goldens this port reproduces, and their gates
 # (tests/test_reference_golden.py)
 GOLDENS = (("cold_disk_planet", 1e-6), ("spreading_ring", 1e-9),
-           ("shocktube_sn", 1e-6), ("longrun_planet", 1e-5))
+           ("shocktube_sn", 1e-6), ("longrun_planet", 1e-5),
+           ("planet_torque", 1e-6), ("binary_gceph", 1e-5))
 
 
 def golden_on_card(name, tol, work, gpu) -> dict:
@@ -1887,7 +2100,7 @@ def golden_on_card(name, tol, work, gpu) -> dict:
                 < max(1e-6, tol):
             raise AssertionError(f"{name} snapshot {snap}: last dt "
                                  f"{v['port'][1]} against {v['ref'][1]}")
-    if "planet" in name and not launches.get("ias15"):
+    if sim.stepper.n_bodies > 1 and not launches.get("ias15"):
         raise AssertionError(f"{name}: ias15 was not launched")
     return {"seconds": wall, "hydro_steps": sim.n_hydro_iter,
             "max_rel_dev": devs, "launches": launches}
@@ -1940,6 +2153,7 @@ def main() -> int:
     ias15_res = ias15_parity(sim_planet, gpu)
     measured["ias15"] = {k: v for k, v in ias15_res["planet_disk"].items()
                          if k not in ("plain_launches", "steps")}
+    measured_leapfrog = parity_leapfrog(sim, gpu)
     parity_f64_ragged(torch.device("cuda"))
     parity_tile_edges(torch.device("cuda"))
     golden_grid_edges(torch.device("cuda"))
@@ -1979,6 +2193,14 @@ def main() -> int:
     res["planet_disk"] = run_planet(sim_planet)
     log_planet(res["planet_disk"], gpu)
     del sim_planet
+    t0 = time.perf_counter()
+    sim_torque = planet_torque(NR, NAZ, "float32", "cuda")
+    log(f"  planet_torque {NR}x{NAZ} float32 built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    res["planet_torque"] = run_planet(sim_torque, ops=PLANET_TORQUE_OPS,
+                                      label="planet_torque")
+    log_planet(res["planet_torque"], gpu)
+    del sim_torque
     res["pds70_gas"] = run_pds70(sim_gas)
     log_pds70(res["pds70_gas"], gpu)
     del sim_gas
@@ -2008,6 +2230,12 @@ def main() -> int:
     trajectory(64, 128, "float64", 20, 1e-9, setup=pds70_4096)
     trajectory(256, 512, "float32", 200, 1e-3, setup=planet_disk)
     trajectory(128, 256, "float64", 20, 1e-9, setup=planet_disk)
+    trajectory(256, 512, "float32", 200, 1e-3, setup=planet_torque)
+    trajectory(128, 256, "float64", 20, 1e-9, setup=planet_torque)
+    trajectory(128, 256, "float64", 20, 1e-9, setup=binary_gceph)
+    trajectory(128, 256, "float64", 20, 1e-9,
+               setup=quickstart_adiabatic_leapfrog)
+    trajectory(64, 192, "float64", 20, 1e-9, setup=pds70_setup)
     newton = newton_budget(128, 384, 200)
     log(f"  phase 4 done at {time.perf_counter() - t_main:.1f} s")
 
@@ -2045,6 +2273,7 @@ def main() -> int:
                                if k != "per_launch"}
                         for name, m in measured_planet.items()},
                     "ias15": ias15_res,
+                    "leapfrog_interfaces": measured_leapfrog,
                     "goldens": res_goldens,
                     "launch_by_launch": {
                         name: m["per_launch"] for name, m in measured.items()

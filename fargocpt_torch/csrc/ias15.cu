@@ -11,9 +11,12 @@
 // What bounds it: neither bytes (5 N doubles in, 4 N out) nor operations
 // (a few thousand per trial step) -- the launch latency and the chain of
 // dependent float64 operations of one thread. Design: one block of one
-// thread (N <= 16 bodies) runs the whole call, its substeps, its corrector
-// iterations and the step-size control, in registers and local memory, and
-// never returns to the host. The arithmetic follows the plain version
+// thread runs the whole call, its substeps, its corrector iterations and
+// the step-size control, and never returns to the host. Its per-body
+// arrays (33 of 2N values) are the thread's own, in registers and local
+// memory, up to MAX_BODIES = 16 bodies; beyond, they are rows of a
+// float64 workspace in device memory that the wrapper allocates, so any
+// N >= 2 runs, in the same order of arithmetic. The arithmetic follows the plain version
 // operation for operation (compiled with --fmad=false, as the whole
 // library is; d^-3 as 1 / (d^2 sqrt(d^2)) and the step ratio's powers as
 // successive products in both; pow only for the step-size control's
@@ -117,20 +120,32 @@ struct Call {
   Tables tab;
 };
 
+// The per-body arrays of a call, each of nq = 2N values; a series (b, e,
+// g) is 7 rows of ld values. For N <= MAX_BODIES they are the kernel's own
+// arrays (ld = MAXQ), beyond it rows of the device workspace (ld = nq).
+struct Arrays {
+  double *q, *p, *csq, *csp, *q1, *p1, *csq1, *csp1, *a0;
+  double *b, *e, *g;      // row j at j * ld
+  double *xn, *at, *delta;
+  int ld;
+};
+constexpr int N_VECTORS = 12;   // q .. a0, xn, at, delta
+constexpr int N_SERIES = 3;     // b, e, g
+
 // one corrector sweep over the 7 nodes; returns |db6|max / |a|max
-__device__ double pc_sweep(const Call& c, const double* x0, const double* v0,
-                           const double* a0, double (*b)[MAXQ],
-                           double (*g)[MAXQ], double dt) {
-  double xn[MAXQ], at[MAXQ], delta[MAXQ];
+__device__ double pc_sweep(const Call& c, const Arrays& w, double dt) {
+  const int ld = w.ld;
+  double *b = w.b, *g = w.g, *xn = w.xn, *at = w.at, *delta = w.delta;
+  const double *x0 = w.q, *v0 = w.p, *a0 = w.a0;
   for (int n = 1; n < 8; ++n) {
     const double hn = H_NODES[n];
     for (int i = 0; i < c.nq; ++i) {
-      double s = b[6][i] * 7.0 * hn / 9.0 + b[5][i];
-      s = s * 3.0 * hn / 4.0 + b[4][i];
-      s = s * 5.0 * hn / 7.0 + b[3][i];
-      s = s * 2.0 * hn / 3.0 + b[2][i];
-      s = s * 3.0 * hn / 5.0 + b[1][i];
-      s = s * hn / 2.0 + b[0][i];
+      double s = b[6 * ld + i] * 7.0 * hn / 9.0 + b[5 * ld + i];
+      s = s * 3.0 * hn / 4.0 + b[4 * ld + i];
+      s = s * 5.0 * hn / 7.0 + b[3 * ld + i];
+      s = s * 2.0 * hn / 3.0 + b[2 * ld + i];
+      s = s * 3.0 * hn / 5.0 + b[ld + i];
+      s = s * hn / 2.0 + b[i];
       s = s * hn / 3.0 + a0[i];
       xn[i] = (s * dt * hn / 2.0 + v0[i]) * dt * hn + x0[i];
     }
@@ -139,12 +154,12 @@ __device__ double pc_sweep(const Call& c, const double* x0, const double* v0,
     for (int i = 0; i < c.nq; ++i) {
       double val = (at[i] - a0[i]) / c.tab.rr[base];
       for (int k = 1; k < n; ++k)
-        val = (val - g[k - 1][i]) / c.tab.rr[base + k];
-      delta[i] = val - g[n - 1][i];
-      g[n - 1][i] = val;
+        val = (val - g[(k - 1) * ld + i]) / c.tab.rr[base + k];
+      delta[i] = val - g[(n - 1) * ld + i];
+      g[(n - 1) * ld + i] = val;
       for (int j = 0; j < n - 1; ++j)
-        b[j][i] = b[j][i] + delta[i] * c.tab.c[n - 1][j];
-      b[n - 1][i] = b[n - 1][i] + delta[i];
+        b[j * ld + i] = b[j * ld + i] + delta[i] * c.tab.c[n - 1][j];
+      b[(n - 1) * ld + i] = b[(n - 1) * ld + i] + delta[i];
     }
   }
   double db6 = 0.0, atm = 0.0;
@@ -159,45 +174,42 @@ __device__ double pc_sweep(const Call& c, const double* x0, const double* v0,
 // a0: b and e hold the predicted series on entry and the series predicted
 // for dt_next on exit; the new state goes to (q1, p1, csq1, csp1).
 // Returns whether the step is accepted.
-__device__ bool step_trial(const Call& c, const double* q, const double* p,
-                           const double* csq, const double* csp,
-                           const double* a0, double (*b)[MAXQ],
-                           double (*e)[MAXQ], double dt, double* q1,
-                           double* p1, double* csq1, double* csp1,
+__device__ bool step_trial(const Call& c, const Arrays& w, double dt,
                            double& dt_next) {
-  const int nq = c.nq, n = c.n;
-  double g[7][MAXQ];
+  const int nq = c.nq, n = c.n, ld = w.ld;
+  double *b = w.b, *e = w.e, *g = w.g;
   for (int i = 0; i < 7; ++i)
     for (int k = 0; k < nq; ++k) {
       double s = 0.0;
-      for (int j = i; j < 7; ++j) s = s + b[j][k] * c.tab.d[j][i];
-      g[i][k] = s;
+      for (int j = i; j < 7; ++j) s = s + b[j * ld + k] * c.tab.d[j][i];
+      g[i * ld + k] = s;
     }
   const double pc_tol = 0.45 * DBL_EPSILON;
   double err = DBL_MAX, err_last = DBL_MAX;
   for (int it = 0; err >= pc_tol && it < MAX_PC_ITER &&
                    (it <= 2 || err_last > err); ++it) {
     err_last = err;
-    err = pc_sweep(c, q, p, a0, b, g, dt);
+    err = pc_sweep(c, w, dt);
   }
 
   const double dt2 = dt * dt;
   for (int i = 0; i < nq; ++i) {
-    double x = q[i], cx = csq[i];
-    for (int j = 6; j >= 0; --j) add_cs(x, cx, b[j][i] / XW[j] * dt2);
-    add_cs(x, cx, a0[i] / 2.0 * dt2);
-    add_cs(x, cx, p[i] * dt);
-    double v = p[i], cv = csp[i];
-    for (int j = 6; j >= 0; --j) add_cs(v, cv, b[j][i] / VW[j] * dt);
-    add_cs(v, cv, a0[i] * dt);
-    q1[i] = x;
-    csq1[i] = cx;
-    p1[i] = v;
-    csp1[i] = cv;
+    double x = w.q[i], cx = w.csq[i];
+    for (int j = 6; j >= 0; --j) add_cs(x, cx, b[j * ld + i] / XW[j] * dt2);
+    add_cs(x, cx, w.a0[i] / 2.0 * dt2);
+    add_cs(x, cx, w.p[i] * dt);
+    double v = w.p[i], cv = w.csp[i];
+    for (int j = 6; j >= 0; --j) add_cs(v, cv, b[j * ld + i] / VW[j] * dt);
+    add_cs(v, cv, w.a0[i] * dt);
+    w.q1[i] = x;
+    w.csq1[i] = cx;
+    w.p1[i] = v;
+    w.csp1[i] = cv;
   }
 
   // the error from the highest-order term over the bodies that move
-  double at[MAXQ];
+  double* at = w.at;
+  const double *q1 = w.q1, *p1 = w.p1;
   accel(q1, c.m, n, c.G, at);
   double maxak = 0.0, maxb6 = 0.0;
   for (int k = 0; k < n; ++k) {
@@ -205,7 +217,7 @@ __device__ bool step_trial(const Call& c, const double* q, const double* p,
     const double x2 = q1[k] * q1[k] + q1[n + k] * q1[n + k];
     if (fabs(v2 * dt2 / (x2 > 0.0 ? x2 : 1.0)) >= 1e-16) {
       maxak = fmax(maxak, fmax(fabs(at[k]), fabs(at[n + k])));
-      maxb6 = fmax(maxb6, fmax(fabs(b[6][k]), fabs(b[6][n + k])));
+      maxb6 = fmax(maxb6, fmax(fabs(b[6 * ld + k]), fabs(b[6 * ld + n + k])));
     }
   }
   const double e_rel = maxak > 0.0 ? maxb6 / maxak : 0.0;
@@ -224,20 +236,69 @@ __device__ bool step_trial(const Call& c, const double* q, const double* p,
   for (int j = 1; j < 7; ++j) powers[j] = powers[j - 1] * ratio;
   for (int k = 0; k < nq; ++k) {
     double be[7], en[7];
-    for (int j = 0; j < 7; ++j) be[j] = b[j][k] - e[j][k];
+    for (int j = 0; j < 7; ++j) be[j] = b[j * ld + k] - e[j * ld + k];
     for (int j = 0; j < 7; ++j) {
       double s = 0.0;
-      for (int l = 0; l < 7; ++l) s = s + PASCAL[j][l] * b[l][k];
+      for (int l = 0; l < 7; ++l) s = s + PASCAL[j][l] * b[l * ld + k];
       en[j] = powers[j] * s;
     }
     for (int j = 0; j < 7; ++j) {
-      e[j][k] = wipe ? 0.0 : en[j];
-      b[j][k] = wipe ? 0.0 : en[j] + be[j];
+      e[j * ld + k] = wipe ? 0.0 : en[j];
+      b[j * ld + k] = wipe ? 0.0 : en[j] + be[j];
     }
   }
   return accept;
 }
 
+__device__ void integrate(const Call& c, const Arrays& w, const double* x,
+                          const double* y, const double* vx,
+                          const double* vy, double dt, double* x_out,
+                          double* y_out, double* vx_out, double* vy_out,
+                          int* counts) {
+  const int n = c.n, nq = c.nq, ld = w.ld;
+  for (int k = 0; k < n; ++k) {
+    w.q[k] = x[k];
+    w.q[n + k] = y[k];
+    w.p[k] = vx[k];
+    w.p[n + k] = vy[k];
+  }
+  for (int i = 0; i < nq; ++i) {
+    w.csq[i] = w.csp[i] = 0.0;
+    for (int j = 0; j < 7; ++j) w.b[j * ld + i] = w.e[j * ld + i] = 0.0;
+  }
+  const double eps_t = 1e-14 * fabs(dt);
+  double t = 0.0, dt_int = dt;
+  int k = 0, accepted = 0;
+  while (t < dt - eps_t && k < MAX_SUBSTEPS) {
+    const double step_dt = fmin(dt_int, dt - t);
+    accel(w.q, c.m, n, c.G, w.a0);
+    double dt_next;
+    const bool ok = step_trial(c, w, step_dt, dt_next);
+    if (ok) {
+      for (int i = 0; i < nq; ++i) {
+        w.q[i] = w.q1[i];
+        w.p[i] = w.p1[i];
+        w.csq[i] = w.csq1[i];
+        w.csp[i] = w.csp1[i];
+      }
+      t = t + step_dt;
+      ++accepted;
+    }
+    dt_int = fmax(dt_next, 1e-12 * fabs(dt));
+    ++k;
+  }
+  for (int i = 0; i < n; ++i) {
+    x_out[i] = w.q[i];
+    y_out[i] = w.q[n + i];
+    vx_out[i] = w.p[i];
+    vy_out[i] = w.p[n + i];
+  }
+  counts[0] = accepted;
+  counts[1] = k;
+}
+
+// `work`: null for N <= MAX_BODIES (the arrays are the thread's own);
+// beyond, (N_VECTORS + 7 N_SERIES) 2N float64 values of device memory
 template <typename TDt>
 __global__ void ias15_kernel(const double* __restrict__ x,
                              const double* __restrict__ y,
@@ -247,7 +308,7 @@ __global__ void ias15_kernel(const double* __restrict__ x,
                              const TDt* __restrict__ dt_ptr, double G,
                              double epsilon, int n, double* x_out,
                              double* y_out, double* vx_out, double* vy_out,
-                             int* counts) {
+                             int* counts, double* work) {
   Call c;
   c.m = m;
   c.n = n;
@@ -255,61 +316,35 @@ __global__ void ias15_kernel(const double* __restrict__ x,
   c.G = G;
   c.epsilon = epsilon;
   make_tables(c.tab);
-  double q[MAXQ], p[MAXQ], csq[MAXQ], csp[MAXQ];
-  double q1[MAXQ], p1[MAXQ], csq1[MAXQ], csp1[MAXQ], a0[MAXQ];
-  double b[7][MAXQ], e[7][MAXQ];
-  for (int k = 0; k < n; ++k) {
-    q[k] = x[k];
-    q[n + k] = y[k];
-    p[k] = vx[k];
-    p[n + k] = vy[k];
-  }
-  for (int i = 0; i < c.nq; ++i) {
-    csq[i] = csp[i] = 0.0;
-    for (int j = 0; j < 7; ++j) b[j][i] = e[j][i] = 0.0;
-  }
   const double dt = (double)dt_ptr[0];
-  const double eps_t = 1e-14 * fabs(dt);
-  double t = 0.0, dt_int = dt;
-  int k = 0, accepted = 0;
-  while (t < dt - eps_t && k < MAX_SUBSTEPS) {
-    const double step_dt = fmin(dt_int, dt - t);
-    accel(q, m, n, G, a0);
-    double dt_next;
-    const bool ok = step_trial(c, q, p, csq, csp, a0, b, e, step_dt, q1, p1,
-                               csq1, csp1, dt_next);
-    if (ok) {
-      for (int i = 0; i < c.nq; ++i) {
-        q[i] = q1[i];
-        p[i] = p1[i];
-        csq[i] = csq1[i];
-        csp[i] = csp1[i];
-      }
-      t = t + step_dt;
-      ++accepted;
-    }
-    dt_int = fmax(dt_next, 1e-12 * fabs(dt));
-    ++k;
+  if (work == nullptr) {
+    double v[N_VECTORS][MAXQ], series[N_SERIES][7 * MAXQ];
+    const Arrays w{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8],
+                   series[0], series[1], series[2], v[9], v[10], v[11], MAXQ};
+    integrate(c, w, x, y, vx, vy, dt, x_out, y_out, vx_out, vy_out, counts);
+  } else {
+    const int nq = c.nq;
+    double* s = work + N_VECTORS * nq;
+    const Arrays w{work, work + nq, work + 2 * nq, work + 3 * nq,
+                   work + 4 * nq, work + 5 * nq, work + 6 * nq,
+                   work + 7 * nq, work + 8 * nq, s, s + 7 * nq,
+                   s + 14 * nq, work + 9 * nq, work + 10 * nq,
+                   work + 11 * nq, nq};
+    integrate(c, w, x, y, vx, vy, dt, x_out, y_out, vx_out, vy_out, counts);
   }
-  for (int i = 0; i < n; ++i) {
-    x_out[i] = q[i];
-    y_out[i] = q[n + i];
-    vx_out[i] = p[i];
-    vy_out[i] = p[n + i];
-  }
-  counts[0] = accepted;
-  counts[1] = k;
 }
 
 template <typename TDt>
 int launch(void* const* p, const double* fp, const int* ip, void* stream) {
   const int n = ip[0];
-  if (n < 2 || n > MAX_BODIES) return (int)cudaErrorInvalidValue;
+  double* work = (double*)p[11];
+  if (n < 2 || (n > MAX_BODIES && work == nullptr))
+    return (int)cudaErrorInvalidValue;
   ias15_kernel<TDt><<<1, 1, 0, (cudaStream_t)stream>>>(
       (const double*)p[0], (const double*)p[1], (const double*)p[2],
       (const double*)p[3], (const double*)p[4], (const TDt*)p[5], fp[0],
       fp[1], n, (double*)p[6], (double*)p[7], (double*)p[8], (double*)p[9],
-      (int*)p[10]);
+      (int*)p[10], n > MAX_BODIES ? work : nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -318,9 +353,10 @@ int launch(void* const* p, const double* fp, const int* ip, void* stream) {
 
 // ptrs: x, y, vx, vy, mass (float64, N each), dt (one value of the run
 //       type: the suffix), x_out, y_out, vx_out, vy_out, counts (int32:
-//       accepted substeps, trial steps)
+//       accepted substeps, trial steps), work (float64, 66 N values for
+//       N > 16; null up to 16 bodies)
 // fp:   G, epsilon
-// ip:   N (2..16), 1
+// ip:   N (>= 2), 1
 extern "C" {
 int fc_ias15_f32(void* const* p, const double* fp, const int* ip, void* s) {
   return fc::launch<float>(p, fp, ip, s);

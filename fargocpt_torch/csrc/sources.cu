@@ -32,7 +32,16 @@
 // which) are read from the device too, so no value travels to the host and
 // nothing is packed before the launch.
 // smoothing mode: 0 none, 1 the scalar eps*h at the planet, 2 eps*H(cell);
-// the first body's and the others' are static.
+// the first body's and the others' are static. With a smoothing plane
+// `h_smooth` (NR x NAZ; a null pointer without) mode 2 takes eps times the
+// plane's H of the cell in place of the H it derives from the current
+// energy (the leapfrog's kicks smooth with a scale height of an earlier
+// stage); the pressure still comes from the current fields.
+//
+// Any number of bodies: the per-body table streams through shared memory
+// in chunks of MAX_CHUNK bodies. Each cell's potential waits in the
+// shared plane between chunks, so its sum over the bodies runs in index
+// order, as the plain version's does.
 #include "common.cuh"
 
 namespace fc {
@@ -55,6 +64,7 @@ constexpr int SRC_THREADS = 256;
 constexpr int SRC_PW = SRC_TW + 1;        // a plane: the tile, a row below,
 constexpr int SRC_PLANE = (SRC_TH + 1) * SRC_PW;  // a column before
 constexpr int BODY_VALUES = 5;            // mass, x, y, r_cubic, eps h(r_body)
+constexpr int MAX_CHUNK = 512;            // bodies in shared memory at once
 
 // a device scalar held in float64 or in the field type, as T
 template <typename T>
@@ -85,7 +95,8 @@ sources_kernel(const T* __restrict__ sigma, const T* __restrict__ energy,
                const double* __restrict__ body_x,
                const double* __restrict__ body_y,
                const double* __restrict__ body_mass,
-               const double* __restrict__ body_rsm, SrcParams<T> P, int nr,
+               const double* __restrict__ body_rsm,
+               const T* __restrict__ h_smooth, SrcParams<T> P, int nr,
                int naz, T* __restrict__ vrad_out, T* __restrict__ vaz_out) {
   extern __shared__ __align__(16) unsigned char src_smem[];
   T* const s_sig = reinterpret_cast<T*>(src_smem);
@@ -97,68 +108,78 @@ sources_kernel(const T* __restrict__ sigma, const T* __restrict__ energy,
   const int i0 = blockIdx.y * SRC_TH;
   const int j0 = blockIdx.x * SRC_TW;
 
-  for (int k = tid; k < P.n_bodies; k += SRC_THREADS) {
-    T* b = s_body + BODY_VALUES * k;
-    const T bx = T(body_x[k]), by = T(body_y[k]);
-    b[0] = T(body_mass[k]);
-    b[1] = bx;
-    b[2] = by;
-    b[3] = T(body_rsm[k]);
-    T sm = T(0);
-    if ((k == 0 ? P.mode_first : P.mode_rest) == 1) {
-      const T body_r = sqrt(bx * bx + by * by);
-      sm = P.eps * (P.aspect * pow_scalar(body_r, P.pow_body_r));
-    }
-    b[4] = sm;
-  }
-  __syncthreads();
-
-  // --- 1. (sigma, pressure, potential) of rows -1..TH-1, columns -1..TW-1 --
   const T ind_x = scalar_at<T>(ind_xp, P.scalar_f64 & 2);
   const T ind_y = scalar_at<T>(ind_yp, P.scalar_f64 & 4);
-  for (int idx = tid; idx < SRC_PLANE; idx += SRC_THREADS) {
-    const int u = idx / SRC_PW;
-    const int i = i0 + u - 1;
-    if (i < 1 || i > nr - 2) continue;  // the ghost rings are never read
-    int j = j0 + (idx - u * SRC_PW) - 1;
-    if ((unsigned)j >= (unsigned)naz) j = wrap(j, naz);
-    const size_t c = (size_t)i * naz + j;
-    const T sig = sigma[c];
-    T press, h;
-    if (P.adiabatic) {
-      const T e = energy[c];
-      press = P.gm1 * e;
-      const T cs = sqrt(P.gm1g * e / sig);
-      h = cs / P.sqrt_gamma / col(cols, i, C_OMEGA_K);
-    } else {
-      const T cs = col(cols, i, C_CS_ISO);
-      press = sig * (cs * cs);
-      h = cs / col(cols, i, C_OMEGA_K);
-    }
-    const T rb = col(cols, i, C_RB);
-    const T x = rb * cosp[j];
-    const T y = rb * sinp[j];
-    T pot = T(0);
-    for (int k = 0; k < P.n_bodies; ++k) {
-      const T* b = s_body + BODY_VALUES * k;
-      const int mode = k == 0 ? P.mode_first : P.mode_rest;
+  for (int k0 = 0; k0 < P.n_bodies; k0 += MAX_CHUNK) {
+    const int k1 = min(P.n_bodies, k0 + MAX_CHUNK);
+    const bool last = k1 == P.n_bodies;
+    if (k0 > 0) __syncthreads();        // the previous chunk has been read
+    for (int k = k0 + tid; k < k1; k += SRC_THREADS) {
+      T* b = s_body + BODY_VALUES * (k - k0);
+      const T bx = T(body_x[k]), by = T(body_y[k]);
+      b[0] = T(body_mass[k]);
+      b[1] = bx;
+      b[2] = by;
+      b[3] = T(body_rsm[k]);
       T sm = T(0);
-      if (mode == 2) sm = P.eps * h;
-      else if (mode == 1) sm = b[4];
-      const T dx = x - b[1];
-      const T dy = y - b[2];
-      const T d = sqrt(dx * dx + dy * dy + sm * sm);
-      const T rsm = b[3];
-      T klahr = T(1);
-      if (rsm > T(0) && d < rsm) {
-        const T q = d / rsm;
-        klahr = q * q * q * q - T(2) * (q * q * q) + T(2) * q;
+      if ((k == 0 ? P.mode_first : P.mode_rest) == 1) {
+        const T body_r = sqrt(bx * bx + by * by);
+        sm = P.eps * (P.aspect * pow_scalar(body_r, P.pow_body_r));
       }
-      pot = pot - P.G * b[0] / d * klahr;
+      b[4] = sm;
     }
-    s_sig[idx] = sig;
-    s_press[idx] = press;
-    s_pot[idx] = pot - ind_x * x - ind_y * y;
+    __syncthreads();
+
+    // --- 1. (sigma, pressure, potential) of rows -1..TH-1, columns -1..TW-1
+    for (int idx = tid; idx < SRC_PLANE; idx += SRC_THREADS) {
+      const int u = idx / SRC_PW;
+      const int i = i0 + u - 1;
+      if (i < 1 || i > nr - 2) continue;  // the ghost rings are never read
+      int j = j0 + (idx - u * SRC_PW) - 1;
+      if ((unsigned)j >= (unsigned)naz) j = wrap(j, naz);
+      const size_t c = (size_t)i * naz + j;
+      const T sig = sigma[c];
+      T press, h;
+      if (P.adiabatic) {
+        const T e = energy[c];
+        press = P.gm1 * e;
+        const T cs = sqrt(P.gm1g * e / sig);
+        h = cs / P.sqrt_gamma / col(cols, i, C_OMEGA_K);
+      } else {
+        const T cs = col(cols, i, C_CS_ISO);
+        press = sig * (cs * cs);
+        h = cs / col(cols, i, C_OMEGA_K);
+      }
+      if (h_smooth != nullptr) h = h_smooth[c];
+      const T rb = col(cols, i, C_RB);
+      const T x = rb * cosp[j];
+      const T y = rb * sinp[j];
+      T pot = k0 == 0 ? T(0) : s_pot[idx];
+      for (int k = k0; k < k1; ++k) {
+        const T* b = s_body + BODY_VALUES * (k - k0);
+        const int mode = k == 0 ? P.mode_first : P.mode_rest;
+        T sm = T(0);
+        if (mode == 2) sm = P.eps * h;
+        else if (mode == 1) sm = b[4];
+        const T dx = x - b[1];
+        const T dy = y - b[2];
+        const T d = sqrt(dx * dx + dy * dy + sm * sm);
+        const T rsm = b[3];
+        T klahr = T(1);
+        if (rsm > T(0) && d < rsm) {
+          const T q = d / rsm;
+          klahr = q * q * q * q - T(2) * (q * q * q) + T(2) * q;
+        }
+        pot = pot - P.G * b[0] / d * klahr;
+      }
+      if (last) {
+        s_sig[idx] = sig;
+        s_press[idx] = press;
+        s_pot[idx] = pot - ind_x * x - ind_y * y;
+      } else {
+        s_pot[idx] = pot;
+      }
+    }
   }
   __syncthreads();
 
@@ -215,15 +236,19 @@ int launch(void* const* p, const double* fp, const int* ip, void* stream) {
                  T(fp[1]), T(fp[2]), T(fp[3]), 1.0 + fp[4],
                  ip[2], ip[3], ip[4], ip[5], ip[6], ip[7]};
   const int nr = ip[0], naz = ip[1];
-  const size_t smem =
-      (size_t)(3 * SRC_PLANE + BODY_VALUES * P.n_bodies) * sizeof(T);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;   // too many bodies
+  if (P.n_bodies < 1) return (int)cudaErrorInvalidValue;
+  const int chunk = P.n_bodies < MAX_CHUNK ? P.n_bodies : MAX_CHUNK;
+  const size_t smem = (size_t)(3 * SRC_PLANE + BODY_VALUES * chunk) * sizeof(T);
+  static_assert((3 * SRC_PLANE + BODY_VALUES * MAX_CHUNK) * sizeof(double) <=
+                    48 * 1024,
+                "a chunk of bodies and the planes fit in 48 KB");
   const dim3 grid((naz + SRC_TW - 1) / SRC_TW, (nr + 1 + SRC_TH - 1) / SRC_TH);
   sources_kernel<T><<<grid, SRC_THREADS, smem, (cudaStream_t)stream>>>(
       (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
       (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
       p[8], p[9], p[10], (const double*)p[11], (const double*)p[12], (const double*)p[13],
-      (const double*)p[14], P, nr, naz, (T*)p[15], (T*)p[16]);
+      (const double*)p[14], (const T*)p[17], P, nr, naz, (T*)p[15],
+      (T*)p[16]);
   return (int)cudaGetLastError();
 }
 

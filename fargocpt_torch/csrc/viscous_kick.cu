@@ -40,6 +40,13 @@
 //
 // dt (and 1/beta where the cooling ramp makes it a tensor) are read from
 // the device.
+//
+// With `out_cs` (ip[9]) the kernel also writes the sound speed its
+// viscosity stage derived from the energy after the artificial viscosity
+// and the clamp, the in-kick cs, on rings 0..NR-1: a caller forms from it
+// the scale height and nu that the viscous v_rad boundary, viscous damping
+// and the leapfrog's second kick read. Without it the plane is neither
+// allocated nor written.
 #include "common.cuh"
 
 namespace fc {
@@ -55,6 +62,7 @@ struct VkParams {
       tmax, mu, R, mu_gm1, sigma_sb, c_light, sig_nf, invdphi, beta_inv;
   int adiabatic, artvisc, dissipation, compress, heating, beta_on, beta_dev;
   int alpha_on;     // alpha > 0 as the float64 parameter says it
+  int out_cs;       // write the in-kick sound speed
 };
 
 constexpr int VK_TH = 16;                 // tile rows
@@ -86,12 +94,12 @@ __device__ __forceinline__ void clamp_energy(T& e, T sig,
   e = fmin(fmax(e, P.tmin * fac), P.tmax * fac);
 }
 
-// nu and H of one cell from its (post-artvisc) energy; `cc` is the cell's
-// row of the column table
+// nu, H and cs of one cell from its (post-artvisc) energy; `cc` is the
+// cell's row of the column table
 template <typename T>
 __device__ __forceinline__ void nu_h(const T* __restrict__ cc, T e, T sig,
-                                     const VkParams<T>& P, T& nu, T& h) {
-  T cs;
+                                     const VkParams<T>& P, T& nu, T& h,
+                                     T& cs) {
   if (P.adiabatic) {
     cs = sqrt(P.gm1g * e / sig);
     h = cs / P.sqrt_gamma / cc[C_OMEGA_K];
@@ -110,7 +118,7 @@ vk_tile_kernel(const T* __restrict__ sigma, const T* __restrict__ vrad,
                const T* __restrict__ betap, VkParams<T> P, int nr, int naz,
                T* __restrict__ vrad_out, T* __restrict__ vaz_out,
                T* __restrict__ energy_out, T* __restrict__ qp_out,
-               T* __restrict__ qm_out) {
+               T* __restrict__ qm_out, T* __restrict__ cs_out) {
   extern __shared__ __align__(16) unsigned char vk_smem[];
   T* const s_sig = reinterpret_cast<T*>(vk_smem);
   T* const s_vr = s_sig + VK_PLANE;     // vrad, then tau_rp
@@ -267,10 +275,13 @@ vk_tile_kernel(const T* __restrict__ sigma, const T* __restrict__ vrad,
       s_en[p] = en;
       s_vr1[p] = vr;
       s_va1[p] = va;
-      T nu, h;
-      nu_h(cc, en, sig, P, nu, h);
+      T nu, h, cs;
+      nu_h(cc, en, sig, P, nu, h, cs);
       s_nu[p] = nu;
-      if (a >= 0 && a < VK_TH && b >= 0 && b < VK_TW) s_h[a * VK_TW + b] = h;
+      if (a >= 0 && a < VK_TH && b >= 0 && b < VK_TW) {
+        s_h[a * VK_TW + b] = h;
+        if (P.out_cs && j0 + b < naz) cs_out[(size_t)i * naz + j0 + b] = cs;
+      }
     }
   }
   __syncthreads();
@@ -425,7 +436,7 @@ int launch(void* const* p, const double* fp, const int* ip, void* stream) {
                 T(fp[8] * (gamma - 1.0)), T(fp[10]), T(fp[11]), T(fp[12]),
                 T(fp[13]), T(fp[14]),
                 ip[2], ip[3], ip[4], ip[5], ip[6], ip[7], ip[8],
-                fp[1] > 0.0};
+                fp[1] > 0.0, ip[9]};
   const int nr = ip[0], naz = ip[1];
   auto kernel = vk_tile_kernel<T, MIN_BLOCKS>;
   constexpr int smem = VK_SMEM_VALUES * (int)sizeof(T);
@@ -443,7 +454,7 @@ int launch(void* const* p, const double* fp, const int* ip, void* stream) {
   kernel<<<grid, VK_THREADS, smem, (cudaStream_t)stream>>>(
       (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
       (const T*)p[4], (const T*)p[5], (const T*)p[6], P, nr, naz, (T*)p[7],
-      (T*)p[8], (T*)p[9], (T*)p[10], (T*)p[11]);
+      (T*)p[8], (T*)p[9], (T*)p[10], (T*)p[11], (T*)p[12]);
   return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,15 @@ viscosity), outflow boundaries with damping zones (1.10 / 0.90), FARGO
 transport, a star and a 1e-3 planet at r = 1 whose mass the gas feels
 ramped up over ten orbits, with disk feedback.
 
+``planet_torque``: the reference's type-I torque test
+(test/planet_torque/torque_test.yml, the ``planet_torque`` golden's
+setup.yml without its cell-per-scale-height sizing): the leapfrog
+integrator, a locally isothermal disk (h = 0.05, Sigma ~ r^-1.5, no
+viscosity), TW artificial viscosity without dissipation, reflecting
+boundaries with a balanced v_az, ``Initial`` v_rad damping, a star and a
+2e-5 planet at r = 1 ramped over ten orbits, smoothed with eps h at the
+planet's location (CompatibilitySmoothingPlanetLoc), no disk feedback.
+
 ``pds70_gas``: the gas part of ``__graft_entry__._pds70`` (BASELINE.json
 configs[4]): the variable-gamma PVTE equation of state, FLD radiative
 diffusion, symmetric FFT self-gravity, thermal surface cooling, viscous
@@ -92,6 +101,40 @@ PLANET_DISK = {
 }
 
 
+PLANET_TORQUE = {
+    "l0": "1 au", "m0": "1 solMass", "mu": "2.35",
+    "EquationOfState": "Isothermal", "AdiabaticIndex": "1.4",
+    "Sigma0": "3.76e-4", "SigmaSlope": "1.5", "SigmaFloor": "1e-9",
+    "AspectRatio": "0.05", "AspectRatioMode": "0", "FlaringIndex": "0",
+    "ConstantViscosity": "0", "ViscousAlpha": "0e-3",
+    "StabilizeViscosity": "0", "ArtificialViscosity": "TW",
+    "ArtificialViscosityDissipation": "No",
+    "ArtificialViscosityFactor": "1.41", "CFL": "0.4",
+    "ThicknessSmoothing": "0.4", "ThicknessSmoothingSG": "0.0",
+    "CompatibilitySmoothingPlanetLoc": "yes",
+    "CompatibilityNoStarSmoothing": "yes", "CorrectDiskSelfgravity": "yes",
+    "RadialViscosityFactor": "1",
+    "InnerBoundary": "Reflecting", "OuterBoundary": "Reflecting",
+    "InnerBoundaryVAzi": "Balanced", "OuterBoundaryVAzi": "Balanced",
+    "Damping": "Yes", "DampingInnerLimit": "1.24",
+    "DampingOuterLimit": "0.84", "DampingVRadialInner": "initial",
+    "DampingVRadialOuter": "initial",
+    "Transport": "FARGO", "Integrator": "LeapFrog", "Disk": "yes",
+    "OmegaFrame": "0.0", "Frame": "F", "DiskFeedback": "no",
+    "Rmin": "0.4", "Rmax": "2.5", "RadialSpacing": "Logarithmic",
+    "HydroFrameCenter": "primary", "BodyForceFromPotential": "Yes",
+    "nbody": [
+        {"name": "star", "semi-major axis": "1.0", "mass": "1.0",
+         "eccentricity": "0.0", "radius": "1.0 solRadius",
+         "temperature": "0 K", "ramp-up time": "0.0"},
+        {"name": "planet", "semi-major axis": "1", "mass": "2e-05",
+         "eccentricity": "0.0", "radius": "1.0 solRadius",
+         "temperature": "0 K", "ramp-up time": "10"},
+    ],
+    **_RUN,
+}
+
+
 def flagship(nrad: int, naz: int) -> Config:
     """The flagship setup on an ``nrad`` x ``naz`` grid."""
     return Config.from_dict(dict(FLAGSHIP, Nrad=str(nrad), Naz=str(naz)))
@@ -114,4 +157,12 @@ def planet_disk(nrad: int, naz: int) -> Config:
     grid."""
     cfg = dict(PLANET_DISK, Nrad=str(nrad), Naz=str(naz))
     cfg["nbody"] = [dict(b) for b in PLANET_DISK["nbody"]]
+    return Config.from_dict(cfg)
+
+
+def planet_torque(nrad: int, naz: int) -> Config:
+    """The reference's type-I torque test (the leapfrog) on an ``nrad`` x
+    ``naz`` grid."""
+    cfg = dict(PLANET_TORQUE, Nrad=str(nrad), Naz=str(naz))
+    cfg["nbody"] = [dict(b) for b in PLANET_TORQUE["nbody"]]
     return Config.from_dict(cfg)

@@ -1,14 +1,16 @@
 """Energy source substep (SubStep3), the subset the flagship, the PDS70
-gas setup and the planet setups reach: viscous heating, local beta cooling
-(towards the initial profile with CoolingBetaReference), thermal surface
-cooling, the radiative correction factor and the near-floor equilibrium
-(reference src/SourceEuler.cpp:496-536, :632-654, :790-820, :1018-1051).
-S-curve cooling, irradiation and the Ziampras beta variants are not ported
-yet and raise."""
+setups and the planet setups reach: viscous heating, stellar irradiation,
+local beta cooling (towards the initial profile with
+CoolingBetaReference), thermal surface cooling, the radiative correction
+factor and the near-floor equilibrium (reference
+src/SourceEuler.cpp:496-536, :538-611, :632-654, :790-820, :1018-1051).
+S-curve cooling and the Ziampras beta variants are not ported yet and
+raise."""
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -20,7 +22,6 @@ from . import eos, opacity as opacity_mod
 def check_supported(phys: Physics) -> None:
     """Raise for every SubStep3 branch outside the ported subset."""
     unsupported = {
-        "stellar irradiation (HeatingStar)": phys.heating_star,
         "S-curve cooling": phys.cooling_scurve_enabled,
         "CoolingBetaMethod": phys.cooling_beta_method != "no",
         "CoolingBetaModel": phys.cooling_beta_model,
@@ -75,6 +76,59 @@ def kappa_tau_eff(phys: Physics, constants, units, sigma, temperature,
     return kappa, tau, tau_eff
 
 
+@dataclass(frozen=True)
+class IrradiationCtx:
+    """What the stellar irradiation reads: the bodies on the grid (float64
+    tensors), per body its radius, temperature and irradiation ramp-up
+    time (tensors of the field type) and whether it irradiates, and the
+    cells' Cartesian centres."""
+    bodies: object                        # gravity.BodiesOnGrid
+    radius: torch.Tensor
+    temperature: torch.Tensor
+    irradiates: list
+    rampup: torch.Tensor
+    cell_x: torch.Tensor
+    cell_y: torch.Tensor
+
+
+def irradiation(phys: Physics, constants, ctx: IrradiationCtx,
+                aspect_ratio, tau_eff, current_time):
+    """Stellar irradiation heating Q+ (Menou & Goodman 2004 via D'Angelo &
+    Marzari 2012; reference src/SourceEuler.cpp:538-611,
+    fargocpt_tpu/ops/energy.py:190-224). ``current_time`` is a float or a
+    0-d tensor; body positions are cast to the field type."""
+    dt = tau_eff.dtype
+    qplus = torch.zeros_like(tau_eff)
+    sig_sb = constants.sigma_sb
+    dlogh_dlogr = 9.0 / 7.0   # Chiang & Goldreich 1997
+    eps = 0.5
+    t = torch.as_tensor(current_time, dtype=dt, device=tau_eff.device)
+    for k, on in enumerate(ctx.irradiates):
+        if not on:
+            continue
+        t_ramp = ctx.rampup[k]
+        ramping = torch.where(
+            (t_ramp > 0.0) & (t < t_ramp),
+            1.0 - torch.cos(t * (math.pi / 2.0)
+                            / torch.where(t_ramp > 0.0, t_ramp,
+                                          torch.ones_like(t_ramp))) ** 2,
+            torch.ones_like(t))
+        x, y = ctx.bodies.x[k].to(dt), ctx.bodies.y[k].to(dt)
+        r_star = ctx.radius[k]
+        t_star = ctx.temperature[k]
+        l1 = ctx.bodies.cubic_smoothing_radius[k].to(dt)
+        off_center = x * x + y * y > 1e-10
+        min_dist = torch.where(off_center, torch.maximum(r_star, l1), r_star)
+        dist = torch.maximum(torch.sqrt((ctx.cell_x - x) ** 2
+                                        + (ctx.cell_y - y) ** 2), min_dist)
+        roverd = torch.where(dist < r_star, torch.ones_like(dist),
+                             r_star / dist)
+        w_g = 0.4 * roverd + aspect_ratio * (dlogh_dlogr - 1.0)
+        t_irr4 = (1.0 - eps) * t_star ** 4 * roverd ** 2 * w_g
+        qplus = qplus + ramping * 2.0 * sig_sb * t_irr4 / tau_eff
+    return qplus
+
+
 def thermal_cooling(phys: Physics, constants, temperature, tau_eff):
     """Surface cooling Q- = f 2 sigma_SB (T^4 - Tmin^4) / tau_eff
     (reference src/SourceEuler.cpp:790-820)."""
@@ -84,7 +138,8 @@ def thermal_cooling(phys: Physics, constants, temperature, tau_eff):
 
 def substep3(phys: Physics, constants, g: Geom, sigma, energy, nu,
              tau_rr, tau_pp, tau_rp, div_v, scale_height, current_time, dt,
-             units=None, pvte_vals=None, ref=None):
+             units=None, pvte_vals=None, ref=None,
+             irradiation_ctx: IrradiationCtx | None = None):
     """Energy update with Q+ / Q- (reference src/SourceEuler.cpp:956-1051).
     Returns (energy_new, qplus, qminus); the Q grids are divided by the
     radiative correction factor and zero on the ghost rings.
@@ -92,12 +147,14 @@ def substep3(phys: Physics, constants, g: Geom, sigma, energy, nu,
     ``pvte_vals`` set gamma and mu of the correction factor, the
     equilibrium and the floor; the temperature of the surface cooling is
     the constant-gamma one, as in ``fargocpt_tpu.ops.energy``. Surface
-    cooling needs ``units`` (the opacity is fitted in cgs)."""
+    cooling and the irradiation (``irradiation_ctx``, with HeatingStar) need
+    ``units`` (the opacity is fitted in cgs)."""
     check_supported(phys)
     nr = g.nrad
     tau_eff = torch.zeros_like(sigma)
     temperature = None
-    if phys.cooling_surface_enabled and units is not None:
+    if (phys.cooling_surface_enabled or phys.heating_star) \
+            and units is not None:
         temperature = eos.temperature(phys, constants, sigma, energy, None)
         _, _, tau_eff = kappa_tau_eff(phys, constants, units, sigma,
                                       temperature, scale_height)
@@ -111,7 +168,7 @@ def substep3(phys: Physics, constants, g: Geom, sigma, energy, nu,
             delta_e = delta_e - ref[1] / ref[0] * sigma
         qminus = qminus + delta_e * omega_k * beta_inverse(phys,
                                                            current_time)
-    if temperature is not None:
+    if phys.cooling_surface_enabled and temperature is not None:
         qminus = qminus + thermal_cooling(phys, constants, temperature,
                                           tau_eff)
 
@@ -119,6 +176,11 @@ def substep3(phys: Physics, constants, g: Geom, sigma, energy, nu,
     if phys.heating_viscous:
         qplus = qplus + viscous_heating(phys, g, sigma, nu, tau_rr, tau_pp,
                                         tau_rp, div_v)
+    if phys.heating_star and irradiation_ctx is not None:
+        # the ASPECTRATIO grid of AspectRatioMode 0, H / r
+        qplus = qplus + irradiation(phys, constants, irradiation_ctx,
+                                    scale_height * g.inv_rb, tau_eff,
+                                    current_time)
 
     if pvte_vals is not None:
         gam, mu, _ = pvte_vals

@@ -10,7 +10,8 @@ per grid; the staged route runs where ``KernelContext`` is built with
 substep, ``artvisc_sn``, which the steps outside the fused viscous kick's
 gate run (the PVTE setups). One more kernel replaces no TPU kernel:
 ``ias15``, a whole adaptive IAS15 call of the N-body integrator on the
-device (the JAX package's ``lax.while_loop``), twice a step with planets.
+device (the JAX package's ``lax.while_loop``), with planets twice an
+Euler step and four times a leapfrog step.
 
 Each op's entry point (the names in ``OPS``) takes the plain version only
 for tensors on the CPU; for a CUDA tensor it launches the kernel or
@@ -210,14 +211,18 @@ def cfl_plain(ctx: KernelContext, sigma, vrad, vaz, energy, qplus, qminus):
 
 
 def sources_plain(ctx: KernelContext, sigma, vrad, vaz, energy,
-                  bodies: gravity.BodiesOnGrid, indirect, omega_frame, dt):
+                  bodies: gravity.BodiesOnGrid, indirect, omega_frame, dt,
+                  h_smooth=None):
     """N-body potential + momentum source terms, without the compression
-    heating. Returns (vrad, vaz)."""
+    heating. The potential's per-cell smoothing is eps times ``h_smooth``
+    (NR, NAZ) where given, else eps times the scale height of the current
+    fields. Returns (vrad, vaz)."""
     phys = ctx.phys
     _, press, h = derived(ctx, sigma, energy)
     cell_x, cell_y = ctx.cell_xy()
     pot = gravity.nbody_potential(phys, ctx.constants, ctx.g, bodies,
-                                  bodies.x.shape[0], cell_x, cell_y, h,
+                                  bodies.x.shape[0], cell_x, cell_y,
+                                  h if h_smooth is None else h_smooth,
                                   indirect[0], indirect[1])
     vrad, vaz, _ = src_ops.update_with_sourceterms(
         phys, ctx.g, sigma, press, pot, vrad, vaz, energy,
@@ -226,9 +231,12 @@ def sources_plain(ctx: KernelContext, sigma, vrad, vaz, energy,
 
 
 def viscous_kick_plain(ctx: KernelContext, sigma, vrad, vaz, energy, dt,
-                       time, compress: bool = True):
+                       time, compress: bool = True, want_cs: bool = False):
     """Compression heating (optional), artificial viscosity, the clamp,
-    viscosity and SubStep3. Returns (vrad, vaz, energy, qplus, qminus)."""
+    viscosity and SubStep3. Returns (vrad, vaz, energy, qplus, qminus),
+    with ``want_cs`` and the in-kick sound speed: the one the viscosity
+    stage derives from the energy after the artificial viscosity and the
+    clamp."""
     phys, constants, g = ctx.phys, ctx.constants, ctx.g
     if compress:
         energy = src_ops.compression_heating(phys, g, energy, vrad, vaz, dt)
@@ -243,11 +251,13 @@ def viscous_kick_plain(ctx: KernelContext, sigma, vrad, vaz, energy, dt,
     vrad, vaz = visc.update_velocities_with_viscosity(
         phys, g, sigma, vrad, vaz, trr, tpp, trp, dt)
     if not phys.is_adiabatic:
-        z = torch.zeros_like(sigma)
-        return vrad, vaz, energy, z, z
-    energy, qplus, qminus = energy_ops.substep3(
-        phys, constants, g, sigma, energy, nu, trr, tpp, trp, divv, h, time,
-        dt)
+        qplus = qminus = torch.zeros_like(sigma)
+    else:
+        energy, qplus, qminus = energy_ops.substep3(
+            phys, constants, g, sigma, energy, nu, trr, tpp, trp, divv, h,
+            time, dt)
+    if want_cs:
+        return vrad, vaz, energy, qplus, qminus, cs
     return vrad, vaz, energy, qplus, qminus
 
 
@@ -437,7 +447,9 @@ def _check_nshift(nshift: torch.Tensor, nr: int, like: torch.Tensor) -> None:
 def _launch(op: str, like: torch.Tensor, tensors: list[torch.Tensor],
             fp: list[float], ip: list[int], min_nr: int = 4) -> None:
     """Call fc_<op>_<dtype> on the current stream; raise on a CUDA error.
-    ``ip`` starts with NR and NAZ; the op takes NR >= ``min_nr``."""
+    ``ip`` starts with NR and NAZ; the op takes NR >= ``min_nr``. A None
+    in ``tensors`` is a null pointer: an optional input or output that the
+    call leaves out."""
     if like.device.type != "cuda":
         raise RuntimeError(f"{op}: the CUDA kernel needs CUDA tensors, got "
                            f"{like.device}")
@@ -449,7 +461,8 @@ def _launch(op: str, like: torch.Tensor, tensors: list[torch.Tensor],
                          f"NAZ >= 1, got {ip[0]} x {ip[1]}")
     build()
     fn = getattr(_LIB, f"fc_{op}_{_SUFFIX[like.dtype]}")
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
     fpa = (ctypes.c_double * len(fp))(*[float(x) for x in fp])
     ipa = (ctypes.c_int * len(ip))(*[int(x) for x in ip])
     with torch.cuda.device(like.device):
@@ -522,7 +535,6 @@ def cfl(ctx: KernelContext, sigma, vrad, vaz, energy, qplus, qminus):
 
 
 _SMOOTH_MODE = {"zero": 0, "scalar": 1, "cell": 2}
-MAX_BODIES = 512        # the per-body table of a block's shared memory
 
 
 def smoothing_modes(phys: Physics, n_bodies: int) -> tuple[str, ...]:
@@ -546,11 +558,14 @@ def _body_vector(name: str, t: torch.Tensor, n: int,
 
 
 def sources(ctx: KernelContext, sigma, vrad, vaz, energy,
-            bodies: gravity.BodiesOnGrid, indirect, omega_frame, dt):
-    """Potential + momentum source terms. Returns (vrad, vaz)."""
+            bodies: gravity.BodiesOnGrid, indirect, omega_frame, dt,
+            h_smooth=None):
+    """Potential + momentum source terms, any number of bodies; the
+    potential's "cell" smoothing is eps times ``h_smooth`` (NR, NAZ) where
+    given (``sources_plain``). Returns (vrad, vaz)."""
     if sigma.device.type == "cpu":
         return sources_plain(ctx, sigma, vrad, vaz, energy, bodies,
-                             indirect, omega_frame, dt)
+                             indirect, omega_frame, dt, h_smooth)
     phys, g = ctx.phys, ctx.g
     nr, naz = g.nrad, g.naz
     if phys.is_polytropic:
@@ -564,10 +579,17 @@ def sources(ctx: KernelContext, sigma, vrad, vaz, energy,
                            ("sin_row", ctx.sin_row, (naz,))):
         _check(name, t, shape, sigma)
     n_bodies = bodies.x.shape[0]
-    if not 1 <= n_bodies <= MAX_BODIES:
-        raise ValueError(f"sources: the kernel takes 1 to {MAX_BODIES} "
-                         f"bodies, got {n_bodies}")
+    if n_bodies < 1:
+        raise ValueError("sources: the kernel takes at least one body")
     modes = smoothing_modes(phys, n_bodies)
+    if h_smooth is not None and (not phys.is_adiabatic
+                                 or "cell" not in modes):
+        # the plane reaches only the "cell" smoothing, and a locally
+        # isothermal H is the static profile the kernel derives itself:
+        # without either the plane changes nothing, and is not read
+        h_smooth = None
+    if h_smooth is not None:
+        _check("h_smooth", h_smooth, (nr, naz), sigma)
     # the kernel reads the bodies' float64 tensors, dt in the field type and
     # the frame rate and indirect terms as the caller holds them, and casts
     # them where the plain version does: no launch to pack them
@@ -586,16 +608,18 @@ def sources(ctx: KernelContext, sigma, vrad, vaz, energy,
           _SMOOTH_MODE[modes[-1]], scalar_f64]
     _launch("sources", sigma, [sigma, energy, vaz, vrad, ctx.cols,
                                ctx.cos_row, ctx.sin_row, *scal, *per_body,
-                               vrad_out, vaz_out], fp, ip)
+                               vrad_out, vaz_out, h_smooth], fp, ip)
     return vrad_out, vaz_out
 
 
 def viscous_kick(ctx: KernelContext, sigma, vrad, vaz, energy, dt, time,
-                 compress: bool = True):
-    """Returns (vrad, vaz, energy, qplus, qminus)."""
+                 compress: bool = True, want_cs: bool = False):
+    """Returns (vrad, vaz, energy, qplus, qminus), with ``want_cs`` and the
+    in-kick sound speed (``viscous_kick_plain``), which the kernel then
+    writes in the same launch."""
     if sigma.device.type == "cpu":
         return viscous_kick_plain(ctx, sigma, vrad, vaz, energy, dt, time,
-                                  compress)
+                                  compress, want_cs)
     phys, constants, g = ctx.phys, ctx.constants, ctx.g
     nr, naz = g.nrad, g.naz
     if phys.is_adiabatic:
@@ -620,6 +644,7 @@ def viscous_kick(ctx: KernelContext, sigma, vrad, vaz, energy, dt, time,
     outs = [torch.empty_like(vrad), torch.empty_like(vaz),
             torch.empty_like(energy), torch.empty_like(sigma),
             torch.empty_like(sigma)]
+    cs_out = torch.empty_like(sigma) if want_cs else None
     gam = phys.adiabatic_index
     av = {ARTVISC_SN: 1, ARTVISC_TW: 2}.get(phys.artificial_viscosity, 0)
     fp = [gam, phys.viscous_alpha, phys.constant_viscosity,
@@ -633,11 +658,11 @@ def viscous_kick(ctx: KernelContext, sigma, vrad, vaz, energy, dt, time,
     ip = [nr, naz, int(phys.is_adiabatic), av,
           int(phys.artificial_viscosity_dissipation), int(compress),
           int(phys.heating_viscous), int(phys.cooling_beta_enabled),
-          int(beta_dev)]
+          int(beta_dev), int(want_cs)]
     _launch("viscous_kick", sigma,
-            [sigma, vrad, vaz, energy, ctx.cols, dt_dev, beta_ptr, *outs],
-            fp, ip)
-    return tuple(outs)
+            [sigma, vrad, vaz, energy, ctx.cols, dt_dev, beta_ptr, *outs,
+             cs_out], fp, ip)
+    return (*outs, cs_out) if want_cs else tuple(outs)
 
 
 def transport(ctx: KernelContext, sigma, vrad, vaz, energy, omega_frame, dt,
@@ -827,16 +852,19 @@ def artvisc_sn(ctx: KernelContext, sigma, vrad, vaz, energy, dt):
     return tuple(outs)
 
 
-IAS15_MAX_BODIES = 16   # the per-thread arrays of csrc/ias15.cu
+IAS15_LOCAL_BODIES = 16     # the per-thread arrays of csrc/ias15.cu
+IAS15_WORK_VALUES = 66      # float64 workspace values a body beyond them
 
 
 def ias15(x, y, vx, vy, m, G, dt, counts: torch.Tensor | None = None):
     """The bodies (float64 (N,) tensors) advanced under mutual gravity by
     exactly ``dt`` (a 0-d tensor of the run dtype, or a float) with the
-    adaptive IAS15 integrator, 2 <= N <= 16. On the GPU one launch runs the
+    adaptive IAS15 integrator, any N >= 2. On the GPU one launch runs the
     whole call, its substeps and corrector iterations, on the device, with
-    no host read; ``counts``, an int32 (2,) tensor on the device, receives
-    (accepted substeps, trial steps). Returns (x, y, vx, vy)."""
+    no host read: up to 16 bodies in the thread's own arrays, beyond in a
+    float64 workspace this wrapper allocates. ``counts``, an int32 (2,)
+    tensor on the device, receives (accepted substeps, trial steps).
+    Returns (x, y, vx, vy)."""
     if x.device.type == "cpu":
         got = []
         out = ias15_plain(x, y, vx, vy, m, G, dt, got)
@@ -844,9 +872,8 @@ def ias15(x, y, vx, vy, m, G, dt, counts: torch.Tensor | None = None):
             counts.copy_(torch.tensor(got[0], dtype=torch.int32))
         return out
     n = x.shape[0]
-    if not 2 <= n <= IAS15_MAX_BODIES:
-        raise ValueError(f"ias15: the kernel takes 2 to {IAS15_MAX_BODIES} "
-                         f"bodies, got {n}")
+    if n < 2:
+        raise ValueError(f"ias15: the kernel takes 2 or more bodies, got {n}")
     for name, t in (("x", x), ("y", y), ("vx", vx), ("vy", vy),
                     ("mass", m)):
         _check(name, t, (n,), x)
@@ -863,6 +890,8 @@ def ias15(x, y, vx, vy, m, G, dt, counts: torch.Tensor | None = None):
     if counts is None:
         counts = torch.empty(2, dtype=torch.int32, device=x.device)
     outs = [torch.empty_like(x) for _ in range(4)]
-    _launch("ias15", dt_dev, [x, y, vx, vy, m, dt_dev, *outs, counts],
+    work = torch.empty(IAS15_WORK_VALUES * n, dtype=torch.float64,
+                       device=x.device) if n > IAS15_LOCAL_BODIES else None
+    _launch("ias15", dt_dev, [x, y, vx, vy, m, dt_dev, *outs, counts, work],
             [G, ias15_ops.EPS_DEFAULT], [n, 1], min_nr=2)
     return tuple(outs)

@@ -1,12 +1,14 @@
 """Where a step's device time goes, on one CUDA GPU.
 
-    python -m fargocpt_torch.profile_step [--setup flagship|pds70_gas|pds70|planet_disk]
+    python -m fargocpt_torch.profile_step
+        [--setup flagship|pds70_gas|pds70|planet_disk|planet_torque]
         [--route whole|split|staged] [--nrad 1024 1000] [--naz 3072]
         [--steps 120]
 
 For each grid: the setup's Simulation in float32 (``flagship`` by
-default, the PDS70 gas setup, the whole PDS70 setup with its dust, or the
-planet in the disk of examples/quickstart.yml), on
+default, the PDS70 gas setup, the whole PDS70 setup with its dust, the
+planet in the disk of examples/quickstart.yml, or the reference's torque
+test on the leapfrog), on
 the grid's transport route or the one ``--route`` names, 20 warm-up steps,
 the wall time of ``--steps`` steps (host clock around synchronised work),
 then a ``torch.profiler`` window of 20 steps. Prints per grid the device
@@ -31,11 +33,11 @@ from contextlib import contextmanager
 
 import torch
 
-from .flagship import flagship, pds70, pds70_gas, planet_disk
+from .flagship import flagship, pds70, pds70_gas, planet_disk, planet_torque
 from .ops.kernels import ROUTES
 
 SETUPS = {"flagship": flagship, "pds70_gas": pds70_gas, "pds70": pds70,
-          "planet_disk": planet_disk}
+          "planet_disk": planet_disk, "planet_torque": planet_torque}
 
 # device kernel name fragment -> the op whose CUDA source launches it
 # (fargo_theta on the split route and theta_sweep on the staged route

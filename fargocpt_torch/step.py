@@ -1,5 +1,6 @@
-"""The Euler hydro step and the CFL time step (reference
-src/simulation.cpp:148-274 ``step_Euler``, src/cfl.cpp).
+"""The hydro step, Euler or leapfrog, and the CFL time step (reference
+src/simulation.cpp:148-274 ``step_Euler``, :276-483 ``step_LeapFrog``,
+src/cfl.cpp).
 
 The gas substeps take the decomposition the JAX package picks from the
 configuration (``fargocpt_tpu/step.py:244-304``, ``gates`` below, without
@@ -31,7 +32,22 @@ fields, after the N-body kick and before the frame rotation.
 Planets. The gas feels each body's ramped mass (``bodies_on_grid``), the
 bodies feel the disk (``DiskFeedback``) and the frame's indirect terms,
 and drift under their mutual gravity by IAS15 (the ``ias15`` kernel on the
-GPU, twice a step: the indirect term's predictor and the drift).
+GPU, twice an Euler step: the indirect term's predictor and the drift).
+A body with a temperature irradiates the disk (``HeatingStar``, the
+SubStep3 of the unfused substeps).
+
+The leapfrog (``Integrator: LeapFrog``) kicks the gas twice a step by half
+a step each, with the transport between the kicks, while the bodies drift
+by two halves around them (four ``ias15`` calls: two drifts, two
+predictors). What each kick reads is as stale as the reference leaves it:
+kick 1's N-body indirect term comes from the bodies before the first
+drift, its potential smoothing from the scale height of the step's start;
+kick 2's potential and feedback smoothing from the scale height of kick
+1's viscosity stage, ``h_kick1``, and each boundary call after a kick from
+that kick's viscosity grid. With the fused viscous kick those two come
+from the kernel's in-kick sound speed (``kernels.viscous_kick``
+``want_cs``), which the step asks for only where an adiabatic run reads
+them: a viscous v_rad boundary, viscous damping, the leapfrog.
 The ops dispatch on the tensors' device (``ops/kernels.py``): the plain
 PyTorch versions on the CPU, the CUDA kernels on a GPU.
 
@@ -90,7 +106,6 @@ def check_supported(phys: Physics, bodies: list[BodyConfig],
         "dust diffusion (ParticleDustDiffusion)":
             phys.integrate_particles and particle_params is not None
             and particle_params.diffusion,
-        "the leapfrog integrator": phys.hydro_integrator == LEAPFROG,
         "AspectRatioMode != 0": phys.aspectratio_mode != 0,
         "AlphaMode != 0": phys.alpha_mode != 0,
         "StabilizeViscosity": phys.stabilize_viscosity != 0,
@@ -194,10 +209,29 @@ class HydroStep(nn.Module):
             self.register_buffer(
                 f"ref_{name}", getattr(ref_values, name).to(device, dtype))
         needs_units = phys.variable_gamma or phys.cooling_surface_enabled \
-            or phys.radiative_diffusion or phys.integrate_particles
+            or phys.radiative_diffusion or phys.integrate_particles \
+            or phys.heating_star
         if needs_units and units is None:
-            raise ValueError("PVTE, surface cooling, FLD and the dust need "
-                             "the run's units")
+            raise ValueError("PVTE, surface cooling, FLD, irradiation and "
+                             "the dust need the run's units")
+        # the irradiating bodies, in the field type as the JAX package
+        # holds them (fargocpt_tpu/step.py:152-161)
+        self.body_irradiates = [b.irradiate for b in bodies]
+        for name, attr in (("body_radius", "radius"),
+                           ("body_temperature", "temperature"),
+                           ("body_irradiation_rampup", "irradiation_rampup")):
+            self.register_buffer(name, torch.tensor(
+                [getattr(b, attr) for b in bodies], dtype=dtype,
+                device=device))
+        # the in-kick viscosity grid and scale height that an adiabatic run
+        # reads after a fused viscous kick (the unfused substeps return
+        # them anyway; a locally isothermal grid is the current one)
+        self.in_kick = (self.gates["viscous_kick"] and phys.is_adiabatic
+                        and ("viscous" in (phys.bc_vrad_inner,
+                                           phys.bc_vrad_outer)
+                             or (phys.damping and phys.damping_vradial_inner
+                                 == "viscous")
+                             or phys.hydro_integrator == LEAPFROG))
         self.particle_params = particle_params or dust.ParticleParams()
         self.dust_grid = dust.DustGrid(geometry, dtype, device) \
             if phys.integrate_particles else None
@@ -396,14 +430,31 @@ class HydroStep(nn.Module):
                      omega_frame, dt,
                      sg_accel=sg_accel)
 
+    def irradiation_ctx(self, bodies: gravity.BodiesOnGrid):
+        """What SubStep3's stellar irradiation reads (the JAX package's
+        ``irradiation_ctx``, fargocpt_tpu/step.py:621-627); None without
+        an irradiating body."""
+        if not self.phys.heating_star:
+            return None
+        cell_x, cell_y = self.ops.cell_xy()
+        return energy_ops.IrradiationCtx(
+            bodies=bodies, radius=self.body_radius,
+            temperature=self.body_temperature,
+            irradiates=self.body_irradiates,
+            rampup=self.body_irradiation_rampup, cell_x=cell_x,
+            cell_y=cell_y)
+
     # ------------------------------------------------------------------
     def _substeps(self, sigma, vrad, vaz, energy, pot_it, time, dt,
-                  omega_frame, bodies, sg_kernel):
+                  omega_frame, bodies, sg_kernel, stale_h=None):
         """Self-gravity, sources, viscosity and energy (the 'kick';
-        fargocpt_tpu/step.py:662-829). Returns (vrad, vaz, energy, qplus,
-        qminus, sg_kernel, pv_last, nu), pv_last the PVTE grids of SubStep3
-        and nu the viscosity grid of the unfused viscous substep (None with
-        the fused viscous kick)."""
+        fargocpt_tpu/step.py:662-829). ``stale_h`` is the scale height the
+        N-body potential's smoothing takes in place of the current one
+        (the leapfrog's kicks); the pressure is the current fields'.
+        Returns (vrad, vaz, energy, qplus, qminus, sg_kernel, pv_last, h,
+        nu): pv_last the PVTE grids of SubStep3, h and nu the scale height
+        and viscosity grid of the viscous substep (None after the fused
+        viscous kick unless ``self.in_kick``)."""
         phys, constants, g, ops = self.phys, self.constants, self.g, self.ops
         fused = self.gates
         pv = self.pvte_vals(sigma, energy)
@@ -422,24 +473,32 @@ class HydroStep(nn.Module):
 
         if fused["sources"]:
             vrad, vaz = kernels.sources(ops, sigma, vrad, vaz, energy, bodies,
-                                        pot_it, omega_frame, dt)
+                                        pot_it, omega_frame, dt,
+                                        h_smooth=stale_h)
             if not fused["viscous_kick"]:
                 energy = src_ops.compression_heating(phys, g, energy, vrad,
                                                      vaz, dt)
         else:
             cell_x, cell_y = ops.cell_xy()
             pot = gravity.nbody_potential(phys, constants, g, bodies,
-                                          self.n_bodies, cell_x, cell_y, h,
+                                          self.n_bodies, cell_x, cell_y,
+                                          h if stale_h is None else stale_h,
                                           pot_it[0], pot_it[1])
             vrad, vaz, energy = src_ops.update_with_sourceterms(
                 phys, g, sigma, press, pot, vrad, vaz, energy,
                 omega_frame.to(sigma.dtype), dt, pvte_vals=pv)
 
         if fused["viscous_kick"]:
-            vrad, vaz, energy, qplus, qminus = kernels.viscous_kick(
-                ops, sigma, vrad, vaz, energy, dt, time,
-                compress=fused["sources"])
-            return vrad, vaz, energy, qplus, qminus, sg_kernel, None, None
+            out = kernels.viscous_kick(ops, sigma, vrad, vaz, energy, dt,
+                                       time, compress=fused["sources"],
+                                       want_cs=self.in_kick)
+            h_kick = nu_kick = None
+            if self.in_kick:
+                # h and nu of the in-kick cs, by the ops of the unfused
+                # path's ``derived`` and ``viscosity_grid``
+                h_kick = eos.scale_height(phys, constants, g, out[5])
+                nu_kick = self.viscosity_grid(out[5], h_kick)
+            return (*out[:5], sg_kernel, None, h_kick, nu_kick)
 
         if fused["artvisc_sn"]:
             vrad, vaz, energy = kernels.artvisc_sn(ops, sigma, vrad, vaz,
@@ -468,14 +527,100 @@ class HydroStep(nn.Module):
             energy, qplus, qminus = energy_ops.substep3(
                 phys, constants, g, sigma, energy, nu, trr, tpp, trp, divv, h,
                 time, dt, units=self.units, pvte_vals=pv3,
-                ref=(self.ref_sigma0, self.ref_energy0))
-        return vrad, vaz, energy, qplus, qminus, sg_kernel, pv3, nu
+                ref=(self.ref_sigma0, self.ref_energy0),
+                irradiation_ctx=self.irradiation_ctx(bodies))
+        return vrad, vaz, energy, qplus, qminus, sg_kernel, pv3, h, nu
+
+    def _gas_kick(self, sigma, vrad, vaz, energy, pot_it, time, dt,
+                  omega_frame, bodies, sg_kernel, sor, stale_h=None):
+        """The substeps, then FLD radiative diffusion on the stale PVTE
+        grids of SubStep3 (reference fld.cpp:996-1000 reads pvte::get_*
+        with no refresh; fargocpt_tpu/step.py:911-934). Returns (vrad,
+        vaz, energy, qplus, qminus, sg_kernel, sor, h, nu), h and nu as
+        ``_substeps`` gives them."""
+        phys, constants, g = self.phys, self.constants, self.g
+        (vrad, vaz, energy, qplus, qminus, sg_kernel, pv_last, h_kick,
+         nu_kick) = self._substeps(sigma, vrad, vaz, energy, pot_it, time,
+                                   dt, omega_frame, bodies, sg_kernel,
+                                   stale_h)
+        if self.fld is not None:
+            _, _, h_now = self.derived(sigma, energy, pv_last)
+            energy, _, sor = self.fld.radiative_diffusion(
+                g, sigma, energy, h_now, dt, sor_state=sor)
+            energy = eos.energy_floor_ceiling(phys, constants, sigma, energy,
+                                              pv_last)
+        return (vrad, vaz, energy, qplus, qminus, sg_kernel, sor, h_kick,
+                nu_kick)
+
+    def _feedback_on(self) -> bool:
+        """Whether the disk's force on the bodies is evaluated. On a lone
+        star the disk's kick and the disk indirect term cancel and the
+        frame is re-centred on it each step, so its force is evaluated only
+        where the gas potential takes the disk indirect term
+        (IndirectTermDiskOnDisk, on with self-gravity)."""
+        phys = self.phys
+        return phys.disk_feedback and phys.calculate_disk and (
+            self.n_bodies > 1 or phys.indirect_term_disk_on_disk)
+
+    def _disk_feedback(self, sigma, h, bodies):
+        """The disk's acceleration of each body and the disk indirect term
+        (reference src/Force.cpp:23-122, src/frame_of_reference.cpp:69-93):
+        (dax, day, (it_x, it_y)); (None, None, zeros) where
+        ``_feedback_on`` is false."""
+        zero = torch.zeros((), dtype=torch.float64, device=sigma.device)
+        if not self._feedback_on():
+            return None, None, (zero, zero)
+        cell_x, cell_y = self.ops.cell_xy()
+        dax, day = gravity.disk_on_body_accel(
+            self.phys, self.constants, self.g, bodies, self.n_bodies, cell_x,
+            cell_y, h, sigma)
+        return dax, day, gravity.indirect_term_disk(bodies, self.n_hydroframe,
+                                                    dax, day)
+
+    def _indirect_nbody(self, nb: NBodyState, bodies, dt):
+        """The N-body indirect term (reference src/simulation.cpp:160-166):
+        mode 0 integrates ``nb`` ahead by ``dt`` with IAS15, mode 1 the
+        Euler sum over ``bodies``."""
+        if self.phys.indirect_term_mode == 0:
+            return gravity.indirect_term_nbody_predictor(
+                self.constants, nb, self.n_hydroframe, self.n_bodies, dt)
+        return gravity.indirect_term_nbody(self.constants, bodies,
+                                           self.n_hydroframe, self.n_bodies)
+
+    def _pot_indirect(self, it_disk, it_nb):
+        """The indirect term of the gas potential (reference :168-176)."""
+        if self.phys.indirect_term_disk_on_disk:
+            return it_disk[0] + it_nb[0], it_disk[1] + it_nb[1]
+        return it_nb
+
+    def _mass_deltas(self, state: SystemState, mass_flux, dmp,
+                     floor_created=None):
+        """The step's boundary, damping and (Euler) floor mass bookkeeping
+        added to the run's (reference src/TransportEuler.cpp:575-608 +
+        src/types.h:30-60)."""
+        g = self.g
+        f_in, f_out = mass_flux[1], mass_flux[g.nrad - 1]
+        like = mass_flux
+        inc = [torch.zeros((), dtype=like.dtype, device=like.device)] \
+            * N_MASS_DELTA
+        inc[MD_INNER_IN] = torch.sum(torch.clamp(f_in, min=0.0))
+        inc[MD_INNER_OUT] = torch.sum(torch.clamp(-f_in, min=0.0))
+        inc[MD_OUTER_IN] = torch.sum(torch.clamp(-f_out, min=0.0))
+        inc[MD_OUTER_OUT] = torch.sum(torch.clamp(f_out, min=0.0))
+        inc[MD_DAMP_IN_CREATE:MD_DAMP_IN_CREATE + 4] = list(dmp)
+        if floor_created is not None:
+            inc[MD_FLOOR_CREATE] = floor_created
+        return state.monitor_acc.replace(
+            mass_delta=state.monitor_acc.mass_delta + torch.stack(inc))
 
     def step(self, state: SystemState, time, dt) -> SystemState:
-        """One Euler step. The PVTE chain starts at ``state.pvte_guess``
-        and its last link is carried to the next step."""
+        """One hydro step by the configured integrator. The PVTE chain
+        starts at ``state.pvte_guess`` and its last link is carried to the
+        next step."""
+        impl = self._step_leapfrog \
+            if self.phys.hydro_integrator == LEAPFROG else self._step_euler
         with self._pvte_scope(state.pvte_guess):
-            new_state = self._step_euler(state, time, dt)
+            new_state = impl(state, time, dt)
             if state.pvte_guess is not None and self._pv_chain is not None:
                 new_state = new_state.replace(pvte_guess=self._pv_chain)
         return new_state
@@ -492,34 +637,16 @@ class HydroStep(nn.Module):
         omega_frame = state.omega_frame
         bodies = self.bodies_on_grid(nb, time)
 
-        # disk feedback on the bodies (reference :154-158). On a lone star
-        # the disk's kick and the disk indirect term cancel exactly and the
-        # frame is re-centred on it each step, so its force is evaluated
-        # only where the gas potential takes the disk indirect term
-        # (IndirectTermDiskOnDisk, on with self-gravity).
-        it_dx = it_dy = torch.zeros((), dtype=torch.float64,
-                                    device=sigma.device)
-        if phys.disk_feedback and phys.calculate_disk and (
-                self.n_bodies > 1 or phys.indirect_term_disk_on_disk):
-            _, _, h0 = self.derived(sigma, energy)
-            cell_x, cell_y = self.ops.cell_xy()
-            dax, day = gravity.disk_on_body_accel(
-                phys, constants, g, bodies, self.n_bodies, cell_x, cell_y,
-                h0, sigma)
+        # disk feedback on the bodies (reference :154-158), then the N-body
+        # indirect term of the kicked bodies (:160-166)
+        h0 = self.derived(sigma, energy)[2] if self._feedback_on() else None
+        dax, day, it_disk = self._disk_feedback(sigma, h0, bodies)
+        if dax is not None:
             nb = nbody_sys.kick(nb, dax, day, dt)
-            it_dx, it_dy = gravity.indirect_term_disk(
-                bodies, self.n_hydroframe, dax, day)
-        # the N-body indirect term (reference :160-166): mode 0 integrates
-        # the bodies ahead with IAS15, mode 1 the Euler sum
-        if phys.indirect_term_mode == 0:
-            it_nb = gravity.indirect_term_nbody_predictor(
-                constants, nb, self.n_hydroframe, self.n_bodies, dt)
-        else:
-            it_nb = gravity.indirect_term_nbody(
-                constants, bodies, self.n_hydroframe, self.n_bodies)
-        it_x, it_y = it_dx + it_nb[0], it_dy + it_nb[1]
-        nb = nbody_sys.kick(nb, it_x, it_y, dt)
-        pot_it = (it_x, it_y) if phys.indirect_term_disk_on_disk else it_nb
+        it_nb = self._indirect_nbody(nb, bodies, dt)
+        nb = nbody_sys.kick(nb, it_disk[0] + it_nb[0], it_disk[1] + it_nb[1],
+                            dt)
+        pot_it = self._pot_indirect(it_disk, it_nb)
 
         # dust particles (reference :178-182 particles::integrate), which
         # then rotate with the frame (reference particles::rotate)
@@ -534,20 +661,11 @@ class HydroStep(nn.Module):
         nb = nbody_sys.rotate(nb, omega_frame * dt)
         frame_angle = state.frame_angle + omega_frame * dt
 
-        # --- gas substeps ---
-        (vrad, vaz, energy, qplus, qminus, sg_kernel, pv_last,
-         nu_step) = self._substeps(sigma, vrad, vaz, energy, pot_it, time,
-                                   dt, omega_frame, bodies, state.sg_kernel)
-
-        # FLD radiative diffusion on the stale PVTE grids of SubStep3
-        # (reference fld.cpp:996-1000 reads pvte::get_* with no refresh)
-        sor = state.fld_sor
-        if self.fld is not None:
-            _, _, h_now = self.derived(sigma, energy, pv_last)
-            energy, _, sor = self.fld.radiative_diffusion(
-                g, sigma, energy, h_now, dt, sor_state=sor)
-            energy = eos.energy_floor_ceiling(phys, constants, sigma, energy,
-                                              pv_last)
+        # --- gas substeps and FLD ---
+        (vrad, vaz, energy, qplus, qminus, sg_kernel, sor, _,
+         nu_step) = self._gas_kick(sigma, vrad, vaz, energy, pot_it, time,
+                                   dt, omega_frame, bodies, state.sg_kernel,
+                                   state.fld_sor)
 
         # the viscous BC reads the in-kick viscosity grid (reference
         # data[VISCOSITY] from recalculate_viscosity, :196)
@@ -572,25 +690,125 @@ class HydroStep(nn.Module):
             sigma, vrad, vaz, energy, omega_frame, nu=nu_step, final=True,
             dt=dt)
 
-        # boundary / damping / floor mass bookkeeping (reference
-        # src/TransportEuler.cpp:575-608 + src/types.h:30-60)
-        f_in, f_out = mass_flux[1], mass_flux[g.nrad - 1]
-        inc = [torch.zeros((), dtype=sigma.dtype, device=sigma.device)] \
-            * N_MASS_DELTA
-        inc[MD_INNER_IN] = torch.sum(torch.clamp(f_in, min=0.0))
-        inc[MD_INNER_OUT] = torch.sum(torch.clamp(-f_in, min=0.0))
-        inc[MD_OUTER_IN] = torch.sum(torch.clamp(-f_out, min=0.0))
-        inc[MD_OUTER_OUT] = torch.sum(torch.clamp(f_out, min=0.0))
-        inc[MD_DAMP_IN_CREATE:MD_DAMP_IN_CREATE + 4] = list(dmp)
-        inc[MD_FLOOR_CREATE] = floor_created
-        monitor_acc = state.monitor_acc.replace(
-            mass_delta=state.monitor_acc.mass_delta + torch.stack(inc))
+        return state.replace(
+            fields=FieldState(sigma=sigma, vrad=vrad, vaz=vaz, energy=energy),
+            qplus=qplus, qminus=qminus, nbody=nb, frame_angle=frame_angle,
+            monitor_acc=self._mass_deltas(state, mass_flux, dmp,
+                                          floor_created),
+            fld_sor=sor, sg_kernel=sg_kernel, particles=particles)
+
+    def _step_leapfrog(self, state: SystemState, time, dt) -> SystemState:
+        """One leapfrog step: the gas kick-drift-kick, the bodies
+        drift-kick-drift (reference src/simulation.cpp:276-483
+        ``step_LeapFrog``, fargocpt_tpu/step.py:936-1135, without its
+        accretion and corotating frame, which are not ported). ``dt`` and
+        ``time`` may be 0-d device tensors."""
+        phys, constants = self.phys, self.constants
+        f = state.fields
+        sigma, vrad, vaz, energy = f.sigma, f.vrad, f.vaz, f.energy
+        dt = torch.as_tensor(dt, dtype=self.dtype, device=sigma.device)
+        nb = state.nbody
+        omega_frame = state.omega_frame
+        hdt = 0.5 * dt
+        mid_time = time + hdt
+
+        # N-body drift 1/2; kick 1's N-body indirect term looks ahead from
+        # the bodies before the drift (reference :287-291)
+        nb_pre_drift = nb
+        nb = nbody_sys.integrate(nb, constants.G, hdt,
+                                 method=phys.nbody_integrator)
+        nb = nbody_sys.move_to_hydro_frame_center(nb, self.n_hydroframe)
+
+        # the scale height as the reference left it at the end of the last
+        # step (:456): this step's starting fields. Kick 1's potential and
+        # the feedback smoothing take it; a locally isothermal H is the
+        # static profile, which the kick derives itself
+        h0 = self.derived(sigma, energy)[2] \
+            if self._feedback_on() or phys.is_adiabatic else None
+        # the disk force and indirect terms, then the kicks (:295-308)
+        dax, day, it_disk = self._disk_feedback(
+            sigma, h0, self.bodies_on_grid(nb, time))
+        it_nb = self._indirect_nbody(
+            nb_pre_drift, self.bodies_on_grid(nb_pre_drift, time), hdt)
+        if dax is not None:
+            nb = nbody_sys.kick(nb, dax, day, hdt)
+        nb = nbody_sys.kick(nb, it_disk[0] + it_nb[0], it_disk[1] + it_nb[1],
+                            hdt)
+        pot_it = self._pot_indirect(it_disk, it_nb)
+
+        # the frame rotates by half a step (:289)
+        nb = nbody_sys.rotate(nb, omega_frame * hdt)
+        frame_angle = state.frame_angle + omega_frame * hdt
+
+        # the dust, integrated in two halves against the gas of each half
+        particles = state.particles
+        if phys.integrate_particles and particles is not None:
+            particles = self._integrate_particles(
+                sigma, vrad, vaz, energy, nb, particles, omega_frame, hdt,
+                time)
+
+        # gas kick 1/2, smoothed with h0 (:319)
+        (vrad, vaz, energy, _, _, sg_kernel, sor, h_kick1,
+         nu_kick1) = self._gas_kick(sigma, vrad, vaz, energy, pot_it, time,
+                                    hdt, omega_frame,
+                                    self.bodies_on_grid(nb, time),
+                                    state.sg_kernel, state.fld_sor,
+                                    stale_h=h0)
+        sigma, vrad, vaz, energy, _ = self._apply_bcs(
+            sigma, vrad, vaz, energy, omega_frame, nu=nu_kick1)
+        # gas drift 1/1
+        sigma, vrad, vaz, energy, mass_flux = kernels.transport(
+            self.ops, sigma, vrad, vaz, energy, omega_frame, dt)
+        sigma = eos.apply_sigma_floor(phys, sigma)
+        if phys.is_adiabatic:
+            energy = eos.energy_floor_ceiling(phys, constants, sigma, energy)
+
+        # gas kick 2/2 with the bodies at x_{i+1/2}: its disk force and
+        # indirect terms come first and reach the bodies after it; the
+        # feedback and the potential smooth with kick 1's in-kick scale
+        # height (the reference's SCALE_HEIGHT, last written by kick 1's
+        # recalculate_viscosity at :328, read at :353 and :363)
+        h_stale = h0 if h_kick1 is None else h_kick1
+        bodies_mid = self.bodies_on_grid(nb, mid_time)
+        dax, day, it_disk = self._disk_feedback(sigma, h_stale, bodies_mid)
+        it_nb = self._indirect_nbody(nb, bodies_mid, hdt)
+        (vrad, vaz, energy, qplus, qminus, sg_kernel, sor, _,
+         nu_kick2) = self._gas_kick(sigma, vrad, vaz, energy,
+                                    self._pot_indirect(it_disk, it_nb),
+                                    mid_time, hdt, omega_frame, bodies_mid,
+                                    sg_kernel, sor, stale_h=h_kick1)
+
+        if phys.integrate_particles and particles is not None:
+            particles = self._integrate_particles(
+                sigma, vrad, vaz, energy, nb, particles, omega_frame, hdt,
+                mid_time)
+
+        # the stored disk and indirect kicks, then N-body drift 2/2
+        # (:403-417) and the second half of the frame's rotation
+        if dax is not None:
+            nb = nbody_sys.kick(nb, dax, day, hdt)
+        nb = nbody_sys.kick(nb, it_disk[0] + it_nb[0], it_disk[1] + it_nb[1],
+                            hdt)
+        nb = nbody_sys.integrate(nb, constants.G, hdt,
+                                 method=phys.nbody_integrator)
+        nb = nbody_sys.move_to_hydro_frame_center(nb, self.n_hydroframe)
+        nb = nbody_sys.rotate(nb, omega_frame * hdt)
+        frame_angle = frame_angle + omega_frame * hdt
+        if phys.integrate_particles and particles is not None:
+            particles = particles.replace(phi=torch.remainder(
+                particles.phi - omega_frame * dt, 2.0 * math.pi))
+
+        # the final boundary conditions, the damping zones first; the
+        # leapfrog books no floor mass (fargocpt_tpu/step.py:1099-1112)
+        sigma, vrad, vaz, energy, dmp = self._apply_bcs(
+            sigma, vrad, vaz, energy, omega_frame, nu=nu_kick2, final=True,
+            dt=dt)
 
         return state.replace(
             fields=FieldState(sigma=sigma, vrad=vrad, vaz=vaz, energy=energy),
             qplus=qplus, qminus=qminus, nbody=nb, frame_angle=frame_angle,
-            monitor_acc=monitor_acc, fld_sor=sor, sg_kernel=sg_kernel,
-            particles=particles)
+            monitor_acc=self._mass_deltas(state, mass_flux, dmp),
+            fld_sor=sor, sg_kernel=sg_kernel, particles=particles)
 
     def cfl_dt(self, state: SystemState) -> torch.Tensor:
         """CFL time step as a 0-d tensor (reference src/cfl.cpp:185-382);
@@ -674,7 +892,9 @@ class HydroStep(nn.Module):
             _, qplus, qminus = energy_ops.substep3(
                 phys, constants, g, sigma, energy, nu, trr, tpp, trp, divv,
                 h, 0.0, 0.0, units=self.units,
-                ref=(self.ref_sigma0, self.ref_energy0))
+                ref=(self.ref_sigma0, self.ref_energy0),
+                irradiation_ctx=self.irradiation_ctx(
+                    self.bodies_on_grid(nbody, 0.0)))
         k = min(phys.corotation_reference_body, self.n_bodies - 1)
         scalar = lambda v: torch.tensor(v, dtype=self.dtype,  # noqa: E731
                                         device=sigma.device)

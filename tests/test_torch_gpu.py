@@ -17,8 +17,12 @@ in both dtypes, cfl with planted NaN and zero-energy cells, each launching
 its one kernel and nothing else; radial_momenta_sweep (both EoS) and
 radial_sweep (K = 1, 2, 5, 6) at shapes that cross every edge of the
 radial column march's strips and blocks (RADIAL_SHAPES), both limiters,
-both dtypes; a split-route and a staged-route
-Simulation step through their kernels, a PDS70 gas step through artvisc_sn
+both dtypes; the sources with a smoothing plane
+and with 513 bodies, the viscous kick with its in-kick sound speed,
+ias15 with 17 and 40 bodies (a device workspace) bit for bit; a
+split-route and a staged-route Simulation step through their kernels,
+a leapfrog planet_torque step (sources and viscous_kick twice, ias15
+four times), a PDS70 gas step through artvisc_sn
 and the whole transport, and the whole PDS70 setup with its dust swarm on
 the device against the same run on the CPU; the output written from card
 tensors against the CPU writer's bytes, and a restart on the card bit for
@@ -1062,9 +1066,47 @@ def test_ias15_kernel_refuses_what_it_cannot_take(cuda):
     (x, y, vx, vy, m), _ = _ias15_bodies("four", cuda)
     with pytest.raises(TypeError, match="float64"):
         kernels.ias15(*(t.float() for t in (x, y, vx, vy, m)), 1.0, 0.1)
-    big = [t.repeat(5) for t in (x, y, vx, vy, m)]
-    with pytest.raises(ValueError, match="16 bodies"):
-        kernels.ias15(*big, 1.0, 0.1)
+    lone = [t[:1] for t in (x, y, vx, vy, m)]
+    with pytest.raises(ValueError, match="2 or more bodies"):
+        kernels.ias15(*lone, 1.0, 0.1)
+
+
+def many_bodies(n, device):
+    """A star and n - 1 small planets on near-circular orbits between r =
+    0.6 and 2.4, from a seed: (x, y, vx, vy, m) float64 and the innermost
+    period."""
+    rng = np.random.default_rng(n)
+    a = np.linspace(0.6, 2.4, n - 1)
+    phi = rng.random(n - 1) * 2 * np.pi
+    vk = np.sqrt(1.0 / a) * (1.0 + 0.02 * rng.random(n - 1))
+    arrs = (np.concatenate([[0.0], a * np.cos(phi)]),
+            np.concatenate([[0.0], a * np.sin(phi)]),
+            np.concatenate([[0.0], -vk * np.sin(phi)]),
+            np.concatenate([[0.0], vk * np.cos(phi)]),
+            np.concatenate([[1.0], 1e-4 * (1.0 + rng.random(n - 1))]))
+    return [torch.tensor(v, dtype=torch.float64, device=device)
+            for v in arrs], 2 * np.pi * 0.6 ** 1.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [17, 40])
+def test_ias15_kernel_takes_more_than_16_bodies(cuda, n):
+    """Beyond the 16 bodies of the thread's own arrays the kernel works in
+    a device workspace: bit for bit with the plain version on the same
+    tensors, the same (accepted, trial) counts, one launch a call."""
+    (x, y, vx, vy, m), period = many_bodies(n, cuda)
+    k_state = p_state = (x, y, vx, vy)
+    for _ in range(3):
+        dt = torch.tensor(period / 20, dtype=torch.float64, device=cuda)
+        counts = torch.zeros(2, dtype=torch.int32, device=cuda)
+        before = kernels.LAUNCHES["ias15"]
+        k_state = kernels.ias15(*k_state, m, 1.0, dt, counts=counts)
+        assert kernels.LAUNCHES["ias15"] == before + 1
+        plain_counts = []
+        p_state = kernels.ias15_plain(*p_state, m, 1.0, dt, plain_counts)
+        assert tuple(counts.tolist()) == plain_counts[0]
+        for a, b in zip(k_state, p_state):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -1100,3 +1142,140 @@ def test_planet_disk_step_launches_and_matches_the_cpu(cuda, dtype):
         torch.testing.assert_close(getattr(gpu.state.nbody, name).cpu(),
                                    getattr(cpu.state.nbody, name),
                                    rtol=0, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the leapfrog's kernel interfaces: the smoothing plane, the in-kick sound
+# speed, any number of bodies
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nr,naz", [(17, 65), (33, 130), (130, 200)])
+def test_sources_kernel_with_a_smoothing_plane(cuda, nr, naz, dtype):
+    """``h_smooth``: the "cell" smoothing takes eps times the plane's H;
+    the kernel against the plain version given the same plane."""
+    ctx = _ctx(dict(eos="adiabatic", adiabatic_index=1.4,
+                    thickness_smoothing=0.6, aspectratio_ref=0.05,
+                    flaring_index=0.25), cuda, nr, naz, dtype)
+    f = _fields(5, cuda, nr, naz, dtype)
+    rng = np.random.default_rng(9)
+    h_smooth = torch.tensor(rng.random((nr, naz)) * 0.05 + 0.03,
+                            dtype=dtype, device=cuda)
+    args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], _planets(3, cuda),
+            (_one(1e-3, cuda), _one(-2e-3, cuda)), _one(0.4, cuda),
+            torch.tensor(0.003, dtype=dtype, device=cuda))
+    got = kernels.sources(ctx, *args, h_smooth=h_smooth)
+    ref = kernels.sources_plain(ctx, *args, h_smooth=h_smooth)
+    v = float(f["vaz"].abs().max())
+    _close_by_dtype(got, ref, dtype, 1e-11, (1e-13, 1e-13), [v, v])
+    without = kernels.sources_plain(ctx, *args)
+    assert not torch.equal(ref[1], without[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sources_kernel_takes_more_bodies_than_a_chunk(cuda, dtype):
+    """513 bodies: two chunks of the per-body table through shared memory;
+    each cell's sum over the bodies stays in index order."""
+    ctx = _ctx(dict(eos="adiabatic", adiabatic_index=1.4,
+                    thickness_smoothing=0.6, aspectratio_ref=0.05,
+                    flaring_index=0.25), cuda, 33, 130, dtype)
+    f = _fields(5, cuda, 33, 130, dtype)
+    (x, y, _, _, m), _ = many_bodies(513, cuda)
+    bodies = gravity.BodiesOnGrid(
+        x=x, y=y, mass=m,
+        cubic_smoothing_radius=torch.full_like(m, 0.05) * (m < 1.0))
+    args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], bodies,
+            (_one(1e-3, cuda), _one(-2e-3, cuda)), _one(0.4, cuda),
+            torch.tensor(0.003, dtype=dtype, device=cuda))
+    before = kernels.LAUNCHES["sources"]
+    got = kernels.sources(ctx, *args)
+    assert kernels.LAUNCHES["sources"] == before + 1
+    ref = kernels.sources_plain(ctx, *args)
+    v = float(f["vaz"].abs().max())
+    _close_by_dtype(got, ref, dtype, 1e-11, (1e-13, 1e-13), [v, v])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nr,naz", [(4, 3), (17, 65), (33, 130), (130, 200)])
+@pytest.mark.parametrize("artvisc_on", ["sn", "tw"])
+def test_viscous_kick_kernel_with_the_in_kick_sound_speed(cuda, artvisc_on,
+                                                          nr, naz, dtype):
+    """``want_cs``: one launch writes the five outputs and the sound speed
+    of the viscosity stage, each against the plain version."""
+    ctx = _ctx(dict(VK_PHYS, eos="adiabatic", artificial_viscosity=artvisc_on),
+               cuda, nr, naz, dtype)
+    f = _fields(11, cuda, nr, naz, dtype, floor_cells=naz >= 7)
+    args = (f["sigma"], f["vrad"], f["vaz"], f["energy"],
+            torch.tensor(0.003, dtype=dtype, device=cuda), 0.0)
+    before = kernels.LAUNCHES["viscous_kick"]
+    got = kernels.viscous_kick(ctx, *args, want_cs=True)
+    assert kernels.LAUNCHES["viscous_kick"] == before + 1
+    ref = kernels.viscous_kick_plain(ctx, *args, want_cs=True)
+    assert len(got) == len(ref) == 6
+    scales = _vk_scales(f, ref[:5]) + [float(ref[5].abs().max())]
+    _close_by_dtype(got, ref, dtype, 1e-10,
+                    (1e-13, 1e-13, 1e-16, 1e-18, 1e-18, 1e-16), scales)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_planet_torque_leapfrog_step_launches_and_matches_the_cpu(cuda,
+                                                                  dtype):
+    """The leapfrog at 128x256 (flagship.planet_torque): each step launches
+    cfl and the transport once, sources and viscous_kick twice (the two
+    kicks), ias15 four times (two half drifts, two predictors); ten steps
+    agree with the CPU's plain versions (rtol 1e-9 in float64, 1e-4 of
+    each field's scale in float32), the bodies too."""
+    from fargocpt_torch.flagship import planet_torque
+    gpu = Simulation(planet_torque(128, 256), dtype=dtype, device=cuda)
+    cpu = Simulation(planet_torque(128, 256), dtype=dtype, device="cpu")
+    gpu.step_once(gpu.calculate_time_step())
+    cpu.step_once(cpu.calculate_time_step())
+    before = dict(kernels.LAUNCHES)
+    for _ in range(9):
+        dt = gpu.calculate_time_step()
+        gpu.step_once(dt)
+        cpu.step_once(dt.cpu())
+    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {
+        "cfl": 9, "sources": 18, "viscous_kick": 18, "transport": 9,
+        "ias15": 36}
+    tol = 1e-9 if dtype == "float64" else 1e-4
+    for name in ("sigma", "vrad", "vaz"):
+        a = getattr(gpu.fields, name).cpu()
+        b = getattr(cpu.fields, name)
+        scale = float(b.abs().max()) if name != "vrad" else \
+            float(cpu.fields.vaz.abs().max())
+        assert float((a - b).abs().max()) <= tol * scale, name
+    for name in ("x", "y", "vx", "vy"):
+        torch.testing.assert_close(getattr(gpu.state.nbody, name).cpu(),
+                                   getattr(cpu.state.nbody, name),
+                                   rtol=0, atol=1e-12)
+
+
+@pytest.mark.gpu
+def test_adiabatic_leapfrog_step_matches_the_cpu(cuda):
+    """The quickstart disk adiabatic with the leapfrog and a viscous inner
+    boundary at 64x128 float64: the in-kick sound speed of the fused kick
+    feeds kick 2's smoothing plane and the boundaries; ten steps agree with
+    the CPU's plain versions at rtol 1e-9."""
+    from fargocpt_torch.flagship import PLANET_DISK
+    cfg = dict(PLANET_DISK, Nrad="64", Naz="128", Integrator="LeapFrog",
+               EquationOfState="Ideal", InnerBoundary="viscous")
+    cfg["nbody"] = [dict(b) for b in PLANET_DISK["nbody"]]
+    gpu = Simulation(Config.from_dict(dict(cfg)), device=cuda)
+    cpu = Simulation(Config.from_dict(dict(cfg)), device="cpu")
+    assert gpu.stepper.in_kick
+    for _ in range(10):
+        dt = gpu.calculate_time_step()
+        gpu.step_once(dt)
+        cpu.step_once(dt.cpu())
+    for name in ("sigma", "vrad", "vaz", "energy"):
+        a = getattr(gpu.fields, name).cpu()
+        b = getattr(cpu.fields, name)
+        scale = float(b.abs().max()) if name != "vrad" else \
+            float(cpu.fields.vaz.abs().max())
+        assert float((a - b).abs().max()) <= 1e-9 * scale, name

@@ -11,11 +11,13 @@ float64 with the plain PyTorch versions, bit for bit.
   tiles with their ghost rings, the tiles on either side of the column
   seam, ragged last tiles and a ring shorter than the halo. With one halo
   cell less on any side it does not (with SN or TW artificial viscosity;
-  without, the chain is one stencil shorter).
+  without, the chain is one stencil shorter). The in-kick sound speed,
+  the optional sixth output, is one of the tile's too.
 - The sources: a block evaluates (sigma, pressure, potential) on its tile,
   one row below and one column before, and reads vaz one row below and one
-  column after. The plain version fed only that gives the whole grid's
-  kicks on the tile; without the halo it does not.
+  column after; a smoothing plane ``h_smooth`` where it is given on the
+  same cells as sigma. The plain version fed only that gives the whole
+  grid's kicks on the tile; without the halo it does not.
 
 The kernels themselves are held to the plain versions on the GPU by
 tests/test_torch_gpu.py and chip_smoke.py.
@@ -102,9 +104,10 @@ def _vk_window(tile, below=2, above=2, before=2, after=2):
     return {name: box for name in ("sigma", "vrad", "vaz", "energy")}
 
 
-def _vk(ctx, f, compress=True):
+def _vk(ctx, f, compress=True, want_cs=False):
     return K.viscous_kick_plain(ctx, f["sigma"], f["vrad"], f["vaz"],
-                                f["energy"], T(0.003), T(0.7), compress)
+                                f["energy"], T(0.003), T(0.7), compress,
+                                want_cs)
 
 
 @pytest.mark.parametrize("nr,naz,th,tw", [(20, 24, 8, 8), (13, 10, 4, 6),
@@ -121,6 +124,27 @@ def test_viscous_kick_window_equals_whole_grid(artvisc, eos_name, nr, naz,
     for tile in _tiles(nr, naz, th, tw):
         got = _vk(ctx, _outside_replaced(f, other, _vk_window(tile)))
         for name, a, b in zip(VK_OUT, got, whole):
+            assert torch.equal(_on_tile(a, tile), _on_tile(b, tile)), \
+                (name, tile)
+
+
+@pytest.mark.parametrize("nr,naz,th,tw", [(20, 24, 8, 8), (13, 10, 4, 6),
+                                          (9, 3, 4, 4)])
+@pytest.mark.parametrize("artvisc", ["sn", "tw", "none"])
+def test_viscous_kick_window_with_the_in_kick_sound_speed(artvisc, nr, naz,
+                                                          th, tw):
+    """With ``want_cs`` the sixth output, the in-kick sound speed, is a
+    value of the tile too, and the other five are unchanged."""
+    ctx = _ctx(nr, naz, artificial_viscosity=artvisc)
+    f, other = _fields(1, nr, naz), _fields(2, nr, naz)
+    whole = _vk(ctx, f, want_cs=True)
+    assert len(whole) == 6
+    for a, b in zip(whole[:5], _vk(ctx, f)):
+        assert torch.equal(a, b)
+    for tile in _tiles(nr, naz, th, tw):
+        got = _vk(ctx, _outside_replaced(f, other, _vk_window(tile)),
+                  want_cs=True)
+        for name, a, b in zip(VK_OUT + ("cs",), got, whole):
             assert torch.equal(_on_tile(a, tile), _on_tile(b, tile)), \
                 (name, tile)
 
@@ -188,16 +212,18 @@ def _bodies():
 
 def _src(ctx, f):
     return K.sources_plain(ctx, f["sigma"], f["vrad"], f["vaz"], f["energy"],
-                           _bodies(), (T(1e-3), T(-2e-3)), T(0.4), T(0.003))
+                           _bodies(), (T(1e-3), T(-2e-3)), T(0.4), T(0.003),
+                           f.get("h_smooth"))
 
 
 def _src_window(tile, halo=1):
-    """What the sources block of ``tile`` reads: sigma and energy on the
-    tile, a row below and a column before; vaz a row below and a column
-    after; vrad on the tile alone."""
+    """What the sources block of ``tile`` reads: sigma, energy and the
+    smoothing plane on the tile, a row below and a column before; vaz a row
+    below and a column after; vrad on the tile alone."""
     i0, i1, j0, j1 = tile
     return {"sigma": (i0 - halo, i1, j0 - halo, j1),
             "energy": (i0 - halo, i1, j0 - halo, j1),
+            "h_smooth": (i0 - halo, i1, j0 - halo, j1),
             "vaz": (i0 - halo, i1, j0, j1 + halo),
             "vrad": (i0, i1, j0, j1)}
 
@@ -219,6 +245,26 @@ def test_sources_window_equals_whole_grid(eos_name, planetloc, nr, naz, th,
     d = torch.sqrt((cell_x - 1.0) ** 2 + (cell_y - 0.3) ** 2)
     if (nr, naz) == (20, 24):
         assert bool((d < 0.3).any()), "no cell inside a cubic radius"
+    for tile in _tiles(nr, naz, th, tw):
+        got = _src(ctx, _outside_replaced(f, other, _src_window(tile)))
+        for name, a, b in zip(("vrad", "vaz"), got, whole):
+            assert torch.equal(_on_tile(a, tile), _on_tile(b, tile)), \
+                (name, tile)
+
+
+@pytest.mark.parametrize("nr,naz,th,tw", [(20, 24, 8, 8), (13, 10, 4, 6),
+                                          (9, 1, 4, 4)])
+def test_sources_window_with_a_smoothing_plane(nr, naz, th, tw):
+    """A smoothing plane ``h_smooth`` (the leapfrog's stale scale height)
+    is read on the cells of sigma; it changes the kicks."""
+    ctx = _ctx(nr, naz)
+    rng = np.random.default_rng(7)
+    f, other = _fields(5, nr, naz), _fields(6, nr, naz)
+    f["h_smooth"] = T(rng.random((nr, naz)) * 0.05 + 0.02)
+    other["h_smooth"] = T(rng.random((nr, naz)) * 0.05 + 0.02)
+    whole = _src(ctx, f)
+    plain = _src(ctx, {k: v for k, v in f.items() if k != "h_smooth"})
+    assert not all(torch.equal(a, b) for a, b in zip(whole, plain))
     for tile in _tiles(nr, naz, th, tw):
         got = _src(ctx, _outside_replaced(f, other, _src_window(tile)))
         for name, a, b in zip(("vrad", "vaz"), got, whole):

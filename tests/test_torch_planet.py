@@ -10,6 +10,12 @@ package's, both on the CPU in float64, ten steps each.
   quantity, ``CoolingBetaReference`` (the plain viscous substep), TW
   artificial viscosity.
 * the 64x128 locally isothermal slice of the flagship (ROADMAP A.4).
+* the quickstart disk adiabatic with a viscous inner v_rad boundary or
+  viscous inner damping: both read the viscosity grid of the fused
+  viscous kick's viscosity stage (its in-kick sound speed), not that of
+  the fields after the kick.
+* the quickstart with 17 bodies, more than the IAS15 kernel keeps in its
+  thread's own arrays.
 
 Compared: the fields, Q+ / Q-, the N-body state and the mass bookkeeping,
 rtol 1e-10. v_rad is held to atol 1e-9 max|v_rad| as in
@@ -169,3 +175,22 @@ def test_klahr_radius_and_cic_planet_match_jax():
         [b.semi_major_axis for b in js.bodies]
     assert ts.bodies[1].semi_major_axis in ts.geometry.rmed
     assert_states(ts, js, "initial")
+
+
+@pytest.mark.parametrize("over", [{"InnerBoundary": "viscous"},
+                                  {"DampingVRadialInner": "viscous"}],
+                         ids=["viscous-boundary", "viscous-damping"])
+def test_adiabatic_viscous_boundary_reads_the_in_kick_viscosity(over):
+    ts, _ = run_pair(quickstart(EquationOfState="Ideal", **over))
+    assert ts.stepper.gates["viscous_kick"] and ts.stepper.in_kick
+
+
+def test_seventeen_bodies_match_jax():
+    """A star and 16 small planets on orbits inside the grid, five steps
+    (IAS15 with its workspace for N > 16 on the GPU)."""
+    cfg = quickstart()
+    cfg["nbody"] = [dict(cfg["nbody"][0])] + [
+        {"name": f"p{k}", "semi-major axis": str(0.6 + 0.08 * k),
+         "mass": "1e-6", "trueanomaly": str(0.7 * k)} for k in range(1, 17)]
+    ts, _ = run_pair(cfg, steps=5)
+    assert ts.stepper.n_bodies == 17

@@ -200,7 +200,7 @@ def test_default_device_is_the_card():
 @pytest.mark.parametrize("extra,feature", [
     ({"EquationOfState": "PVTE", "PVTELookupTable": "Yes"}, "PVTE"),
     ({"SelfGravity": "Yes"}, "self-gravity"),        # the Bessel kernel
-    ({"Integrator": "leapfrog"}, "leapfrog"),
+    ({"KeepDiskMassConstant": "Yes"}, "KeepDiskMassConstant"),
     ({"nbody": [{"name": "star", "semi-major axis": "0.0", "mass": "1.0"},
                 {"name": "planet", "semi-major axis": "1.0",
                  "mass": "1e-3", "accretion efficiency": "1.0"}]},
