@@ -22,7 +22,13 @@ drift). The planet_torque (the reference's type-I torque test: the
 leapfrog integrator, a locally isothermal disk, a ramped 2e-5 planet)
 takes cfl and the whole-transport kernel once a step, sources and
 viscous_kick twice (the leapfrog's two kicks) and ias15 four times (two
-half drifts, two predictors). All seven paths are driven here.
+half drifts, two predictors). The planet_accretion (the reference's
+accretion test: the planet_torque's disk in the corotating frame, its
+planet accreting by Kley's scheme with disk feedback, the MassFlow and
+gas-torque monitor grids on) takes the same kernels but the sources: an
+accreting step's first kick reads the pressure from before the accretion,
+which the unfused substep takes. All eight paths are driven here, and
+setups/star_planet.yml (Euler, corotating) in phase 4.
 
 Phases (any failure raises, so the exit code is not 0):
   1. environment: GPU name and power limit, torch/CUDA versions, nvcc,
@@ -89,7 +95,11 @@ Phases (any failure raises, so the exit code is not 0):
      step from torch.profiler and its host reads a step from CUDA's sync
      debug mode; the planet_torque at 1024x3072 float32 the same way (cfl
      and the transport once a step, sources and viscous_kick twice, ias15
-     four times); the PDS70 lines add the FLD
+     four times); the planet_accretion at 1024x3072 float32 the same way
+     (cfl and the transport once a step, viscous_kick twice, ias15 four
+     times, no sources), then its unfused sources substep against the
+     sources kernel on the same state (ms a call, device launches); the
+     PDS70 lines add the FLD
      SOR iterations and the PVTE refreshes per step (3 and, on the run
      path, 2, with or without the dust), and with the dust its share of
      the step by CUDA events and the particles alive;
@@ -113,7 +123,11 @@ Phases (any failure raises, so the exit code is not 0):
      ideal gas, the leapfrog and a viscous inner boundary (the viscous
      kick's in-kick sound speed) at 128x256 float64 for 20 steps, and
      setups/PDS70.yml (an irradiating star, two planets, 2000 particles)
-     at 64x192 float64 for 20 steps with its swarm, the same budgets;
+     at 64x192 float64 for 20 steps with its swarm, the same budgets; the
+     planet_accretion and setups/star_planet.yml at 256x512 float32 for
+     200 steps and 128x256 float64 for 20, the same budgets, the bodies'
+     masses, the frame's rate and the accumulated MassFlow and torque
+     grids held to them too;
   5. the command line: ``python -m fargocpt_torch start`` (in this process,
      so the launch counters are readable) on examples/adiabatic_disk.yml at
      1024x3072 float32 for two snapshots (about 70 steps), with the counters
@@ -126,12 +140,15 @@ Phases (any failure raises, so the exit code is not 0):
      bytes;
   6. the reference binary on the card: the cold_disk_planet (1e-6),
      spreading_ring (1e-9), shocktube_sn (1e-6), longrun_planet (1e-5),
-     planet_torque (1e-6) and binary_gceph (1e-5) goldens of tests/goldens/ in float64 through the kernels and
+     planet_torque (1e-6), binary_gceph (1e-5), temperature_test (1e-6),
+     temperature_fld (1e-6) and planet_accretion (1e-6) goldens of
+     tests/goldens/ in float64 through the kernels and
      fargocpt_torch.output, each with the launch counters set to 0 before
      and read after, their snapshots against the reference's as
      tests/test_reference_golden.py holds them (each field's largest
-     deviation, the hydro step counts and the last dt of misc.bin), and
-     each one's wall time.
+     deviation, the hydro step counts and the last dt of misc.bin; the
+     temperature goldens' MassFlow.dat at the deviation the JAX package's
+     CPU run leaves), and each one's wall time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -268,6 +285,12 @@ def planet_torque(nr, naz, dtype, device):
                       device=device)
 
 
+def planet_accretion(nr, naz, dtype, device):
+    from fargocpt_torch.flagship import planet_accretion as accretion_config
+    from fargocpt_torch.sim import Simulation
+    return Simulation(accretion_config(nr, naz), dtype=dtype, device=device)
+
+
 def from_yaml(path, nr, naz, dtype, device, **over):
     """A setup file of the repo on an ``nr`` x ``naz`` grid."""
     import yaml
@@ -294,6 +317,11 @@ def quickstart_adiabatic_leapfrog(nr, naz, dtype, device):
     return from_yaml("examples/quickstart.yml", nr, naz, dtype, device,
                      EquationOfState="Ideal", Integrator="LeapFrog",
                      InnerBoundary="viscous")
+
+
+def star_planet(nr, naz, dtype, device):
+    """setups/star_planet.yml: the Euler step in the corotating frame."""
+    return from_yaml("setups/star_planet.yml", nr, naz, dtype, device)
 
 
 def pds70_setup(nr, naz, dtype, device):
@@ -1448,8 +1476,9 @@ def parity_leapfrog(sim, gpu) -> dict:
 def run_slice(sim, warmup=10, steps=60) -> dict:
     """The flagship's steps on its route, with the launch counters set to 0
     just before and read just after: every op of the route its launches a
-    step (ROUTE_OPS), the fused substeps at least once a step, the other
-    routes' ops, artvisc_sn and ias15 (a lone star) never."""
+    step (ROUTE_OPS), cfl, sources and viscous_kick once a step
+    (FLAGSHIP_OPS), the other routes' ops, artvisc_sn and ias15 (a lone
+    star) never."""
     from fargocpt_torch.ops import kernels as K
     route = sim.stepper.ops.route
     nr = sim.geometry.nrad
@@ -1473,7 +1502,7 @@ def run_slice(sim, warmup=10, steps=60) -> dict:
         elif name in other or name in ("artvisc_sn", "ias15"):
             ok = launches[name] == 0
         else:
-            ok = launches[name] >= n
+            ok = launches[name] == FLAGSHIP_OPS[name] * n
         if not ok:
             raise AssertionError(f"{route} route at {nr} rings launched "
                                  f"{name} {launches[name]} times in {n} "
@@ -1488,6 +1517,8 @@ def run_slice(sim, warmup=10, steps=60) -> dict:
 
 
 PDS70_OPS = ("transport", "artvisc_sn")
+# the flagship's fused substeps a step, whatever the route
+FLAGSHIP_OPS = {"cfl": 1, "sources": 1, "viscous_kick": 1}
 
 
 def check_state(sim) -> None:
@@ -1672,6 +1703,12 @@ PLANET_OPS = {"cfl": 1, "sources": 1, "viscous_kick": 1, "transport": 1,
 # kick, ias15 four times (two half drifts, two predictors)
 PLANET_TORQUE_OPS = {"cfl": 1, "sources": 2, "viscous_kick": 2,
                      "transport": 1, "ias15": 4}
+# the planet_accretion's leapfrog step: no sources (an accreting step's
+# first kick reads the pressure from before the accretion: the unfused
+# substep, and the gate is one per configuration), the rest as the
+# planet_torque's
+PLANET_ACCRETION_OPS = {"cfl": 1, "viscous_kick": 2, "transport": 1,
+                        "ias15": 4}
 
 
 def run_planet(sim, warmup=10, steps=60, profiled=5, ops=None,
@@ -1768,6 +1805,54 @@ def log_planet(res, gpu) -> None:
         f"{res['planet_mass_felt']:.3e} of the planet's mass [{gpu}]")
 
 
+def unfused_sources(sim, gpu) -> dict:
+    """The sources substep an accreting step takes (the N-body potential
+    and the source terms as PyTorch ops, on a given pressure) against the
+    sources kernel on the same state, the pressure the current fields':
+    each one's ms a call by CUDA events, its device launches, and the
+    largest difference of their v_rad and v_az over v_az's scale."""
+    from fargocpt_torch.ops import gravity, kernels as K, sources as src_ops
+    st, f = sim.stepper, sim.fields
+    phys, g = st.phys, st.g
+    bodies = st.bodies_on_grid(sim.state.nbody, sim.time)
+    zero = torch.zeros((), dtype=torch.float64, device=f.sigma.device)
+    omega = sim.state.omega_frame
+    dt = 0.5 * sim.last_dt
+    _, press, h = st.derived(f.sigma, f.energy)
+    cell_x, cell_y = st.ops.cell_xy()
+
+    def unfused():
+        pot = gravity.nbody_potential(phys, st.constants, g, bodies,
+                                      st.n_bodies, cell_x, cell_y, h, zero,
+                                      zero)
+        return src_ops.update_with_sourceterms(
+            phys, g, f.sigma, press, pot, f.vrad, f.vaz, f.energy,
+            omega.to(f.sigma.dtype), dt)[:2]
+
+    def fused():
+        return K.sources(st.ops, f.sigma, f.vrad, f.vaz, f.energy, bodies,
+                         (zero, zero), omega, dt)
+
+    scale = float(f.vaz.abs().max())
+    diff = max(float((a - b).abs().max()) / scale
+               for a, b in zip(unfused(), fused()))
+    res = {"unfused_ms": time_ms(unfused), "kernel_ms": time_ms(fused),
+           "unfused_launches": cuda_kernel_launches(unfused),
+           "kernel_launches": cuda_kernel_launches(fused),
+           "max_diff_of_vaz_scale": diff}
+    nr, naz = g.nrad, g.naz
+    log(f"  {nr}x{naz} float32, the accreting step's unfused sources "
+        f"substep: {res['unfused_ms']:.4f} ms a call "
+        f"({res['unfused_launches']} device launches), the sources kernel "
+        f"on the same state {res['kernel_ms']:.4f} ms "
+        f"({res['kernel_launches']} launch); they differ by {diff:.2e} of "
+        f"v_az's scale [{gpu}]")
+    if not diff < F32_TOL:
+        raise AssertionError(f"the unfused sources and the kernel differ "
+                             f"by {diff:.3e}")
+    return res
+
+
 def route_turns(sim, order=("split", "whole", "whole", "split"), warmup=5,
                 steps=50) -> dict:
     """ms per step of ``sim`` through each transport route of ``order`` in
@@ -1815,16 +1900,31 @@ def host_sync_cost(sim, steps=20) -> float:
 def trajectory(nr, naz, dtype, steps, budget, setup=flagship) -> dict:
     """The GPU run through the kernels against the CPU run through the
     plain versions on the GPU run's dt sequence: rel-L2 of each field
-    (vrad scaled by vaz) and, with a swarm, of the particles' r and phi
+    (vrad scaled by vaz), of the bodies (their masses and the frame's rate
+    where accretion and the corotating frame change them), of the monitor
+    grids that are on and, with a swarm, of the particles' r and phi
     (phi's difference taken on the circle), all under ``budget``; in
-    float64 the same particles are alive in both."""
+    float64 the same particles are alive in both. A monitor grid sums
+    terms that cancel (the star's potential differenced across a ring, the
+    flux of a v_rad near 0), so in float32 it is rounding to a few per
+    cent of itself: there it is held to the larger of ``budget`` and twice
+    the CPU run's own deviation from a float64 CPU run on the same dt
+    sequence (two float32 runs that round apart differ by about
+    sqrt(2) times that)."""
+    from fargocpt_torch.state import MONITOR_GRIDS
     gpu = setup(nr, naz, dtype, "cuda")
     cpu = setup(nr, naz, dtype, "cpu")
+    grids = [n for n in MONITOR_GRIDS
+             if getattr(cpu.state.monitor_acc, n) is not None]
+    ref64 = setup(nr, naz, "float64", "cpu") \
+        if grids and dtype == "float32" else None
     for _ in range(steps):
         dt = gpu.calculate_time_step()
         gpu.step_once(dt)
         cpu.step_once(dt.cpu())
-    errs = {}
+        if ref64 is not None:
+            ref64.step_once(dt.cpu().double())
+    errs, limits = {}, {}
     vaz_ref = cpu.fields.vaz.double()
     for name in ("sigma", "vrad", "vaz", "energy"):
         a = getattr(gpu.fields, name).double().cpu()
@@ -1842,6 +1942,27 @@ def trajectory(nr, naz, dtype, steps, budget, setup=flagship) -> dict:
                          for k in ("x", "y", "vx", "vy")])
         errs["nbody"] = float(torch.linalg.norm(a - b)
                               / torch.linalg.norm(b))
+    if gpu.stepper.any_accretion:
+        a, b = gpu.state.nbody.mass.cpu(), cpu.state.nbody.mass
+        errs["nbody mass"] = float(torch.linalg.norm(a - b)
+                                   / torch.linalg.norm(b))
+    if gpu.phys.corotating:
+        a, b = float(gpu.state.omega_frame), float(cpu.state.omega_frame)
+        errs["omega_frame"] = abs(a - b) / abs(b)
+    # the monitor grids that are on, accumulated over the run
+
+    def rel(a, b):
+        scale = torch.linalg.norm(b)
+        if float(scale) == 0.0:
+            return 0.0 if torch.equal(a, b) else math.inf
+        return float(torch.linalg.norm(a - b) / scale)
+    for name in grids:
+        b = getattr(cpu.state.monitor_acc, name).double()
+        errs[name] = rel(getattr(gpu.state.monitor_acc, name).double().cpu(),
+                         b)
+        if ref64 is not None:
+            limits[name] = max(budget, 2.0 * rel(
+                b, getattr(ref64.state.monitor_acc, name)))
     swarm = ""
     gp, cp = gpu.state.particles, cpu.state.particles
     if gp is not None:
@@ -1863,11 +1984,14 @@ def trajectory(nr, naz, dtype, steps, budget, setup=flagship) -> dict:
         f"route, {steps} steps "
         f"(t = {float(gpu.time):.4e}): "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-        + f"  (budget {budget:.0e}){swarm}")
+        + f"  (budget {budget:.0e}"
+        + "".join(f"; {k} {v:.3e}" for k, v in limits.items())
+        + f"){swarm}")
     for name, err in errs.items():
-        if not err < budget:
+        limit = limits.get(name, budget)
+        if not err < limit:
             raise AssertionError(f"trajectory {nr}x{naz} {dtype}: {name} "
-                                 f"rel-L2 {err:.3e} >= {budget}")
+                                 f"rel-L2 {err:.3e} >= {limit}")
     return errs
 
 
@@ -2030,7 +2154,13 @@ def check_state_arrays(outdir) -> None:
 # (tests/test_reference_golden.py)
 GOLDENS = (("cold_disk_planet", 1e-6), ("spreading_ring", 1e-9),
            ("shocktube_sn", 1e-6), ("longrun_planet", 1e-5),
-           ("planet_torque", 1e-6), ("binary_gceph", 1e-5))
+           ("planet_torque", 1e-6), ("binary_gceph", 1e-5),
+           ("temperature_test", 1e-6), ("temperature_fld", 1e-6),
+           ("planet_accretion", 1e-6))
+# the goldens' MassFlow.dat and its gate: the deviation the JAX package's
+# own CPU run leaves on it, rounded up
+# (tests/test_torch_goldens_leapfrog.py)
+MASSFLOW_GATES = {"temperature_test": 1e-10, "temperature_fld": 3e-8}
 
 
 def golden_on_card(name, tol, work, gpu) -> dict:
@@ -2082,6 +2212,17 @@ def golden_on_card(name, tol, work, gpu) -> dict:
             misc[who] = (int(np.frombuffer(raw[40:44], np.uint32)[0]),
                          float(np.frombuffer(raw[32:40], np.float64)[0]))
         steps[snap] = misc
+        if name in MASSFLOW_GATES:
+            # the reference's file holds NR + 1 rows, one a face, the
+            # port's NR; the reflecting outer face carries no mass
+            g = np.fromfile(os.path.join(golden, "snapshots", snap,
+                                         "MassFlow.dat")).reshape(nr + 1, na)
+            m = np.fromfile(os.path.join(outdir, "snapshots", snap,
+                                         "MassFlow.dat")).reshape(nr, na)
+            if g[nr].any():
+                raise AssertionError(f"{name} {snap}: MassFlow's outer row")
+            devs[f"{snap}/MassFlow"] = float(np.max(np.abs(g[:nr] - m))
+                                             / np.max(np.abs(g)))
     log(f"  {name} {nr}x{na} float64: {wall:.2f} s, {sim.n_hydro_iter} "
         f"hydro steps; max rel dev "
         + ", ".join(f"{k} {v:.3e}" for k, v in devs.items())
@@ -2089,9 +2230,10 @@ def golden_on_card(name, tol, work, gpu) -> dict:
         + "; ".join(f"{s} {v['ref']} {v['port']}" for s, v in steps.items())
         + f"; launches {launches} [{gpu}]")
     for key, dev in devs.items():
-        if not dev < tol:
+        gate = MASSFLOW_GATES[name] if key.endswith("MassFlow") else tol
+        if not dev < gate:
             raise AssertionError(f"{name} {key}: max rel dev {dev:.3e} >= "
-                                 f"{tol}")
+                                 f"{gate}")
     for snap, v in steps.items():
         if v["ref"][0] != v["port"][0]:
             raise AssertionError(f"{name} snapshot {snap}: {v['port'][0]} "
@@ -2201,6 +2343,21 @@ def main() -> int:
                                       label="planet_torque")
     log_planet(res["planet_torque"], gpu)
     del sim_torque
+    t0 = time.perf_counter()
+    sim_accretion = planet_accretion(NR, NAZ, "float32", "cuda")
+    log(f"  planet_accretion {NR}x{NAZ} float32 built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    res["planet_accretion"] = run_planet(
+        sim_accretion, ops=PLANET_ACCRETION_OPS, label="planet_accretion")
+    log_planet(res["planet_accretion"], gpu)
+    res["planet_accretion"]["sources_substep"] = unfused_sources(
+        sim_accretion, gpu)
+    acc = sim_accretion.state
+    log(f"  planet_accretion after {sim_accretion.n_hydro_iter} steps: "
+        f"planet mass {float(acc.nbody.mass[1]):.9e}, frame rate "
+        f"{float(acc.omega_frame):.9f}, MassFlow grid sum "
+        f"{float(acc.monitor_acc.massflow.sum()):.4e}")
+    del sim_accretion
     res["pds70_gas"] = run_pds70(sim_gas)
     log_pds70(res["pds70_gas"], gpu)
     del sim_gas
@@ -2236,6 +2393,10 @@ def main() -> int:
     trajectory(128, 256, "float64", 20, 1e-9,
                setup=quickstart_adiabatic_leapfrog)
     trajectory(64, 192, "float64", 20, 1e-9, setup=pds70_setup)
+    trajectory(256, 512, "float32", 200, 1e-3, setup=planet_accretion)
+    trajectory(128, 256, "float64", 20, 1e-9, setup=planet_accretion)
+    trajectory(256, 512, "float32", 200, 1e-3, setup=star_planet)
+    trajectory(128, 256, "float64", 20, 1e-9, setup=star_planet)
     newton = newton_budget(128, 384, 200)
     log(f"  phase 4 done at {time.perf_counter() - t_main:.1f} s")
 

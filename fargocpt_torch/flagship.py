@@ -23,6 +23,12 @@ boundaries with a balanced v_az, ``Initial`` v_rad damping, a star and a
 2e-5 planet at r = 1 ramped over ten orbits, smoothed with eps h at the
 planet's location (CompatibilitySmoothingPlanetLoc), no disk feedback.
 
+``planet_accretion``: the reference's accretion test (the
+``planet_accretion`` golden's setup.yml without its sizing): the torque
+test's disk in the corotating frame, its planet accreting by Kley's
+two-zone scheme (efficiency 1) with disk feedback; the MassFlow and
+gas-torque monitor grids on.
+
 ``pds70_gas``: the gas part of ``__graft_entry__._pds70`` (BASELINE.json
 configs[4]): the variable-gamma PVTE equation of state, FLD radiative
 diffusion, symmetric FFT self-gravity, thermal surface cooling, viscous
@@ -135,6 +141,18 @@ PLANET_TORQUE = {
 }
 
 
+PLANET_ACCRETION = {
+    **PLANET_TORQUE,
+    "Frame": "C", "DiskFeedback": "Yes",
+    "WriteMassFlow": "Yes", "WriteGasTorques": "Yes",
+    "nbody": [
+        PLANET_TORQUE["nbody"][0],
+        {**PLANET_TORQUE["nbody"][1], "accretion efficiency": "1.0",
+         "accretion method": "kley"},
+    ],
+}
+
+
 def flagship(nrad: int, naz: int) -> Config:
     """The flagship setup on an ``nrad`` x ``naz`` grid."""
     return Config.from_dict(dict(FLAGSHIP, Nrad=str(nrad), Naz=str(naz)))
@@ -165,4 +183,13 @@ def planet_torque(nrad: int, naz: int) -> Config:
     ``naz`` grid."""
     cfg = dict(PLANET_TORQUE, Nrad=str(nrad), Naz=str(naz))
     cfg["nbody"] = [dict(b) for b in PLANET_TORQUE["nbody"]]
+    return Config.from_dict(cfg)
+
+
+def planet_accretion(nrad: int, naz: int) -> Config:
+    """The reference's accretion test (the leapfrog, the corotating frame,
+    a Kley-accreting planet, the MassFlow and gas-torque monitor grids) on
+    an ``nrad`` x ``naz`` grid."""
+    cfg = dict(PLANET_ACCRETION, Nrad=str(nrad), Naz=str(naz))
+    cfg["nbody"] = [dict(b) for b in PLANET_ACCRETION["nbody"]]
     return Config.from_dict(cfg)

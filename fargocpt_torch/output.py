@@ -68,6 +68,21 @@ MASS_DELTA_COLUMNS = [
 
 MISC_STRUCT = "=IIddddQ"   # reference src/output.h:16-24 misc_entry
 
+# the accumulated monitor grids a snapshot writes (reference
+# src/data.cpp:277 set_clear_after_write, src/quantities.cpp:743-781,
+# 963-973): each grid's file name, and whether it is divided by the
+# snapshot interval (Nmonitor x MonitorTimestep) or, the alpha means, by
+# MonitorTimestep (quantities.cpp:991-996)
+MONITOR_FILES = {"massflow": ("MassFlow", True),
+                 "t_adv": ("AdvectionTorque", True),
+                 "t_visc": ("ViscousTorque", True),
+                 "t_grav": ("GravitationalTorqueNotIntegrated", True),
+                 "alpha_grav_mean": ("alpha_grav_mean", False),
+                 "alpha_reynolds_mean": ("alpha_reynolds_mean", False)}
+# the columns of monitor/eccentricity_change.dat after the snapshot and
+# monitor numbers and the time (reference src/output.cpp:1275-1372)
+ECC_STAGES = ("source", "artvisc", "viscosity", "transport", "damping")
+
 
 def check_supported(phys) -> None:
     """Raise NotImplementedError for every output the port does not write
@@ -75,14 +90,6 @@ def check_supported(phys) -> None:
     unsupported = {
         "DistributedOutput (sharded snapshot files)":
             phys.distributed_output,
-        "the MassFlow monitor grid (WriteMassFlow)": phys.write_massflow,
-        "the gas-torque monitor grids (WriteGasTorques)":
-            phys.write_gas_torques,
-        "the alpha monitor grids (WriteAlphaGravMean, "
-        "WriteAlphaReynoldsMean)": (phys.write_alpha_grav_mean
-                                    or phys.write_alpha_reynolds_mean),
-        "eccentricity_change.dat (WriteEccentricityChange)":
-            phys.write_ecc_changes,
         "the Roche-lobe overflow tracker (massflow_tracker.bin)":
             phys.rochelobe_overflow,
     }
@@ -331,6 +338,10 @@ class OutputWriter:
                 out[name] = self._compute_field(name)
             if phys.write_torques and phys.calculate_disk:
                 out["_torque_planet"] = self._planet_torque_profiles()
+        acc = state.monitor_acc
+        for attr in MONITOR_FILES:
+            if getattr(acc, attr) is not None:
+                out[f"_acc_{attr}"] = getattr(acc, attr)
         nb = state.nbody
         out["_nbody"] = torch.stack([nb.x, nb.y, nb.vx, nb.vy, nb.mass],
                                     dim=1).to(torch.float64)
@@ -404,6 +415,10 @@ class OutputWriter:
             w(sdir / f"{name}.dat", host[name])
             self._write_1d(sdir, name, host[name], rmed)
 
+        # the accumulated monitor grids, averaged over the interval, then
+        # cleared (fargocpt_tpu/output.py:366-394)
+        self._write_monitor_grids(sdir, host)
+
         # per-planet torque radial profiles (reference src/output.cpp:653-716
         # ``write_torques``): [radius, torque] rows
         for k, prof in enumerate(host.get("_torque_planet", ())):
@@ -434,6 +449,25 @@ class OutputWriter:
                 fl.write(sid + "\n")
             self._write_time_snapshot(float(host["_misc"][0]))
         return sum(p.stat().st_size for p in sdir.iterdir())
+
+    def _write_monitor_grids(self, sdir: Path, host: dict):
+        """Each monitor grid that is on, divided as ``MONITOR_FILES``
+        says, with its 1-D file; the state's grids are set to zero."""
+        import torch
+        sim = self.sim
+        acc = sim.state.monitor_acc
+        mt = sim.settings.monitor_timestep
+        cleared = {}
+        for attr, (fname, per_interval) in MONITOR_FILES.items():
+            if f"_acc_{attr}" not in host:
+                continue
+            arr = host[f"_acc_{attr}"] / (
+                sim.settings.n_monitor * mt if per_interval else mt)
+            self._awriter.write(sdir / f"{fname}.dat", arr)
+            self._write_1d(sdir, fname, arr, sim.geometry.rmed)
+            cleared[attr] = torch.zeros_like(getattr(acc, attr))
+        if cleared:
+            sim.state = sim.state.replace(monitor_acc=acc.replace(**cleared))
 
     def _write_time_snapshot(self, time: float):
         """Append (snapshot number, monitor number, time) to
@@ -869,6 +903,35 @@ class OutputWriter:
                     el["true_anomaly"], el["pericenter_angle"], torque,
                     accreted, 0.0]) + "\n")
 
+    def write_ecc_changes(self):
+        """monitor/eccentricity_change.dat: the disk's eccentricity and
+        pericentre changes of each stage over the interval (reference
+        src/output.cpp:1275-1372 ``write_ecc_peri_changes``;
+        fargocpt_tpu/output.py:707-740), then set to zero."""
+        import torch
+        sim = self.sim
+        acc = sim.state.monitor_acc
+        path = self.outdir / "monitor" / "eccentricity_change.dat"
+        if not path.exists():
+            with open(path, "w") as f:
+                f.write("# Per-stage disk ecc/pericenter changes\n")
+                cols = ["snapshot number", "monitor number", "time"] + [
+                    f"{q} change {stage}" for q in ("ecc", "peri")
+                    for stage in ECC_STAGES]
+                for i, c in enumerate(cols):
+                    f.write(f"#variable: {i} | {c} | code units\n")
+        host = to_host({"decc": acc.decc, "dperi": acc.dperi,
+                        "time": sim.time.to(torch.float64)})
+        with open(path, "a") as f:
+            f.write("\t".join(
+                [str(sim.n_snapshot), str(sim.n_monitor),
+                 f"{float(host['time']):.16e}"]
+                + [f"{v:.16e}" for v in host["decc"]]
+                + [f"{v:.16e}" for v in host["dperi"]]) + "\n")
+        sim.state = sim.state.replace(monitor_acc=acc.replace(
+            decc=torch.zeros_like(acc.decc),
+            dperi=torch.zeros_like(acc.dperi)))
+
     # hooks ---------------------------------------------------------------
     def _on_monitor(self, sim):
         if sim.phys.write_disk_quantities:
@@ -877,6 +940,8 @@ class OutputWriter:
         self.write_nbody_monitor()
         if sim.phys.write_lightcurves:
             self.write_lightcurves()
+        if sim.phys.write_ecc_changes:
+            self.write_ecc_changes()
 
     def _on_snapshot(self, sim):
         self.write_snapshot()

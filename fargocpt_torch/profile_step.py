@@ -1,14 +1,16 @@
 """Where a step's device time goes, on one CUDA GPU.
 
     python -m fargocpt_torch.profile_step
-        [--setup flagship|pds70_gas|pds70|planet_disk|planet_torque]
+        [--setup flagship|pds70_gas|pds70|planet_disk|planet_torque|
+                 planet_accretion]
         [--route whole|split|staged] [--nrad 1024 1000] [--naz 3072]
         [--steps 120]
 
 For each grid: the setup's Simulation in float32 (``flagship`` by
 default, the PDS70 gas setup, the whole PDS70 setup with its dust, the
-planet in the disk of examples/quickstart.yml, or the reference's torque
-test on the leapfrog), on
+planet in the disk of examples/quickstart.yml, the reference's torque
+test on the leapfrog, or its accretion test: accretion, the corotating
+frame and the monitor grids), on
 the grid's transport route or the one ``--route`` names, 20 warm-up steps,
 the wall time of ``--steps`` steps (host clock around synchronised work),
 then a ``torch.profiler`` window of 20 steps. Prints per grid the device
@@ -17,7 +19,8 @@ PyTorch ops (with their heaviest kernels), the launches per step, and the
 device's busy share of the wall time. A second window of 20 steps wraps
 the step's phases (``phases()``: the PVTE refresh, FLD, self-gravity, the
 opacity, the dust, ...) in ``record_function`` ranges and prints the device
-time of each; ranges nest (the opacity runs inside FLD and SubStep3). The
+time and kernel launches of each; ranges nest (the opacity runs inside
+FLD and SubStep3, the Roche radius inside the accretion). The
 last line is all of it as one JSON object. Needs a CUDA device.
 """
 
@@ -33,11 +36,13 @@ from contextlib import contextmanager
 
 import torch
 
-from .flagship import flagship, pds70, pds70_gas, planet_disk, planet_torque
+from .flagship import (flagship, pds70, pds70_gas, planet_accretion,
+                       planet_disk, planet_torque)
 from .ops.kernels import ROUTES
 
 SETUPS = {"flagship": flagship, "pds70_gas": pds70_gas, "pds70": pds70,
-          "planet_disk": planet_disk, "planet_torque": planet_torque}
+          "planet_disk": planet_disk, "planet_torque": planet_torque,
+          "planet_accretion": planet_accretion}
 
 # device kernel name fragment -> the op whose CUDA source launches it
 # (fargo_theta on the split route and theta_sweep on the staged route
@@ -76,10 +81,16 @@ def phases():
     """(owner, attribute, label) of the functions a step calls, each timed
     as one profiler range."""
     from . import step
-    from .ops import (boundary, cfl, damping, energy, fld, gravity,
-                      kernels, opacity, pvte, selfgravity, sources,
+    from .nbody import system as nbody_sys
+    from .ops import (accretion, boundary, cfl, damping, energy, fld,
+                      gravity, kernels, opacity, pvte, selfgravity, sources,
                       viscosity)
     return (
+        (accretion, "accrete_onto_planets", "accretion"),
+        (accretion, "orbital_periods", "orbital periods"),
+        (nbody_sys, "dimensionless_roche_radius", "Roche radius"),
+        (step.HydroStep, "_update_monitor_acc", "monitor grids"),
+        (step.HydroStep, "_corotation_update", "corotation"),
         (step.HydroStep, "_integrate_particles", "dust"),
         (pvte.PVTE, "gamma_mu", "PVTE refresh"),
         (fld.FLDSolver, "radiative_diffusion", "FLD substep"),
@@ -101,6 +112,17 @@ def phases():
         (kernels, "transport", "transport op"),
         (boundary, "apply_boundary_conditions", "boundaries"),
     )
+
+
+def _launches(event) -> int:
+    """The kernel launches the host made inside a range: its descendant
+    runtime calls ``cudaLaunchKernel`` / ``cuLaunchKernel``."""
+    n, stack = 0, list(event.cpu_children)
+    while stack:
+        child = stack.pop()
+        n += "LaunchKernel" in child.name
+        stack.extend(child.cpu_children)
+    return n
 
 
 @contextmanager
@@ -174,10 +196,12 @@ def profile_grid(nrad: int, naz: int, setup: str = "flagship",
     for e in prof.events():
         if e.name in labels and e.device_type == torch.autograd.DeviceType.CPU:
             row = phase_ms.setdefault(e.name, {"device_ms_per_step": 0.0,
-                                               "calls_per_step": 0.0})
+                                               "calls_per_step": 0.0,
+                                               "launches_per_step": 0.0})
             row["device_ms_per_step"] += _device_us(
                 e, ("device_time_total", "cuda_time_total")) / 1e3 / window
             row["calls_per_step"] += 1.0 / window
+            row["launches_per_step"] += _launches(e) / window
     return {"setup": setup, "grid": f"{nrad}x{naz}",
             "route": sim.stepper.ops.route,
             "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
@@ -223,6 +247,7 @@ def main(argv=None) -> int:
         for label, row in sorted(r["phases"].items(),
                                  key=lambda kv: -kv[1]["device_ms_per_step"]):
             print(f"  {label:22s} {row['calls_per_step']:6.2f} calls  "
+                  f"{row['launches_per_step']:7.1f} launches  "
                   f"{row['device_ms_per_step']:.4f} ms", flush=True)
     print(json.dumps({"gpu": gpu, "results": results}))
     return 0

@@ -139,9 +139,20 @@ class Simulation:
                                               self.n_hydroframe)
         self.phys = self.phys.with_(hydro_center_mass=float(
             nb_init["mass"][:self.n_hydroframe].sum()))
+        if self.phys.corotating and len(self.bodies) > 1:
+            # the frame rotates with the reference body from t = 0, so the
+            # fields are built in the rotating frame (reference
+            # src/init.cpp:259-263 sets OmegaFrame before them;
+            # fargocpt_tpu/sim.py:239-249)
+            k = min(self.phys.corotation_reference_body,
+                    len(self.bodies) - 1)
+            x, y = float(nb_init["x"][k]), float(nb_init["y"][k])
+            vx, vy = float(nb_init["vx"][k]), float(nb_init["vy"][k])
+            self.phys = self.phys.with_(
+                omega_frame=(x * vy - y * vx) / max(x * x + y * y, 1e-300))
         if any(b.irradiate for b in self.bodies):
             self.phys = self.phys.with_(heating_star=True)
-        check_supported(self.phys, self.bodies)
+        check_supported(self.phys)
         if cfg.get("CustomBoundaryModule", "", type=str):
             raise NotImplementedError("CustomBoundaryModule is not ported yet")
 

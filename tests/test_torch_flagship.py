@@ -80,3 +80,28 @@ def test_planet_disk_is_the_quickstart_physics():
             assert norm(mine[key]) == norm(theirs[key]), key
     cfg = planet_disk(16, 32)
     assert cfg.get("Nrad", 0, type=int) == 16
+
+
+@pytest.mark.parametrize("name", ["planet_torque", "planet_accretion"])
+def test_planet_setups_are_their_goldens_physics(name):
+    """``flagship.planet_torque`` and ``flagship.planet_accretion`` are the
+    goldens' setup.yml files on another grid: the same Physics and bodies
+    once each Simulation is built, but for the monitor grids
+    ``planet_accretion`` turns on (its golden writes none)."""
+    import yaml
+    from fargocpt_torch import flagship as setups
+    from fargocpt_torch.config import Config
+    golden = yaml.safe_load((ROOT / "tests" / "goldens" / name
+                             / "setup.yml").read_text())
+    golden.pop("cps")
+    golden.update(Nrad=64, Naz=128)
+    ref = Simulation(Config.from_dict(golden), device="cpu")
+    ts = Simulation(getattr(setups, name)(64, 128), device="cpu")
+    monitors = {"write_massflow": ref.phys.write_massflow,
+                "write_gas_torques": ref.phys.write_gas_torques}
+    _assert_same(ref.phys, ts.phys.with_(**monitors), "physics")
+    _assert_same(ref.geometry, ts.geometry, "geometry")
+    assert ref.bodies == ts.bodies
+    if name == "planet_accretion":
+        assert ts.phys.write_massflow and ts.phys.write_gas_torques
+        assert ts.phys.corotating and ts.stepper.any_accretion

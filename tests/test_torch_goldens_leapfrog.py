@@ -12,9 +12,21 @@ counts and last dt), at the tolerances of tests/test_reference_golden.py:
   periapsis at the outer edge: cubic smoothing, the N-body indirect term,
   thermal cooling (the unfused substeps), viscous outflow and reflecting
   boundaries, mean and zero damping; 92 steps;
+* ``temperature_test`` (< 1e-6): an adiabatic disk on 100x2 with a
+  constant viscosity, viscous heating and thermal surface cooling (the
+  unfused substeps), reflecting boundaries, zero v_rad damping, the
+  MassFlow monitor grid; 240 steps;
+* ``temperature_fld`` (< 1e-6): the same with FLD radiative diffusion;
+* ``planet_accretion`` (< 1e-6): a 2e-5 planet accreting by Kley's
+  two-zone scheme with disk feedback in the corotating frame, the
+  torque test's disk otherwise; 76 steps on 221x755;
 * ``binary_gceph_long`` at its first snapshot (< 5e-3, slow): the same
   binary over a quarter orbit through the chaotic periapsis transient;
   step counts within 5 %.
+
+The temperature goldens' ``MassFlow.dat`` is held to the golden's too,
+at the deviation the JAX package's own CPU run leaves on it (4.1e-11 in
+``temperature_test``, 1.3e-8 in ``temperature_fld``), rounded up.
 """
 
 from pathlib import Path
@@ -34,11 +46,38 @@ torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("name,tol", [("planet_torque", 1e-6),
-                                      ("binary_gceph", 1e-5)])
+                                      ("binary_gceph", 1e-5),
+                                      ("temperature_test", 1e-6),
+                                      ("temperature_fld", 1e-6),
+                                      ("planet_accretion", 1e-6)])
 def test_leapfrog_golden_matches_reference_binary(name, tol, tmp_path):
     sim = run_golden(name, tmp_path)
     assert sim.phys.hydro_integrator == LEAPFROG
     compare_golden(name, sim, tol, tmp_path / "out")
+
+
+@pytest.mark.parametrize("name,tol", [("temperature_test", 1e-10),
+                                      ("temperature_fld", 3e-8)])
+def test_massflow_matches_reference_binary(name, tol, tmp_path):
+    """The accumulated MassFlow grid of each snapshot against the
+    reference's. Its file holds NR + 1 rows, one a face; the JAX package's
+    and the port's NR, the outer face's flux added to the last ring. With
+    reflecting walls the outer face carries no mass: the reference's last
+    row is zero, and the first NR rows are compared."""
+    sim = run_golden(name, tmp_path)
+    nr, na = sim.geometry.nrad, sim.geometry.naz
+    for snap in ("0", "1", "2"):
+        ref = np.fromfile(GOLDENS / name / "snapshots" / snap
+                          / "MassFlow.dat").reshape(nr + 1, na)
+        got = np.fromfile(tmp_path / "out" / "snapshots" / snap
+                          / "MassFlow.dat").reshape(nr, na)
+        assert not ref[nr].any()
+        scale = np.abs(ref).max()
+        if snap == "0":
+            assert scale == 0.0 and not got.any()
+            continue
+        err = np.abs(got - ref[:nr]).max() / scale
+        assert err < tol, f"{name} snapshot {snap}: MassFlow {err:.3e}"
 
 
 @pytest.mark.slow

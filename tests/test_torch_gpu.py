@@ -22,7 +22,10 @@ and with 513 bodies, the viscous kick with its in-kick sound speed,
 ias15 with 17 and 40 bodies (a device workspace) bit for bit; a
 split-route and a staged-route Simulation step through their kernels,
 a leapfrog planet_torque step (sources and viscous_kick twice, ias15
-four times), a PDS70 gas step through artvisc_sn
+four times), a planet_accretion step (the leapfrog in the corotating
+frame with a Kley-accreting planet and the monitor grids: viscous_kick
+twice, ias15 four times, no sources) and a setups/star_planet.yml step
+(Euler, corotating), each against the CPU, a PDS70 gas step through artvisc_sn
 and the whole transport, and the whole PDS70 setup with its dust swarm on
 the device against the same run on the CPU; the output written from card
 tensors against the CPU writer's bytes, and a restart on the card bit for
@@ -1279,3 +1282,94 @@ def test_adiabatic_leapfrog_step_matches_the_cpu(cuda):
         scale = float(b.abs().max()) if name != "vrad" else \
             float(cpu.fields.vaz.abs().max())
         assert float((a - b).abs().max()) <= 1e-9 * scale, name
+
+
+def _held_to_the_cpu(gpu, cpu, tol, ref64=None):
+    """Each field within ``tol`` of its scale (v_rad of v_az's), the
+    bodies and the frame's rate within ``tol`` of their scales, and each
+    monitor grid that is on within ``tol`` of its largest value. A monitor
+    grid sums terms that cancel, so in float32 it is rounding to a few per
+    cent of itself: with ``ref64``, the same run in float64 on the CPU,
+    each grid is held to the larger of that and twice the CPU run's own
+    deviation from ``ref64``."""
+    for name in ("sigma", "vrad", "vaz"):
+        a = getattr(gpu.fields, name).cpu()
+        b = getattr(cpu.fields, name)
+        scale = float(b.abs().max()) if name != "vrad" else \
+            float(cpu.fields.vaz.abs().max())
+        assert float((a - b).abs().max()) <= tol * scale, name
+    for names in (("x", "y"), ("vx", "vy"), ("mass",)):
+        a = torch.stack([getattr(gpu.state.nbody, k).cpu() for k in names])
+        b = torch.stack([getattr(cpu.state.nbody, k) for k in names])
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max()), \
+            names
+    a, b = float(gpu.state.omega_frame), float(cpu.state.omega_frame)
+    assert abs(a - b) <= tol * abs(b)
+    from fargocpt_torch.state import MONITOR_GRIDS
+    for name in MONITOR_GRIDS:
+        b = getattr(cpu.state.monitor_acc, name)
+        if b is None:
+            continue
+        a = getattr(gpu.state.monitor_acc, name).cpu()
+        limit = tol * float(b.abs().max())
+        if ref64 is not None:
+            own = getattr(ref64.state.monitor_acc, name) - b.double()
+            limit = max(limit, 2.0 * float(own.abs().max()))
+        assert float((a - b).abs().max()) <= limit, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_planet_accretion_step_launches_and_matches_the_cpu(cuda, dtype):
+    """The accretion test at 128x256 (flagship.planet_accretion: the
+    leapfrog in the corotating frame, a Kley-accreting planet, the MassFlow
+    and gas-torque grids): each step launches cfl and the transport once,
+    viscous_kick twice, ias15 four times and no sources (the first kick of
+    an accreting step reads the pressure from before the accretion: the
+    unfused substep); ten steps agree with the CPU's plain versions (rtol
+    1e-9 in float64, 1e-4 of each scale in float32), the bodies, the
+    accreted mass, the frame's rate and the monitor grids too (in float32
+    each grid also within twice the CPU run's own deviation from float64:
+    ``_held_to_the_cpu``)."""
+    from fargocpt_torch.flagship import planet_accretion
+    gpu = Simulation(planet_accretion(128, 256), dtype=dtype, device=cuda)
+    cpu = Simulation(planet_accretion(128, 256), dtype=dtype, device="cpu")
+    ref64 = Simulation(planet_accretion(128, 256), device="cpu") \
+        if dtype == "float32" else None
+    before = dict(kernels.LAUNCHES)
+    for _ in range(10):
+        dt = gpu.calculate_time_step()
+        gpu.step_once(dt)
+        cpu.step_once(dt.cpu())
+        if ref64 is not None:
+            ref64.step_once(dt.cpu().double())
+    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {
+        "cfl": 10, "viscous_kick": 20, "transport": 10, "ias15": 40}
+    assert float(gpu.state.nbody.mass[1]) > 2e-5
+    _held_to_the_cpu(gpu, cpu, 1e-9 if dtype == "float64" else 1e-4, ref64)
+
+
+@pytest.mark.gpu
+def test_star_planet_step_launches_and_matches_the_cpu(cuda):
+    """setups/star_planet.yml at 64x128 float64 (the Euler step in the
+    corotating frame): each step launches cfl, sources, viscous_kick and
+    the transport once and ias15 twice; ten steps agree with the CPU's
+    plain versions at rtol 1e-9, the bodies and the frame's rate too."""
+    import yaml
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "setups" \
+        / "star_planet.yml"
+    cfg = dict(yaml.safe_load(path.read_text()), Nrad=64, Naz=128)
+    gpu = Simulation(Config.from_dict(dict(cfg)), device=cuda)
+    cpu = Simulation(Config.from_dict(dict(cfg)), device="cpu")
+    before = dict(kernels.LAUNCHES)
+    for _ in range(10):
+        dt = gpu.calculate_time_step()
+        gpu.step_once(dt)
+        cpu.step_once(dt.cpu())
+    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {
+        "cfl": 10, "sources": 10, "viscous_kick": 10, "transport": 10,
+        "ias15": 20}
+    _held_to_the_cpu(gpu, cpu, 1e-9)

@@ -62,8 +62,8 @@ def test_kick2_smooths_with_the_scale_height_of_kick1():
     seen = []
     real = ts.stepper._gas_kick
 
-    def recording(sigma, vrad, vaz, energy, *args, stale_h=None):
-        out = real(sigma, vrad, vaz, energy, *args, stale_h=stale_h)
+    def recording(sigma, vrad, vaz, energy, *args, stale_h=None, **kw):
+        out = real(sigma, vrad, vaz, energy, *args, stale_h=stale_h, **kw)
         seen.append((stale_h, ts.stepper.derived(sigma, energy)[2], out[7]))
         return out
 

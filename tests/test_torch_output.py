@@ -45,7 +45,8 @@ from fargocpt_torch.analysis import Loader
 from fargocpt_torch.config import Config
 from fargocpt_torch.ops.boundary import RefValues
 from fargocpt_torch.sim import Simulation
-from fargocpt_torch.state import (state_keys, system_state_from_numpy,
+from fargocpt_torch.state import (MONITOR_GRIDS, state_keys,
+                                  system_state_from_numpy,
                                   system_state_to_numpy)
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -109,6 +110,10 @@ def jax_state_tree(state) -> dict[str, np.ndarray]:
         for part in key.split("."):
             obj = getattr(obj, part)
         tree[key] = np.array(obj)
+    for name in MONITOR_GRIDS:
+        grid = getattr(state.monitor_acc, name)
+        if grid is not None:
+            tree[f"monitor_acc.{name}"] = np.array(grid)
     return tree
 
 
@@ -164,13 +169,10 @@ def carry_refs(ts, js) -> None:
         for k in ("sigma0", "energy0", "vrad0", "vaz0")}))
 
 
-@pytest.fixture(scope="module", params=DTYPES)
-def runs(request, tmp_path_factory):
+def replay(dtype, root, extra: dict) -> dict:
     """One JAX run of one monitor interval with its writer, and the port's
     writer replaying it from the carried states."""
-    dtype = request.param
-    root = tmp_path_factory.mktemp(f"output_{dtype}")
-    js = JSimulation(JConfig.from_dict(dict(CFG, **WRITE_ALL)), dtype=dtype)
+    js = JSimulation(JConfig.from_dict(dict(CFG, **extra)), dtype=dtype)
     perturb(js)
     jout.OutputWriter(js, root / "jax")
     cap = Capture()
@@ -178,7 +180,7 @@ def runs(request, tmp_path_factory):
     js.run()
     assert [r["n_monitor"] for r in cap.records] == [0, 1]
 
-    ts = port_sim(dtype, **WRITE_ALL)
+    ts = port_sim(dtype, **extra)
     carry_refs(ts, js)
     tw = tout.OutputWriter(ts, root / "torch")
     for rec in cap.records:
@@ -187,6 +189,32 @@ def runs(request, tmp_path_factory):
     tw.close()
     return {"dtype": dtype, "root": root, "jax": js, "port": ts,
             "records": cap.records}
+
+
+@pytest.fixture(scope="module", params=DTYPES)
+def runs(request, tmp_path_factory):
+    dtype = request.param
+    return replay(dtype, tmp_path_factory.mktemp(f"output_{dtype}"),
+                  WRITE_ALL)
+
+
+# the monitor grids' flags, and the files each writes
+MONITORS = {"WriteMassFlow": ("MassFlow",),
+            "WriteGasTorques": ("AdvectionTorque", "ViscousTorque",
+                                "GravitationalTorqueNotIntegrated"),
+            "WriteAlphaGravMean": ("alpha_grav_mean",),
+            "WriteAlphaReynoldsMean": ("alpha_reynolds_mean",),
+            "WriteEccentricityChange": ()}
+
+
+@pytest.fixture(scope="module", params=DTYPES)
+def monitor_runs(request, tmp_path_factory):
+    """``runs`` with every monitor grid on and symmetric self-gravity (the
+    alpha-grav grid reads its accelerations)."""
+    dtype = request.param
+    return replay(dtype, tmp_path_factory.mktemp(f"monitor_{dtype}"), {
+        **{flag: "Yes" for flag in MONITORS}, "SelfGravity": "Yes",
+        "SelfGravityMode": "symmetric"})
 
 
 def test_field_files_are_byte_identical(runs):
@@ -337,6 +365,30 @@ def test_nbody_monitor_agrees(runs):
     np.testing.assert_array_equal(b, a)
 
 
+def test_nbody_monitor_of_an_accreting_planet_agrees(tmp_path):
+    """An accreting planet in the corotating frame: each body's monitor
+    rows written from the carried JAX states, the accreted-mass column (the
+    mass gained over the configured mass) and the frame's rate bit for bit,
+    the rest at float64 rtol 1e-12 (the disk's torque is a sum over the
+    grid)."""
+    bodies = {"nbody": [
+        {"name": "star", "semi-major axis": "0.0", "mass": "1.0"},
+        {"name": "planet", "semi-major axis": "1.0", "mass": "1e-3",
+         "accretion efficiency": "1.0", "accretion method": "kley"}],
+        "Frame": "C", "DiskFeedback": "Yes"}
+    rec = replay("float64", tmp_path, bodies)
+    assert float(rec["port"].state.nbody.mass[1]) > 1e-3
+    cols = {"accreted mass": 19, "omega frame": 8}
+    for k in (0, 1):
+        a = np.loadtxt(tmp_path / "jax" / "monitor" / f"nbody{k}.dat")
+        b = np.loadtxt(tmp_path / "torch" / "monitor" / f"nbody{k}.dat")
+        assert a.shape == b.shape == (2, 21)
+        for name, col in cols.items():
+            np.testing.assert_array_equal(b[:, col], a[:, col], err_msg=name)
+        np.testing.assert_allclose(b, a, rtol=1e-12, atol=1e-300)
+    assert np.loadtxt(tmp_path / "torch" / "monitor" / "nbody1.dat")[1, 19] > 0
+
+
 def test_parity_after_one_monitor_interval(runs, tmp_path):
     """float64: the slice's tolerances for a seeded port; float32: the
     trajectory budget of tests/test_dtype_budget.py (rel-L2 < 1e-3, v_rad
@@ -402,16 +454,77 @@ def test_restart_is_bitwise(dtype, tmp_path):
         == "0\n1\n2\n"
 
 
+def carried_by_restore(key: str) -> bool:
+    """Whether a restore reads ``key`` from the snapshot. The monitor
+    accumulators start from zero and the corotation reference from the
+    fresh run's bodies, in both packages."""
+    return not key.startswith(("monitor_acc", "corot"))
+
+
+def planet_setup(integrator: str, monitors: int) -> Config:
+    """examples/quickstart.yml at 32x64 in the corotating frame, its
+    Jupiter accreting (Kley), MassFlow and the gas torques on."""
+    import yaml
+    cfg = yaml.safe_load((ROOT / "examples" / "quickstart.yml").read_text())
+    cfg.pop("OutputDir", None)
+    cfg.update({"Nrad": 32, "Naz": 64, "FirstDT": 0.01, "Frame": "C",
+                "Integrator": integrator, "MonitorTimestep": 0.05,
+                "Nmonitor": 1, "Nsnapshots": monitors,
+                "WriteMassFlow": "Yes", "WriteGasTorques": "Yes"})
+    cfg["nbody"][1]["accretion efficiency"] = 1.0
+    return Config.from_dict(cfg)
+
+
+@pytest.mark.parametrize("integrator", ["LeapFrog", "Euler"])
+def test_restart_with_accretion_monitors_and_corotation_is_bitwise(
+        integrator, tmp_path):
+    """Two monitors uninterrupted against one plus ``restore_simulation``:
+    the bodies' accreted masses come from nbody.bin, the frame's rate from
+    misc.bin, the monitor grids start from zero as they are at a snapshot,
+    and the corotation reference from the fresh run's bodies, as in the
+    JAX package (whose own restart of this run is bit for bit under both
+    integrators)."""
+    def run(root, monitors, restore_from=None):
+        ts = Simulation(planet_setup(integrator, monitors), device="cpu")
+        tout.OutputWriter(ts, root)
+        if restore_from is not None:
+            tout.restore_simulation(ts, root, restore_from)
+        ts.run()
+        return ts
+    a = run(tmp_path / "a", 2)
+    run(tmp_path / "b", 1)
+    c = run(tmp_path / "b", 2, restore_from=1)
+    assert c.n_hydro_iter == a.n_hydro_iter
+    assert float(a.state.nbody.mass[1]) > 1e-3
+    sa, sc = system_state_to_numpy(a.state), system_state_to_numpy(c.state)
+    assert set(sa) == set(sc) >= {"monitor_acc.massflow",
+                                  "monitor_acc.t_grav"}
+    for key in sa:
+        np.testing.assert_array_equal(sc[key], sa[key], err_msg=key)
+    assert compare_output.compare_dir(tmp_path / "a" / "snapshots" / "2",
+                                      tmp_path / "b" / "snapshots" / "2",
+                                      0.0)
+    for name in ("MassFlow", "AdvectionTorque", "ViscousTorque",
+                 "GravitationalTorqueNotIntegrated"):
+        assert (tmp_path / "a" / "snapshots" / "2" / f"{name}.dat"
+                ).read_bytes() == (tmp_path / "b" / "snapshots" / "2"
+                                   / f"{name}.dat").read_bytes(), name
+
+
 def test_jax_snapshot_restores_into_the_port(runs):
     ts = port_sim(runs["dtype"])
     tout.restore_simulation(ts, runs["root"] / "jax", 1)
     rec = runs["records"][1]
     got = system_state_to_numpy(ts.state)
+    # what the JAX package's own restore of the snapshot holds
+    js = JSimulation(JConfig.from_dict(dict(CFG)), dtype=runs["dtype"])
+    jout.restore_simulation(js, runs["root"] / "jax", 1)
+    restored = jax_state_tree(js.state)
     for key in state_keys():
-        if key.startswith(("monitor_acc", "corot")):
-            continue
+        want = rec["tree"][key] if carried_by_restore(key) \
+            else restored[key]
         np.testing.assert_array_equal(
-            got[key], rec["tree"][key].astype(got[key].dtype), err_msg=key)
+            got[key], want.astype(got[key].dtype), err_msg=key)
     assert float(ts.time) == rec["time"]
     assert float(ts.last_dt) == rec["last_dt"]
     assert (ts.n_monitor, ts.n_snapshot, ts.n_hydro_iter) \
@@ -423,9 +536,13 @@ def test_port_snapshot_restores_into_jax(runs):
     js = JSimulation(JConfig.from_dict(dict(CFG)), dtype=runs["dtype"])
     jout.restore_simulation(js, runs["root"] / "torch", 1)
     want = system_state_to_numpy(runs["port"].state)
+    # what the port's own restore of the snapshot holds
+    ts = port_sim(runs["dtype"])
+    tout.restore_simulation(ts, runs["root"] / "torch", 1)
+    restored = system_state_to_numpy(ts.state)
     for key in state_keys():
-        if key.startswith(("monitor_acc", "corot")):
-            continue
+        if not carried_by_restore(key):
+            want[key] = restored[key]
         obj = js.state
         for part in key.split("."):
             obj = getattr(obj, part)
@@ -449,13 +566,6 @@ def test_loader_opens_the_port_output(runs):
 
 @pytest.mark.parametrize("flag,attr,name", [
     ("DistributedOutput", "distributed_output", "DistributedOutput"),
-    ("WriteMassFlow", "write_massflow", "WriteMassFlow"),
-    ("WriteGasTorques", "write_gas_torques", "WriteGasTorques"),
-    ("WriteAlphaGravMean", "write_alpha_grav_mean", "WriteAlphaGravMean"),
-    ("WriteAlphaReynoldsMean", "write_alpha_reynolds_mean",
-     "WriteAlphaReynoldsMean"),
-    ("WriteEccentricityChange", "write_ecc_changes",
-     "WriteEccentricityChange"),
     ("RocheLobeOverflow", "rochelobe_overflow", "Roche-lobe overflow"),
 ])
 def test_outputs_outside_the_slice_raise(flag, attr, name):
@@ -463,6 +573,52 @@ def test_outputs_outside_the_slice_raise(flag, attr, name):
     tout.check_supported(phys)
     with pytest.raises(NotImplementedError, match=name):
         tout.check_supported(phys.with_(**{attr: True}))
+
+
+@pytest.mark.parametrize("flag", list(MONITORS))
+def test_monitor_flag_writes_its_files(flag, tmp_path):
+    """Each monitor flag alone: its grids' files and 1-D files in every
+    snapshot (zero at t = 0, cleared after each write), or
+    eccentricity_change.dat a row a monitor."""
+    ts = port_sim("float64", **{flag: "Yes"})
+    tout.OutputWriter(ts, tmp_path)
+    ts.run()
+    snaps = tmp_path / "snapshots"
+    for name in MONITORS[flag]:
+        assert not np.fromfile(snaps / "0" / f"{name}.dat").any()
+        for sid in ("0", "1"):
+            assert (snaps / sid / f"{name}1D.dat").exists()
+        grid = np.fromfile(snaps / "1" / f"{name}.dat")
+        assert grid.shape == (32 * 64,)
+        assert grid.any() or name == "alpha_grav_mean"   # no self-gravity
+    acc = ts.state.monitor_acc
+    for grid in MONITOR_GRIDS:
+        if getattr(acc, grid) is not None:
+            assert not getattr(acc, grid).any(), grid
+    ecc = tmp_path / "monitor" / "eccentricity_change.dat"
+    assert ecc.exists() == (flag == "WriteEccentricityChange")
+    if ecc.exists():
+        rows = np.loadtxt(ecc)
+        assert rows.shape == (2, 13) and rows[1, 3:].any()
+
+
+def test_monitor_files_are_byte_identical(monitor_runs):
+    """Each monitor grid's file and 1-D file in both snapshots, and
+    eccentricity_change.dat, written from the carried JAX states."""
+    root = monitor_runs["root"]
+    for sid in ("0", "1"):
+        a, b = root / "jax" / "snapshots" / sid, root / "torch" / "snapshots" \
+            / sid
+        for name in (n for names in MONITORS.values() for n in names):
+            for fname in (f"{name}.dat", f"{name}1D.dat"):
+                assert (a / fname).read_bytes() == (b / fname).read_bytes(), \
+                    f"snapshot {sid}: {fname}"
+            if sid == "1":
+                assert np.fromfile(b / f"{name}.dat").any(), name
+    name = "monitor/eccentricity_change.dat"
+    assert (root / "jax" / name).read_bytes() \
+        == (root / "torch" / name).read_bytes()
+    assert np.loadtxt(root / "torch" / name)[1, 3:].any()
 
 
 @pytest.mark.parametrize("flag", ["DistributedOutput"])

@@ -201,16 +201,10 @@ def test_default_device_is_the_card():
     ({"EquationOfState": "PVTE", "PVTELookupTable": "Yes"}, "PVTE"),
     ({"SelfGravity": "Yes"}, "self-gravity"),        # the Bessel kernel
     ({"KeepDiskMassConstant": "Yes"}, "KeepDiskMassConstant"),
-    ({"nbody": [{"name": "star", "semi-major axis": "0.0", "mass": "1.0"},
-                {"name": "planet", "semi-major axis": "1.0",
-                 "mass": "1e-3", "accretion efficiency": "1.0"}]},
-     "accretion"),
-    ({"Frame": "Corotating", "nbody": [
-        {"name": "star", "semi-major axis": "0.0", "mass": "1.0"},
-        {"name": "planet", "semi-major axis": "1.0", "mass": "1e-3"}]},
-     "corotating"),
+    ({"RocheLobeOverflow": "Yes"}, "Roche-lobe overflow"),
+    ({"AspectRatioMode": "1"}, "AspectRatioMode"),
     ({"EquationOfState": "Polytropic"}, "polytropic"),
-    ({"WriteMassFlow": "Yes"}, "MassFlow"),
+    ({"Disk": "No"}, "Disk: no"),
 ])
 def test_features_outside_the_slice_raise(extra, feature):
     with pytest.raises(NotImplementedError, match=feature):
