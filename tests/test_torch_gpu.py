@@ -23,8 +23,8 @@ ias15 with 17 and 40 bodies (a device workspace) bit for bit; a
 split-route and a staged-route Simulation step through their kernels,
 a leapfrog planet_torque step (sources and viscous_kick twice, ias15
 four times), a planet_accretion step (the leapfrog in the corotating
-frame with a Kley-accreting planet and the monitor grids: viscous_kick
-twice, ias15 four times, no sources) and a setups/star_planet.yml step
+frame with a Kley-accreting planet and the monitor grids: sources once,
+viscous_kick twice, ias15 four times) and a setups/star_planet.yml step
 (Euler, corotating), each against the CPU, a PDS70 gas step through artvisc_sn
 and the whole transport, and the whole PDS70 setup with its dust swarm on
 the device against the same run on the CPU; the output written from card
@@ -1284,14 +1284,20 @@ def test_adiabatic_leapfrog_step_matches_the_cpu(cuda):
         assert float((a - b).abs().max()) <= 1e-9 * scale, name
 
 
-def _held_to_the_cpu(gpu, cpu, tol, ref64=None):
+# each float32 monitor grid of planet_accretion at 128x256 after ten steps,
+# rel-L2 against the CPU's: twice the JAX package's own float32 run's
+# rel-L2 from its float64 run there, rounded up (2.1818e-2, 1.0646e-2,
+# 5.6890e-2 by ``python tests/test_torch_monitor_f32.py 128 256 10``)
+F32_GRID_LIMITS = {"massflow": 4.4e-2, "t_adv": 2.2e-2, "t_grav": 0.12}
+
+
+def _held_to_the_cpu(gpu, cpu, tol, f32_grids=False):
     """Each field within ``tol`` of its scale (v_rad of v_az's), the
     bodies and the frame's rate within ``tol`` of their scales, and each
     monitor grid that is on within ``tol`` of its largest value. A monitor
     grid sums terms that cancel, so in float32 it is rounding to a few per
-    cent of itself: with ``ref64``, the same run in float64 on the CPU,
-    each grid is held to the larger of that and twice the CPU run's own
-    deviation from ``ref64``."""
+    cent of itself in the JAX package as in the port: with ``f32_grids``
+    each grid of ``F32_GRID_LIMITS`` is held to its limit there instead."""
     for name in ("sigma", "vrad", "vaz"):
         a = getattr(gpu.fields, name).cpu()
         b = getattr(cpu.fields, name)
@@ -1311,11 +1317,13 @@ def _held_to_the_cpu(gpu, cpu, tol, ref64=None):
         if b is None:
             continue
         a = getattr(gpu.state.monitor_acc, name).cpu()
-        limit = tol * float(b.abs().max())
-        if ref64 is not None:
-            own = getattr(ref64.state.monitor_acc, name) - b.double()
-            limit = max(limit, 2.0 * float(own.abs().max()))
-        assert float((a - b).abs().max()) <= limit, name
+        if f32_grids and name in F32_GRID_LIMITS:
+            err = float(torch.linalg.norm((a - b).double())
+                        / torch.linalg.norm(b.double()))
+            assert err <= F32_GRID_LIMITS[name], (name, err)
+            continue
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max()), \
+            name
 
 
 @pytest.mark.gpu
@@ -1323,31 +1331,29 @@ def _held_to_the_cpu(gpu, cpu, tol, ref64=None):
 def test_planet_accretion_step_launches_and_matches_the_cpu(cuda, dtype):
     """The accretion test at 128x256 (flagship.planet_accretion: the
     leapfrog in the corotating frame, a Kley-accreting planet, the MassFlow
-    and gas-torque grids): each step launches cfl and the transport once,
-    viscous_kick twice, ias15 four times and no sources (the first kick of
-    an accreting step reads the pressure from before the accretion: the
-    unfused substep); ten steps agree with the CPU's plain versions (rtol
-    1e-9 in float64, 1e-4 of each scale in float32), the bodies, the
-    accreted mass, the frame's rate and the monitor grids too (in float32
-    each grid also within twice the CPU run's own deviation from float64:
-    ``_held_to_the_cpu``)."""
+    and gas-torque grids): each step launches cfl, sources and the
+    transport once, viscous_kick twice and ias15 four times (the first
+    kick of an accreting step reads the pressure from before the
+    accretion: the unfused substep; the second kick the kernel); ten
+    steps agree with the CPU's plain versions (rtol 1e-9 in float64, 1e-4
+    of each scale in float32), the bodies, the accreted mass, the frame's
+    rate and the monitor grids too (in float32 the grids within
+    ``F32_GRID_LIMITS``: ``_held_to_the_cpu``)."""
     from fargocpt_torch.flagship import planet_accretion
     gpu = Simulation(planet_accretion(128, 256), dtype=dtype, device=cuda)
     cpu = Simulation(planet_accretion(128, 256), dtype=dtype, device="cpu")
-    ref64 = Simulation(planet_accretion(128, 256), device="cpu") \
-        if dtype == "float32" else None
     before = dict(kernels.LAUNCHES)
     for _ in range(10):
         dt = gpu.calculate_time_step()
         gpu.step_once(dt)
         cpu.step_once(dt.cpu())
-        if ref64 is not None:
-            ref64.step_once(dt.cpu().double())
     delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {
-        "cfl": 10, "viscous_kick": 20, "transport": 10, "ias15": 40}
+        "cfl": 10, "sources": 10, "viscous_kick": 20, "transport": 10,
+        "ias15": 40}
     assert float(gpu.state.nbody.mass[1]) > 2e-5
-    _held_to_the_cpu(gpu, cpu, 1e-9 if dtype == "float64" else 1e-4, ref64)
+    _held_to_the_cpu(gpu, cpu, 1e-9 if dtype == "float64" else 1e-4,
+                     f32_grids=dtype == "float32")
 
 
 @pytest.mark.gpu
