@@ -27,7 +27,14 @@ accretion test: the planet_torque's disk in the corotating frame, its
 planet accreting by Kley's scheme with disk feedback, the MassFlow and
 gas-torque monitor grids on) takes the same kernels but the sources: an
 accreting step's first kick reads the pressure from before the accretion,
-which the unfused substep takes. All eight paths are driven here, and
+which the unfused substep takes. The binary_gcfull
+(setups/gamma_cephei_full.yml's physics: a circumprimary disk in the
+eccentric gamma Cephei binary, N-body-centred initial conditions with the
+circumbinary ring, AspectRatioMode 1, AlphaMode 2, StabilizeViscosity 1,
+irradiation from both stars, the center-of-mass outer boundary, the
+leapfrog, the secondary accreting) takes the whole-transport kernel once a
+step and ias15 four times: the gates keep cfl, sources and viscous_kick
+off there, as the JAX package's do. All nine paths are driven here, and
 setups/star_planet.yml (Euler, corotating) in phase 4.
 
 Phases (any failure raises, so the exit code is not 0):
@@ -99,7 +106,9 @@ Phases (any failure raises, so the exit code is not 0):
      (cfl, sources and the transport once a step, viscous_kick twice,
      ias15 four times), then its first kick's unfused sources substep
      against the sources kernel on the same state (ms a call, device
-     launches); the PDS70 lines add the FLD
+     launches); the binary_gcfull at its own 1609x1160 float32 (10 warm-up
+     and 30 timed steps: the transport once a step, ias15 four times, no
+     other kernel, 0 host reads); the PDS70 lines add the FLD
      SOR iterations and the PVTE refreshes per step (3 and, on the run
      path, 2, with or without the dust), and with the dust its share of
      the step by CUDA events and the particles alive;
@@ -127,7 +136,11 @@ Phases (any failure raises, so the exit code is not 0):
      planet_accretion and setups/star_planet.yml at 256x512 float32 for
      200 steps and 128x256 float64 for 20, the same budgets, the bodies'
      masses, the frame's rate and the accumulated MassFlow and torque
-     grids held to them too;
+     grids held to them too; the binary_gcfull on the golden's radii at
+     128x256 float64 for 20 steps (the same budget) and float32 on the
+     card against float64 on the CPU for 20 steps, each field within
+     twice the JAX package's own float32-vs-float64 rel-L2 there
+     (BINARY_F32_LIMITS);
   5. the command line: ``python -m fargocpt_torch start`` (in this process,
      so the launch counters are readable) on examples/adiabatic_disk.yml at
      1024x3072 float32 for two snapshots (about 70 steps), with the counters
@@ -137,11 +150,15 @@ Phases (any failure raises, so the exit code is not 0):
      to the second in another directory, which tools/compare_output.py
      --rtol 0 must find bit for bit the first run's, file for file; each
      interval's wall and steps/s, and one snapshot write's seconds and
-     bytes;
+     bytes; then setups/gamma_cephei_full.yml as it stands (1609x1160)
+     through ``start --dtype float32 -N 5``, the transport and ias15 its
+     only kernels, snapshot 0's files (Viscosity, AspectRatio and
+     MassFlow among them) finite;
   6. the reference binary on the card: the cold_disk_planet (1e-6),
      spreading_ring (1e-9), shocktube_sn (1e-6), longrun_planet (1e-5),
      planet_torque (1e-6), binary_gceph (1e-5), temperature_test (1e-6),
-     temperature_fld (1e-6) and planet_accretion (1e-6) goldens of
+     temperature_fld (1e-6), planet_accretion (1e-6) and binary_gcfull
+     (1e-5) goldens of
      tests/goldens/ in float64 through the kernels and
      fargocpt_torch.output, each with the launch counters set to 0 before
      and read after, their snapshots against the reference's as
@@ -233,6 +250,15 @@ F32_TOL = 1e-5
 # the port's own: 1.7812e-2, 1.3858e-2, 1.1464e-1); float64 holds every
 # grid to the trajectory's budget
 F32_GRID_LIMITS = {"massflow": 3.5e-2, "t_adv": 2.9e-2, "t_grav": 0.22}
+# binary_gcfull at 128x256 (the golden's radii) after 20 steps, float32 on
+# the card against float64 on the CPU, rel-L2 of each field: twice the JAX
+# package's own float32 run's rel-L2 from its float64 run there, rounded
+# up (4.2344e-7, 8.3582e-7, 8.0540e-7, 4.1481e-6 by ``python
+# tests/test_torch_binary_f32.py 128 256 20``): the center-of-mass
+# boundary's drift nests two five-point differences, rounding in float32
+# in both packages
+BINARY_F32_LIMITS = {"sigma": 8.5e-7, "vrad": 1.7e-6, "vaz": 1.7e-6,
+                     "energy": 8.3e-6}
 
 
 def log(*args):
@@ -308,6 +334,23 @@ def from_yaml(path, nr, naz, dtype, device, **over):
     cfg.update(Nrad=nr, Naz=naz, **over)
     cfg.pop("OutputDir", None)
     return Simulation(Config.from_dict(cfg), dtype=dtype, device=device)
+
+
+def binary_gcfull(nr, naz, dtype, device):
+    """flagship.binary_gcfull: setups/gamma_cephei_full.yml's physics (the
+    circumbinary-disk menu) at its own radii."""
+    from fargocpt_torch.flagship import binary_gcfull as binary_config
+    from fargocpt_torch.sim import Simulation
+    return Simulation(binary_config(nr, naz), dtype=dtype, device=device)
+
+
+def binary_gcfull_golden_radii(nr, naz, dtype, device):
+    """The same physics on the binary_gcfull golden's radii (0.05 to 12:
+    the e = 0.4 secondary inside a resolved grid)."""
+    from fargocpt_torch.flagship import binary_gcfull as binary_config
+    from fargocpt_torch.sim import Simulation
+    return Simulation(binary_config(nr, naz, Rmin="0.05", Rmax="12"),
+                      dtype=dtype, device=device)
 
 
 def binary_gceph(nr, naz, dtype, device):
@@ -1715,6 +1758,13 @@ PLANET_TORQUE_OPS = {"cfl": 1, "sources": 2, "viscous_kick": 2,
 # substep, the second kick the kernel), the rest as the planet_torque's
 PLANET_ACCRETION_OPS = {"cfl": 1, "sources": 1, "viscous_kick": 2,
                         "transport": 1, "ias15": 4}
+# the binary_gcfull's leapfrog step: AspectRatioMode 1 turns the sources
+# and cfl kernels off, AlphaMode 2, StabilizeViscosity 1 and the
+# irradiation the viscous kick (step.gates, as the JAX package's gates):
+# the whole-transport kernel once, ias15 four times (two bodies)
+BINARY_OPS = {"transport": 1, "ias15": 4}
+# setups/gamma_cephei_full.yml's own grid
+NR_BINARY, NAZ_BINARY = 1609, 1160
 
 
 def run_planet(sim, warmup=10, steps=60, profiled=5, ops=None,
@@ -1779,8 +1829,8 @@ def run_planet(sim, warmup=10, steps=60, profiled=5, ops=None,
         torch.cuda.set_sync_debug_mode("default")
     reads = sum(1 for w in caught if "synchroniz" in str(w.message))
     check_state(sim)
-    return {"label": label, "launches": launches, "seconds": seconds,
-            "per_step": per_step,
+    return {"label": label, "grid": f"{nr}x{naz}", "launches": launches,
+            "seconds": seconds, "per_step": per_step,
             "mcell": nr * naz / per_step / 1e6, "mean_dt": mean_dt,
             "s_per_orbit": 2.0 * math.pi / mean_dt * per_step,
             "device_launches_per_step": len(dev) / profiled,
@@ -1797,7 +1847,7 @@ def run_planet(sim, warmup=10, steps=60, profiled=5, ops=None,
 def log_planet(res, gpu) -> None:
     label = res["label"]
     log(f"  {label} launches {res['launches']}")
-    log(f"  {label} {NR}x{NAZ} float32: {res['per_step'] * 1e3:.4f} "
+    log(f"  {label} {res['grid']} float32: {res['per_step'] * 1e3:.4f} "
         f"ms/step (CFL + step), {res['mcell']:.1f} Mcell-updates/s, mean dt "
         f"{res['mean_dt']:.4e}, {res['s_per_orbit']:.2f} s per orbit at "
         f"r = 1 [{gpu}]")
@@ -1999,6 +2049,32 @@ def trajectory(nr, naz, dtype, steps, budget, setup=flagship) -> dict:
     return errs
 
 
+def binary_f32_trajectory(nr, naz, steps) -> dict:
+    """binary_gcfull on the golden's radii: float32 on the card through the
+    kernels against float64 on the CPU through the plain versions, on the
+    card's dt sequence; each field's rel-L2 under ``BINARY_F32_LIMITS``."""
+    gpu = binary_gcfull_golden_radii(nr, naz, "float32", "cuda")
+    cpu = binary_gcfull_golden_radii(nr, naz, "float64", "cpu")
+    for _ in range(steps):
+        dt = gpu.calculate_time_step()
+        gpu.step_once(dt)
+        cpu.step_once(dt.cpu().double())
+    errs = {}
+    for name in BINARY_F32_LIMITS:
+        a = getattr(gpu.fields, name).double().cpu()
+        b = getattr(cpu.fields, name)
+        errs[name] = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    log(f"  binary_gcfull {nr}x{naz} float32 on the card against float64 "
+        f"on the CPU, {steps} steps (t = {float(gpu.time):.4e}): "
+        + ", ".join(f"{k} {v:.3e} (limit {BINARY_F32_LIMITS[k]:.1e})"
+                    for k, v in errs.items()))
+    for name, err in errs.items():
+        if not err <= BINARY_F32_LIMITS[name]:
+            raise AssertionError(f"binary_gcfull float32 {name}: rel-L2 "
+                                 f"{err:.3e} > {BINARY_F32_LIMITS[name]}")
+    return errs
+
+
 def newton_budget(nr, naz, steps, budget=1e-4) -> dict:
     """The PDS70 gas setup on the GPU with one warm PVTE Newton step
     against three, on the first run's dt sequence."""
@@ -2141,6 +2217,50 @@ def command_line(work, gpu) -> dict:
     return res
 
 
+# a few steps of setups/gamma_cephei_full.yml as it stands, at its own
+# 1609x1160: snapshot 0 holds every writer of the setup
+BINARY_CLI_STEPS = 5
+BINARY_CLI_FILES = ("Sigma", "vrad", "vazi", "energy", "Viscosity",
+                    "AspectRatio", "MassFlow", "Qplus", "Qminus")
+
+
+def binary_command_line(work, gpu) -> dict:
+    """``python -m fargocpt_torch start setups/gamma_cephei_full.yml
+    --dtype float32 -N BINARY_CLI_STEPS`` in this process, the launch
+    counters set to 0 just before and read just after (BINARY_OPS a step,
+    no other kernel); snapshot 0's files, those of WriteViscosity,
+    WriteAspectratio and WriteMassFlow among them, finite."""
+    from fargocpt_torch.ops import kernels as K
+    outdir = os.path.join(work, "gamma_cephei_full")
+    K.reset_launches()
+    wall = run_cli(["start", os.path.join(HERE, "setups",
+                                          "gamma_cephei_full.yml"),
+                    "--dtype", "float32", "-o", outdir,
+                    "-N", str(BINARY_CLI_STEPS)])
+    launches = dict(K.LAUNCHES)
+    for name in K.OPS:
+        if launches[name] != BINARY_OPS.get(name, 0) * BINARY_CLI_STEPS:
+            raise AssertionError(f"gamma_cephei_full.yml launched {name} "
+                                 f"{launches[name]} times in "
+                                 f"{BINARY_CLI_STEPS} steps")
+    sdir = os.path.join(outdir, "snapshots", "0")
+    sizes = {}
+    for name in BINARY_CLI_FILES:
+        arr = np.fromfile(os.path.join(sdir, f"{name}.dat"), np.float64)
+        if arr.size < NR_BINARY * NAZ_BINARY or not np.isfinite(arr).all():
+            raise AssertionError(f"gamma_cephei_full.yml snapshot 0: "
+                                 f"{name} ({arr.size} values)")
+        sizes[name] = int(arr.size)
+    log(f"  setups/gamma_cephei_full.yml {NR_BINARY}x{NAZ_BINARY} float32: "
+        f"start -N {BINARY_CLI_STEPS} in {wall:.2f} s (the initial "
+        f"conditions and snapshot 0 included); snapshot 0 files "
+        f"{', '.join(BINARY_CLI_FILES)} finite; launches "
+        f"{ {k: v for k, v in launches.items() if v} } [{gpu}]")
+    return {"grid": f"{NR_BINARY}x{NAZ_BINARY}", "dtype": "float32",
+            "steps": BINARY_CLI_STEPS, "command_wall_s": wall,
+            "launches": launches, "snapshot_0_values": sizes}
+
+
 def check_state_arrays(outdir) -> None:
     """The last snapshot's fields are finite, sigma positive."""
     sdir = os.path.join(outdir, "snapshots", "2")
@@ -2160,7 +2280,7 @@ GOLDENS = (("cold_disk_planet", 1e-6), ("spreading_ring", 1e-9),
            ("shocktube_sn", 1e-6), ("longrun_planet", 1e-5),
            ("planet_torque", 1e-6), ("binary_gceph", 1e-5),
            ("temperature_test", 1e-6), ("temperature_fld", 1e-6),
-           ("planet_accretion", 1e-6))
+           ("planet_accretion", 1e-6), ("binary_gcfull", 1e-5))
 # the goldens' MassFlow.dat and its gate: the deviation the JAX package's
 # own CPU run leaves on it, rounded up
 # (tests/test_torch_goldens_leapfrog.py)
@@ -2306,8 +2426,8 @@ def main() -> int:
     log(f"  phase 2 done at {time.perf_counter() - t_main:.1f} s")
 
     log("== 3. the slices: flagship Simulation on the GPU, three routes "
-        "and 1000 rings on the default route; a planet in the disk; "
-        "PDS70 gas; PDS70 with its dust")
+        "and 1000 rings on the default route; a planet in the disk; the "
+        "circumbinary disk; PDS70 gas; PDS70 with its dust")
     sim_staged = flagship_staged(NR, NAZ, "float32", "cuda")
     res = {"whole": run_slice(sim), "split": run_slice(sim_split),
            "staged": run_slice(sim_staged)}
@@ -2362,6 +2482,18 @@ def main() -> int:
         f"{float(acc.omega_frame):.9f}, MassFlow grid sum "
         f"{float(acc.monitor_acc.massflow.sum()):.4e}")
     del sim_accretion
+    t0 = time.perf_counter()
+    sim_binary = binary_gcfull(NR_BINARY, NAZ_BINARY, "float32", "cuda")
+    log(f"  binary_gcfull {NR_BINARY}x{NAZ_BINARY} float32 built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    res["binary_gcfull"] = run_planet(sim_binary, warmup=10, steps=30,
+                                      ops=BINARY_OPS, label="binary_gcfull")
+    log_planet(res["binary_gcfull"], gpu)
+    if res["binary_gcfull"]["host_reads_per_step"] != 0:
+        raise AssertionError("binary_gcfull reads the device from the host "
+                             f"{res['binary_gcfull']['host_reads_per_step']}"
+                             " times a step")
+    del sim_binary
     res["pds70_gas"] = run_pds70(sim_gas)
     log_pds70(res["pds70_gas"], gpu)
     del sim_gas
@@ -2401,6 +2533,9 @@ def main() -> int:
     trajectory(128, 256, "float64", 20, 1e-9, setup=planet_accretion)
     trajectory(256, 512, "float32", 200, 1e-3, setup=star_planet)
     trajectory(128, 256, "float64", 20, 1e-9, setup=star_planet)
+    trajectory(128, 256, "float64", 20, 1e-9,
+               setup=binary_gcfull_golden_radii)
+    binary_f32 = binary_f32_trajectory(128, 256, 20)
     newton = newton_budget(128, 384, 200)
     log(f"  phase 4 done at {time.perf_counter() - t_main:.1f} s")
 
@@ -2409,6 +2544,7 @@ def main() -> int:
     import tempfile
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
         res_cli = command_line(work, gpu)
+        res_cli["gamma_cephei_full"] = binary_command_line(work, gpu)
     log(f"  phase 5 done at {time.perf_counter() - t_main:.1f} s")
 
     log("== 6. the reference binary's goldens on the card, float64, "
@@ -2433,6 +2569,7 @@ def main() -> int:
             raise AssertionError(f"kernel {k['name']} was not launched on "
                                  "its path")
     log(json.dumps({"pvte_newton_1_vs_3_rel_l2": newton,
+                    "binary_gcfull_f32_vs_f64_rel_l2": binary_f32,
                     "planet_disk_isothermal_kernels": {
                         name: {k: v for k, v in m.items()
                                if k != "per_launch"}

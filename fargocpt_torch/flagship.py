@@ -29,6 +29,16 @@ test's disk in the corotating frame, its planet accreting by Kley's
 two-zone scheme (efficiency 1) with disk feedback; the MassFlow and
 gas-torque monitor grids on.
 
+``binary_gcfull``: ``setups/gamma_cephei_full.yml``'s physics (the
+``binary_gcfull`` golden's at the setup's own radii): a circumprimary
+disk in the full eccentric (e = 0.4) gamma Cephei binary, the leapfrog,
+N-body-centred initial conditions with the inner profile cutoff and the
+circumbinary ring, AspectRatioMode 1, AlphaMode 2, StabilizeViscosity 1,
+TW artificial viscosity, thermal cooling with irradiation from both
+stars, a viscous inner and a center-of-mass outer boundary with damping
+zones, the quadrupole-supported v_az, and the secondary accreting by the
+viscous method.
+
 ``pds70_gas``: the gas part of ``__graft_entry__._pds70`` (BASELINE.json
 configs[4]): the variable-gamma PVTE equation of state, FLD radiative
 diffusion, symmetric FFT self-gravity, thermal surface cooling, viscous
@@ -153,6 +163,56 @@ PLANET_ACCRETION = {
 }
 
 
+BINARY_GCFULL = {
+    "l0": "20.0", "m0": "1.8", "mu": "2.35",
+    "Integrator": "Leapfrog", "CFL": "0.45", "CFLmaxVar": "1.1",
+    "HeatingCoolingCFLlimit": "10.0",
+    "EquationOfState": "Ideal", "AdiabaticIndex": "1.4",
+    "Sigma0": "0.0014582264787952723", "SigmaSlope": "1.0937283488754155",
+    "SigmaFloor": "5.0e-11", "SigmaCondition": "Nbody",
+    "EnergyCondition": "Nbody", "DensityFactor": "2.50662827463100050242",
+    "CenterProfileDensityCorrectionFactor": "0.9962847452588348",
+    "ProfileCutoffInner": "yes", "ProfileCutoffPointInner": "3.8",
+    "ProfileCutoffWidthInner": "0.38",
+    "CircumBinaryRing": "yes", "CircumBinaryRingPosition": "5.7",
+    "CircumBinaryRingWidth": "0.5",
+    "CircumBinaryRingEnhancementFactor": "1.37",
+    "AspectRatio": "0.03827690166989861",
+    "FlaringIndex": "0.2937888068993456", "AspectRatioMode": "1",
+    "AlphaMode": "2", "ViscousAlpha": "0.01", "AlphaCold": "0.001",
+    "AlphaHot": "0.01", "StabilizeViscosity": "1",
+    "ArtificialViscosity": "TW", "ArtificialViscosityDissipation": "yes",
+    "ArtificialViscosityFactor": "1.41",
+    "SurfaceCooling": "thermal", "HeatingViscous": "yes",
+    "HeatingViscousFactor": "1.0", "MinimumTemperature": "3 K",
+    "MaximumTemperature": "30000 K", "TauFactor": "0.5", "TauMin": "0.0",
+    "Transport": "FARGO", "InnerBoundary": "viscous",
+    "OuterBoundary": "centerofmass", "ViscousOutflowSpeed": "10.0",
+    "VazimuthalConsidersQuadropoleMoment": "yes",
+    "Damping": "yes", "DampingInnerLimit": "1.0", "DampingOuterLimit": "0.6",
+    "DampingTimeFactor": "0.1", "DampingTimeRadiusOuter": "60.0",
+    "Rmin": "0.0100250777242227", "Rmax": "60",
+    "RadialSpacing": "Logarithmic", "QuantitiesRadiusLimit": "0.35",
+    "OmegaFrame": "0.0", "Frame": "F", "HydroFrameCenter": "primary",
+    "ThicknessSmoothing": "0.6", "MassAccretionRadius": "0.1",
+    "BodyForceFromPotential": "yes",
+    "nbody": [
+        {"name": "primary", "semi-major axis": "0.0",
+         "mass": "0.77778641984910943455", "accretion efficiency": "0",
+         "eccentricity": "0.0", "radius": "1.533 solRadius",
+         "temperature": "6670 K", "ramp-up time": "0.0"},
+        {"name": "secondary", "semi-major axis": "1.0",
+         "mass": "0.22221358015089056545", "accretion efficiency": "1",
+         "accretion method": "viscous", "cubic smoothing factor": "0.3",
+         "eccentricity": "0.4", "radius": "0.421 solRadius",
+         "temperature": "3470 K", "trueanomaly": "0.0",
+         "ramp-up time": "0.0"},
+    ],
+    **_RUN,
+    "FirstDT": "1.0e-5",
+}
+
+
 def flagship(nrad: int, naz: int) -> Config:
     """The flagship setup on an ``nrad`` x ``naz`` grid."""
     return Config.from_dict(dict(FLAGSHIP, Nrad=str(nrad), Naz=str(naz)))
@@ -192,4 +252,14 @@ def planet_accretion(nrad: int, naz: int) -> Config:
     an ``nrad`` x ``naz`` grid."""
     cfg = dict(PLANET_ACCRETION, Nrad=str(nrad), Naz=str(naz))
     cfg["nbody"] = [dict(b) for b in PLANET_ACCRETION["nbody"]]
+    return Config.from_dict(cfg)
+
+
+def binary_gcfull(nrad: int, naz: int, **overrides: str) -> Config:
+    """``setups/gamma_cephei_full.yml``'s physics (the circumbinary-disk
+    menu) on an ``nrad`` x ``naz`` grid; ``overrides`` replace keys (the
+    tests' ``StabilizeViscosity: 2``, ``AspectRatioMode: 2``,
+    ``HydroFrameCenter: binary``)."""
+    cfg = dict(BINARY_GCFULL, Nrad=str(nrad), Naz=str(naz), **overrides)
+    cfg["nbody"] = [dict(b) for b in BINARY_GCFULL["nbody"]]
     return Config.from_dict(cfg)

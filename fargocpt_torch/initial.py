@@ -2,13 +2,14 @@
 (init_gas_density :937, init_gas_energy :1257, init_gas_velocities
 :1467), the spreading-ring test (:346-415), the Sod shock tube with the
 ideal gas (:425-443), the pure Keplerian start, the disk-mass
-renormalisation ``SetSigma0`` (:1150-1188) and the 1-d / 2-d profile
-files of ``SigmaCondition`` / ``EnergyCondition``.
+renormalisation ``SetSigma0`` (:1150-1188), the 1-d / 2-d profile files of
+``SigmaCondition`` / ``EnergyCondition``, the N-body-centred conditions
+(``nbody``), the circumbinary ring and the binary quadrupole support of
+v_az.
 
 Everything is built host-side in float64 numpy and cast to the run dtype on
-the target device. The N-body-centred conditions, ``SigmaRandomize``, the
-circumbinary ring, the secondary disk, ``CentrifugalBalance`` and the PVTE
-shock tube raise.
+the target device. ``SigmaRandomize``, the secondary disk,
+``CentrifugalBalance`` and the PVTE shock tube raise.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from . import theo
 from .constants import Constants
 from .grid import Geometry
+from .ops import diskmodel as dm
 from .params import Physics
 from .state import FieldState
 
@@ -60,82 +62,12 @@ def powerlaw_energy(phys: Physics, constants: Constants,
     return energy
 
 
-# --- analytic disk model of the initial radial drift (reference
-# src/Theo.cpp:131-202, src/viscosity/viscous_radial_speed.cpp:39-199) ---
-
-def _sigma_profile(phys: Physics, r):
-    sig = phys.sigma0 * r ** (-phys.sigma_slope)
-    if phys.profile_cutoff_outer:
-        sig = sig * theo.cutoff_outer(phys.profile_cutoff_point_outer,
-                                      phys.profile_cutoff_width_outer, r)
-    if phys.profile_cutoff_inner:
-        sig = sig * theo.cutoff_inner(phys.profile_cutoff_point_inner,
-                                      phys.profile_cutoff_width_inner, r)
-    return np.maximum(sig, phys.sigma_floor * phys.sigma0)
-
-
-def _nu_of(phys: Physics, constants: Constants, r, mass, sigma):
-    """Initial-profile viscosity with the temperature clamp
-    (viscous_radial_speed.cpp:39-89 ``get_nu2``)."""
-    vk = np.sqrt(constants.G * mass / r)
-    h = phys.aspectratio_ref * r ** phys.flaring_index
-    if phys.is_adiabatic:
-        gam = phys.adiabatic_index
-        cutoff = 1.0
-        if phys.profile_cutoff_outer:
-            cutoff = cutoff * theo.cutoff_outer(
-                phys.profile_cutoff_point_outer,
-                phys.profile_cutoff_width_outer, r)
-        if phys.profile_cutoff_inner:
-            cutoff = cutoff * theo.cutoff_inner(
-                phys.profile_cutoff_point_inner,
-                phys.profile_cutoff_width_inner, r)
-        e = cutoff / (gam - 1.0) * sigma * (h * vk) ** 2
-        efac = sigma / phys.mu * constants.R / (gam - 1.0)
-        e = np.clip(e, phys.minimum_temperature * efac,
-                    min(phys.maximum_temperature,
-                        float(np.finfo(np.float64).max)) * efac)
-        cs_adb = np.sqrt(gam * (gam - 1.0) * e / sigma)
-        cs_iso = np.sqrt((gam - 1.0) * e / sigma)
-        big_h = cs_iso * r / vk
-    else:
-        cs_adb = h * vk
-        big_h = h * r
-    return phys.viscous_alpha * cs_adb * big_h
-
-
-def _derive(f, r, rel_h: float = 8.0e-4):
-    """5-point finite difference df/dr with h = 8e-4 r
-    (viscous_radial_speed.cpp:115-131)."""
-    h = rel_h * r
-    return (-f(r + 2.0 * h) + 8.0 * f(r + h)
-            - 8.0 * f(r - h) + f(r - 2.0 * h)) / (12.0 * h)
-
-
-def vr_numerical_viscous(phys: Physics, constants: Constants, r, mass):
-    """Steady viscous-accretion drift on the initial profile
-    (viscous_radial_speed.cpp:173-199):
-    v_r = [1/r d/dr(nu Sigma r^3 dw/dr)] / [Sigma d(r^2 w)/dr]."""
-    G = constants.G
-
-    def w(rr):
-        return theo.initial_locally_isothermal_smoothed_v_az(
-            phys, G, rr, mass) / rr
-
-    def nu_s_r3_dwdr(rr):
-        sig = _sigma_profile(phys, rr)
-        return _nu_of(phys, constants, rr, mass, sig) * sig * rr ** 3 \
-            * _derive(w, rr)
-
-    num = _derive(nu_s_r3_dwdr, r) / r
-    den = _sigma_profile(phys, r) * _derive(lambda rr: rr ** 2 * w(rr), r)
-    return num / den
-
-
-def gas_velocities(phys: Physics, constants: Constants,
-                   geom: Geometry) -> tuple[np.ndarray, np.ndarray]:
+def gas_velocities(phys: Physics, constants: Constants, geom: Geometry,
+                   quad_moment: float = 0.0
+                   ) -> tuple[np.ndarray, np.ndarray]:
     """Axisymmetric velocity ICs (reference src/init.cpp:1467-1780,
-    single-star primary-frame branch)."""
+    single-star primary-frame branch). ``quad_moment`` adds the binary
+    quadrupole support to v_az (reference src/Theo.cpp:183-205)."""
     G = constants.G
     M = phys.hydro_center_mass
     rb = geom.rmed
@@ -152,11 +84,16 @@ def gas_velocities(phys: Physics, constants: Constants,
         vr_full[geom.nrad] = vr_row[geom.nrad - 1]
         return vr_full, vaz
     vaz_row = theo.initial_locally_isothermal_smoothed_v_az(phys, G, rb, M)
+    if quad_moment > 0.0:
+        vaz_row = dm.v_az_smoothed(phys, constants, rb, M, quad_moment)
     vaz_row = vaz_row - phys.omega_frame * rb
     vaz = np.broadcast_to(vaz_row[:, None], (geom.nrad, geom.naz)).copy()
     vr_full = np.zeros((geom.nrad + 1, geom.naz))
     if not phys.initialize_vradial_zero:
-        vr_row = vr_numerical_viscous(phys, constants, ri, M)
+        # the numerical drift of the initial profile, cutoffs included
+        # (src/init.cpp:1766 get_vr_with_numerical_viscous_speed)
+        vr_row = dm.vr_numerical_viscous(phys, constants, ri, M,
+                                         quad_moment)
         if phys.imposed_disk_drift != 0.0:
             sigma_inf = phys.sigma0 * ri ** (-phys.sigma_slope)
             vr_row = vr_row + phys.imposed_disk_drift * phys.sigma0 \
@@ -238,25 +175,171 @@ def _read_condition(condition: str, path: str, geom: Geometry):
     return None
 
 
+def _com_distance(geom: Geometry, com_x: float, com_y: float,
+                  radial: np.ndarray) -> np.ndarray:
+    """Distance from the bodies' centre of mass of each (row radius, cell
+    centre azimuth) position; ``radial`` holds one radius a row."""
+    phi = geom.phi[None, :]
+    x = radial[:, None] * np.cos(phi) - com_x
+    y = radial[:, None] * np.sin(phi) - com_y
+    return np.hypot(x, y)
+
+
+def nbody_centered_sigma(phys: Physics, geom: Geometry, com_x: float,
+                         com_y: float) -> np.ndarray:
+    """The Sigma power law at the distance from the centre of mass
+    (reference src/init.cpp:962-997): the profile samples the cell's inner
+    interface radius Rinf times CenterProfileDensityCorrectionFactor, the
+    profile cutoffs (:1063-1147) the cell centre's distance, the floor
+    after each."""
+    r_inf = _com_distance(geom, com_x, com_y, geom.rinf)
+    floor = phys.sigma_floor * phys.sigma0
+    sigma = np.maximum(
+        phys.sigma0 * r_inf ** (-phys.sigma_slope)
+        * phys.center_mass_density_correction_factor, floor)
+    r_med = _com_distance(geom, com_x, com_y, geom.rmed)
+    if phys.profile_cutoff_outer:
+        sigma = np.maximum(sigma * theo.cutoff_outer(
+            phys.profile_cutoff_point_outer,
+            phys.profile_cutoff_width_outer, r_med), floor)
+    if phys.profile_cutoff_inner:
+        sigma = np.maximum(sigma * theo.cutoff_inner(
+            phys.profile_cutoff_point_inner,
+            phys.profile_cutoff_width_inner, r_med), floor)
+    return sigma
+
+
+def nbody_centered_energy(phys: Physics, constants: Constants,
+                          geom: Geometry, com_x: float, com_y: float,
+                          com_mass: float, sigma: np.ndarray) -> np.ndarray:
+    """The energy profile of the bodies' total mass at the cell centre's
+    distance from their centre of mass (reference src/init.cpp:1302-1348),
+    floored at the temperature floor of ``sigma``, then damped by the
+    cutoffs with the floor after each (:1363-1457)."""
+    r_med = _com_distance(geom, com_x, com_y, geom.rmed)
+    energy = theo.initial_energy(phys, constants.G, r_med, com_mass)
+    e_floor = phys.minimum_temperature * sigma / phys.mu * constants.R \
+        / (phys.adiabatic_index - 1.0)
+    energy = np.maximum(energy, e_floor)
+    if phys.profile_cutoff_outer:
+        energy = np.maximum(energy * theo.cutoff_outer(
+            phys.profile_cutoff_point_outer,
+            phys.profile_cutoff_width_outer, r_med), e_floor)
+    if phys.profile_cutoff_inner:
+        energy = np.maximum(energy * theo.cutoff_inner(
+            phys.profile_cutoff_point_inner,
+            phys.profile_cutoff_width_inner, r_med), e_floor)
+    return energy
+
+
+def nbody_centered_velocities(phys: Physics, constants: Constants,
+                              geom: Geometry, com: tuple, v_com: tuple,
+                              com_mass: float, quad_moment: float,
+                              dist_secondary: float):
+    """Velocities around the bodies' centre of mass (reference
+    src/init.cpp:1467-1608, the N-body-centred branch): each cell takes
+    the rotation and drift of the total mass at its distance from the
+    centre of mass, as a Cartesian vector in that frame, plus the centre
+    of mass's velocity, projected on the grid's polar axes. The
+    quadrupole-supported v_az holds only beyond twice the secondary's
+    distance (:1514-1520). Returns (vrad, vaz)."""
+    G = constants.G
+
+    def model(radial_rows: np.ndarray, phi_row: np.ndarray):
+        x = radial_rows[:, None] * np.cos(phi_row)[None, :] - com[0]
+        y = radial_rows[:, None] * np.sin(phi_row)[None, :] - com[1]
+        r_com = np.hypot(x, y)
+        if phys.initialize_pure_keplerian:
+            vazi0 = np.sqrt(G * com_mass / r_com)
+            vr0 = theo.initial_viscous_radial_speed(phys, G, r_com,
+                                                    com_mass)
+        else:
+            vazi0 = dm.v_az_smoothed(phys, constants, r_com, com_mass)
+            if quad_moment > 0.0 and phys.vaz_quadrupole_support:
+                vazi0 = np.where(r_com > 2.0 * dist_secondary,
+                                 dm.v_az_smoothed(phys, constants, r_com,
+                                                  com_mass, quad_moment),
+                                 vazi0)
+            vr0 = dm.vr_numerical_viscous(phys, constants, r_com, com_mass)
+        if phys.initialize_vradial_zero:
+            vr0 = np.zeros_like(r_com)
+        vx = (vr0 * x - vazi0 * y) / r_com + v_com[0]
+        vy = (vr0 * y + vazi0 * x) / r_com + v_com[1]
+        return vx, vy
+
+    # v_rad at the interface radii (row NR repeats Rinf[NR-1], reference
+    # :1492-1496) and the cell centre's azimuth
+    phi_c = geom.phi
+    ra = np.concatenate([geom.rinf, [geom.rinf[-1]]])
+    vx, vy = model(ra, phi_c)
+    vrad = vx * np.cos(phi_c)[None, :] + vy * np.sin(phi_c)[None, :]
+    # v_az at the cell centre radii and the azimuthal interfaces
+    phi_i = phi_c - 0.5 * geom.dphi
+    vx, vy = model(geom.rmed, phi_i)
+    vaz = (vy * np.cos(phi_i)[None, :] - vx * np.sin(phi_i)[None, :]
+           - phys.omega_frame * geom.rmed[:, None])
+    return vrad, vaz
+
+
+def add_gaussian_rings(phys: Physics, constants: Constants, geom: Geometry,
+                       sigma: np.ndarray, energy: np.ndarray,
+                       com=None, com_mass=None):
+    """The circumbinary ring (reference src/init.cpp:889-958 +
+    :1208-1256): an asymmetric Gaussian enhancement of Sigma and, with an
+    energy equation, of the energy, of independent inner width and outer
+    decay width and exponent, centred on ``com`` where given. Returns
+    (sigma, energy)."""
+    if com is not None:
+        x, y = geom.cell_centers_xy()
+        r = np.hypot(x - com[0], y - com[1])
+        mass = com_mass
+    else:
+        r = np.broadcast_to(geom.rmed[:, None], sigma.shape)
+        mass = phys.hydro_center_mass
+    r_ring = phys.cbd_ring_position
+    fac = phys.cbd_ring_enhancement_factor
+    w_in = phys.cbd_ring_width
+    w_out = phys.cbd_decay_width
+    p_out = phys.cbd_decay_exponent
+    bump = np.where(
+        r < r_ring,
+        np.exp(-((r_ring - r) ** 2) / (2.0 * w_in ** 2)),
+        np.exp(-(np.maximum(r - r_ring, 0.0) ** p_out)
+               / (2.0 * w_out ** 2)))
+    sigma = sigma + phys.sigma0 * r ** (-phys.sigma_slope) * (fac - 1.0) \
+        * bump
+    if phys.is_adiabatic:
+        energy = energy + theo.initial_energy(phys, constants.G, r, mass) \
+            * (fac - 1.0) * bump
+    return sigma, energy
+
+
 def build_initial_state(phys: Physics, constants: Constants, geom: Geometry,
+                        quad_moment: float = 0.0, nbody: dict | None = None,
                         *, dtype: torch.dtype, device: torch.device | str
                         ) -> tuple[FieldState, Physics]:
     """The initial fields (reference src/init.cpp:255-341 ``init_physics``)
-    and the Physics, whose sigma0 ``SetSigma0`` renormalises."""
+    and the Physics, whose sigma0 ``SetSigma0`` renormalises.
+    ``quad_moment`` is the binary quadrupole moment of the v_az support;
+    ``nbody`` (the bodies' x, y, vx, vy and mass, float64 arrays) centres
+    the ``nbody`` conditions and the circumbinary ring on the bodies'
+    centre of mass."""
     unsupported = {
         "the PVTE shock tube (ShockTube 2)": phys.shock_tube == 2,
-        "SigmaCondition nbody (N-body-centred initial conditions)":
-            phys.sigma_condition == "nbody",
-        "EnergyCondition nbody (N-body-centred initial conditions)":
-            phys.energy_condition == "nbody",
         "SigmaRandomize": phys.sigma_randomize,
-        "the circumbinary ring": phys.cbd_ring,
         "the secondary disk": phys.secondary_disk,
         "CentrifugalBalance": phys.centrifugal_balance,
     }
     for name, on in unsupported.items():
         if on:
             raise NotImplementedError(f"{name} is not ported yet")
+    com, com_mass = None, phys.hydro_center_mass
+    if nbody is not None:
+        m = np.asarray(nbody["mass"])
+        com_mass = float(m.sum())
+        com = (float((m * np.asarray(nbody["x"])).sum() / m.sum()),
+               float((m * np.asarray(nbody["y"])).sum() / m.sum()))
+    nbody_centred = phys.sigma_condition == "nbody" and com is not None
     if phys.shock_tube == 1:
         sigma, energy = shock_tube_fields(geom)
     else:
@@ -267,21 +350,43 @@ def build_initial_state(phys: Physics, constants: Constants, geom: Geometry,
             sigma = _read_condition(phys.sigma_condition,
                                     phys.sigma_filename, geom)
             if sigma is None:
-                sigma = powerlaw_sigma(phys, geom)
+                sigma = nbody_centered_sigma(phys, geom, *com) \
+                    if nbody_centred else powerlaw_sigma(phys, geom)
             if not phys.is_adiabatic:
                 energy = np.zeros_like(sigma)
             else:
                 energy = _read_condition(phys.energy_condition,
                                          phys.energy_filename, geom)
-                if energy is None:
+                if energy is None and phys.energy_condition == "nbody" \
+                        and com is not None:
+                    energy = nbody_centered_energy(phys, constants, geom,
+                                                   *com, com_mass, sigma)
+                elif energy is None:
                     energy = powerlaw_energy(phys, constants, geom, sigma)
         if phys.sigma_adjust:
             sigma, energy, sigma0 = renormalize_sigma(phys, geom, sigma,
                                                       energy)
             phys = phys.with_(sigma0=sigma0)
-    # the velocities take the standard path, the shock tube's too
-    # (src/init.cpp:330-331 runs init_gas_velocities unconditionally)
-    vrad, vaz = gas_velocities(phys, constants, geom)
+        if phys.cbd_ring:
+            sigma, energy = add_gaussian_rings(
+                phys, constants, geom, sigma, energy,
+                com if phys.sigma_condition == "nbody" else None, com_mass)
+    if nbody_centred and phys.shock_tube != 1:
+        # the reference's N-body-centred branch returns early, before the
+        # centrifugal balance (src/init.cpp:1473-1609)
+        m = np.asarray(nbody["mass"])
+        v_com = (float((m * np.asarray(nbody["vx"])).sum() / m.sum()),
+                 float((m * np.asarray(nbody["vy"])).sum() / m.sum()))
+        dist_sec = float(np.hypot(nbody["x"][1] - nbody["x"][0],
+                                  nbody["y"][1] - nbody["y"][0])) \
+            if m.size > 1 else 0.0
+        vrad, vaz = nbody_centered_velocities(phys, constants, geom, com,
+                                              v_com, com_mass, quad_moment,
+                                              dist_sec)
+    else:
+        # the standard path, the shock tube's too (src/init.cpp:330-331
+        # runs init_gas_velocities unconditionally)
+        vrad, vaz = gas_velocities(phys, constants, geom, quad_moment)
     t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
     return FieldState(sigma=t(sigma), vrad=t(vrad), vaz=t(vaz),
                       energy=t(energy)), phys

@@ -7,11 +7,13 @@ dispatch of src/boundary_conditions/config.cpp; the JAX package's
   reference, diskmodel and none;
 * v_rad: zerogradient, outflow, reflecting, reference, keplerian, viscous
   and none;
-* v_az: keplerian, zerogradient, reference, zeroshear, balanced and none.
+* v_az: keplerian, zerogradient, reference, zeroshear, balanced and none;
+* the composite ``centerofmass`` (``center_of_mass_boundary``): the disk
+  model around the bodies' centre of mass, evaluated on the device from
+  the bodies' tensors.
 
-The composite boundaries ``centerofmass`` and ``custom``
-(``CustomBoundaryModule``) and the Roche-lobe overflow stream are not
-ported and raise by name.
+The composite ``custom`` (``CustomBoundaryModule``) and the Roche-lobe
+overflow stream are not ported and raise by name.
 
 Ghost rows: row 0 / NR-1 of the scalar fields, rows 0,1 / NR-1,NR of
 v_rad (row 1 / NR-1 sit on the active boundary). Each field is rebuilt by
@@ -29,6 +31,7 @@ from dataclasses import dataclass
 import torch
 
 from ..params import Physics
+from . import diskmodel as dm
 from .common import Geom
 
 SCALAR_BCS = ("zerogradient", "outflow", "reflecting", "reference",
@@ -56,10 +59,6 @@ def check_supported(phys: Physics) -> None:
     naming it."""
     for side, comp in (("inner", phys.composite_inner),
                        ("outer", phys.composite_outer)):
-        if comp == "centerofmass":
-            raise NotImplementedError(
-                f"the {side} center-of-mass boundary (center_of_mass_"
-                "boundary) is not ported yet")
         if comp == "custom":
             raise NotImplementedError(
                 f"the {side} custom boundary (CustomBoundaryModule) is not "
@@ -231,11 +230,15 @@ def _vaz_ghost(phys: Physics, constants, name: str, vaz, vaz0, g: Geom,
 
 def apply_boundary_conditions(phys: Physics, constants, g: Geom,
                               sigma, vrad, vaz, energy, ref: RefValues,
-                              omega_frame: torch.Tensor, nu=None):
+                              omega_frame: torch.Tensor, nu=None,
+                              com_ctx=None):
     """Per-variable x per-edge dispatch (reference
     src/boundary_conditions/boundary_conditions.cpp:65-110). ``nu`` is the
-    viscosity grid the viscous v_rad BC reads. Damping is a separate call
-    (``ops/damping.py``) made on the final BC application of a step."""
+    viscosity grid the viscous v_rad BC reads; ``com_ctx`` = (bodies,
+    n_hydroframe, quadrupole moment) for a ``centerofmass`` side, which
+    then overwrites that side's ghosts (the JAX package's order). Damping
+    is a separate call (``ops/damping.py``) made on the final BC
+    application of a step."""
     sigma = _scalar((phys.bc_sigma_inner, phys.bc_sigma_outer), sigma,
                     ref.sigma0, g, phys, "sigma")
     energy = _scalar((phys.bc_energy_inner, phys.bc_energy_outer), energy,
@@ -249,4 +252,111 @@ def apply_boundary_conditions(phys: Physics, constants, g: Geom,
         vaz[1:nr - 1],
         _vaz_ghost(phys, constants, phys.bc_vaz_outer, vaz, ref.vaz0, g,
                    omega_frame, True)], dim=0)
+    if com_ctx is not None:
+        nb, n_hydroframe, quad = com_ctx
+        for outer, comp in ((False, phys.composite_inner),
+                            (True, phys.composite_outer)):
+            if comp == "centerofmass":
+                sigma, vrad, vaz, energy = center_of_mass_boundary(
+                    phys, constants, g, sigma, vrad, vaz, energy, nb,
+                    n_hydroframe, quad, omega_frame, outer=outer)
+    return sigma, vrad, vaz, energy
+
+
+def _put_row(x, row: int, value):
+    """``x`` with row ``row`` replaced by ``value`` (NAZ,)."""
+    return torch.cat([x[:row], value.to(x.dtype)[None, :], x[row + 1:]],
+                     dim=0)
+
+
+def center_of_mass_boundary(phys: Physics, constants, g: Geom, sigma, vrad,
+                            vaz, energy, nb, n_hydroframe: int,
+                            quad_moment: float, omega_frame,
+                            outer: bool = True):
+    """The circumbinary ghost ring: the disk model around the bodies' centre
+    of mass, shifted back to the grid's frame (reference
+    src/boundary_conditions/center_of_mass.cpp:37-425
+    ``diskmodel_center_of_mass_boundary_{outer,inner}``;
+    fargocpt_tpu/ops/boundary.py:254-332).
+
+    The two sides differ (center_of_mass.cpp:44-47 against :231-236): the
+    outer side takes the centre of mass of all bodies, the
+    quadrupole-supported v_az and the grid-corrected drift; the inner side
+    the first ``n_hydroframe`` bodies, the plain smoothed v_az and the
+    uncorrected drift. The centre of mass comes from the float64 body
+    tensors ``nb``, on the device; the model is evaluated in the field
+    type, the azimuths' cosines and sines in float64 as the JAX package
+    takes them."""
+    n_com = None if outer else n_hydroframe
+    m = nb.mass[:n_com]
+    com_m = torch.sum(m)
+    com_x = torch.sum(m * nb.x[:n_com]) / com_m
+    com_y = torch.sum(m * nb.y[:n_com]) / com_m
+    com_vx = torch.sum(m * nb.vx[:n_com]) / com_m
+    com_vy = torch.sum(m * nb.vy[:n_com]) / com_m
+
+    dtype = sigma.dtype
+    nr = g.nrad
+    row = nr - 1 if outer else 0
+    phi_c = torch.arange(g.naz, dtype=torch.float64,
+                         device=sigma.device) * g.dphi
+
+    def cos_sin(phi):
+        return torch.cos(phi).to(dtype), torch.sin(phi).to(dtype)
+
+    def profile_velocities(r_pos, cos_p, sin_p):
+        """(x, y, vx, vy) of the model flow at radii ``r_pos`` and the
+        azimuths of (cos_p, sin_p), from the profile around the centre of
+        mass."""
+        x = r_pos * cos_p
+        y = r_pos * sin_p
+        x_com = x - com_x
+        y_com = y - com_y
+        r_com = torch.sqrt(x_com ** 2 + y_com ** 2)
+        if phys.initialize_pure_keplerian:
+            vazi0 = dm.v_kepler(constants, r_com, com_m)
+            vr0 = dm.viscous_radial_speed_analytic(phys, constants, r_com,
+                                                   com_m)
+        else:
+            # the quadrupole-supported v_az on the outer side only
+            # (center_of_mass.cpp:79-85 against :42); the drift model's
+            # rotation keeps the quadrupole on both sides
+            # (viscous_radial_speed.cpp:141-147)
+            vazi0 = dm.v_az_smoothed(phys, constants, r_com, com_m,
+                                     quad_moment if outer else 0.0)
+            vr0 = dm.vr_numerical_viscous(phys, constants, r_com, com_m,
+                                          quad_moment)
+            if outer:
+                vr0 = vr0 * dm.vr_outer_grid_correction(
+                    phys, constants, g, r_com, com_m, quad_moment)
+        vx = (vr0 * x_com - vazi0 * y_com) / r_com + com_vx
+        vy = (vr0 * y_com + vazi0 * x_com) / r_com + com_vy
+        return x, y, vx, vy
+
+    # one evaluation of three rows: v_az at the ghost ring's radius and the
+    # azimuthal interfaces (phi - dphi / 2), v_rad at the two radial faces
+    # bounding the ghost ring and the cell centres' azimuths
+    faces = (row, row + 1) if outer else (1, 0)
+    cos_i, sin_i = cos_sin(phi_c - 0.5 * g.dphi)
+    cos_c, sin_c = cos_sin(phi_c)
+    r_rows = torch.stack([g.rb[row], g.ra[faces[0]], g.ra[faces[1]]])
+    x, y, vx, vy = profile_velocities(
+        r_rows, torch.stack([cos_i, cos_c, cos_c]),
+        torch.stack([sin_i, sin_c, sin_c]))
+    r_row = g.rb[row, 0]
+    vaz = _put_row(vaz, row, (x[0] * vy[0] - vx[0] * y[0]) / r_row
+                   - omega_frame.to(dtype) * r_row)
+    for k, f in enumerate(faces, start=1):
+        vrad = _put_row(vrad, f, (x[k] * vx[k] + y[k] * vy[k]) / g.ra[f, 0])
+    # Sigma and the energy of the profile around the centre of mass, the
+    # energy above the temperature floor (reference :196-225)
+    r_com = torch.sqrt((r_row * cos_c - com_x) ** 2
+                       + (r_row * sin_c - com_y) ** 2)
+    sig_row = phys.sigma0 * r_com ** (-phys.sigma_slope)
+    sigma = _put_row(sigma, row, sig_row)
+    if phys.is_adiabatic:
+        e_floor = phys.minimum_temperature * sig_row / phys.mu \
+            * constants.R / (phys.adiabatic_index - 1.0)
+        energy = _put_row(energy, row, torch.maximum(
+            dm.initial_energy(phys, constants, r_com, com_m), e_floor))
     return sigma, vrad, vaz, energy

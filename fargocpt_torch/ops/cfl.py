@@ -9,6 +9,7 @@ import torch
 
 from ..params import Physics, ARTVISC_SN, LEAPFROG
 from .common import Geom, azim_next
+from .viscosity import viscosity_correction_factors
 
 
 def shear_limit(phys: Physics, g: Geom, vmean: torch.Tensor) -> torch.Tensor:
@@ -61,13 +62,19 @@ def inverse_dt_squared(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
 
 def condition_cfl(phys: Physics, g: Geom, sigma, vrad, vaz, energy, cs, nu,
                   qplus, qminus) -> torch.Tensor:
-    """Returns the CFL dt as a 0-d tensor."""
-    if phys.stabilize_viscosity == 2:
-        raise NotImplementedError("StabilizeViscosity 2 is not ported yet")
+    """Returns the CFL dt as a 0-d tensor. StabilizeViscosity 2 adds the
+    viscosity's stability limit dt < -CFL / c (reference
+    src/cfl.cpp:330-350)."""
     nr = g.nrad
     vmean = torch.mean(vaz, dim=-1, keepdim=True)
     dt_shear = shear_limit(phys, g, vmean)
     inv_sq = inverse_dt_squared(phys, g, sigma, vrad, vaz, energy, cs, nu,
                                 qplus, qminus, vmean)
     dt_cell = phys.cfl / torch.sqrt(inv_sq)
+    if phys.stabilize_viscosity == 2:
+        c_phi, c_r = viscosity_correction_factors(phys, g, sigma, nu)
+        c = torch.minimum(c_phi, c_r)                  # both negative
+        dt_stable = torch.where(c != 0.0, -phys.cfl / c,
+                                torch.finfo(dt_cell.dtype).max)
+        dt_cell = torch.minimum(dt_cell, dt_stable)
     return torch.minimum(dt_shear, torch.min(dt_cell[1:nr - 1]))

@@ -139,7 +139,8 @@ def thermal_cooling(phys: Physics, constants, temperature, tau_eff):
 def substep3(phys: Physics, constants, g: Geom, sigma, energy, nu,
              tau_rr, tau_pp, tau_rp, div_v, scale_height, current_time, dt,
              units=None, pvte_vals=None, ref=None,
-             irradiation_ctx: IrradiationCtx | None = None):
+             irradiation_ctx: IrradiationCtx | None = None,
+             aspect_grid=None):
     """Energy update with Q+ / Q- (reference src/SourceEuler.cpp:956-1051).
     Returns (energy_new, qplus, qminus); the Q grids are divided by the
     radiative correction factor and zero on the ghost rings.
@@ -148,7 +149,9 @@ def substep3(phys: Physics, constants, g: Geom, sigma, energy, nu,
     equilibrium and the floor; the temperature of the surface cooling is
     the constant-gamma one, as in ``fargocpt_tpu.ops.energy``. Surface
     cooling and the irradiation (``irradiation_ctx``, with HeatingStar) need
-    ``units`` (the opacity is fitted in cgs)."""
+    ``units`` (the opacity is fitted in cgs). ``aspect_grid`` is the
+    ASPECTRATIO grid of the irradiation's H/R factor (``HydroStep.
+    aspect_grid``); without it H / r, that of AspectRatioMode 0."""
     check_supported(phys)
     nr = g.nrad
     tau_eff = torch.zeros_like(sigma)
@@ -177,10 +180,10 @@ def substep3(phys: Physics, constants, g: Geom, sigma, energy, nu,
         qplus = qplus + viscous_heating(phys, g, sigma, nu, tau_rr, tau_pp,
                                         tau_rp, div_v)
     if phys.heating_star and irradiation_ctx is not None:
-        # the ASPECTRATIO grid of AspectRatioMode 0, H / r
+        aspect = aspect_grid if aspect_grid is not None \
+            else scale_height * g.inv_rb
         qplus = qplus + irradiation(phys, constants, irradiation_ctx,
-                                    scale_height * g.inv_rb, tau_eff,
-                                    current_time)
+                                    aspect, tau_eff, current_time)
 
     if pvte_vals is not None:
         gam, mu, _ = pvte_vals

@@ -509,7 +509,9 @@ def cfl(ctx: KernelContext, sigma, vrad, vaz, energy, qplus, qminus):
     phys, g = ctx.phys, ctx.g
     nr, naz = g.nrad, g.naz
     if phys.stabilize_viscosity == 2:
-        raise NotImplementedError("StabilizeViscosity 2 is not ported yet")
+        raise NotImplementedError(
+            "StabilizeViscosity 2 lies outside the cfl kernel's gate "
+            "(step.gates): the step takes ops/cfl.condition_cfl")
     for name, t, shape in (("sigma", sigma, (nr, naz)),
                            ("vrad", vrad, (nr + 1, naz)),
                            ("vaz", vaz, (nr, naz)),
@@ -569,7 +571,9 @@ def sources(ctx: KernelContext, sigma, vrad, vaz, energy,
     phys, g = ctx.phys, ctx.g
     nr, naz = g.nrad, g.naz
     if phys.is_polytropic:
-        raise NotImplementedError("polytropic EoS is not ported yet")
+        raise NotImplementedError(
+            "the polytropic EoS lies outside the sources kernel's gate "
+            "(step.gates)")
     for name, t, shape in (("sigma", sigma, (nr, naz)),
                            ("vrad", vrad, (nr + 1, naz)),
                            ("vaz", vaz, (nr, naz)),
@@ -625,9 +629,13 @@ def viscous_kick(ctx: KernelContext, sigma, vrad, vaz, energy, dt, time,
     if phys.is_adiabatic:
         energy_ops.check_supported(phys)
     if phys.stabilize_viscosity != 0:
-        raise NotImplementedError("StabilizeViscosity is not ported yet")
+        raise NotImplementedError(
+            "StabilizeViscosity lies outside the viscous_kick kernel's gate "
+            "(step.gates): the step takes the unfused substeps")
     if phys.is_polytropic:
-        raise NotImplementedError("polytropic EoS is not ported yet")
+        raise NotImplementedError(
+            "the polytropic EoS lies outside the viscous_kick kernel's gate "
+            "(step.gates)")
     for name, t, shape in (("sigma", sigma, (nr, naz)),
                            ("vrad", vrad, (nr + 1, naz)),
                            ("vaz", vaz, (nr, naz)),

@@ -634,7 +634,7 @@ class OutputWriter:
         dt = f.sigma.dtype
         bx, by = bodies.x.to(dt), bodies.y.to(dt)
         bm = bodies.mass.to(dt)
-        cell_x, cell_y = st.ops.cell_xy()
+        cell_x, cell_y = st.cell_x, st.cell_y
         cellmass = st.g.surf * f.sigma
         profs = []
         for k in range(st.n_bodies):
@@ -655,7 +655,7 @@ class OutputWriter:
         sim = self.sim
         st = sim.stepper
         zero = torch.zeros((), dtype=st.dtype, device=h.device)
-        cell_x, cell_y = st.ops.cell_xy()
+        cell_x, cell_y = st.cell_x, st.cell_y
         return gravity.nbody_potential(
             sim.phys, sim.constants, st.g,
             st.bodies_on_grid(sim.state.nbody, sim.time),
@@ -856,7 +856,7 @@ class OutputWriter:
             if nb.n > 1:
                 roche = nbody_sys.dimensionless_roche_radius(nb) \
                     * nbody_sys.dist_to_primary(nb)
-                cell_x, cell_y = st.ops.cell_xy()
+                cell_x, cell_y = st.cell_x, st.cell_y
                 dt = sim.fields.sigma.dtype
                 extra["mdcp"] = torch.stack([
                     torch.zeros((), dtype=dt, device=nb.x.device)] + [

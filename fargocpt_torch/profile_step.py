@@ -2,15 +2,16 @@
 
     python -m fargocpt_torch.profile_step
         [--setup flagship|pds70_gas|pds70|planet_disk|planet_torque|
-                 planet_accretion]
+                 planet_accretion|binary_gcfull]
         [--route whole|split|staged] [--nrad 1024 1000] [--naz 3072]
         [--steps 120]
 
 For each grid: the setup's Simulation in float32 (``flagship`` by
 default, the PDS70 gas setup, the whole PDS70 setup with its dust, the
 planet in the disk of examples/quickstart.yml, the reference's torque
-test on the leapfrog, or its accretion test: accretion, the corotating
-frame and the monitor grids), on
+test on the leapfrog, its accretion test: accretion, the corotating
+frame and the monitor grids, or setups/gamma_cephei_full.yml's
+circumbinary disk: ``--nrad 1609 --naz 1160``), on
 the grid's transport route or the one ``--route`` names, 20 warm-up steps,
 the wall time of ``--steps`` steps (host clock around synchronised work),
 then a ``torch.profiler`` window of 20 steps. Prints per grid the device
@@ -36,13 +37,14 @@ from contextlib import contextmanager
 
 import torch
 
-from .flagship import (flagship, pds70, pds70_gas, planet_accretion,
-                       planet_disk, planet_torque)
+from .flagship import (binary_gcfull, flagship, pds70, pds70_gas,
+                       planet_accretion, planet_disk, planet_torque)
 from .ops.kernels import ROUTES
 
 SETUPS = {"flagship": flagship, "pds70_gas": pds70_gas, "pds70": pds70,
           "planet_disk": planet_disk, "planet_torque": planet_torque,
-          "planet_accretion": planet_accretion}
+          "planet_accretion": planet_accretion,
+          "binary_gcfull": binary_gcfull}
 
 # device kernel name fragment -> the op whose CUDA source launches it
 # (fargo_theta on the split route and theta_sweep on the staged route
@@ -82,9 +84,9 @@ def phases():
     as one profiler range."""
     from . import step
     from .nbody import system as nbody_sys
-    from .ops import (accretion, boundary, cfl, damping, energy, fld,
-                      gravity, kernels, opacity, pvte, selfgravity, sources,
-                      viscosity)
+    from .ops import (accretion, boundary, cfl, damping, diskmodel, energy,
+                      eos, fld, gravity, kernels, opacity, pvte,
+                      selfgravity, sources, viscosity)
     return (
         (accretion, "accrete_onto_planets", "accretion"),
         (accretion, "orbital_periods", "orbital periods"),
@@ -111,6 +113,15 @@ def phases():
         (kernels, "artvisc_sn", "artvisc_sn op"),
         (kernels, "transport", "transport op"),
         (boundary, "apply_boundary_conditions", "boundaries"),
+        (boundary, "center_of_mass_boundary", "center-of-mass boundary"),
+        (diskmodel, "vr_numerical_viscous", "drift model"),
+        (step.HydroStep, "derived", "derived grids"),
+        (eos, "scale_height_nbody", "N-body scale height"),
+        (eos, "aspect_ratio_nbody", "N-body aspect ratio"),
+        (viscosity, "alpha_grid", "alpha grid"),
+        (viscosity, "viscosity_correction_factors",
+         "viscosity correction factors"),
+        (energy, "irradiation", "irradiation"),
     )
 
 

@@ -33,6 +33,7 @@ from .config import Config
 from .constants import Constants
 from .grid import Geometry
 from .nbody import system as nbody_sys
+from .ops import diskmodel
 from .params import physics_from_config
 from .particles import dust
 from .state import FieldState, SystemState
@@ -162,9 +163,14 @@ class Simulation:
         # the particle keys are consulted even when particles are off (the
         # reference always reads them, src/parameters.cpp:854-932)
         pp, particles = self._setup_particles(cfg)
+        # the binary quadrupole moment of the v_az support (reference
+        # src/Theo.cpp:58-78)
+        quad_moment = diskmodel.binary_quadrupole_moment(
+            self.bodies, self.n_hydroframe) \
+            if self.phys.vaz_quadrupole_support else 0.0
         fields, self.phys = initial.build_initial_state(
-            self.phys, self.constants, self.geometry, dtype=self.dtype,
-            device=self.device)
+            self.phys, self.constants, self.geometry, quad_moment,
+            nbody=nb_init, dtype=self.dtype, device=self.device)
         self.stepper = HydroStep(
             self.phys, self.constants, self.geometry, make_ref_values(fields),
             self.bodies, self.n_hydroframe, dtype=self.dtype,
@@ -179,12 +185,14 @@ class Simulation:
                 self.phys, fields.sigma, fields.vaz.cpu().numpy())
             fields = fields.replace(vaz=torch.tensor(
                 vaz, dtype=self.dtype, device=self.device))
-        # reference src/init.cpp:335-341: snapshot refs, BCs, refs again
+        # reference src/init.cpp:335-341: snapshot refs, BCs (those that
+        # read the bodies with the initial ones), refs again
+        nbody = nbody_sys.make_state(nb_init, self.device)
         self.stepper.set_ref_values(make_ref_values(fields))
-        fields = self.stepper.apply_bcs(fields)
+        fields = self.stepper.apply_bcs(fields, nb=nbody)
         self.stepper.set_ref_values(make_ref_values(fields))
         self.state: SystemState = self.stepper.initial_system_state(
-            fields, nbody_sys.make_state(nb_init, self.device))
+            fields, nbody)
         if self.phys.integrate_particles:
             self.state = self.state.replace(particles=particles)
 
@@ -263,7 +271,7 @@ class Simulation:
         """dt = min(CFL_max_var * last_dt, cfl_dt) as a 0-d device tensor
         (reference src/simulation.cpp:100-117); no host sync."""
         dt = torch.minimum(self.phys.cfl_max_var * self.last_dt,
-                           self.stepper.cfl_dt(self.state))
+                           self.stepper.cfl_dt(self.state, self.time))
         self.last_dt = dt
         return dt
 

@@ -61,6 +61,17 @@ flags (``state.MonitorAccum``) accumulate after each step on the device.
 The ops dispatch on the tensors' device (``ops/kernels.py``): the plain
 PyTorch versions on the CPU, the CUDA kernels on a GPU.
 
+The circumbinary menu. Under AspectRatioMode 1 / 2 the sound speed and
+scale height come from the bodies (``derived`` given the bodies), under
+AlphaMode the viscosity takes a per-cell alpha (``viscosity_grid`` given
+the fields), StabilizeViscosity 1 scales the viscous update and 2 limits
+the CFL, and a ``centerofmass`` side builds its ghosts from the bodies
+(``_apply_bcs`` given them). Which call site passes the bodies follows
+the JAX package site for site, the kick-scoped staleness of H and nu
+included; the output and the monitor grids take the mode-0 grids, as
+there. The gates keep the fused sources, viscous kick and CFL off under
+these modes.
+
 PVTE refreshes. The JAX package memoizes ``pvte_vals`` per (sigma,
 energy) within one trace, and each miss warm-starts from the previous
 refresh (the chain, float32 only). Here the memo is a list keyed on tensor
@@ -86,8 +97,8 @@ from .constants import Constants
 from .grid import Geometry
 from .nbody import system as nbody_sys
 from .nbody.system import BodyConfig, NBodyState
-from .ops import accretion, artvisc, boundary, cfl as cfl_ops, eos, \
-    gravity, kernels, quantities as quant, sources as src_ops, \
+from .ops import accretion, artvisc, boundary, cfl as cfl_ops, diskmodel, \
+    eos, gravity, kernels, quantities as quant, sources as src_ops, \
     viscosity as visc_ops
 from .ops.damping import DampingZones
 from .ops import energy as energy_ops
@@ -118,13 +129,9 @@ def check_supported(phys: Physics,
         "dust diffusion (ParticleDustDiffusion)":
             phys.integrate_particles and particle_params is not None
             and particle_params.diffusion,
-        "AspectRatioMode != 0": phys.aspectratio_mode != 0,
-        "AlphaMode != 0": phys.alpha_mode != 0,
-        "StabilizeViscosity": phys.stabilize_viscosity != 0,
         "Disk: no": not phys.calculate_disk,
         "KeepDiskMassConstant": phys.keep_mass_constant,
         "Roche-lobe overflow": phys.rochelobe_overflow,
-        "the binary quadrupole support": phys.vaz_quadrupole_support,
     }
     for name, on in unsupported.items():
         if on:
@@ -193,6 +200,15 @@ class HydroStep(nn.Module):
         self.gates = gates(phys)
         self.ops = kernels.KernelContext(phys, constants, geometry, dtype,
                                          device, transport_route)
+        # the cells' Cartesian centres, which the N-body aspect ratio, the
+        # per-cell alpha and the boundary's disk model read
+        cell_x, cell_y = self.ops.cell_xy()
+        self.register_buffer("cell_x", cell_x)
+        self.register_buffer("cell_y", cell_y)
+        # the binary quadrupole moment of the v_az support (reference
+        # src/Theo.cpp:58-78; fargocpt_tpu/step.py:193-198)
+        self.quad_moment = diskmodel.binary_quadrupole_moment(
+            bodies, n_hydroframe) if phys.vaz_quadrupole_support else 0.0
         # per-body ramp-up times (ramp-up periods x the period of the initial
         # orbit) and cubic smoothing factors, float64 as the bodies are
         # (fargocpt_tpu/step.py:156-161)
@@ -335,15 +351,73 @@ class HydroStep(nn.Module):
         self._pv_memo.append((sigma, energy, vals))
         return vals
 
-    def derived(self, sigma, energy, pv=None):
+    def derived(self, sigma, energy, bodies=None, pv=None):
         """Sound speed, pressure and scale height; ``pv`` are stale PVTE
-        grids to use instead of a refresh."""
+        grids to use instead of a refresh. Under AspectRatioMode 1 / 2 and
+        given ``bodies`` (``bodies_on_grid``), the N-body / centre-of-mass
+        forms (reference src/SourceEuler.cpp:1054-1441); without them the
+        axisymmetric mode-0 forms, as the JAX package's callers without the
+        bodies take them (fargocpt_tpu/step.py:425-476)."""
         if pv is None:
             pv = self.pvte_vals(sigma, energy)
-        return kernels.derived(self.ops, sigma, energy, pv)
+        phys, constants, g = self.phys, self.constants, self.g
+        mode = phys.aspectratio_mode
+        if mode not in (1, 2) or bodies is None:
+            return kernels.derived(self.ops, sigma, energy, pv)
+        cx, cy = self.cell_x, self.cell_y
+        if mode == 2:
+            com_x, com_y, com_m = eos.center_of_mass(bodies)
+        if phys.is_adiabatic or phys.is_polytropic:
+            cs = eos.sound_speed(phys, constants, g, sigma, energy,
+                                 self.ops.cs_iso, pv)
+        elif mode == 1:
+            cs = eos.sound_speed_iso_nbody(phys, constants, g, bodies,
+                                           self.n_bodies, self.body_radius,
+                                           cx, cy)
+        else:
+            cs = eos.sound_speed_iso_com(phys, constants, g, com_x, com_y,
+                                         com_m, cx, cy)
+        press = eos.pressure(phys, constants, sigma, energy, cs, pv)
+        if mode == 1:
+            h = eos.scale_height_nbody(phys, constants, g, cs, bodies,
+                                       self.n_bodies, self.body_radius, cx,
+                                       cy, pv)
+        else:
+            h = eos.scale_height_com(phys, constants, g, cs, com_x, com_y,
+                                     com_m, cx, cy, pv)
+        return cs, press, h
 
-    def viscosity_grid(self, cs, h):
-        return visc_ops.kinematic_viscosity(self.phys, self.g, cs, h)
+    def viscosity_grid(self, cs, h, sigma=None, energy=None, bodies=None):
+        """The viscosity grid; under AlphaMode != 0, given the fields (and
+        for mode 2 the bodies), with the per-cell alpha (reference
+        src/viscosity/viscosity.cpp:31-137; fargocpt_tpu/step.py:482-496)."""
+        phys = self.phys
+        if phys.alpha_mode != 0 and sigma is not None and energy is not None:
+            temp = eos.temperature(phys, self.constants, sigma, energy, None,
+                                   self.pvte_vals(sigma, energy))
+            return visc_ops.kinematic_viscosity(
+                phys, self.g, cs, h, temperature=temp, units=self.units,
+                sigma=sigma, bodies=bodies,
+                n_bodies=self.n_bodies if bodies is not None else 0,
+                cell_x=self.cell_x, cell_y=self.cell_y)
+        return visc_ops.kinematic_viscosity(phys, self.g, cs, h)
+
+    def aspect_grid(self, cs, h, bodies, pvte_vals=None):
+        """The reference's ASPECTRATIO grid (src/SourceEuler.cpp:1272-1341,
+        :1380-1396; fargocpt_tpu/step.py:602-615): H / r in mode 0, the
+        N-body sum in mode 1, the centre-of-mass form in mode 2. The
+        irradiation's H/R factor reads it."""
+        phys = self.phys
+        if phys.aspectratio_mode == 1 and bodies is not None:
+            return eos.aspect_ratio_nbody(
+                phys, self.constants, self.g, cs, bodies, self.n_bodies,
+                self.body_radius, self.cell_x, self.cell_y, pvte_vals)
+        if phys.aspectratio_mode == 2 and bodies is not None:
+            com_x, com_y, com_m = eos.center_of_mass(bodies)
+            return eos.aspect_ratio_com(
+                phys, self.constants, self.g, cs, com_x, com_y, com_m,
+                self.cell_x, self.cell_y, pvte_vals)
+        return h * self.g.inv_rb
 
     def bodies_on_grid(self, nb: NBodyState, time) -> gravity.BodiesOnGrid:
         """Body data the gas-side ops need at ``time`` (a float or a 0-d
@@ -371,7 +445,7 @@ class HydroStep(nn.Module):
         ComputeDiskOnNbodyAccel); call it inside ``detached``."""
         f, nb = state.fields, state.nbody
         _, _, h = self.derived(f.sigma, f.energy)
-        cell_x, cell_y = self.ops.cell_xy()
+        cell_x, cell_y = self.cell_x, self.cell_y
         ax, ay = gravity.disk_on_body_accel(
             self.phys, self.constants, self.g, self.bodies_on_grid(nb, time),
             self.n_bodies, cell_x, cell_y, h, f.sigma)
@@ -385,15 +459,24 @@ class HydroStep(nn.Module):
         cs, _, h = self.derived(sigma, energy)
         return self.viscosity_grid(cs, h)
 
+    def _accretion_nu(self, sigma, energy, bodies):
+        """The viscosity grid the viscous accretion reads: the per-cell one
+        of the fields and the bodies (fargocpt_tpu/step.py:510-516)."""
+        cs, _, h = self.derived(sigma, energy, bodies)
+        return self.viscosity_grid(cs, h, sigma, energy, bodies)
+
     def _apply_bcs(self, sigma, vrad, vaz, energy, omega_frame, nu=None,
-                   final: bool = False, dt=None):
+                   final: bool = False, dt=None, nb=None, time=0.0):
         """The boundary conditions (fargocpt_tpu/step.py:518-583); on the
         final application of a step (``final``) the damping zones first.
         ``nu`` is the viscosity grid of the step's viscous substep, which
         the viscous v_rad BC and viscous damping read (the reference's
-        data[VISCOSITY]); without it they take the current fields' grid.
-        Returns the fields and the (4,) damping mass deltas (zeros without
-        damping)."""
+        data[VISCOSITY]); without it viscous damping takes the current
+        fields' mode-0 grid, and the viscous BC the per-cell one of the
+        bodies ``nb`` at ``time`` under AlphaMode or AspectRatioMode, as
+        the JAX package takes them. ``nb`` also feeds a ``centerofmass``
+        side. Returns the fields and the (4,) damping mass deltas (zeros
+        without damping)."""
         phys = self.phys
         ref = self.ref_values()
         dmp = torch.zeros(4, dtype=sigma.dtype, device=sigma.device)
@@ -408,18 +491,29 @@ class HydroStep(nn.Module):
                 dmp = self.damping.mass_deltas(self.g, sig_before, sigma)
         if nu is None and "viscous" in (phys.bc_vrad_inner,
                                         phys.bc_vrad_outer):
-            nu = self._nu_now(sigma, energy)
+            nu_bodies = self.bodies_on_grid(nb, time) \
+                if nb is not None and (phys.alpha_mode != 0
+                                       or phys.aspectratio_mode in (1, 2)) \
+                else None
+            cs, _, h = self.derived(sigma, energy, nu_bodies)
+            nu = self.viscosity_grid(cs, h, sigma, energy, nu_bodies)
+        com_ctx = (nb, self.n_hydroframe, self.quad_moment) \
+            if nb is not None else None
         fields = boundary.apply_boundary_conditions(
             phys, self.constants, self.g, sigma, vrad, vaz, energy, ref,
-            omega_frame, nu=nu)
+            omega_frame, nu=nu, com_ctx=com_ctx)
         return (*fields, dmp)
 
-    def apply_bcs(self, fields: FieldState) -> FieldState:
-        """Standalone BC application (at init, reference src/init.cpp:337-341)."""
+    def apply_bcs(self, fields: FieldState,
+                  nb: NBodyState | None = None) -> FieldState:
+        """Standalone BC application (at init, reference
+        src/init.cpp:337-341); ``nb`` feeds the boundaries that read the
+        bodies."""
         omega = torch.tensor(self.phys.omega_frame, dtype=self.dtype,
                              device=fields.sigma.device)
         sigma, vrad, vaz, energy, _ = self._apply_bcs(
-            fields.sigma, fields.vrad, fields.vaz, fields.energy, omega)
+            fields.sigma, fields.vrad, fields.vaz, fields.energy, omega,
+            nb=nb)
         return FieldState(sigma=sigma, vrad=vrad, vaz=vaz, energy=energy)
 
     def _integrate_particles(self, sigma, vrad, vaz, energy, nb, particles,
@@ -452,7 +546,7 @@ class HydroStep(nn.Module):
         an irradiating body."""
         if not self.phys.heating_star:
             return None
-        cell_x, cell_y = self.ops.cell_xy()
+        cell_x, cell_y = self.cell_x, self.cell_y
         return energy_ops.IrradiationCtx(
             bodies=bodies, radius=self.body_radius,
             temperature=self.body_temperature,
@@ -490,7 +584,7 @@ class HydroStep(nn.Module):
         if stale_derived is not None:
             cs, press, h = stale_derived
         elif self.selfgravity is not None or not fused_sources:
-            cs, press, h = self.derived(sigma, energy, pv)
+            cs, press, h = self.derived(sigma, energy, bodies, pv=pv)
 
         # self-gravity kick first (reference src/SourceEuler.cpp:438-441)
         if self.selfgravity is not None:
@@ -510,7 +604,7 @@ class HydroStep(nn.Module):
                 energy = src_ops.compression_heating(phys, g, energy, vrad,
                                                      vaz, dt)
         else:
-            cell_x, cell_y = ops.cell_xy()
+            cell_x, cell_y = self.cell_x, self.cell_y
             pot = gravity.nbody_potential(phys, constants, g, bodies,
                                           self.n_bodies, cell_x, cell_y,
                                           h if stale_h is None else stale_h,
@@ -547,13 +641,15 @@ class HydroStep(nn.Module):
             energy = eos.energy_floor_ceiling(phys, constants, sigma, energy,
                                               pv)
 
-        # recalculate_viscosity (reference src/SourceEuler.cpp:205-223)
-        cs, _, h = self.derived(sigma, energy)
-        nu = self.viscosity_grid(cs, h)
+        # recalculate_viscosity (reference src/SourceEuler.cpp:205-223),
+        # the scale height of the bodies' present positions under
+        # AspectRatioMode 1 / 2 (src/simulation.cpp:328/383)
+        cs, _, h = self.derived(sigma, energy, bodies)
+        nu = self.viscosity_grid(cs, h, sigma, energy, bodies)
         trr, tpp, trp, divv = visc_ops.viscous_stress_tensor(
             phys, g, sigma, vrad, vaz, nu)
         vrad, vaz = visc_ops.update_velocities_with_viscosity(
-            phys, g, sigma, vrad, vaz, trr, tpp, trp, dt)
+            phys, g, sigma, vrad, vaz, trr, tpp, trp, dt, nu=nu)
         if ecc is not None:
             self._ecc_delta(ecc, mark, sigma, vrad, vaz, omega_frame)
 
@@ -565,7 +661,9 @@ class HydroStep(nn.Module):
                 phys, constants, g, sigma, energy, nu, trr, tpp, trp, divv, h,
                 time, dt, units=self.units, pvte_vals=pv3,
                 ref=(self.ref_sigma0, self.ref_energy0),
-                irradiation_ctx=self.irradiation_ctx(bodies))
+                irradiation_ctx=self.irradiation_ctx(bodies),
+                aspect_grid=self.aspect_grid(cs, h, bodies, pv3)
+                if phys.heating_star else None)
         return vrad, vaz, energy, qplus, qminus, sg_kernel, pv3, h, nu, ecc
 
     def _gas_kick(self, sigma, vrad, vaz, energy, pot_it, time, dt,
@@ -582,7 +680,7 @@ class HydroStep(nn.Module):
                                         time, dt, omega_frame, bodies,
                                         sg_kernel, stale_h, stale_derived)
         if self.fld is not None:
-            _, _, h_now = self.derived(sigma, energy, pv_last)
+            _, _, h_now = self.derived(sigma, energy, pv=pv_last)
             energy, _, sor = self.fld.radiative_diffusion(
                 g, sigma, energy, h_now, dt, sor_state=sor)
             energy = eos.energy_floor_ceiling(phys, constants, sigma, energy,
@@ -608,7 +706,7 @@ class HydroStep(nn.Module):
         zero = torch.zeros((), dtype=torch.float64, device=sigma.device)
         if not self._feedback_on():
             return None, None, (zero, zero)
-        cell_x, cell_y = self.ops.cell_xy()
+        cell_x, cell_y = self.cell_x, self.cell_y
         dax, day = gravity.disk_on_body_accel(
             self.phys, self.constants, self.g, bodies, self.n_bodies, cell_x,
             cell_y, h, sigma)
@@ -679,10 +777,12 @@ class HydroStep(nn.Module):
         # reads the derived values of the fields before it
         stale = None
         if self.any_accretion:
-            stale = self.derived(sigma, energy)
+            stale = self.derived(sigma, energy, bodies)
+            sig0, e0, bodies0 = sigma, energy, bodies
             sigma, energy, nb = self._accrete(
                 nb, sigma, energy, vrad, vaz, omega_frame, dt,
-                lambda: self.viscosity_grid(stale[0], stale[2]))
+                lambda: self.viscosity_grid(stale[0], stale[2], sig0, e0,
+                                            bodies0))
             bodies = self.bodies_on_grid(nb, time)
 
         # disk feedback on the bodies (reference :154-158), then the N-body
@@ -690,7 +790,7 @@ class HydroStep(nn.Module):
         h0 = None
         if self._feedback_on():
             h0 = stale[2] if stale is not None \
-                else self.derived(sigma, energy)[2]
+                else self.derived(sigma, energy, bodies)[2]
         dax, day, it_disk = self._disk_feedback(sigma, h0, bodies)
         if dax is not None:
             nb = nbody_sys.kick(nb, dax, day, dt)
@@ -729,7 +829,8 @@ class HydroStep(nn.Module):
         # the viscous BC reads the in-kick viscosity grid (reference
         # data[VISCOSITY] from recalculate_viscosity, :196)
         sigma, vrad, vaz, energy, _ = self._apply_bcs(
-            sigma, vrad, vaz, energy, omega_frame, nu=nu_step)
+            sigma, vrad, vaz, energy, omega_frame, nu=nu_step, nb=nb,
+            time=time)
         if ecc is not None:
             mark = self._disk_ecc_peri(sigma, vrad, vaz, omega_frame)
         sigma, vrad, vaz, energy, mass_flux = kernels.transport(
@@ -751,7 +852,7 @@ class HydroStep(nn.Module):
         # the final boundary conditions, the damping zones first
         sigma, vrad, vaz, energy, dmp = self._apply_bcs(
             sigma, vrad, vaz, energy, omega_frame, nu=nu_step, final=True,
-            dt=dt)
+            dt=dt, nb=nb, time=time)
         monitor_acc = self._mass_deltas(state, mass_flux, dmp, floor_created)
         if ecc is not None:
             self._ecc_delta(ecc, mark, sigma, vrad, vaz, omega_frame)
@@ -796,24 +897,27 @@ class HydroStep(nn.Module):
             if self.any_accretion else None
 
         # the derived values as the reference left them at the end of the
-        # last step (:456): this step's starting fields. Kick 1's potential
-        # and the feedback smoothing take their scale height, an accreting
-        # kick 1 its pressure too; a locally isothermal H is the static
-        # profile, which the kick derives itself
-        stale = self.derived(sigma, energy) \
+        # last step (:456): this step's starting fields and the bodies
+        # before the drift. Kick 1's potential and the feedback smoothing
+        # take their scale height, an accreting kick 1 its pressure too; a
+        # locally isothermal H of AspectRatioMode 0 is the static profile,
+        # which the kick derives itself
+        bodies_prev = self.bodies_on_grid(nb_pre_drift, time)
+        stale = self.derived(sigma, energy, bodies_prev) \
             if self._feedback_on() or phys.is_adiabatic \
-            or self.any_accretion else None
+            or self.any_accretion or phys.aspectratio_mode != 0 else None
         h0 = stale[2] if stale is not None else None
         # the disk force and indirect terms from the fields before the
         # accretion, applied to the bodies after it (:295-308)
         dax, day, it_disk = self._disk_feedback(
             sigma, h0, self.bodies_on_grid(nb, time))
-        it_nb = self._indirect_nbody(
-            nb_pre_drift, self.bodies_on_grid(nb_pre_drift, time), hdt)
+        it_nb = self._indirect_nbody(nb_pre_drift, bodies_prev, hdt)
         if self.any_accretion:
+            sig0, e0 = sigma, energy
             sigma, energy, nb = self._accrete(
                 nb, sigma, energy, vrad, vaz, omega_frame, hdt,
-                lambda: self.viscosity_grid(stale[0], stale[2]), periods)
+                lambda: self.viscosity_grid(stale[0], stale[2], sig0, e0,
+                                            bodies_prev), periods)
         if dax is not None:
             nb = nbody_sys.kick(nb, dax, day, hdt)
         nb = nbody_sys.kick(nb, it_disk[0] + it_nb[0], it_disk[1] + it_nb[1],
@@ -844,7 +948,8 @@ class HydroStep(nn.Module):
             self.bodies_on_grid(nb, time), state.sg_kernel, state.fld_sor,
             stale_h=h0, stale_derived=stale if self.any_accretion else None)
         sigma, vrad, vaz, energy, _ = self._apply_bcs(
-            sigma, vrad, vaz, energy, omega_frame, nu=nu_kick1)
+            sigma, vrad, vaz, energy, omega_frame, nu=nu_kick1, nb=nb,
+            time=time)
         # gas drift 1/1
         sigma, vrad, vaz, energy, mass_flux = kernels.transport(
             self.ops, sigma, vrad, vaz, energy, omega_frame, dt)
@@ -880,7 +985,7 @@ class HydroStep(nn.Module):
             sigma, energy, nb = self._accrete(
                 nb, sigma, energy, vrad, vaz, omega_frame, hdt,
                 lambda: nu_kick2 if nu_kick2 is not None
-                else self._nu_now(sigma, energy), periods)
+                else self._accretion_nu(sigma, energy, bodies_mid), periods)
         if dax is not None:
             nb = nbody_sys.kick(nb, dax, day, hdt)
         nb = nbody_sys.kick(nb, it_disk[0] + it_nb[0], it_disk[1] + it_nb[1],
@@ -904,7 +1009,7 @@ class HydroStep(nn.Module):
         # leapfrog books no floor mass (fargocpt_tpu/step.py:1099-1112)
         sigma, vrad, vaz, energy, dmp = self._apply_bcs(
             sigma, vrad, vaz, energy, omega_frame, nu=nu_kick2, final=True,
-            dt=dt)
+            dt=dt, nb=nb, time=time + dt)
         monitor_acc = self._update_monitor_acc(
             self._mass_deltas(state, mass_flux, dmp), mass_flux, sigma,
             vrad, vaz, energy, nb, mid_time, pot_it, dt)
@@ -921,7 +1026,7 @@ class HydroStep(nn.Module):
         density floor. ``nu_grid`` is a callable that gives the viscosity
         grid the viscous variant reads, called only where a body takes it.
         Returns (sigma, energy, nb)."""
-        cell_x, cell_y = self.ops.cell_xy()
+        cell_x, cell_y = self.cell_x, self.cell_y
         sigma, energy, nb = accretion.accrete_onto_planets(
             self.phys, self.constants, self.g, nb,
             self.body_accretion_efficiency, self.accretion_types, cell_x,
@@ -1008,7 +1113,7 @@ class HydroStep(nn.Module):
                 g, sigma, vrad, vaz, dt)
             kw["t_visc"] = acc.t_visc + quant.viscous_torque_increment(
                 g, sigma, nu, vrad, vaz, dt)
-            cell_x, cell_y = self.ops.cell_xy()
+            cell_x, cell_y = self.cell_x, self.cell_y
             pot = gravity.nbody_potential(
                 phys, self.constants, g, self.bodies_on_grid(nb, time),
                 self.n_bodies, cell_x, cell_y, h, pot_it[0], pot_it[1])
@@ -1016,18 +1121,26 @@ class HydroStep(nn.Module):
                 g, sigma, pot, dt)
         return acc.replace(**kw) if kw else acc
 
-    def cfl_dt(self, state: SystemState) -> torch.Tensor:
+    def cfl_dt(self, state: SystemState, time=0.0) -> torch.Tensor:
         """CFL time step as a 0-d tensor (reference src/cfl.cpp:185-382);
-        a PVTE refresh warms from ``state.pvte_guess``."""
+        a PVTE refresh warms from ``state.pvte_guess``. Under
+        AspectRatioMode or AlphaMode it reads the grids of the bodies at
+        ``time`` (a float or a 0-d tensor; fargocpt_tpu/step.py:1604-1611),
+        and the viscosity always takes the fields' per-cell alpha."""
         f = state.fields
+        phys = self.phys
         with self._pvte_scope(state.pvte_guess):
             if self.gates["cfl"]:
                 return kernels.cfl(self.ops, f.sigma, f.vrad, f.vaz,
                                    f.energy, state.qplus, state.qminus)
-            cs, _, h = self.derived(f.sigma, f.energy)
+            bodies = self.bodies_on_grid(state.nbody, time) \
+                if phys.aspectratio_mode in (1, 2) or phys.alpha_mode != 0 \
+                else None
+            cs, _, h = self.derived(f.sigma, f.energy, bodies)
+            nu = self.viscosity_grid(cs, h, f.sigma, f.energy, bodies)
             return cfl_ops.condition_cfl(
-                self.phys, self.g, f.sigma, f.vrad, f.vaz, f.energy, cs,
-                self.viscosity_grid(cs, h), state.qplus, state.qminus)
+                phys, self.g, f.sigma, f.vrad, f.vaz, f.energy, cs, nu,
+                state.qplus, state.qminus)
 
     def advance_to(self, state: SystemState, time, last_dt, t_target,
                    max_steps: int | None = None):
@@ -1052,7 +1165,7 @@ class HydroStep(nn.Module):
         try:
             while True:
                 dt = torch.minimum(self.phys.cfl_max_var * last_dt,
-                                   self.cfl_dt(state))
+                                   self.cfl_dt(state, time))
                 time_left = target - time
                 clamp = (dt > time_left) | (time_left < dt * 1.05)
                 step_dt = torch.where(clamp, time_left, dt)
@@ -1099,22 +1212,25 @@ class HydroStep(nn.Module):
         a float32 PVTE run's warm-start cache from a cold refresh."""
         phys, constants, g = self.phys, self.constants, self.g
         sigma, energy = fields.sigma, fields.energy
+        bodies = self.bodies_on_grid(nbody, 0.0)
         with self._pvte_scope(None):
-            cs, _, h = self.derived(sigma, energy)
+            cs, _, h = self.derived(sigma, energy, bodies)
             pvte_guess = None
             if self.pvte is not None and self.pvte.fast:
                 pvte_guess = self.pvte_vals(sigma, energy)[:2]
+            nu = self.viscosity_grid(cs, h, sigma, energy, bodies) \
+                if phys.is_adiabatic else None
         qplus = qminus = torch.zeros_like(sigma)
         if phys.is_adiabatic:
-            nu = self.viscosity_grid(cs, h)
             trr, tpp, trp, divv = visc_ops.viscous_stress_tensor(
                 phys, g, sigma, fields.vrad, fields.vaz, nu)
             _, qplus, qminus = energy_ops.substep3(
                 phys, constants, g, sigma, energy, nu, trr, tpp, trp, divv,
                 h, 0.0, 0.0, units=self.units,
                 ref=(self.ref_sigma0, self.ref_energy0),
-                irradiation_ctx=self.irradiation_ctx(
-                    self.bodies_on_grid(nbody, 0.0)))
+                irradiation_ctx=self.irradiation_ctx(bodies),
+                aspect_grid=self.aspect_grid(cs, h, bodies)
+                if phys.heating_star else None)
         k = self._corotation_body()
         omega0 = phys.omega_frame
         if phys.corotating and self.n_bodies > 1:

@@ -112,12 +112,21 @@ def test_viscous_bc_needs_the_viscosity_grid(setup):
 
 
 @pytest.mark.parametrize("composite,match", [
-    ("centerofmass", "center-of-mass"), ("custom", "CustomBoundaryModule")])
+    ("custom", "CustomBoundaryModule")])
 @pytest.mark.parametrize("side", ["inner", "outer"])
 def test_composites_outside_the_menu_raise(composite, match, side):
     _, tp = _phys(**{f"composite_{side}": composite})
     with pytest.raises(NotImplementedError, match=match):
         boundary.check_supported(tp)
+
+
+@pytest.mark.parametrize("side", ["inner", "outer"])
+def test_center_of_mass_composite_is_in_the_menu(side):
+    """The ``centerofmass`` composite is ported (tests/test_torch_binary.py
+    holds it against the JAX package): the menu takes it on either side,
+    whose ghosts it writes from the bodies (``com_ctx``)."""
+    _, tp = _phys(**{f"composite_{side}": "centerofmass"})
+    boundary.check_supported(tp)
 
 
 def test_unknown_name_raises():

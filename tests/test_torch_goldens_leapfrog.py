@@ -20,6 +20,13 @@ counts and last dt), at the tolerances of tests/test_reference_golden.py:
 * ``planet_accretion`` (< 1e-6): a 2e-5 planet accreting by Kley's
   two-zone scheme with disk feedback in the corotating frame, the
   torque test's disk otherwise; 76 steps on 221x755;
+* ``binary_gcfull`` (< 1e-5): the full gamma Cephei configuration on
+  128x256: the e = 0.4 secondary inside the grid with cubic smoothing and
+  viscous accretion, N-body-centred initial conditions with the inner
+  profile cutoff and the circumbinary ring, AspectRatioMode 1, AlphaMode
+  2, StabilizeViscosity 1, TW artificial viscosity, irradiation from both
+  stars and thermal cooling, a viscous inner and a center-of-mass outer
+  boundary; 72 steps;
 * ``binary_gceph_long`` at its first snapshot (< 5e-3, slow): the same
   binary over a quarter orbit through the chaotic periapsis transient;
   step counts within 5 %.
@@ -49,7 +56,8 @@ torch.set_num_threads(2)
                                       ("binary_gceph", 1e-5),
                                       ("temperature_test", 1e-6),
                                       ("temperature_fld", 1e-6),
-                                      ("planet_accretion", 1e-6)])
+                                      ("planet_accretion", 1e-6),
+                                      ("binary_gcfull", 1e-5)])
 def test_leapfrog_golden_matches_reference_binary(name, tol, tmp_path):
     sim = run_golden(name, tmp_path)
     assert sim.phys.hydro_integrator == LEAPFROG

@@ -1379,3 +1379,129 @@ def test_star_planet_step_launches_and_matches_the_cpu(cuda):
         "cfl": 10, "sources": 10, "viscous_kick": 10, "transport": 10,
         "ias15": 20}
     _held_to_the_cpu(gpu, cpu, 1e-9)
+
+
+def _binary_gcfull(nr, naz, **over):
+    """flagship.binary_gcfull's physics on the binary_gcfull golden's
+    radii (the e = 0.4 secondary inside the grid)."""
+    from fargocpt_torch.flagship import binary_gcfull
+    return binary_gcfull(nr, naz, Rmin="0.05", Rmax="12", **over)
+
+
+# binary_gcfull at 128x256 after 20 steps, float32 on the card against
+# float64 on the CPU, rel-L2 of each field: twice the JAX package's own
+# float32 run's rel-L2 from its float64 run there, rounded up (4.2344e-7,
+# 8.3582e-7, 8.0540e-7, 4.1481e-6 by ``python
+# tests/test_torch_binary_f32.py 128 256 20``; the port's own CPU float32
+# run: 4.2344e-7, 8.3542e-7, 7.9950e-7, 4.1252e-6); chip_smoke.py holds
+# its trajectory to the same limits
+BINARY_F32_LIMITS = {"sigma": 8.5e-7, "vrad": 1.7e-6, "vaz": 1.7e-6,
+                     "energy": 8.3e-6}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("over", [
+    {}, {"StabilizeViscosity": "2"}, {"AspectRatioMode": "2"},
+    {"HydroFrameCenter": "binary"},
+    {"EquationOfState": "Isothermal", "AlphaMode": "0"}],
+    ids=["stabilize-1-aspect-1", "stabilize-2", "aspect-2",
+         "binary-frame-quadrupole", "isothermal-nbody-sound-speed"])
+def test_binary_gcfull_step_launches_and_matches_the_cpu(cuda, over):
+    """The circumbinary-disk menu at 128x256 float64 (N-body-centred ICs,
+    AspectRatioMode, AlphaMode 2, StabilizeViscosity, the center-of-mass
+    boundary, the viscously accreting secondary): each leapfrog step
+    launches the transport once and ias15 four times (twice with the hydro
+    frame on the binary) and no other kernel (the gates keep cfl, sources
+    and viscous_kick off); ten steps agree with
+    the CPU's plain versions at rtol 1e-9, the bodies and their masses
+    too."""
+    gpu = Simulation(_binary_gcfull(128, 256, **over), device=cuda)
+    cpu = Simulation(_binary_gcfull(128, 256, **over), device="cpu")
+    before = dict(kernels.LAUNCHES)
+    for _ in range(10):
+        dt = gpu.calculate_time_step()
+        gpu.step_once(dt)
+        cpu.step_once(dt.cpu())
+    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    # with the frame on both bodies the indirect term is zero, so the
+    # predictor's two calls a step drop out
+    ias15 = 20 if gpu.n_hydroframe == 2 else 40
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {"transport": 10,
+                                                     "ias15": ias15}
+    _held_to_the_cpu(gpu, cpu, 1e-9)
+    a, b = gpu.fields.energy.cpu(), cpu.fields.energy
+    assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+def test_binary_gcfull_float32_rounds_as_the_jax_package(cuda):
+    """binary_gcfull at 128x256 float32 on the card: 20 steps against the
+    float64 CPU run on the card's dt sequence, each field within twice the
+    rel-L2 that the JAX package's own float32 run leaves from its float64
+    run (``BINARY_F32_LIMITS``): the centre-of-mass boundary's drift is
+    rounding in float32 in both packages."""
+    gpu = Simulation(_binary_gcfull(128, 256), dtype="float32", device=cuda)
+    cpu = Simulation(_binary_gcfull(128, 256), dtype="float64", device="cpu")
+    for _ in range(20):
+        dt = gpu.calculate_time_step()
+        gpu.step_once(dt)
+        cpu.step_once(dt.cpu().double())
+    for name, limit in BINARY_F32_LIMITS.items():
+        a = getattr(gpu.fields, name).cpu().double()
+        b = getattr(cpu.fields, name)
+        err = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+        assert err <= limit, (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("eos_name", ["adiabatic", "isothermal"])
+def test_center_of_mass_boundary_on_the_card_matches_the_cpu(cuda, dtype,
+                                                             eos_name):
+    """Both center-of-mass sides with a non-zero quadrupole moment, three
+    bodies, on 130x200 random fields: the card's ghost rows against the
+    CPU's, each field within 1e-9 of its scale in float64 (the drift's
+    nested differences amplify the two sides' ulps of pow) and 1e-3 in
+    float32 (there the drift is rounding), the interior untouched."""
+    from fargocpt_torch.nbody.system import NBodyState
+    from fargocpt_torch.ops import boundary
+    from fargocpt_torch.ops.common import Geom
+    geom = Geometry.build(NR, NAZ, 0.3, 6.0, "Log")
+    phys = Physics(eos=eos_name, adiabatic_index=1.4, viscous_alpha=1e-2,
+                   aspectratio_ref=0.04, flaring_index=0.29, sigma0=1e-3,
+                   sigma_slope=1.1, sigma_floor=1e-9, mu=2.35,
+                   minimum_temperature=1e-4, thickness_smoothing=0.6,
+                   profile_cutoff_inner=True, profile_cutoff_point_inner=1.2,
+                   profile_cutoff_width_inner=0.12,
+                   vaz_quadrupole_support=True,
+                   composite_inner="centerofmass",
+                   composite_outer="centerofmass")
+    constants = Constants.from_units(Units())
+    rng = np.random.default_rng(17)
+    f = {"sigma": rng.random((NR, NAZ)) * 1e-3 + 5e-4,
+         "energy": rng.random((NR, NAZ)) * 1e-5 + 1e-5,
+         "vrad": (rng.random((NR + 1, NAZ)) - 0.5) * 0.05,
+         "vaz": (rng.random((NR, NAZ)) - 0.5) * 0.1 + 1.0}
+    nb = {k: rng.uniform(-0.5, 0.5, 3) for k in ("x", "y", "vx", "vy")}
+    nb["mass"] = np.array([0.7, 0.2, 0.1])
+    out = {}
+    for dev in ("cpu", cuda):
+        g = Geom(geom, dtype, dev)
+        t = {k: torch.tensor(v, dtype=dtype, device=dev)
+             for k, v in f.items()}
+        bodies = NBodyState(**{k: torch.tensor(v, dtype=torch.float64,
+                                               device=dev)
+                               for k, v in nb.items()})
+        ref = boundary.RefValues(t["sigma"], t["energy"], t["vrad"],
+                                 t["vaz"])
+        out[str(dev)] = [x.cpu() for x in boundary.apply_boundary_conditions(
+            phys, constants, g, t["sigma"], t["vrad"], t["vaz"], t["energy"],
+            ref, torch.tensor(0.05, dtype=dtype, device=dev),
+            com_ctx=(bodies, 2, 0.02))]
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    for k, name in enumerate(("sigma", "vrad", "vaz", "energy")):
+        a, b = out[str(cuda)][k], out["cpu"][k]
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max()), \
+            name
+        lo, hi = (2, NR - 1) if name == "vrad" else (1, NR - 1)
+        assert torch.equal(a[lo:hi], b[lo:hi]), name

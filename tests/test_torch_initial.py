@@ -142,7 +142,7 @@ def test_profile_files(tmp_path, kind, which):
     ({"ShockTube": "2"}, "PVTE shock tube"),
     ({"RandomSigma": "Yes"}, "SigmaRandomize"),
     ({"CentrifugalBalance": "Yes"}, "CentrifugalBalance"),
-    ({"SigmaCondition": "nbody"}, "N-body-centred"),
+    ({"SecondaryDisk": "Yes"}, "secondary disk"),
 ])
 def test_initial_conditions_outside_the_slice_raise(extra, feature):
     cfg = dict(BASE, EquationOfState="Ideal", **extra)

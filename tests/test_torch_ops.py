@@ -296,8 +296,8 @@ def test_outflow_boundaries(grids, fields):
 
 
 def test_boundary_rejects_unported_names():
-    _, tp = _phys(composite_outer="centerofmass")
-    with pytest.raises(NotImplementedError, match="center-of-mass"):
+    _, tp = _phys(composite_outer="custom")
+    with pytest.raises(NotImplementedError, match="CustomBoundaryModule"):
         boundary.check_supported(tp)
 
 

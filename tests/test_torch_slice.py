@@ -3,10 +3,11 @@ JAX package's, both on the CPU in float64 at 64x128.
 
 Tolerances. sigma, vaz, energy and the Q grids match to rtol 1e-10. The
 initial v_rad is the steady viscous drift, a 5-point finite difference of
-pow()-based profiles (initial.py vr_numerical_viscous); numpy's and XLA's
-pow() differ by one ulp on ~5% of inputs, which the differences amplify to
-~2e-10 of v_rad. So v_rad built independently is held to rtol 1e-9 at the
-start and to atol 1e-9 * max|v_rad| after 10 steps. A port seeded with the
+pow()-based profiles (ops/diskmodel.py vr_numerical_viscous, in numpy on
+the host); numpy's and XLA's pow() differ by one ulp on ~5% of inputs,
+which the differences amplify to ~2e-10 of v_rad. So v_rad built
+independently is held to rtol 1e-9 at the start and to atol 1e-9 *
+max|v_rad| after 10 steps. A port seeded with the
 JAX state holds v_rad to atol 1e-10 * max|v_rad|: v_rad crosses zero, and
 its kick is the small residual of pressure, gravity and centrifugal terms
 ~2e4 times larger, so roundoff of those terms shows on it.
@@ -202,7 +203,7 @@ def test_default_device_is_the_card():
     ({"SelfGravity": "Yes"}, "self-gravity"),        # the Bessel kernel
     ({"KeepDiskMassConstant": "Yes"}, "KeepDiskMassConstant"),
     ({"RocheLobeOverflow": "Yes"}, "Roche-lobe overflow"),
-    ({"AspectRatioMode": "1"}, "AspectRatioMode"),
+    ({"SurfaceCooling": "scurve"}, "S-curve"),
     ({"EquationOfState": "Polytropic"}, "polytropic"),
     ({"Disk": "No"}, "Disk: no"),
 ])
