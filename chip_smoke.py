@@ -106,9 +106,13 @@ Phases (any failure raises, so the exit code is not 0):
      (cfl, sources and the transport once a step, viscous_kick twice,
      ias15 four times), then its first kick's unfused sources substep
      against the sources kernel on the same state (ms a call, device
-     launches); the binary_gcfull at its own 1609x1160 float32 (10 warm-up
-     and 30 timed steps: the transport once a step, ias15 four times, no
-     other kernel, 0 host reads); the PDS70 lines add the FLD
+     launches); setups/gamma_cephei_full.yml (flagship.binary_gcfull, its
+     MassFlow grid on) at its own 1609x1160 float32 (10 warm-up and 30
+     timed steps: the transport once a step, ias15 four times, no other
+     kernel, 0 host reads), then the whole-transport kernel against its
+     plain version on its state and dt at that shape (1609 rings cut the
+     last 16-row strip, 1160 cells the last 512-cell block), each output
+     within F32_TOL of its scale; the PDS70 lines add the FLD
      SOR iterations and the PVTE refreshes per step (3 and, on the run
      path, 2, with or without the dust), and with the dust its share of
      the step by CUDA events and the particles alive;
@@ -140,7 +144,7 @@ Phases (any failure raises, so the exit code is not 0):
      128x256 float64 for 20 steps (the same budget) and float32 on the
      card against float64 on the CPU for 20 steps, each field within
      twice the JAX package's own float32-vs-float64 rel-L2 there
-     (BINARY_F32_LIMITS);
+     (flagship.BINARY_F32_LIMITS);
   5. the command line: ``python -m fargocpt_torch start`` (in this process,
      so the launch counters are readable) on examples/adiabatic_disk.yml at
      1024x3072 float32 for two snapshots (about 70 steps), with the counters
@@ -250,15 +254,6 @@ F32_TOL = 1e-5
 # the port's own: 1.7812e-2, 1.3858e-2, 1.1464e-1); float64 holds every
 # grid to the trajectory's budget
 F32_GRID_LIMITS = {"massflow": 3.5e-2, "t_adv": 2.9e-2, "t_grav": 0.22}
-# binary_gcfull at 128x256 (the golden's radii) after 20 steps, float32 on
-# the card against float64 on the CPU, rel-L2 of each field: twice the JAX
-# package's own float32 run's rel-L2 from its float64 run there, rounded
-# up (4.2344e-7, 8.3582e-7, 8.0540e-7, 4.1481e-6 by ``python
-# tests/test_torch_binary_f32.py 128 256 20``): the center-of-mass
-# boundary's drift nests two five-point differences, rounding in float32
-# in both packages
-BINARY_F32_LIMITS = {"sigma": 8.5e-7, "vrad": 1.7e-6, "vaz": 1.7e-6,
-                     "energy": 8.3e-6}
 
 
 def log(*args):
@@ -595,8 +590,8 @@ def check_f32(name, got, ref, names, f, nr) -> float:
                   for e, sc in zip(errs, scales))
         max_abs = max(max_abs, *errs)
         worst = max(worst, rel)
-        log(f"  {name:20s} {oname:9s} f32 {nr}x{NAZ}: max|k-p| = "
-            f"{max(errs):.3e}  / scale = {rel:.3e}  (scale "
+        log(f"  {name:20s} {oname:9s} f32 {nr}x{f['sigma'].shape[-1]}: "
+            f"max|k-p| = {max(errs):.3e}  / scale = {rel:.3e}  (scale "
             f"{max(scales):.3e})")
     if not worst <= (0.0 if F64_RTOL.get(name) == 0.0 else F32_TOL):
         raise AssertionError(f"{name}: f32 kernel/plain mismatch "
@@ -649,6 +644,29 @@ def parity_f32_flagship(sim, gpu) -> dict:
             6 if sim.stepper.ops.phys.is_adiabatic else 5,
             nbytes([f["sigma"]]), gpu)
     return out
+
+
+def transport_parity_binary(sim) -> float:
+    """The whole-transport kernel against its plain version on the
+    binary_gcfull state and dt at the setup's own 1609x1160 (the step's
+    fargo shift; the transport's inputs are the fields the step hands it);
+    each output within F32_TOL of its scale. Returns the largest absolute
+    error."""
+    from fargocpt_torch.ops import kernels as K
+    from fargocpt_torch.ops import transport as tr
+    st, ctx = sim.state, sim.stepper.ops
+    f = {k: getattr(st.fields, k) for k in ("sigma", "vrad", "vaz",
+                                            "energy")}
+    dt = sim.stepper.cfl_dt(st, sim.time)
+    shift = tr.fargo_shift(ctx.g, f["vaz"], dt)
+    args = (ctx, f["sigma"], f["vrad"], f["vaz"], f["energy"],
+            st.omega_frame, dt, shift)
+    got = K.transport(*args, route="whole")
+    ref = K.transport_plain(*args, route="whole")
+    torch.cuda.synchronize()
+    return check_f32("transport", got, ref,
+                     ("sigma", "vrad", "vaz", "energy", "mass_flux"), f,
+                     sim.geometry.nrad)
 
 
 def artvisc_calls(ctx, f, dt):
@@ -2052,7 +2070,10 @@ def trajectory(nr, naz, dtype, steps, budget, setup=flagship) -> dict:
 def binary_f32_trajectory(nr, naz, steps) -> dict:
     """binary_gcfull on the golden's radii: float32 on the card through the
     kernels against float64 on the CPU through the plain versions, on the
-    card's dt sequence; each field's rel-L2 under ``BINARY_F32_LIMITS``."""
+    card's dt sequence; each field's rel-L2 under the limits
+    ``flagship.BINARY_F32_LIMITS`` takes from the JAX package's own float32
+    deviation."""
+    from fargocpt_torch.flagship import BINARY_F32_LIMITS
     gpu = binary_gcfull_golden_radii(nr, naz, "float32", "cuda")
     cpu = binary_gcfull_golden_radii(nr, naz, "float64", "cpu")
     for _ in range(steps):
@@ -2493,6 +2514,8 @@ def main() -> int:
         raise AssertionError("binary_gcfull reads the device from the host "
                              f"{res['binary_gcfull']['host_reads_per_step']}"
                              " times a step")
+    res["binary_gcfull"]["transport_max_abs_err"] = \
+        transport_parity_binary(sim_binary)
     del sim_binary
     res["pds70_gas"] = run_pds70(sim_gas)
     log_pds70(res["pds70_gas"], gpu)

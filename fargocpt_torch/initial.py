@@ -17,7 +17,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import theo
 from .constants import Constants
 from .grid import Geometry
 from .ops import diskmodel as dm
@@ -31,11 +30,11 @@ def powerlaw_sigma(phys: Physics, geom: Geometry) -> np.ndarray:
     r = geom.rmed[:, None]
     sigma = phys.sigma0 * r ** (-phys.sigma_slope)
     if phys.profile_cutoff_outer:
-        sigma = sigma * theo.cutoff_outer(phys.profile_cutoff_point_outer,
-                                          phys.profile_cutoff_width_outer, r)
+        sigma = sigma * dm.cutoff_outer(phys.profile_cutoff_point_outer,
+                                        phys.profile_cutoff_width_outer, r)
     if phys.profile_cutoff_inner:
-        sigma = sigma * theo.cutoff_inner(phys.profile_cutoff_point_inner,
-                                          phys.profile_cutoff_width_inner, r)
+        sigma = sigma * dm.cutoff_inner(phys.profile_cutoff_point_inner,
+                                        phys.profile_cutoff_width_inner, r)
     sigma = np.maximum(sigma, phys.sigma_floor * phys.sigma0)
     return np.broadcast_to(sigma, (geom.nrad, geom.naz)).copy()
 
@@ -45,19 +44,17 @@ def powerlaw_energy(phys: Physics, constants: Constants,
     """reference src/init.cpp:1257-1302 with the temperature floor and the
     profile-cutoff damping of the energy (init.cpp:1364-1443)."""
     r = geom.rmed[:, None]
-    energy = theo.initial_energy(phys, constants.G, r, phys.hydro_center_mass)
+    energy = dm.initial_energy(phys, constants, r, phys.hydro_center_mass)
     e_floor = phys.minimum_temperature * sigma / phys.mu * constants.R \
         / (phys.adiabatic_index - 1.0)
     energy = np.maximum(np.broadcast_to(energy, sigma.shape), e_floor)
     if phys.profile_cutoff_outer:
-        fac = np.asarray(theo.cutoff_outer(phys.profile_cutoff_point_outer,
-                                           phys.profile_cutoff_width_outer,
-                                           r))
+        fac = np.asarray(dm.cutoff_outer(phys.profile_cutoff_point_outer,
+                                         phys.profile_cutoff_width_outer, r))
         energy = np.maximum(energy * fac, e_floor)
     if phys.profile_cutoff_inner:
-        fac = np.asarray(theo.cutoff_inner(phys.profile_cutoff_point_inner,
-                                           phys.profile_cutoff_width_inner,
-                                           r))
+        fac = np.asarray(dm.cutoff_inner(phys.profile_cutoff_point_inner,
+                                         phys.profile_cutoff_width_inner, r))
         energy = np.maximum(energy * fac, e_floor)
     return energy
 
@@ -76,17 +73,15 @@ def gas_velocities(phys: Physics, constants: Constants, geom: Geometry,
         # the reference takes Rmed for the v_rad rows too
         # (src/init.cpp:1611-1632)
         vaz_row = np.sqrt(G * M / rb)
-        vr_row = theo.initial_viscous_radial_speed(phys, G, rb, M)
+        vr_row = dm.viscous_radial_speed_analytic(phys, constants, rb, M)
         vaz = np.broadcast_to((vaz_row - phys.omega_frame * rb)[:, None],
                               (geom.nrad, geom.naz)).copy()
         vr_full = np.zeros((geom.nrad + 1, geom.naz))
         vr_full[:geom.nrad] = vr_row[:, None]
         vr_full[geom.nrad] = vr_row[geom.nrad - 1]
         return vr_full, vaz
-    vaz_row = theo.initial_locally_isothermal_smoothed_v_az(phys, G, rb, M)
-    if quad_moment > 0.0:
-        vaz_row = dm.v_az_smoothed(phys, constants, rb, M, quad_moment)
-    vaz_row = vaz_row - phys.omega_frame * rb
+    vaz_row = dm.v_az_smoothed(phys, constants, rb, M, quad_moment) \
+        - phys.omega_frame * rb
     vaz = np.broadcast_to(vaz_row[:, None], (geom.nrad, geom.naz)).copy()
     vr_full = np.zeros((geom.nrad + 1, geom.naz))
     if not phys.initialize_vradial_zero:
@@ -199,11 +194,11 @@ def nbody_centered_sigma(phys: Physics, geom: Geometry, com_x: float,
         * phys.center_mass_density_correction_factor, floor)
     r_med = _com_distance(geom, com_x, com_y, geom.rmed)
     if phys.profile_cutoff_outer:
-        sigma = np.maximum(sigma * theo.cutoff_outer(
+        sigma = np.maximum(sigma * dm.cutoff_outer(
             phys.profile_cutoff_point_outer,
             phys.profile_cutoff_width_outer, r_med), floor)
     if phys.profile_cutoff_inner:
-        sigma = np.maximum(sigma * theo.cutoff_inner(
+        sigma = np.maximum(sigma * dm.cutoff_inner(
             phys.profile_cutoff_point_inner,
             phys.profile_cutoff_width_inner, r_med), floor)
     return sigma
@@ -217,16 +212,16 @@ def nbody_centered_energy(phys: Physics, constants: Constants,
     floored at the temperature floor of ``sigma``, then damped by the
     cutoffs with the floor after each (:1363-1457)."""
     r_med = _com_distance(geom, com_x, com_y, geom.rmed)
-    energy = theo.initial_energy(phys, constants.G, r_med, com_mass)
+    energy = dm.initial_energy(phys, constants, r_med, com_mass)
     e_floor = phys.minimum_temperature * sigma / phys.mu * constants.R \
         / (phys.adiabatic_index - 1.0)
     energy = np.maximum(energy, e_floor)
     if phys.profile_cutoff_outer:
-        energy = np.maximum(energy * theo.cutoff_outer(
+        energy = np.maximum(energy * dm.cutoff_outer(
             phys.profile_cutoff_point_outer,
             phys.profile_cutoff_width_outer, r_med), e_floor)
     if phys.profile_cutoff_inner:
-        energy = np.maximum(energy * theo.cutoff_inner(
+        energy = np.maximum(energy * dm.cutoff_inner(
             phys.profile_cutoff_point_inner,
             phys.profile_cutoff_width_inner, r_med), e_floor)
     return energy
@@ -251,8 +246,8 @@ def nbody_centered_velocities(phys: Physics, constants: Constants,
         r_com = np.hypot(x, y)
         if phys.initialize_pure_keplerian:
             vazi0 = np.sqrt(G * com_mass / r_com)
-            vr0 = theo.initial_viscous_radial_speed(phys, G, r_com,
-                                                    com_mass)
+            vr0 = dm.viscous_radial_speed_analytic(phys, constants, r_com,
+                                                   com_mass)
         else:
             vazi0 = dm.v_az_smoothed(phys, constants, r_com, com_mass)
             if quad_moment > 0.0 and phys.vaz_quadrupole_support:
@@ -309,7 +304,7 @@ def add_gaussian_rings(phys: Physics, constants: Constants, geom: Geometry,
     sigma = sigma + phys.sigma0 * r ** (-phys.sigma_slope) * (fac - 1.0) \
         * bump
     if phys.is_adiabatic:
-        energy = energy + theo.initial_energy(phys, constants.G, r, mass) \
+        energy = energy + dm.initial_energy(phys, constants, r, mass) \
             * (fac - 1.0) * bump
     return sigma, energy
 

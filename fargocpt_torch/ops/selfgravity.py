@@ -174,12 +174,12 @@ class SelfGravity:
                                            vaz: np.ndarray) -> np.ndarray:
         """Equilibrium v_az with the axisymmetric self-gravity pull
         (reference :749-781, Baruteau 2008 eq. 3.42); host numpy."""
-        from .. import theo
+        from .diskmodel import v_az_smoothed
         g_r, _ = self.accelerations(sigma)
         g_r_axi = g_r.mean(dim=-1).cpu().numpy()
         rb = self.geometry.rmed
-        omega_cell = theo.initial_locally_isothermal_smoothed_v_az(
-            phys, self.constants.G, rb, phys.hydro_center_mass) / rb
+        omega_cell = v_az_smoothed(phys, self.constants, rb,
+                                   phys.hydro_center_mass) / rb
         omega = np.sqrt(np.maximum(omega_cell ** 2 - g_r_axi / rb, 0.0))
         out = vaz.copy()
         nr = self.geometry.nrad

@@ -174,7 +174,7 @@ class Simulation:
         self.stepper = HydroStep(
             self.phys, self.constants, self.geometry, make_ref_values(fields),
             self.bodies, self.n_hydroframe, dtype=self.dtype,
-            device=self.device, units=self.units,
+            device=self.device, quad_moment=quad_moment, units=self.units,
             transport_route=transport_route,
             particle_params=pp if self.phys.integrate_particles else None)
         sg = self.stepper.selfgravity

@@ -97,8 +97,8 @@ from .constants import Constants
 from .grid import Geometry
 from .nbody import system as nbody_sys
 from .nbody.system import BodyConfig, NBodyState
-from .ops import accretion, artvisc, boundary, cfl as cfl_ops, diskmodel, \
-    eos, gravity, kernels, quantities as quant, sources as src_ops, \
+from .ops import accretion, artvisc, boundary, cfl as cfl_ops, eos, \
+    gravity, kernels, quantities as quant, sources as src_ops, \
     viscosity as visc_ops
 from .ops.damping import DampingZones
 from .ops import energy as energy_ops
@@ -178,13 +178,16 @@ class HydroStep(nn.Module):
     """Step and CFL callables for one configuration. The geometry columns,
     the kernels' column table and the reference values are buffers:
     ``.to(device)`` moves every one of them. The PVTE, FLD and
-    self-gravity solvers hold their tensors on ``device`` from the start."""
+    self-gravity solvers hold their tensors on ``device`` from the start.
+    ``quad_moment`` is the binary quadrupole moment of the v_az support
+    that the initial conditions took (``Simulation`` computes it)."""
 
     def __init__(self, phys: Physics, constants: Constants,
                  geometry: Geometry, ref_values: RefValues,
                  bodies: list[BodyConfig] | None = None,
                  n_hydroframe: int = 1, *, dtype: torch.dtype,
-                 device: torch.device | str, units=None,
+                 device: torch.device | str, quad_moment: float = 0.0,
+                 units=None,
                  transport_route: str | None = None,
                  particle_params: dust.ParticleParams | None = None):
         super().__init__()
@@ -205,10 +208,9 @@ class HydroStep(nn.Module):
         cell_x, cell_y = self.ops.cell_xy()
         self.register_buffer("cell_x", cell_x)
         self.register_buffer("cell_y", cell_y)
-        # the binary quadrupole moment of the v_az support (reference
-        # src/Theo.cpp:58-78; fargocpt_tpu/step.py:193-198)
-        self.quad_moment = diskmodel.binary_quadrupole_moment(
-            bodies, n_hydroframe) if phys.vaz_quadrupole_support else 0.0
+        # the centerofmass boundary's quadrupole support
+        # (fargocpt_tpu/step.py:193-198)
+        self.quad_moment = quad_moment
         # per-body ramp-up times (ramp-up periods x the period of the initial
         # orbit) and cubic smoothing factors, float64 as the bodies are
         # (fargocpt_tpu/step.py:156-161)

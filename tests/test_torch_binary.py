@@ -12,7 +12,7 @@ against the JAX package, both in float64 on the CPU:
   both sides run the same formulas (the residue is libm rounding), 1e-10
   where the nested five-point differences of the drift model (h = 8e-4 r)
   amplify it;
-* ``flagship.binary_gcfull`` at 32x64 on the golden's radii (the e = 0.4
+* ``setups/gamma_cephei_full.yml`` at 32x64 on the golden's radii (the e = 0.4
   secondary inside the grid, its viscous accretion, the kick-scoped
   staleness of H and nu), ten steps, rtol 1e-10 on the fields, Q+/Q- and
   the bodies, under StabilizeViscosity 1 and 2, AspectRatioMode 1 and 2,
@@ -25,8 +25,6 @@ against the JAX package, both in float64 on the CPU:
   steps.
 """
 
-import dataclasses
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -49,7 +47,7 @@ from fargocpt_tpu.units import Units as JUnits
 from fargocpt_torch import initial
 from fargocpt_torch.config import Config
 from fargocpt_torch.constants import Constants
-from fargocpt_torch.flagship import BINARY_GCFULL, binary_gcfull
+from fargocpt_torch.flagship import binary_gcfull, binary_gcfull_setup
 from fargocpt_torch.grid import Geometry
 from fargocpt_torch.nbody.system import BodyConfig
 from fargocpt_torch.ops import boundary, cfl, diskmodel as dm, eos, \
@@ -63,7 +61,6 @@ from test_torch_planet import assert_states
 
 torch.set_num_threads(2)
 
-ROOT = Path(__file__).resolve().parents[1]
 NR, NAZ = 32, 64
 RMIN, RMAX = 0.3, 6.0
 RTOL = 1e-12
@@ -182,6 +179,49 @@ def test_diskmodel_profiles_match_jax(name, eos_name):
     _close(calls[name](dm, tp, tc, T(r)), ref, label=name)
     # the host path (numpy, the initial conditions) gives the same numbers
     _close(calls[name](dm, tp, tc, r), ref, label=f"{name} numpy")
+
+
+@pytest.mark.parametrize("name", ["cutoff_outer", "cutoff_inner",
+                                  "initial_energy", "support_azi_pressure",
+                                  "support_azi_smoothing_derivative",
+                                  "v_az_smoothed",
+                                  "viscous_radial_speed_analytic",
+                                  "constant_viscosity_radial_speed"])
+@pytest.mark.parametrize("eos_name", ["adiabatic", "isothermal"])
+def test_diskmodel_gives_the_numbers_of_jax_theo(name, eos_name):
+    """The port's one disk model serves the host-side ICs and the
+    self-gravity's v_az too: on numpy radii it gives the JAX package's
+    ``theo.py`` profiles (its ICs' copy) bit for bit."""
+    from fargocpt_tpu import theo as j_theo
+    kw = {"viscous_alpha": 0.0, "constant_viscosity": 1e-5} \
+        if name == "constant_viscosity_radial_speed" else {}
+    jp, tp = _phys(eos=eos_name, **kw)
+    r = np.geomspace(0.2, 8.0, 257)
+    c, G, mass = Constants(), JConstants().G, 0.93
+    pairs = {
+        "cutoff_outer": (dm.cutoff_outer(2.0, 0.3, r),
+                         j_theo.cutoff_outer(2.0, 0.3, r)),
+        "cutoff_inner": (dm.cutoff_inner(0.7, 0.1, r),
+                         j_theo.cutoff_inner(0.7, 0.1, r)),
+        "initial_energy": (dm.initial_energy(tp, c, r, mass),
+                           j_theo.initial_energy(jp, G, r, mass)),
+        "support_azi_pressure": (dm.support_azi_pressure(tp, r),
+                                 j_theo.support_azi_pressure(jp, r)),
+        "support_azi_smoothing_derivative": (
+            dm.support_azi_smoothing_derivative(tp, r),
+            j_theo.support_azi_smoothing_derivative(jp, r)),
+        "v_az_smoothed": (
+            dm.v_az_smoothed(tp, c, r, mass),
+            j_theo.initial_locally_isothermal_smoothed_v_az(jp, G, r,
+                                                            mass)),
+    }
+    for key in ("viscous_radial_speed_analytic",
+                "constant_viscosity_radial_speed"):
+        pairs[key] = (dm.viscous_radial_speed_analytic(tp, c, r, mass),
+                      j_theo.initial_viscous_radial_speed(jp, G, r, mass))
+    got, ref = pairs[name]
+    assert isinstance(got, np.ndarray) and got.shape == r.shape
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("quad", [0.0, 0.031])
@@ -415,11 +455,8 @@ def test_nbody_centred_initial_conditions_match_jax(geo, over):
 # --- the step ----------------------------------------------------------------
 
 def _gcfull(**over) -> dict:
-    """``flagship.binary_gcfull``'s physics at 32x64 on the golden's radii."""
-    cfg = dict(BINARY_GCFULL, Nrad="32", Naz="64", Rmin="0.05", Rmax="12",
-               **over)
-    cfg["nbody"] = [dict(b) for b in BINARY_GCFULL["nbody"]]
-    return cfg
+    """``setups/gamma_cephei_full.yml`` at 32x64 on the golden's radii."""
+    return binary_gcfull_setup(32, 64, Rmin="0.05", Rmax="12", **over)
 
 
 @pytest.mark.parametrize("over", [
@@ -448,27 +485,11 @@ def test_binary_gcfull_steps_match_jax(over):
     assert ts.geometry.rmin < r2 < ts.geometry.rmax
 
 
-def test_binary_gcfull_config_is_the_setup_file():
-    """``flagship.binary_gcfull`` holds setups/gamma_cephei_full.yml's
-    physics: the two build the same Physics at one grid."""
-    a = Simulation(binary_gcfull(16, 32), device="cpu")
-    cfg = Config.from_file(str(ROOT / "setups" / "gamma_cephei_full.yml"))
-    cfg._raw["nrad"], cfg._raw["naz"] = "16", "32"
-    b = Simulation(cfg, device="cpu")
-    def physics(sim):
-        # the output flags aside: the setup file writes more
-        return {k: v for k, v in dataclasses.asdict(sim.phys).items()
-                if not k.startswith("write_") and k != "snapshot_fields"}
-    assert physics(a) == physics(b)
-    for name in ("sigma", "vrad", "vaz", "energy"):
-        assert torch.equal(getattr(a.fields, name), getattr(b.fields, name))
-
-
 def test_gamma_cephei_full_setup_runs_on_the_cpu():
-    cfg = Config.from_file(str(ROOT / "setups" / "gamma_cephei_full.yml"))
-    cfg._raw["nrad"], cfg._raw["naz"] = "24", "48"
-    sim = Simulation(cfg, device="cpu")
+    sim = Simulation(binary_gcfull(24, 48), device="cpu")
     p = sim.phys
+    # the setup's writers: its MassFlow monitor grid runs in every step
+    assert p.write_massflow and sim.state.monitor_acc is not None
     assert (p.aspectratio_mode, p.alpha_mode, p.stabilize_viscosity) \
         == (1, 2, 1)
     assert p.composite_outer == "centerofmass" and p.cbd_ring

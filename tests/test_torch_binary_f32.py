@@ -36,7 +36,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from fargocpt_tpu.config import Config as JConfig  # noqa: E402
 from fargocpt_tpu.sim import Simulation as JSimulation  # noqa: E402
 from fargocpt_torch.config import Config  # noqa: E402
-from fargocpt_torch.flagship import BINARY_GCFULL  # noqa: E402
+from fargocpt_torch.flagship import binary_gcfull_setup  # noqa: E402
 from fargocpt_torch.nbody.system import NBodyState  # noqa: E402
 from fargocpt_torch.ops import boundary  # noqa: E402
 from fargocpt_torch.sim import Simulation  # noqa: E402
@@ -54,10 +54,7 @@ def _rel(a, b) -> float:
 
 
 def _cfg(nrad: int, naz: int) -> dict:
-    cfg = dict(BINARY_GCFULL, Nrad=str(nrad), Naz=str(naz), Rmin="0.05",
-               Rmax="12")
-    cfg["nbody"] = [dict(b) for b in BINARY_GCFULL["nbody"]]
-    return cfg
+    return binary_gcfull_setup(nrad, naz, Rmin="0.05", Rmax="12")
 
 
 def deviations(nrad: int, naz: int, steps: int) -> dict:

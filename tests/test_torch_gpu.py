@@ -1388,17 +1388,6 @@ def _binary_gcfull(nr, naz, **over):
     return binary_gcfull(nr, naz, Rmin="0.05", Rmax="12", **over)
 
 
-# binary_gcfull at 128x256 after 20 steps, float32 on the card against
-# float64 on the CPU, rel-L2 of each field: twice the JAX package's own
-# float32 run's rel-L2 from its float64 run there, rounded up (4.2344e-7,
-# 8.3582e-7, 8.0540e-7, 4.1481e-6 by ``python
-# tests/test_torch_binary_f32.py 128 256 20``; the port's own CPU float32
-# run: 4.2344e-7, 8.3542e-7, 7.9950e-7, 4.1252e-6); chip_smoke.py holds
-# its trajectory to the same limits
-BINARY_F32_LIMITS = {"sigma": 8.5e-7, "vrad": 1.7e-6, "vaz": 1.7e-6,
-                     "energy": 8.3e-6}
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("over", [
     {}, {"StabilizeViscosity": "2"}, {"AspectRatioMode": "2"},
@@ -1446,6 +1435,7 @@ def test_binary_gcfull_float32_rounds_as_the_jax_package(cuda):
         dt = gpu.calculate_time_step()
         gpu.step_once(dt)
         cpu.step_once(dt.cpu().double())
+    from fargocpt_torch.flagship import BINARY_F32_LIMITS
     for name, limit in BINARY_F32_LIMITS.items():
         a = getattr(gpu.fields, name).cpu().double()
         b = getattr(cpu.fields, name)

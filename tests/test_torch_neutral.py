@@ -1,5 +1,5 @@
 """The framework-neutral modules copied into fargocpt_torch (units, config,
-constants, params, grid, theo; log, usercfg, analysis, overview and the
+constants, params, grid; log, usercfg, analysis, overview and the
 native writer's C++ source) stay equal to the JAX package's: the same
 source text, and the same Physics, Geometry, Units and Constants for the
 flagship configuration and every setup file."""
@@ -39,8 +39,8 @@ FLAGSHIP = {
 
 
 @pytest.mark.parametrize("name", ["units", "constants", "params", "grid",
-                                  "theo", "log", "usercfg", "analysis",
-                                  "overview", "native/async_writer.cpp"])
+                                  "log", "usercfg", "analysis", "overview",
+                                  "native/async_writer.cpp"])
 def test_copied_module_source_is_identical(name):
     name = name if "." in name else f"{name}.py"
     a = (ROOT / "fargocpt_tpu" / name).read_text()
