@@ -34,7 +34,15 @@ circumbinary ring, AspectRatioMode 1, AlphaMode 2, StabilizeViscosity 1,
 irradiation from both stars, the center-of-mass outer boundary, the
 leapfrog, the secondary accreting) takes the whole-transport kernel once a
 step and ias15 four times: the gates keep cfl, sources and viscous_kick
-off there, as the JAX package's do. All nine paths are driven here, and
+off there, as the JAX package's do. The cataclysmic variables, in float64
+(their float32 Q+ / Q- are NaN from the start in both packages): OY_Car
+(setups/CloseBinaries/OY_Car.yml: an ideal gas with thermal surface
+cooling fed by the Roche-lobe stream, the Euler step in the corotating
+frame) takes cfl, sources, artvisc_sn (the viscous kick's gate is off
+under surface cooling) and the whole-transport kernel once a step and
+ias15 twice; V1504 Cyg (setups/V1504Cyg.yml: PVTE, S-curve cooling,
+AspectRatioMode 1, AlphaMode 1, the stream, the leapfrog) the transport
+once and ias15 four times. All eleven paths are driven here, and
 setups/star_planet.yml (Euler, corotating) in phase 4.
 
 Phases (any failure raises, so the exit code is not 0):
@@ -112,7 +120,15 @@ Phases (any failure raises, so the exit code is not 0):
      kernel, 0 host reads), then the whole-transport kernel against its
      plain version on its state and dt at that shape (1609 rings cut the
      last 16-row strip, 1160 cells the last 512-cell block), each output
-     within F32_TOL of its scale; the PDS70 lines add the FLD
+     within F32_TOL of its scale; OY_Car at its own 200x200 float64 (10
+     warm-up and 60 timed steps: cfl, sources, artvisc_sn, the transport
+     once a step, ias15 twice, no other kernel, 0 host reads), then those
+     four kernels against their plain versions on its state and dt (rtol
+     F64_RTOL, atol 1e-13 of the scale; each one's ms, plain ms and bound
+     at the float64 rate), and V1504 Cyg at its own 450x1070 float64 (5
+     warm-up and 20 timed steps: the transport once, ias15 four times, 0
+     host reads), then the transport against its plain version there;
+     the PDS70 lines add the FLD
      SOR iterations and the PVTE refreshes per step (3 and, on the run
      path, 2, with or without the dust), and with the dust its share of
      the step by CUDA events and the particles alive;
@@ -144,7 +160,10 @@ Phases (any failure raises, so the exit code is not 0):
      128x256 float64 for 20 steps (the same budget) and float32 on the
      card against float64 on the CPU for 20 steps, each field within
      twice the JAX package's own float32-vs-float64 rel-L2 there
-     (flagship.BINARY_F32_LIMITS);
+     (flagship.BINARY_F32_LIMITS); OY_Car with its stream's ramp ending in
+     the first step at 128x256 and V1504 Cyg at 64x128, float64 for 20
+     steps (the same budget), the Roche-lobe tracker's rate held to it
+     too;
   5. the command line: ``python -m fargocpt_torch start`` (in this process,
      so the launch counters are readable) on examples/adiabatic_disk.yml at
      1024x3072 float32 for two snapshots (about 70 steps), with the counters
@@ -157,7 +176,11 @@ Phases (any failure raises, so the exit code is not 0):
      bytes; then setups/gamma_cephei_full.yml as it stands (1609x1160)
      through ``start --dtype float32 -N 5``, the transport and ias15 its
      only kernels, snapshot 0's files (Viscosity, AspectRatio and
-     MassFlow among them) finite;
+     MassFlow among them) finite; then setups/CloseBinaries/OY_Car.yml at
+     its own 200x200 through ``start --dtype float64`` for four monitor
+     intervals (MonitorTimestep 1e-5, the stream's ramp 1e-7 orbits), its
+     kernels counted, and one snapshot plus ``restart last``, every file of
+     the last snapshot bit for bit, massflow_tracker.bin among them;
   6. the reference binary on the card: the cold_disk_planet (1e-6),
      spreading_ring (1e-9), shocktube_sn (1e-6), longrun_planet (1e-5),
      planet_torque (1e-6), binary_gceph (1e-5), temperature_test (1e-6),
@@ -348,6 +371,30 @@ def binary_gcfull_golden_radii(nr, naz, dtype, device):
                       dtype=dtype, device=device)
 
 
+def oy_car(nr, naz, dtype, device, **over):
+    """flagship.oy_car: setups/CloseBinaries/OY_Car.yml (the Roche-lobe-fed
+    dwarf-nova disk, the Euler step) with FirstDT 1e-7, so a short run
+    reaches its CFL-limited dt (~3e-7) in a few steps."""
+    from fargocpt_torch.flagship import oy_car as oy_car_config
+    from fargocpt_torch.sim import Simulation
+    return Simulation(oy_car_config(nr, naz, FirstDT="1e-7", **over),
+                      dtype=dtype, device=device)
+
+
+def oy_car_stream(nr, naz, dtype, device):
+    """OY_Car with its stream's ramp ending in the first step, so the
+    stream carries mass within a short run."""
+    return oy_car(nr, naz, dtype, device, ROFrampingtime="1e-7")
+
+
+def v1504cyg(nr, naz, dtype, device):
+    """flagship.v1504cyg: setups/V1504Cyg.yml as it stands (PVTE, S-curve
+    cooling, the Roche-lobe stream, the leapfrog)."""
+    from fargocpt_torch.flagship import v1504cyg as v1504cyg_config
+    from fargocpt_torch.sim import Simulation
+    return Simulation(v1504cyg_config(nr, naz), dtype=dtype, device=device)
+
+
 def binary_gceph(nr, naz, dtype, device):
     """The binary_gceph golden's physics: a gamma-Cephei-like binary, the
     leapfrog, an ideal gas with thermal cooling."""
@@ -358,10 +405,12 @@ def binary_gceph(nr, naz, dtype, device):
 def quickstart_adiabatic_leapfrog(nr, naz, dtype, device):
     """examples/quickstart.yml with an ideal gas, the leapfrog and a
     viscous inner boundary: the viscous kick's in-kick sound speed feeds
-    the boundary and kick 2's smoothing plane."""
+    the boundary and kick 2's smoothing plane. FirstDT 1e-3, as the
+    flagship's: from the file's default first dt, 20 steps move the fields
+    by less than 1e-9."""
     return from_yaml("examples/quickstart.yml", nr, naz, dtype, device,
                      EquationOfState="Ideal", Integrator="LeapFrog",
-                     InnerBoundary="viscous")
+                     InnerBoundary="viscous", FirstDT=1e-3)
 
 
 def star_planet(nr, naz, dtype, device):
@@ -575,6 +624,30 @@ def output_scales(name, oname, ref, f) -> list[float]:
     return [float(ref.abs().max())]
 
 
+def check_f64(name, got, ref, names, f, nr) -> float:
+    """Each output within rtol F64_RTOL[name] and atol 1e-13 of its scale
+    (parity_f64_ragged's criterion; the roll exact); raises otherwise.
+    An output that updates an input field is logged with how far the
+    plain version moved it (max|p-in| / max|in|). Returns the largest
+    absolute error."""
+    max_abs = 0.0
+    for oname, a, b in zip(names, got, ref):
+        moved = ""
+        if oname in f and f[oname].shape == b.shape:
+            moved = (f"; moved {float((b - f[oname]).abs().max()):.3e} of "
+                     f"{float(f[oname].abs().max()):.3e}")
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        atol = 1e-13 * float(np.abs(b).max()) if F64_RTOL[name] else 0.0
+        err = float(np.abs(a - b).max())
+        max_abs = max(max_abs, err)
+        log(f"  {name:20s} {oname:9s} f64 {nr}x{f['sigma'].shape[-1]}: "
+            f"max|k-p| = {err:.3e}  (rtol {F64_RTOL[name]:.0e}, atol "
+            f"{atol:.1e}{moved})")
+        np.testing.assert_allclose(a, b, rtol=F64_RTOL[name], atol=atol,
+                                   err_msg=f"{name}.{oname}")
+    return max_abs
+
+
 def check_f32(name, got, ref, names, f, nr) -> float:
     """Worst error over the outputs as a fraction of their scale; raises
     above F32_TOL. Returns the largest absolute error."""
@@ -599,14 +672,16 @@ def check_f32(name, got, ref, names, f, nr) -> float:
     return max_abs
 
 
-def measure(calls, f, nr) -> dict:
-    """Parity, times and bound of each kernel in ``calls``."""
+def measure(calls, f, nr, check=check_f32, ops_per_s=F32_OPS_PER_S) -> dict:
+    """Parity (``check``), times and bound (operations at ``ops_per_s``)
+    of each kernel in ``calls``."""
     out = {}
+    naz = f["sigma"].shape[-1]
     for name, (kern, plain, names, inputs, *library) in calls.items():
         library = library[0] if library else None
         got, ref = kern(), plain()
         torch.cuda.synchronize()
-        max_abs = check_f32(name, got, ref, names, f, nr)
+        max_abs = check(name, got, ref, names, f, nr)
         ms, plain_ms = time_ms(kern), time_ms(plain)
         library_ms = None
         if library is not None:
@@ -615,11 +690,11 @@ def measure(calls, f, nr) -> dict:
                                      "another function")
             library_ms = time_ms(library)
         flops = flops_of(plain)
-        b = bound(inputs, got, flops)
+        b = bound(inputs, got, flops, ops_per_s)
         log(f"  {name:20s} kernel {ms:.4f} ms   plain {plain_ms:.4f} ms   "
             f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
             f"{nbytes(inputs) + nbytes(got)} B, {flops} flops = "
-            f"{flops / (nr * NAZ):.1f} per cell)"
+            f"{flops / (nr * naz):.1f} per cell)"
             + ("" if library_ms is None
                else f"   library call {library_ms:.4f} ms"))
         out[name] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
@@ -646,27 +721,69 @@ def parity_f32_flagship(sim, gpu) -> dict:
     return out
 
 
-def transport_parity_binary(sim) -> float:
-    """The whole-transport kernel against its plain version on the
-    binary_gcfull state and dt at the setup's own 1609x1160 (the step's
-    fargo shift; the transport's inputs are the fields the step hands it);
-    each output within F32_TOL of its scale. Returns the largest absolute
-    error."""
+def hydro_dt(sim) -> torch.Tensor:
+    """The setup's CFL dt without its heating/cooling term (Q+ and Q- set
+    to 0): the dt of its flow alone."""
+    st = sim.state
+    zero = torch.zeros_like(st.qplus)
+    return sim.stepper.cfl_dt(st.replace(qplus=zero, qminus=zero), sim.time)
+
+
+def transport_parity(sim, check=check_f32, dt=None) -> float:
+    """The whole-transport kernel against its plain version on a setup's
+    state at its own grid, on its CFL dt or on ``dt`` (the step's fargo
+    shift; the transport's inputs are the fields the step hands it):
+    binary_gcfull at 1609x1160 in float32, each output within F32_TOL of
+    its scale; V1504 Cyg at 450x1070 in float64 (``check_f64``), on
+    ``hydro_dt``, since its CFL dt (~1e-18; ROADMAP C) moves no field.
+    Given ``dt``, each field must move by more than 1e3 times the kernel's
+    rtol of its scale, so that the comparison is seen to bite. Returns the
+    largest absolute error."""
     from fargocpt_torch.ops import kernels as K
     from fargocpt_torch.ops import transport as tr
     st, ctx = sim.state, sim.stepper.ops
     f = {k: getattr(st.fields, k) for k in ("sigma", "vrad", "vaz",
                                             "energy")}
-    dt = sim.stepper.cfl_dt(st, sim.time)
+    given = dt is not None
+    if not given:
+        dt = sim.stepper.cfl_dt(st, sim.time)
     shift = tr.fargo_shift(ctx.g, f["vaz"], dt)
     args = (ctx, f["sigma"], f["vrad"], f["vaz"], f["energy"],
             st.omega_frame, dt, shift)
     got = K.transport(*args, route="whole")
     ref = K.transport_plain(*args, route="whole")
     torch.cuda.synchronize()
-    return check_f32("transport", got, ref,
-                     ("sigma", "vrad", "vaz", "energy", "mass_flux"), f,
-                     sim.geometry.nrad)
+    names = ("sigma", "vrad", "vaz", "energy", "mass_flux")
+    moved = {k: float((out - f[k]).abs().max() / f[k].abs().max())
+             for k, out in zip(names, ref) if k in f}
+    log(f"  transport on dt {float(dt):.4e}: the plain version moves each "
+        "field by (max|out-in| / max|in|) "
+        + ", ".join(f"{k} {v:.3e}" for k, v in moved.items()))
+    if given and not min(moved.values()) > 1e3 * F64_RTOL["transport"]:
+        raise AssertionError(f"transport on dt {float(dt)!r} moves the "
+                             f"fields by {moved} only")
+    return check("transport", got, ref, names, f, sim.geometry.nrad)
+
+
+def cv_kernel_parity(sim, names) -> dict:
+    """Each kernel of ``names`` against its plain version on a cataclysmic
+    variable's own state at its own grid, float64 (``check_f64``), with
+    its ms beside the plain version's and its bound at the float64 rate:
+    OY_Car's cfl, sources, artvisc_sn and transport at 200x200 (a partial
+    16-row strip, a ring shorter than one 256-cell block). The dt is
+    ``hydro_dt``: on the CFL dt (~6e-7, the heating/cooling limit)
+    artvisc_sn moves the energy by less than its atol."""
+    st = sim.state
+    f = {k: getattr(st.fields, k) for k in ("sigma", "vrad", "vaz",
+                                            "energy")}
+    ctx = sim.stepper.ops
+    dt = hydro_dt(sim)
+    bodies = sim.stepper.bodies_on_grid(st.nbody, sim.time)
+    calls = op_calls(ctx, f, (st.qplus, st.qminus), bodies, st.omega_frame,
+                     dt)
+    calls.update(artvisc_calls(ctx, f, dt))
+    return measure({k: calls[k] for k in names}, f, sim.geometry.nrad,
+                   check=check_f64, ops_per_s=F64_OPS_PER_S)
 
 
 def artvisc_calls(ctx, f, dt):
@@ -1783,6 +1900,23 @@ PLANET_ACCRETION_OPS = {"cfl": 1, "sources": 1, "viscous_kick": 2,
 BINARY_OPS = {"transport": 1, "ias15": 4}
 # setups/gamma_cephei_full.yml's own grid
 NR_BINARY, NAZ_BINARY = 1609, 1160
+# OY_Car's Euler step (an ideal gas with thermal surface cooling: the
+# viscous kick's gate is off, the Stone-Norman substep its kernel): cfl,
+# sources, artvisc_sn and the whole-transport kernel once, ias15 twice (the
+# indirect term's predictor and the drift); V1504 Cyg's leapfrog under
+# PVTE and the circumbinary menu: the transport once, ias15 four times
+OY_CAR_OPS = {"cfl": 1, "sources": 1, "artvisc_sn": 1, "transport": 1,
+              "ias15": 2}
+V1504CYG_OPS = {"transport": 1, "ias15": 4}
+# the two setups' own grids; both run in float64 (in float32 their
+# initial Q+ / Q- are NaN in the JAX package and in the port: the
+# radiative correction factor overflows at their units,
+# tests/test_torch_cv_f32.py)
+NR_OY_CAR, NAZ_OY_CAR = 200, 200
+NR_V1504, NAZ_V1504 = 450, 1070
+# V1504 Cyg's CFL dt (~1e-17 at 64x128; ROADMAP C) moves no field, so its
+# trajectory steps on this fixed dt, under the FARGO shear limit (~4e-3)
+V1504_DT = 1e-4
 
 
 def run_planet(sim, warmup=10, steps=60, profiled=5, ops=None,
@@ -1829,7 +1963,7 @@ def run_planet(sim, warmup=10, steps=60, profiled=5, ops=None,
            if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     ours = ("cfl_ring_kernel", "sources_kernel", "vk_tile_kernel", "tr_",
-            "ias15_kernel")
+            "ias15_kernel", "artvisc_sn_kernel")
     own = sum(1 for e in dev if any(f in e.name for f in ours))
     by_kernel = {}
     for e in dev:
@@ -1847,7 +1981,9 @@ def run_planet(sim, warmup=10, steps=60, profiled=5, ops=None,
         torch.cuda.set_sync_debug_mode("default")
     reads = sum(1 for w in caught if "synchroniz" in str(w.message))
     check_state(sim)
-    return {"label": label, "grid": f"{nr}x{naz}", "launches": launches,
+    return {"label": label, "grid": f"{nr}x{naz}",
+            "dtype": str(sim.dtype).replace("torch.", ""),
+            "launches": launches,
             "seconds": seconds, "per_step": per_step,
             "mcell": nr * naz / per_step / 1e6, "mean_dt": mean_dt,
             "s_per_orbit": 2.0 * math.pi / mean_dt * per_step,
@@ -1865,7 +2001,8 @@ def run_planet(sim, warmup=10, steps=60, profiled=5, ops=None,
 def log_planet(res, gpu) -> None:
     label = res["label"]
     log(f"  {label} launches {res['launches']}")
-    log(f"  {label} {res['grid']} float32: {res['per_step'] * 1e3:.4f} "
+    log(f"  {label} {res['grid']} {res['dtype']}: "
+        f"{res['per_step'] * 1e3:.4f} "
         f"ms/step (CFL + step), {res['mcell']:.1f} Mcell-updates/s, mean dt "
         f"{res['mean_dt']:.4e}, {res['s_per_orbit']:.2f} s per orbit at "
         f"r = 1 [{gpu}]")
@@ -1972,7 +2109,8 @@ def host_sync_cost(sim, steps=20) -> float:
 
 # --- phase 4 -----------------------------------------------------------------
 
-def trajectory(nr, naz, dtype, steps, budget, setup=flagship) -> dict:
+def trajectory(nr, naz, dtype, steps, budget, setup=flagship,
+               dt=None) -> dict:
     """The GPU run through the kernels against the CPU run through the
     plain versions on the GPU run's dt sequence: rel-L2 of each field
     (vrad scaled by vaz), of the bodies (their masses and the frame's rate
@@ -1984,10 +2122,15 @@ def trajectory(nr, naz, dtype, steps, budget, setup=flagship) -> dict:
     flux of a v_rad near 0), so in float32 it is rounding to a few per
     cent of itself, in the JAX package as in the port: there each grid is
     held to ``F32_GRID_LIMITS``, which needs the planet_accretion setup at
-    256x512 for 200 steps."""
+    256x512 for 200 steps. Given ``dt``, both runs step on it (the CFL dts
+    still held to each other), and sigma, vaz and the energy must move by
+    more than 1e3 ``budget`` of their scales, so that the comparison is
+    seen to bite."""
     from fargocpt_torch.state import MONITOR_GRIDS
     gpu = setup(nr, naz, dtype, "cuda")
     cpu = setup(nr, naz, dtype, "cpu")
+    start = {k: getattr(cpu.fields, k).double().clone()
+             for k in ("sigma", "vaz", "energy")}
     grids = [n for n in MONITOR_GRIDS
              if getattr(cpu.state.monitor_acc, n) is not None]
     limits = {}
@@ -1996,9 +2139,29 @@ def trajectory(nr, naz, dtype, steps, budget, setup=flagship) -> dict:
         limits = {n: F32_GRID_LIMITS[n] for n in grids
                   if n in F32_GRID_LIMITS}
     for _ in range(steps):
-        dt = gpu.calculate_time_step()
+        if dt is None:
+            dt_step = gpu.calculate_time_step()
+            gpu.step_once(dt_step)
+            cpu.step_once(dt_step.cpu())
+            continue
+        dt_g, dt_c = gpu.calculate_time_step(), cpu.calculate_time_step()
+        if not abs(float(dt_g) - float(dt_c)) <= budget * float(dt_c):
+            raise AssertionError(f"trajectory {nr}x{naz} {dtype}: CFL dt "
+                                 f"{float(dt_g)!r} on the card, "
+                                 f"{float(dt_c)!r} on the CPU")
         gpu.step_once(dt)
-        cpu.step_once(dt.cpu())
+        cpu.step_once(dt)
+    # the locally isothermal energy is 0 throughout: left out
+    moved = {k: float(torch.linalg.norm(getattr(cpu.fields, k).double() - v)
+                      / torch.linalg.norm(v)) for k, v in start.items()
+             if float(torch.linalg.norm(v)) > 0.0}
+    log(f"  {setup.__name__} {nr}x{naz} {dtype}: "
+        + ("the CFL dt" if dt is None else f"a fixed dt {dt:.0e}")
+        + ", the fields moved by (rel-L2) "
+        + ", ".join(f"{k} {v:.3e}" for k, v in moved.items()))
+    if dt is not None and not min(moved.values()) > 1e3 * budget:
+        raise AssertionError(f"trajectory {nr}x{naz} {dtype}: the fields "
+                             f"moved by {moved}, the check cannot bite")
     errs = {}
     vaz_ref = cpu.fields.vaz.double()
     for name in ("sigma", "vrad", "vaz", "energy"):
@@ -2024,6 +2187,11 @@ def trajectory(nr, naz, dtype, steps, budget, setup=flagship) -> dict:
     if gpu.phys.corotating:
         a, b = float(gpu.state.omega_frame), float(cpu.state.omega_frame)
         errs["omega_frame"] = abs(a - b) / abs(b)
+    if cpu.state.monitor_acc.rof_mdot is not None:
+        a = float(gpu.state.monitor_acc.rof_mdot)
+        b = float(cpu.state.monitor_acc.rof_mdot)
+        errs["rof_mdot"] = abs(a - b) / abs(b) if b != 0.0 \
+            else (0.0 if a == 0.0 else math.inf)
     # the monitor grids that are on, accumulated over the run
 
     def rel(a, b):
@@ -2282,6 +2450,89 @@ def binary_command_line(work, gpu) -> dict:
             "launches": launches, "snapshot_0_values": sizes}
 
 
+# setups/CloseBinaries/OY_Car.yml at its own 200x200 in float64, the
+# stream's ramp ending in the first step and monitor intervals of ~40
+# steps (the setup's own 0.0628 would be ~2e5), two intervals a snapshot,
+# Q+ / Q- in the snapshots (the CFL reads them)
+OY_CAR_CLI = {"FirstDT": 1e-7, "ROFrampingtime": 1e-7,
+              "MonitorTimestep": 1e-5, "Nmonitor": 2,
+              "BitwiseExactRestarting": "yes"}
+
+
+def oy_car_cli_setup(path, n_snapshots) -> str:
+    import yaml
+    with open(os.path.join(HERE, "setups", "CloseBinaries",
+                           "OY_Car.yml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(OY_CAR_CLI, Nsnapshots=n_snapshots)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return str(path)
+
+
+def oy_car_command_line(work, gpu) -> dict:
+    """Run A: ``start --dtype float64`` of OY_Car through two snapshots
+    (four monitor intervals), the launch counters set to 0 just before and
+    read just after (OY_CAR_OPS a step and the fresh start's two cfl
+    launches, no other kernel). Run B: one
+    snapshot, then ``restart last`` to the second;
+    tools/compare_output.py --rtol 0 holds every file of B against A,
+    massflow_tracker.bin among them."""
+    from fargocpt_torch import output as out
+    from fargocpt_torch.ops import kernels as K
+    two = oy_car_cli_setup(os.path.join(work, "oy_two.yml"), 2)
+    one = oy_car_cli_setup(os.path.join(work, "oy_one.yml"), 1)
+    dir_a, dir_b = os.path.join(work, "oy_a"), os.path.join(work, "oy_b")
+    K.reset_launches()
+    wall_a = run_cli(["start", two, "--dtype", "float64", "-o", dir_a])
+    launches = dict(K.LAUNCHES)
+    misc = out.load_misc(os.path.join(dir_a, "snapshots", "2"))
+    n = misc["n_hydro_iter"]
+    for name in K.OPS:
+        # a fresh start takes two time steps before its loop
+        # (Simulation.begin): two more cfl launches
+        want = OY_CAR_OPS.get(name, 0) * n + (2 if name == "cfl" else 0)
+        if launches[name] != want:
+            raise AssertionError(f"OY_Car.yml launched {name} "
+                                 f"{launches[name]} times in {n} steps")
+    wall_b = run_cli(["start", one, "--dtype", "float64", "-o", dir_b])
+    wall_r = run_cli(["restart", "last", two, "--dtype", "float64", "-o",
+                      dir_b])
+    cmp = subprocess.run(
+        [sys.executable, os.path.join(HERE, "tools", "compare_output.py"),
+         dir_a, dir_b, "--rtol", "0"], capture_output=True, text=True,
+        timeout=300)
+    files = [ln.strip() for ln in cmp.stdout.splitlines()
+             if ln.startswith("  ")]
+    if cmp.returncode != 0 or not files \
+            or any(": OK " not in ln for ln in files) \
+            or not any(ln.startswith("massflow_tracker.bin: OK")
+                       for ln in files):
+        raise AssertionError("OY_Car restart not bit for bit:\n"
+                             + cmp.stdout)
+    check_state_arrays(dir_a)
+    tracker = np.fromfile(os.path.join(dir_a, "snapshots", "2",
+                                       "massflow_tracker.bin"), np.float64)
+    rows = np.atleast_2d(np.loadtxt(os.path.join(
+        dir_a, "monitor", "timestepLogging.dat")))
+    log(f"  setups/CloseBinaries/OY_Car.yml {NR_OY_CAR}x{NAZ_OY_CAR} "
+        f"float64 (MonitorTimestep {OY_CAR_CLI['MonitorTimestep']}, the "
+        f"stream's ramp 1e-7 orbits): {n} hydro steps in 4 intervals, "
+        f"{', '.join(f'{1e3 / x:.1f}' for x in rows[:, 4])} steps/s; start "
+        f"(2 snapshots) {wall_a:.2f} s, start (1) {wall_b:.2f} s, restart "
+        f"last {wall_r:.2f} s; the tracker [0, {tracker[1]:.6e}, "
+        f"{tracker[2]:.6e}]; restart: {len(files)} files of the last "
+        f"snapshot bit for bit, massflow_tracker.bin among them; launches "
+        f"{ {k: v for k, v in launches.items() if v} } [{gpu}]")
+    return {"grid": f"{NR_OY_CAR}x{NAZ_OY_CAR}", "dtype": "float64",
+            "hydro_steps": n, "launches": launches,
+            "steps_per_s": (1e3 / rows[:, 4]).tolist(),
+            "command_wall_s": {"start_two": wall_a, "start_one": wall_b,
+                               "restart_last": wall_r},
+            "tracker": tracker.tolist(), "restart_bitwise": True,
+            "files_compared": len(files)}
+
+
 def check_state_arrays(outdir) -> None:
     """The last snapshot's fields are finite, sigma positive."""
     sdir = os.path.join(outdir, "snapshots", "2")
@@ -2515,8 +2766,36 @@ def main() -> int:
                              f"{res['binary_gcfull']['host_reads_per_step']}"
                              " times a step")
     res["binary_gcfull"]["transport_max_abs_err"] = \
-        transport_parity_binary(sim_binary)
+        transport_parity(sim_binary)
     del sim_binary
+    # the cataclysmic variables at their own grids, float64
+    t0 = time.perf_counter()
+    sim_oy = oy_car(NR_OY_CAR, NAZ_OY_CAR, "float64", "cuda")
+    log(f"  oy_car {NR_OY_CAR}x{NAZ_OY_CAR} float64 built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    res["oy_car"] = run_planet(sim_oy, ops=OY_CAR_OPS, label="oy_car")
+    log_planet(res["oy_car"], gpu)
+    res["oy_car"]["kernels"] = cv_kernel_parity(
+        sim_oy, ("cfl", "sources", "artvisc_sn", "transport"))
+    log(f"  oy_car after {sim_oy.n_hydro_iter} steps (t = "
+        f"{float(sim_oy.time):.4e}): the tracker's rate "
+        f"{float(sim_oy.state.monitor_acc.rof_mdot):.6e}")
+    del sim_oy
+    t0 = time.perf_counter()
+    sim_v = v1504cyg(NR_V1504, NAZ_V1504, "float64", "cuda")
+    log(f"  v1504cyg {NR_V1504}x{NAZ_V1504} float64 built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    res["v1504cyg"] = run_planet(sim_v, warmup=5, steps=20,
+                                 ops=V1504CYG_OPS, label="v1504cyg")
+    log_planet(res["v1504cyg"], gpu)
+    res["v1504cyg"]["transport_max_abs_err"] = transport_parity(
+        sim_v, check_f64, dt=hydro_dt(sim_v))
+    del sim_v
+    for label in ("oy_car", "v1504cyg"):
+        if res[label]["host_reads_per_step"] != 0:
+            raise AssertionError(f"{label} reads the device from the host "
+                                 f"{res[label]['host_reads_per_step']} "
+                                 "times a step")
     res["pds70_gas"] = run_pds70(sim_gas)
     log_pds70(res["pds70_gas"], gpu)
     del sim_gas
@@ -2558,6 +2837,8 @@ def main() -> int:
     trajectory(128, 256, "float64", 20, 1e-9, setup=star_planet)
     trajectory(128, 256, "float64", 20, 1e-9,
                setup=binary_gcfull_golden_radii)
+    trajectory(128, 256, "float64", 20, 1e-9, setup=oy_car_stream)
+    trajectory(64, 128, "float64", 20, 1e-9, setup=v1504cyg, dt=V1504_DT)
     binary_f32 = binary_f32_trajectory(128, 256, 20)
     newton = newton_budget(128, 384, 200)
     log(f"  phase 4 done at {time.perf_counter() - t_main:.1f} s")
@@ -2568,6 +2849,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
         res_cli = command_line(work, gpu)
         res_cli["gamma_cephei_full"] = binary_command_line(work, gpu)
+        res_cli["oy_car"] = oy_car_command_line(work, gpu)
     log(f"  phase 5 done at {time.perf_counter() - t_main:.1f} s")
 
     log("== 6. the reference binary's goldens on the card, float64, "

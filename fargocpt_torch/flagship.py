@@ -40,6 +40,20 @@ stars, a viscous inner and a center-of-mass outer boundary with damping
 zones, the quadrupole-supported v_az, and the secondary accreting by the
 viscous method.
 
+``oy_car``: ``setups/CloseBinaries/OY_Car.yml`` read as it stands, on a
+given grid: the dwarf-nova disk of OY Carinae fed by Roche-lobe overflow
+from the secondary, the Euler step in the secondary's corotating frame,
+an ideal gas with viscous heating and thermal surface cooling, SN
+artificial viscosity, a viscous inner and an outflow outer boundary, the
+Roche-lobe stream at the outer ghost ring with its tracker.
+
+``v1504cyg``: ``setups/V1504Cyg.yml`` read as it stands, on a given grid:
+the dwarf nova V1504 Cyg, the leapfrog in the secondary's corotating
+frame, the PVTE equation of state, AspectRatioMode 1, AlphaMode 1 (the
+S-curve's cold and hot alpha), StabilizeViscosity 1, TW artificial
+viscosity, S-curve cooling (Kimura et al. 2020), the Roche-lobe stream
+ramped in over five orbits, the MassFlow monitor grid.
+
 ``pds70_gas``: the gas part of ``__graft_entry__._pds70`` (BASELINE.json
 configs[4]): the variable-gamma PVTE equation of state, FLD radiative
 diffusion, symmetric FFT self-gravity, thermal surface cooling, viscous
@@ -166,9 +180,11 @@ PLANET_ACCRETION = {
 }
 
 
-# setups/gamma_cephei_full.yml, which binary_gcfull reads as it stands
-GAMMA_CEPHEI_FULL = Path(__file__).resolve().parents[1] / "setups" \
-    / "gamma_cephei_full.yml"
+# the repo's setup files that the setups below read as they stand
+SETUPS_DIR = Path(__file__).resolve().parents[1] / "setups"
+GAMMA_CEPHEI_FULL = SETUPS_DIR / "gamma_cephei_full.yml"
+OY_CAR = SETUPS_DIR / "CloseBinaries" / "OY_Car.yml"
+V1504CYG = SETUPS_DIR / "V1504Cyg.yml"
 
 # binary_gcfull at 128x256 on the golden's radii (Rmin 0.05, Rmax 12) after
 # 20 steps, float32 on the card against float64 on the CPU on the card's dt
@@ -225,16 +241,22 @@ def planet_accretion(nrad: int, naz: int) -> Config:
     return Config.from_dict(cfg)
 
 
+def setup_file(path: Path, nrad: int, naz: int, **overrides) -> dict:
+    """A setup file of the repo as a mapping, on an ``nrad`` x ``naz``
+    grid, ``overrides`` replacing keys."""
+    import yaml
+    with open(path) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(Nrad=str(nrad), Naz=str(naz), **overrides)
+    return cfg
+
+
 def binary_gcfull_setup(nrad: int, naz: int, **overrides) -> dict:
     """``setups/gamma_cephei_full.yml`` as a mapping, on an ``nrad`` x
     ``naz`` grid, ``overrides`` replacing keys (the tests' ``Rmin`` /
     ``Rmax``, ``StabilizeViscosity: 2``, ``AspectRatioMode: 2``,
     ``HydroFrameCenter: binary``)."""
-    import yaml
-    with open(GAMMA_CEPHEI_FULL) as f:
-        cfg = yaml.safe_load(f)
-    cfg.update(Nrad=str(nrad), Naz=str(naz), **overrides)
-    return cfg
+    return setup_file(GAMMA_CEPHEI_FULL, nrad, naz, **overrides)
 
 
 def binary_gcfull(nrad: int, naz: int, **overrides) -> Config:
@@ -242,3 +264,18 @@ def binary_gcfull(nrad: int, naz: int, **overrides) -> Config:
     writers and monitor grids included) on an ``nrad`` x ``naz`` grid;
     ``overrides`` replace keys."""
     return Config.from_dict(binary_gcfull_setup(nrad, naz, **overrides))
+
+
+def oy_car(nrad: int = 200, naz: int = 200, **overrides) -> Config:
+    """``setups/CloseBinaries/OY_Car.yml`` (the Roche-lobe-fed dwarf-nova
+    disk, the Euler step) on an ``nrad`` x ``naz`` grid, its own 200 x 200
+    by default; ``overrides`` replace keys (``ROFrampingtime`` makes the
+    stream carry mass within a short run)."""
+    return Config.from_dict(setup_file(OY_CAR, nrad, naz, **overrides))
+
+
+def v1504cyg(nrad: int = 450, naz: int = 1070, **overrides) -> Config:
+    """``setups/V1504Cyg.yml`` (PVTE, S-curve cooling, the Roche-lobe
+    stream, the leapfrog) on an ``nrad`` x ``naz`` grid, its own 450 x 1070
+    by default; ``overrides`` replace keys."""
+    return Config.from_dict(setup_file(V1504CYG, nrad, naz, **overrides))

@@ -10,10 +10,13 @@ dispatch of src/boundary_conditions/config.cpp; the JAX package's
 * v_az: keplerian, zerogradient, reference, zeroshear, balanced and none;
 * the composite ``centerofmass`` (``center_of_mass_boundary``): the disk
   model around the bodies' centre of mass, evaluated on the device from
-  the bodies' tensors.
+  the bodies' tensors;
+* the Roche-lobe overflow stream (``rochelobe_overflow``): a Gaussian
+  stream injected at the outer ghost ring around the donor's azimuth,
+  evaluated on the device from the bodies' tensors.
 
-The composite ``custom`` (``CustomBoundaryModule``) and the Roche-lobe
-overflow stream are not ported and raise by name.
+The composite ``custom`` is the user's ``custom_boundary`` function
+(``CustomBoundaryModule``), which ``HydroStep`` applies after this menu.
 
 Ghost rows: row 0 / NR-1 of the scalar fields, rows 0,1 / NR-1,NR of
 v_rad (row 1 / NR-1 sit on the active boundary). Each field is rebuilt by
@@ -57,12 +60,6 @@ class RefValues:
 def check_supported(phys: Physics) -> None:
     """Raise NotImplementedError for a boundary outside the ported menu,
     naming it."""
-    for side, comp in (("inner", phys.composite_inner),
-                       ("outer", phys.composite_outer)):
-        if comp == "custom":
-            raise NotImplementedError(
-                f"the {side} custom boundary (CustomBoundaryModule) is not "
-                "ported yet")
     names = {"sigma": (phys.bc_sigma_inner, phys.bc_sigma_outer),
              "energy": (phys.bc_energy_inner, phys.bc_energy_outer),
              "vrad": (phys.bc_vrad_inner, phys.bc_vrad_outer),
@@ -231,14 +228,16 @@ def _vaz_ghost(phys: Physics, constants, name: str, vaz, vaz0, g: Geom,
 def apply_boundary_conditions(phys: Physics, constants, g: Geom,
                               sigma, vrad, vaz, energy, ref: RefValues,
                               omega_frame: torch.Tensor, nu=None,
-                              com_ctx=None):
+                              rof_ctx=None, com_ctx=None):
     """Per-variable x per-edge dispatch (reference
     src/boundary_conditions/boundary_conditions.cpp:65-110). ``nu`` is the
-    viscosity grid the viscous v_rad BC reads; ``com_ctx`` = (bodies,
-    n_hydroframe, quadrupole moment) for a ``centerofmass`` side, which
-    then overwrites that side's ghosts (the JAX package's order). Damping
-    is a separate call (``ops/damping.py``) made on the final BC
-    application of a step."""
+    viscosity grid the viscous v_rad BC reads; ``rof_ctx`` = (bodies, time,
+    temperature unit, hours per time unit, length unit in cm, mdot) of the
+    Roche-lobe overflow stream, which then overwrites the outer ghosts in
+    its window; ``com_ctx`` = (bodies, n_hydroframe, quadrupole moment) for
+    a ``centerofmass`` side, which then overwrites that side's ghosts (the
+    JAX package's order). Damping is a separate call (``ops/damping.py``)
+    made on the final BC application of a step."""
     sigma = _scalar((phys.bc_sigma_inner, phys.bc_sigma_outer), sigma,
                     ref.sigma0, g, phys, "sigma")
     energy = _scalar((phys.bc_energy_inner, phys.bc_energy_outer), energy,
@@ -252,6 +251,10 @@ def apply_boundary_conditions(phys: Physics, constants, g: Geom,
         vaz[1:nr - 1],
         _vaz_ghost(phys, constants, phys.bc_vaz_outer, vaz, ref.vaz0, g,
                    omega_frame, True)], dim=0)
+    if phys.rochelobe_overflow and rof_ctx is not None:
+        sigma, vrad, vaz, energy = rochelobe_overflow(
+            phys, constants, g, sigma, vrad, vaz, energy, omega_frame,
+            *rof_ctx)
     if com_ctx is not None:
         nb, n_hydroframe, quad = com_ctx
         for outer, comp in ((False, phys.composite_inner),
@@ -359,4 +362,89 @@ def center_of_mass_boundary(phys: Physics, constants, g: Geom, sigma, vrad,
             * constants.R / (phys.adiabatic_index - 1.0)
         energy = _put_row(energy, row, torch.maximum(
             dm.initial_energy(phys, constants, r_com, com_m), e_floor))
+    return sigma, vrad, vaz, energy
+
+
+def rochelobe_overflow(phys: Physics, constants, g: Geom, sigma, vrad, vaz,
+                       energy, omega_frame, nb, current_time,
+                       temp0_factor: float, time_to_hours: float,
+                       length_to_cm: float, mdot=None):
+    """The Roche-lobe overflow stream injected at the outer ghost ring
+    around the donor's azimuth (reference
+    src/boundary_conditions/mass_overflow.cpp:22-140;
+    fargocpt_tpu/ops/boundary.py:335-398): a Gaussian stream whose width
+    follows the donor's temperature and orbital period, ramped in as sin^6
+    over ``ROFrampingtime`` donor orbits. Sigma, the energy (adiabatic) and
+    v_az go on ring NR-1, v_rad on faces NR-1 and NR; v_az covers the
+    window and the cells after it.
+
+    The donor's orbit, its nearest cell and the stream's profile are
+    float64 tensors on the device, from the float64 bodies ``nb`` (the JAX
+    package forms them in the field type); ``current_time`` and ``mdot``
+    (None: ``ROFvalue``) are floats or 0-d tensors, a float staying a
+    Python number: nothing is copied to the device or read back."""
+    dev, dtype = sigma.device, sigma.dtype
+    f64 = lambda v: v.to(torch.float64) \
+        if torch.is_tensor(v) else v  # noqa: E731
+    k = phys.rof_planet
+    x, y, vx, vy = nb.x[k], nb.y[k], nb.vx[k], nb.vy[k]
+    omega_frame = f64(omega_frame)
+    r2 = x * x + y * y
+    omega_planet = (x * vy - y * vx) / r2 + omega_frame
+    angle = torch.atan2(y, x) / (2.0 * math.pi)
+    angle = torch.where(angle < 0.0, angle + 1.0, angle)
+
+    nr, naz = g.nrad, g.naz
+    r_cell = _host(g, "rmed", nr - 1)
+    vr_fraction = 0.002
+    vr_stream = -omega_planet * r_cell * vr_fraction
+    vazi_stream = (omega_planet - omega_frame) * r_cell
+    if mdot is None:
+        mdot = phys.rof_mdot
+    sigma_stream = torch.abs(f64(mdot) / (g.dphi * _host(g, "ra", nr - 1)
+                                          * vr_stream))
+
+    # the nearest cell; naz * angle + 0.5 > 0, so the cast is a floor
+    nearest = torch.remainder((naz * angle + 0.5).to(torch.int64), naz)
+    porb_hours = 2.0 * math.pi / omega_planet * time_to_hours
+    q_w = 2.4e13 * (phys.rof_temperature * temp0_factor) * porb_hours ** 2
+    w = torch.sqrt(q_w / math.pi)
+    circ = 2.0 * math.pi * r_cell * length_to_cm
+    sig_frac = 2.0 * w / circ
+    sigmabar = naz * sig_frac
+
+    t = f64(current_time)
+    period = 2.0 * math.pi / omega_planet
+    t_ramp = phys.rof_rampingtime * period
+    ramp = torch.where(t < t_ramp,
+                       torch.sin(t * (math.pi / 2.0)
+                                 / torch.clamp(t_ramp, min=1e-300)) ** 6,
+                       torch.ones_like(t_ramp))
+
+    j = torch.arange(naz, device=dev)
+    # the signed azimuthal offset to the stream's centre, across the seam
+    di = torch.remainder(j - nearest + naz // 2, naz) - naz // 2
+    window = torch.abs(di) <= torch.clamp(3.0 * sigmabar, min=0.0)
+    sbar = torch.clamp(sigmabar, min=1e-30)
+    weight = torch.where(
+        sigmabar > 0.0,
+        torch.exp(-0.5 * (di / sbar) ** 2) / (sbar * math.sqrt(2.0 * math.pi)),
+        (di == 0).to(torch.float64))
+    dens = torch.clamp(ramp * weight * sigma_stream,
+                       min=phys.sigma_floor * phys.sigma0)
+
+    row = nr - 1
+    sigma = _put_row(sigma, row, torch.where(window, dens.to(dtype),
+                                             sigma[row]))
+    if phys.is_adiabatic:
+        e_stream = phys.rof_temperature * dens / phys.mu * constants.R \
+            / (phys.adiabatic_index - 1.0)
+        energy = _put_row(energy, row, torch.where(window, e_stream.to(dtype),
+                                                   energy[row]))
+    vr_row = vr_stream.to(dtype)
+    vrad = torch.cat([vrad[:row],
+                      torch.where(window, vr_row, vrad[row:row + 2])], dim=0)
+    window_vaz = window | torch.roll(window, 1)
+    vaz = _put_row(vaz, row, torch.where(window_vaz, vazi_stream.to(dtype),
+                                         vaz[row]))
     return sigma, vrad, vaz, energy

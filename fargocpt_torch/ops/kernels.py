@@ -626,8 +626,11 @@ def viscous_kick(ctx: KernelContext, sigma, vrad, vaz, energy, dt, time,
                                   compress, want_cs)
     phys, constants, g = ctx.phys, ctx.constants, ctx.g
     nr, naz = g.nrad, g.naz
-    if phys.is_adiabatic:
-        energy_ops.check_supported(phys)
+    if phys.is_adiabatic and energy_ops.beta_or_scurve_cooling(phys):
+        raise NotImplementedError(
+            "S-curve cooling, CoolingBetaMethod, CoolingBetaModel and "
+            "CoolingBetaFloor lie outside the viscous_kick kernel's gate "
+            "(step.gates): the step takes the unfused substeps")
     if phys.stabilize_viscosity != 0:
         raise NotImplementedError(
             "StabilizeViscosity lies outside the viscous_kick kernel's gate "

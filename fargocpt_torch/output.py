@@ -17,18 +17,19 @@ byte-compatible where analysis tooling depends on it —
     snapshots/<N>/vazi.dat, energy.dat, Temperature.dat, <name>1D.dat, ...
     snapshots/<N>/misc.bin    (binary struct, src/output.h:16-24)
     snapshots/<N>/nbody.bin   (per-body state)
+    snapshots/<N>/massflow_tracker.bin (the Roche-lobe tracker:
+                              [0, averaging time, rate] float64)
     snapshots/<N>/config.yml
     monitor/Quantities.dat    (~20 scalars/monitor, :326-490)
     monitor/timestepLogging.dat (dt statistics, src/hydro_dt_logger.cpp)
     monitor/nbody{i}.dat      (per-body orbit data)
 
 The serial layout only: ``check_supported`` refuses by name the sharded
-files of ``DistributedOutput`` and the outputs of features the port does
-not carry yet. Tensors reach the host at a boundary with one synchronise
-(``to_host``); the field dumps go through the native background writer
-(``native.AsyncFileWriter``) as float64. This module imports ``torch``
-only inside its functions, so ``fargocpt_torch data`` (``analysis``, which
-reads ``load_misc`` from here) stays free of it.
+files of ``DistributedOutput``. Tensors reach the host at a boundary with
+one synchronise (``to_host``); the field dumps go through the native
+background writer (``native.AsyncFileWriter``) as float64. This module
+imports ``torch`` only inside its functions, so ``fargocpt_torch data``
+(``analysis``, which reads ``load_misc`` from here) stays free of it.
 """
 
 from __future__ import annotations
@@ -90,8 +91,6 @@ def check_supported(phys) -> None:
     unsupported = {
         "DistributedOutput (sharded snapshot files)":
             phys.distributed_output,
-        "the Roche-lobe overflow tracker (massflow_tracker.bin)":
-            phys.rochelobe_overflow,
     }
     for name, on in unsupported.items():
         if on:
@@ -342,6 +341,8 @@ class OutputWriter:
         for attr in MONITOR_FILES:
             if getattr(acc, attr) is not None:
                 out[f"_acc_{attr}"] = getattr(acc, attr)
+        if acc.rof_mdot is not None:
+            out["_rof_mdot"] = acc.rof_mdot
         nb = state.nbody
         out["_nbody"] = torch.stack([nb.x, nb.y, nb.vx, nb.vy, nb.mass],
                                     dim=1).to(torch.float64)
@@ -427,6 +428,12 @@ class OutputWriter:
 
         self._write_misc(sdir, host["_misc"])
         host["_nbody"].tofile(sdir / "nbody.bin")
+        # the Roche-lobe tracker (reference src/massflow_tracker.cpp
+        # write_to_file: delta_mass, averaging_time, mdot)
+        if "_rof_mdot" in host:
+            np.asarray([0.0, sim.stepper.rof_averaging_time(),
+                        float(host["_rof_mdot"])], np.float64).tofile(
+                sdir / "massflow_tracker.bin")
         # dust particles (reference src/particles/particles.cpp:2176
         # ``write``: one binary record per particle per snapshot)
         if "particles" in host:
@@ -1026,6 +1033,13 @@ def restore_simulation(sim, outdir: str | Path, snapshot_id: str | int):
             else torch.zeros(n, dtype=dt, device=dev),
             facold=col(8) if ncol == 9
             else torch.full((n,), 1e-4, dtype=dt, device=dev))
+    # the Roche-lobe tracker (reference src/massflow_tracker.cpp
+    # read_from_file)
+    monitor_acc = state.monitor_acc
+    if (sdir / "massflow_tracker.bin").exists() \
+            and monitor_acc.rof_mdot is not None:
+        vals = np.fromfile(sdir / "massflow_tracker.bin", np.float64)
+        monitor_acc = monitor_acc.replace(rof_mdot=scalar(vals[2]))
     pvte_guess = state.pvte_guess
     if pvte_guess is not None:
         if have("PvteGeff") and have("PvteMu"):
@@ -1043,7 +1057,8 @@ def restore_simulation(sim, outdir: str | Path, snapshot_id: str | int):
         fields=fields, nbody=nbody, qplus=qplus, qminus=qminus,
         omega_frame=scalar(misc["omega_frame"]),
         frame_angle=scalar(misc["frame_angle"]),
-        pvte_guess=pvte_guess, particles=particles)
+        monitor_acc=monitor_acc, pvte_guess=pvte_guess,
+        particles=particles)
     sim.time = scalar(misc["time"])
     sim.last_dt = scalar(misc["last_dt"])
     sim.n_monitor = misc["n_monitor"]

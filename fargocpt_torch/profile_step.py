@@ -2,16 +2,19 @@
 
     python -m fargocpt_torch.profile_step
         [--setup flagship|pds70_gas|pds70|planet_disk|planet_torque|
-                 planet_accretion|binary_gcfull]
+                 planet_accretion|binary_gcfull|oy_car|v1504cyg]
         [--route whole|split|staged] [--nrad 1024 1000] [--naz 3072]
-        [--steps 120]
+        [--steps 120] [--dtype float32|float64]
 
-For each grid: the setup's Simulation in float32 (``flagship`` by
-default, the PDS70 gas setup, the whole PDS70 setup with its dust, the
+For each grid: the setup's Simulation in float32 or ``--dtype``
+(``float64`` for the cataclysmic variables, whose float32 Q+ / Q- are
+NaN from the start in both packages; ``flagship`` by default, the PDS70 gas setup, the whole PDS70 setup with its dust, the
 planet in the disk of examples/quickstart.yml, the reference's torque
 test on the leapfrog, its accretion test: accretion, the corotating
 frame and the monitor grids, or setups/gamma_cephei_full.yml's
-circumbinary disk: ``--nrad 1609 --naz 1160``), on
+circumbinary disk: ``--nrad 1609 --naz 1160``, or the cataclysmic
+variables, setups/CloseBinaries/OY_Car.yml: ``--nrad 200 --naz 200``
+and setups/V1504Cyg.yml: ``--nrad 450 --naz 1070``), on
 the grid's transport route or the one ``--route`` names, 20 warm-up steps,
 the wall time of ``--steps`` steps (host clock around synchronised work),
 then a ``torch.profiler`` window of 20 steps. Prints per grid the device
@@ -37,14 +40,16 @@ from contextlib import contextmanager
 
 import torch
 
-from .flagship import (binary_gcfull, flagship, pds70, pds70_gas,
-                       planet_accretion, planet_disk, planet_torque)
+from .flagship import (binary_gcfull, flagship, oy_car, pds70, pds70_gas,
+                       planet_accretion, planet_disk, planet_torque,
+                       v1504cyg)
 from .ops.kernels import ROUTES
 
 SETUPS = {"flagship": flagship, "pds70_gas": pds70_gas, "pds70": pds70,
           "planet_disk": planet_disk, "planet_torque": planet_torque,
           "planet_accretion": planet_accretion,
-          "binary_gcfull": binary_gcfull}
+          "binary_gcfull": binary_gcfull, "oy_car": oy_car,
+          "v1504cyg": v1504cyg}
 
 # device kernel name fragment -> the op whose CUDA source launches it
 # (fargo_theta on the split route and theta_sweep on the staged route
@@ -114,6 +119,8 @@ def phases():
         (kernels, "transport", "transport op"),
         (boundary, "apply_boundary_conditions", "boundaries"),
         (boundary, "center_of_mass_boundary", "center-of-mass boundary"),
+        (boundary, "rochelobe_overflow", "Roche-lobe stream"),
+        (energy, "scurve_cooling", "S-curve cooling"),
         (diskmodel, "vr_numerical_viscous", "drift model"),
         (step.HydroStep, "derived", "derived grids"),
         (eos, "scale_height_nbody", "N-body scale height"),
@@ -158,10 +165,11 @@ def ranges(targets):
 
 def profile_grid(nrad: int, naz: int, setup: str = "flagship",
                  warmup: int = 20, steps: int = 120,
-                 window: int = 20, route: str | None = None) -> dict:
+                 window: int = 20, route: str | None = None,
+                 dtype: str = "float32") -> dict:
     from torch.profiler import ProfilerActivity, profile
     from .sim import Simulation
-    sim = Simulation(SETUPS[setup](nrad, naz), dtype="float32",
+    sim = Simulation(SETUPS[setup](nrad, naz), dtype=dtype,
                      transport_route=route)
 
     def run(n):
@@ -213,7 +221,7 @@ def profile_grid(nrad: int, naz: int, setup: str = "flagship",
                 e, ("device_time_total", "cuda_time_total")) / 1e3 / window
             row["calls_per_step"] += 1.0 / window
             row["launches_per_step"] += _launches(e) / window
-    return {"setup": setup, "grid": f"{nrad}x{naz}",
+    return {"setup": setup, "grid": f"{nrad}x{naz}", "dtype": dtype,
             "route": sim.stepper.ops.route,
             "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms if device_ms else None,
@@ -229,6 +237,8 @@ def main(argv=None) -> int:
                     default=None, help="the transport route (default: the "
                     "grid's own)")
     ap.add_argument("--steps", type=int, default=120)
+    ap.add_argument("--dtype", choices=("float32", "float64"),
+                    default="float32")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
@@ -240,10 +250,10 @@ def main(argv=None) -> int:
     results = []
     for nrad in args.nrad:
         r = profile_grid(nrad, args.naz, args.setup, steps=args.steps,
-                         route=args.route)
+                         route=args.route, dtype=args.dtype)
         results.append(r)
-        print(f"{args.setup} {r['grid']} float32, {r['route']} route: wall "
-              f"{r['wall_ms_per_step']:.4f} ms/step, device "
+        print(f"{args.setup} {r['grid']} {r['dtype']}, {r['route']} route: "
+              f"wall {r['wall_ms_per_step']:.4f} ms/step, device "
               f"{r['device_ms_per_step']:.4f} ms/step", flush=True)
         if not r["ops"]:
             print("  the profiler recorded no device time", flush=True)

@@ -66,6 +66,34 @@ class RunSettings:
         )
 
 
+def load_custom_boundary(mod_path: str):
+    """``custom_boundary`` of a .py file path or an importable module name
+    (the run-time counterpart of the reference's compile-time
+    src/boundary_conditions/custom.cpp template;
+    fargocpt_tpu/sim.py:55-79)."""
+    import importlib
+    import importlib.util
+    from pathlib import Path
+
+    if mod_path.endswith(".py") or "/" in mod_path:
+        p = Path(mod_path)
+        if not p.exists():
+            raise FileNotFoundError(
+                f"CustomBoundaryModule file not found: {mod_path}")
+        spec = importlib.util.spec_from_file_location(
+            "fargocpt_torch_custom_boundary", str(p))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    else:
+        mod = importlib.import_module(mod_path)
+    fn = getattr(mod, "custom_boundary", None)
+    if fn is None:
+        raise AttributeError(
+            f"CustomBoundaryModule {mod_path!r} must define "
+            "custom_boundary(g, sigma, vrad, vaz, energy, omega_frame)")
+    return fn
+
+
 def _resolve_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -154,8 +182,6 @@ class Simulation:
         if any(b.irradiate for b in self.bodies):
             self.phys = self.phys.with_(heating_star=True)
         check_supported(self.phys)
-        if cfg.get("CustomBoundaryModule", "", type=str):
-            raise NotImplementedError("CustomBoundaryModule is not ported yet")
 
         self.geometry = Geometry.from_config(cfg)
         self.settings = RunSettings.from_config(cfg, outdir)
@@ -193,6 +219,25 @@ class Simulation:
         self.stepper.set_ref_values(make_ref_values(fields))
         self.state: SystemState = self.stepper.initial_system_state(
             fields, nbody)
+        # the user's boundary function (reference
+        # src/boundary_conditions/custom.cpp, a source template there):
+        # CustomBoundaryModule names a .py file or an importable module
+        # defining ``custom_boundary(g, sigma, vrad, vaz, energy,
+        # omega_frame) -> (sigma, vrad, vaz, energy)`` on the port's Geom
+        # and torch tensors, applied after the named boundaries of every
+        # boundary call once Inner/OuterBoundary is "custom" (not at the
+        # initial one, as in the JAX package); a library user may set
+        # ``sim.stepper.custom_bc`` before the first step instead
+        mod_path = cfg.get("CustomBoundaryModule", "", type=str)
+        if mod_path:
+            self.stepper.custom_bc = load_custom_boundary(mod_path)
+        elif "custom" in (self.phys.composite_inner,
+                          self.phys.composite_outer):
+            warnings.warn(
+                "Inner/OuterBoundary is 'custom' but no "
+                "CustomBoundaryModule is configured and no custom_bc was "
+                "registered; the custom hook will be a no-op unless "
+                "sim.stepper.custom_bc is set before the first step")
         if self.phys.integrate_particles:
             self.state = self.state.replace(particles=particles)
 

@@ -12,8 +12,8 @@ so a run can start from another implementation's state. The optional
 parts are keyed by position: ``"pvte_guess.0"``, ``"pvte_guess.1"``,
 ``"fld_sor"``, ``"sg_kernel.0"`` .. ``"sg_kernel.3"``; the dust swarm by
 field: ``"particles.r"``, ``"particles.alive"``, ...; the monitor grids
-that are on under the JAX package's names (``"monitor_acc.massflow"``,
-...).
+that are on and the Roche-lobe tracker's rate under the JAX package's
+names (``"monitor_acc.massflow"``, ..., ``"monitor_acc.rof_mdot"``).
 """
 
 from __future__ import annotations
@@ -59,7 +59,11 @@ class MonitorAccum:
     through each face (massflow), the advection, viscous and gravitational
     torques times dt (t_adv, t_visc, t_grav), alpha times dt
     (alpha_grav_mean, alpha_reynolds_mean), and the disk's eccentricity and
-    pericentre changes per stage (decc, dperi, N_ECC_STAGES each)."""
+    pericentre changes per stage (decc, dperi, N_ECC_STAGES each); and,
+    with RocheLobeOverflow, the Roche-lobe tracker's exponentially averaged
+    rate through the inner face (rof_mdot, 0-d; reference
+    src/massflow_tracker.cpp), which the Euler step updates and
+    ROFVariableTransfer feeds to the stream."""
     mass_delta: torch.Tensor
     massflow: torch.Tensor | None = None
     t_adv: torch.Tensor | None = None
@@ -69,6 +73,7 @@ class MonitorAccum:
     alpha_reynolds_mean: torch.Tensor | None = None
     decc: torch.Tensor | None = None
     dperi: torch.Tensor | None = None
+    rof_mdot: torch.Tensor | None = None
 
     def replace(self, **kw) -> "MonitorAccum":
         return replace(self, **kw)
@@ -110,13 +115,15 @@ _OPTIONAL = ("pvte_guess", "fld_sor", "sg_kernel", "particles")
 # the monitor grids, each None while its flag is off
 MONITOR_GRIDS = ("massflow", "t_adv", "t_visc", "t_grav", "alpha_grav_mean",
                  "alpha_reynolds_mean", "decc", "dperi")
+# the parts of MonitorAccum that a run may lack
+_MONITOR_OPTIONAL = MONITOR_GRIDS + ("rof_mdot",)
 _NBODY_KEYS = {"nbody.x", "nbody.y", "nbody.vx", "nbody.vy", "nbody.mass",
                "corot_ref_x", "corot_ref_y"}
 
 
 def state_keys() -> list[str]:
     """The dotted names of every tensor of a ``SystemState`` without its
-    optional parts (nor the monitor grids)."""
+    optional parts (nor the monitor grids and the Roche-lobe tracker)."""
     keys = []
     for f in dc_fields(SystemState):
         if f.name in _OPTIONAL:
@@ -126,7 +133,7 @@ def state_keys() -> list[str]:
             keys.append(f.name)
         else:
             keys.extend(f"{f.name}.{g.name}" for g in dc_fields(group)
-                        if g.name not in MONITOR_GRIDS)
+                        if g.name not in _MONITOR_OPTIONAL)
     return keys
 
 

@@ -72,6 +72,17 @@ included; the output and the monitor grids take the mode-0 grids, as
 there. The gates keep the fused sources, viscous kick and CFL off under
 these modes.
 
+The cataclysmic variables. With RocheLobeOverflow every boundary call
+that has the bodies injects the donor's stream at the outer ghost ring
+(``ops/boundary.rochelobe_overflow``, on the device); the Euler step
+tracks the rate through the inner face (``MonitorAccum.rof_mdot``), which
+ROFVariableTransfer feeds to its final boundary call (the leapfrog keeps
+no tracker, as in the JAX package). KeepDiskMassConstant rescales sigma
+after each step's final boundary call; a ``custom`` side runs the user's
+``custom_bc`` after the named boundaries; SubStep3 takes S-curve cooling
+and the Ziampras, model and floor beta variants (``ops/energy.py``), all
+outside the fused viscous kick's gate.
+
 PVTE refreshes. The JAX package memoizes ``pvte_vals`` per (sigma,
 energy) within one trace, and each miss warm-starts from the previous
 refresh (the chain, float32 only). Here the memo is a list keyed on tensor
@@ -130,14 +141,11 @@ def check_supported(phys: Physics,
             phys.integrate_particles and particle_params is not None
             and particle_params.diffusion,
         "Disk: no": not phys.calculate_disk,
-        "KeepDiskMassConstant": phys.keep_mass_constant,
-        "Roche-lobe overflow": phys.rochelobe_overflow,
     }
     for name, on in unsupported.items():
         if on:
             raise NotImplementedError(f"{name} is not ported yet")
     boundary.check_supported(phys)
-    energy_ops.check_supported(phys)
 
 
 def gates(phys: Physics) -> dict[str, bool]:
@@ -156,10 +164,8 @@ def gates(phys: Physics) -> dict[str, bool]:
         and phys.stabilize_viscosity == 0
         and phys.artificial_viscosity in (ARTVISC_SN, ARTVISC_TW, "none")
         and not phys.heating_star and not phys.cooling_surface_enabled
-        and not phys.cooling_scurve_enabled
-        and phys.cooling_beta_method == "no"
+        and not energy_ops.beta_or_scurve_cooling(phys)
         and not phys.cooling_beta_reference
-        and not phys.cooling_beta_model and not phys.cooling_beta_floor
         and not phys.write_ecc_changes and not bessel)
     cfl = (not phys.variable_gamma and not phys.is_polytropic
            and phys.alpha_mode == 0 and phys.stabilize_viscosity != 2
@@ -217,6 +223,9 @@ class HydroStep(nn.Module):
         periods = [2.0 * math.pi * math.sqrt(
             b.semi_major_axis ** 3 / (constants.G * phys.hydro_center_mass))
             if b.semi_major_axis > 0 else 0.0 for b in bodies]
+        # the initial orbital periods as floats: the Roche-lobe tracker's
+        # averaging time (fargocpt_tpu/step.py:168-178 body_period_host)
+        self.body_period_host = periods
         self.register_buffer("body_ramp_time", torch.tensor(
             [b.ramp_up_time for b in bodies], dtype=torch.float64,
             device=device) * torch.tensor(periods, dtype=torch.float64,
@@ -225,8 +234,15 @@ class HydroStep(nn.Module):
             [b.cubic_smoothing_factor for b in bodies], dtype=torch.float64,
             device=device))
         self.any_cubic = any(b.cubic_smoothing_factor != 0.0 for b in bodies)
-        # the eccentricity-change monitor's integration radius
+        # the eccentricity-change monitor's integration radius, and that of
+        # the disk mass KeepDiskMassConstant holds
         self.ecc_radius_limit = 2.0 * geometry.rmax
+        self.rmax = geometry.rmax
+        # the user's boundary function of a ``custom`` side
+        # (CustomBoundaryModule; ``Simulation`` loads it): custom_bc(g,
+        # sigma, vrad, vaz, energy, omega_frame) -> (sigma, vrad, vaz,
+        # energy), applied after the named boundaries
+        self.custom_bc = None
         # accretion onto the bodies, in the field type as the JAX package
         # holds the efficiencies (fargocpt_tpu/step.py:162-167)
         self.accretion_types = [b.accretion_type for b in bodies]
@@ -242,10 +258,12 @@ class HydroStep(nn.Module):
                 f"ref_{name}", getattr(ref_values, name).to(device, dtype))
         needs_units = phys.variable_gamma or phys.cooling_surface_enabled \
             or phys.radiative_diffusion or phys.integrate_particles \
-            or phys.heating_star
+            or phys.heating_star or phys.cooling_scurve_enabled \
+            or phys.cooling_beta_method != "no" or phys.rochelobe_overflow
         if needs_units and units is None:
-            raise ValueError("PVTE, surface cooling, FLD, irradiation and "
-                             "the dust need the run's units")
+            raise ValueError("PVTE, surface and S-curve cooling, the "
+                             "Ziampras beta, FLD, irradiation, the dust and "
+                             "the Roche-lobe stream need the run's units")
         # the irradiating bodies, in the field type as the JAX package
         # holds them (fargocpt_tpu/step.py:152-161)
         self.body_irradiates = [b.irradiate for b in bodies]
@@ -467,9 +485,27 @@ class HydroStep(nn.Module):
         cs, _, h = self.derived(sigma, energy, bodies)
         return self.viscosity_grid(cs, h, sigma, energy, bodies)
 
+    def rof_averaging_time(self) -> float:
+        """The Roche-lobe tracker's averaging time: ROFaveragingtime orbits
+        of the donor's initial orbit (fargocpt_tpu/step.py:1509-1511)."""
+        phys = self.phys
+        if self.n_bodies > 1:
+            return max(self.body_period_host[phys.rof_planet]
+                       * phys.rof_averaging_time, 1e-12)
+        return 1e-12
+
+    def _rescale_to_initial_mass(self, sigma):
+        """KeepDiskMassConstant: sigma scaled so the disk's mass inside
+        Rmax stays the initial one (reference src/simulation.cpp:246-251,
+        :476-481; fargocpt_tpu/step.py:1136-1146)."""
+        m0 = quant.total_mass(self.phys, self.g, self.ref_sigma0, self.rmax)
+        m_new = quant.total_mass(self.phys, self.g, sigma, self.rmax)
+        return sigma * (m0 / m_new)
+
     def _apply_bcs(self, sigma, vrad, vaz, energy, omega_frame, nu=None,
-                   final: bool = False, dt=None, nb=None, time=0.0):
-        """The boundary conditions (fargocpt_tpu/step.py:518-583); on the
+                   final: bool = False, dt=None, nb=None, time=0.0,
+                   rof_mdot=None):
+        """The boundary conditions (fargocpt_tpu/step.py:518-599); on the
         final application of a step (``final``) the damping zones first.
         ``nu`` is the viscosity grid of the step's viscous substep, which
         the viscous v_rad BC and viscous damping read (the reference's
@@ -477,8 +513,10 @@ class HydroStep(nn.Module):
         fields' mode-0 grid, and the viscous BC the per-cell one of the
         bodies ``nb`` at ``time`` under AlphaMode or AspectRatioMode, as
         the JAX package takes them. ``nb`` also feeds a ``centerofmass``
-        side. Returns the fields and the (4,) damping mass deltas (zeros
-        without damping)."""
+        side and the Roche-lobe stream at ``time``, whose rate is
+        ``ROFvalue``, or the tracked ``rof_mdot`` under ROFVariableTransfer.
+        The user's ``custom_bc`` follows on a ``custom`` side. Returns the
+        fields and the (4,) damping mass deltas (zeros without damping)."""
         phys = self.phys
         ref = self.ref_values()
         dmp = torch.zeros(4, dtype=sigma.dtype, device=sigma.device)
@@ -499,11 +537,21 @@ class HydroStep(nn.Module):
                 else None
             cs, _, h = self.derived(sigma, energy, nu_bodies)
             nu = self.viscosity_grid(cs, h, sigma, energy, nu_bodies)
+        rof_ctx = None
+        if phys.rochelobe_overflow and nb is not None:
+            un = self.units
+            mdot = rof_mdot if phys.rof_variable_transfer \
+                and rof_mdot is not None else phys.rof_mdot
+            rof_ctx = (nb, time, un.temperature, un.time / 3600.0,
+                       un.length, mdot)
         com_ctx = (nb, self.n_hydroframe, self.quad_moment) \
             if nb is not None else None
         fields = boundary.apply_boundary_conditions(
             phys, self.constants, self.g, sigma, vrad, vaz, energy, ref,
-            omega_frame, nu=nu, com_ctx=com_ctx)
+            omega_frame, nu=nu, rof_ctx=rof_ctx, com_ctx=com_ctx)
+        if self.custom_bc is not None and "custom" in (phys.composite_inner,
+                                                       phys.composite_outer):
+            fields = self.custom_bc(self.g, *fields, omega_frame)
         return (*fields, dmp)
 
     def apply_bcs(self, fields: FieldState,
@@ -851,11 +899,24 @@ class HydroStep(nn.Module):
                                  method=phys.nbody_integrator)
         nb = nbody_sys.move_to_hydro_frame_center(nb, self.n_hydroframe)
 
+        # the Roche-lobe tracker (reference src/massflow_tracker.cpp): the
+        # rate through the inner face, averaged exponentially
+        # (fargocpt_tpu/step.py:1503-1515; the leapfrog keeps no tracker)
+        rof_mdot = state.monitor_acc.rof_mdot
+        if rof_mdot is not None:
+            delta = -torch.sum(mass_flux[1])
+            alpha = torch.clamp(dt / self.rof_averaging_time(), max=1.0)
+            rof_mdot = (1.0 - alpha) * rof_mdot + alpha * delta / dt
+
         # the final boundary conditions, the damping zones first
         sigma, vrad, vaz, energy, dmp = self._apply_bcs(
             sigma, vrad, vaz, energy, omega_frame, nu=nu_step, final=True,
-            dt=dt, nb=nb, time=time)
+            dt=dt, nb=nb, time=time, rof_mdot=rof_mdot)
+        if phys.keep_mass_constant:
+            sigma = self._rescale_to_initial_mass(sigma)
         monitor_acc = self._mass_deltas(state, mass_flux, dmp, floor_created)
+        if rof_mdot is not None:
+            monitor_acc = monitor_acc.replace(rof_mdot=rof_mdot)
         if ecc is not None:
             self._ecc_delta(ecc, mark, sigma, vrad, vaz, omega_frame)
             monitor_acc = monitor_acc.replace(
@@ -1012,6 +1073,8 @@ class HydroStep(nn.Module):
         sigma, vrad, vaz, energy, dmp = self._apply_bcs(
             sigma, vrad, vaz, energy, omega_frame, nu=nu_kick2, final=True,
             dt=dt, nb=nb, time=time + dt)
+        if phys.keep_mass_constant:
+            sigma = self._rescale_to_initial_mass(sigma)
         monitor_acc = self._update_monitor_acc(
             self._mass_deltas(state, mass_flux, dmp), mass_flux, sigma,
             vrad, vaz, energy, nb, mid_time, pot_it, dt)
@@ -1189,8 +1252,8 @@ class HydroStep(nn.Module):
 
     # ------------------------------------------------------------------
     def initial_monitor_acc(self) -> MonitorAccum:
-        """The mass bookkeeping and the monitor grids that are on, zero
-        (fargocpt_tpu/step.py:1196-1212)."""
+        """The mass bookkeeping, the monitor grids that are on and the
+        Roche-lobe tracker's rate, zero (fargocpt_tpu/step.py:1196-1212)."""
         phys, g = self.phys, self.g
 
         def zeros(on, shape=(g.nrad, g.naz)):
@@ -1204,7 +1267,8 @@ class HydroStep(nn.Module):
             alpha_grav_mean=zeros(phys.write_alpha_grav_mean),
             alpha_reynolds_mean=zeros(phys.write_alpha_reynolds_mean),
             decc=zeros(phys.write_ecc_changes, (N_ECC_STAGES,)),
-            dperi=zeros(phys.write_ecc_changes, (N_ECC_STAGES,)))
+            dperi=zeros(phys.write_ecc_changes, (N_ECC_STAGES,)),
+            rof_mdot=zeros(phys.rochelobe_overflow, ()))
 
     def initial_system_state(self, fields: FieldState,
                              nbody: NBodyState) -> SystemState:

@@ -111,13 +111,13 @@ def test_viscous_bc_needs_the_viscosity_grid(setup):
             T(f["energy"]), rv, T(OMEGA))
 
 
-@pytest.mark.parametrize("composite,match", [
-    ("custom", "CustomBoundaryModule")])
 @pytest.mark.parametrize("side", ["inner", "outer"])
-def test_composites_outside_the_menu_raise(composite, match, side):
-    _, tp = _phys(**{f"composite_{side}": composite})
-    with pytest.raises(NotImplementedError, match=match):
-        boundary.check_supported(tp)
+def test_custom_composite_is_in_the_menu(side):
+    """The ``custom`` composite is ported: the menu takes it on either
+    side, and ``HydroStep`` applies the user's function after the named
+    boundaries (tests/test_torch_custom_boundary.py)."""
+    _, tp = _phys(**{f"composite_{side}": "custom"})
+    boundary.check_supported(tp)
 
 
 @pytest.mark.parametrize("side", ["inner", "outer"])

@@ -25,7 +25,10 @@ a leapfrog planet_torque step (sources and viscous_kick twice, ias15
 four times), a planet_accretion step (the leapfrog in the corotating
 frame with a Kley-accreting planet and the monitor grids: sources once,
 viscous_kick twice, ias15 four times) and a setups/star_planet.yml step
-(Euler, corotating), each against the CPU, a PDS70 gas step through artvisc_sn
+(Euler, corotating), setups/CloseBinaries/OY_Car.yml (cfl, sources,
+artvisc_sn, the transport, ias15 twice) and setups/V1504Cyg.yml (the
+transport, ias15 four times) steps, and the Roche-lobe stream, each
+against the CPU, a PDS70 gas step through artvisc_sn
 and the whole transport, and the whole PDS70 setup with its dust swarm on
 the device against the same run on the CPU; the output written from card
 tensors against the CPU writer's bytes, and a restart on the card bit for
@@ -1495,3 +1498,112 @@ def test_center_of_mass_boundary_on_the_card_matches_the_cpu(cuda, dtype,
             name
         lo, hi = (2, NR - 1) if name == "vrad" else (1, NR - 1)
         assert torch.equal(a[lo:hi], b[lo:hi]), name
+
+
+@pytest.mark.gpu
+def test_oy_car_step_launches_and_matches_the_cpu(cuda):
+    """setups/CloseBinaries/OY_Car.yml at 64x128 float64, its stream's
+    ramp ending in the first step: each Euler step launches cfl, sources,
+    artvisc_sn and the transport once and ias15 twice, no other kernel
+    (surface cooling keeps the viscous kick's gate off); ten steps agree
+    with the CPU's plain versions at 1e-9 of each field's scale, the
+    bodies and the Roche-lobe tracker's rate too."""
+    from fargocpt_torch.flagship import oy_car
+    cfg = dict(ROFrampingtime="1e-7", FirstDT="1e-7")
+    gpu = Simulation(oy_car(64, 128, **cfg), device=cuda)
+    cpu = Simulation(oy_car(64, 128, **cfg), device="cpu")
+    before = dict(kernels.LAUNCHES)
+    for _ in range(10):
+        dt = gpu.calculate_time_step()
+        gpu.step_once(dt)
+        cpu.step_once(dt.cpu())
+    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {
+        "cfl": 10, "sources": 10, "artvisc_sn": 10, "transport": 10,
+        "ias15": 20}
+    _held_to_the_cpu(gpu, cpu, 1e-9)
+    a = float(gpu.state.monitor_acc.rof_mdot)
+    b = float(cpu.state.monitor_acc.rof_mdot)
+    assert b != 0.0 and abs(a - b) <= 1e-9 * abs(b)
+
+
+@pytest.mark.gpu
+def test_v1504cyg_step_launches_and_matches_the_cpu(cuda):
+    """setups/V1504Cyg.yml at 32x64 float64 (the leapfrog, PVTE, S-curve
+    cooling, AspectRatioMode 1, AlphaMode 1): each step launches the
+    transport once and ias15 four times, no other kernel; five steps agree
+    with the CPU's plain versions at 1e-9 of each field's scale. The
+    setup's CFL dt (~1e-16 here; ROADMAP C) moves no field, so both step
+    on a fixed 1e-4, under the FARGO shear limit, and sigma, vaz and the
+    energy are seen to move far above 1e-9; the CFL dts are held to each
+    other."""
+    from fargocpt_torch.flagship import v1504cyg
+    gpu = Simulation(v1504cyg(32, 64), device=cuda)
+    cpu = Simulation(v1504cyg(32, 64), device="cpu")
+    start = {k: getattr(cpu.fields, k).clone()
+             for k in ("sigma", "vaz", "energy")}
+    before = dict(kernels.LAUNCHES)
+    for _ in range(5):
+        dt_g, dt_c = gpu.calculate_time_step(), cpu.calculate_time_step()
+        assert abs(float(dt_g) - float(dt_c)) <= 1e-9 * float(dt_c)
+        gpu.step_once(1e-4)
+        cpu.step_once(1e-4)
+    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {"transport": 5,
+                                                     "ias15": 20}
+    _held_to_the_cpu(gpu, cpu, 1e-9)
+    a, b = gpu.fields.energy.cpu(), cpu.fields.energy
+    assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max())
+    for name, old in start.items():
+        new = getattr(cpu.fields, name)
+        assert float((new - old).norm() / old.norm()) > 1e-6, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rochelobe_stream_on_the_card_matches_the_cpu(cuda, dtype):
+    """The stream on 130x200 random fields, a donor whose window wraps the
+    seam, before the ramp's end: the card's ghost rows against the CPU's
+    within 1e-13 of each field's scale (the profile is float64 on both;
+    the card's exp and sin may differ from the CPU's by an ulp), one
+    float32 ulp in float32, the interior untouched."""
+    import math
+    from types import SimpleNamespace
+    from fargocpt_torch.ops import boundary
+    from fargocpt_torch.ops.common import Geom
+    geom = Geometry.build(NR, NAZ, 0.05, 0.7, "Log")
+    phys = Physics(eos="adiabatic", adiabatic_index=1.4, mu=2.35,
+                   sigma0=1e-3, sigma_floor=1e-8, rochelobe_overflow=True,
+                   rof_planet=1, rof_temperature=0.05, rof_mdot=4.4e-11,
+                   rof_rampingtime=3.0)
+    rng = np.random.default_rng(23)
+    f = {"sigma": rng.random((NR, NAZ)) * 1e-3 + 5e-4,
+         "vrad": (rng.random((NR + 1, NAZ)) - 0.5) * 0.05,
+         "vaz": (rng.random((NR, NAZ)) - 0.5) * 0.1 + 1.0,
+         "energy": rng.random((NR, NAZ)) * 1e-5 + 1e-5}
+    theta = 2.0 * math.pi * (1.0 - 0.3 / NAZ)
+    nb = {"x": [0.0, math.cos(theta)], "y": [0.0, math.sin(theta)],
+          "vx": [0.0, -math.sin(theta)], "vy": [0.0, math.cos(theta)]}
+    units = (25065029.577259634, 0.26543563542339194, 43622739096.12)
+    out = {}
+    for dev in ("cpu", cuda):
+        t = [torch.tensor(f[k], dtype=dtype, device=dev)
+             for k in ("sigma", "vrad", "vaz", "energy")]
+        bodies = SimpleNamespace(**{k: torch.tensor(v, dtype=torch.float64,
+                                                    device=dev)
+                                    for k, v in nb.items()})
+        time = torch.tensor(2.0, dtype=dtype, device=dev)
+        out[str(dev)] = [x.cpu() for x in boundary.rochelobe_overflow(
+            phys, Constants(R=3.5), Geom(geom, dtype, dev), *t,
+            torch.tensor(0.37, dtype=dtype, device=dev), bodies, time,
+            *units)]
+    tol = 1e-13 if dtype == torch.float64 else 1.2e-7
+    for k, name in enumerate(("sigma", "vrad", "vaz", "energy")):
+        a, b = out[str(cuda)][k], out["cpu"][k]
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max()), \
+            name
+        rows = NR - 1
+        assert torch.equal(a[:rows], b[:rows]), name
+    row = out["cpu"][0][NR - 1].numpy()
+    assert 3 <= int((row != f["sigma"][NR - 1].astype(row.dtype)).sum()) \
+        < NAZ // 2

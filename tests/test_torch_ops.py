@@ -268,12 +268,6 @@ def test_substep3_takes_the_time_as_a_float(grids, fields, time):
         assert energy_ops.beta_inverse(tp, time) == 0.0
 
 
-def test_substep3_rejects_unported_cooling():
-    _, tp = _phys(cooling_scurve_enabled=True)
-    with pytest.raises(NotImplementedError, match="S-curve"):
-        energy_ops.check_supported(tp)
-
-
 def test_outflow_boundaries(grids, fields):
     jg, tg = grids
     jp, tp = _phys(omega_frame=0.2)
@@ -296,8 +290,8 @@ def test_outflow_boundaries(grids, fields):
 
 
 def test_boundary_rejects_unported_names():
-    _, tp = _phys(composite_outer="custom")
-    with pytest.raises(NotImplementedError, match="CustomBoundaryModule"):
+    _, tp = _phys(bc_vrad_outer="balanced")
+    with pytest.raises(NotImplementedError, match="balanced"):
         boundary.check_supported(tp)
 
 

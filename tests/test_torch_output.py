@@ -566,7 +566,6 @@ def test_loader_opens_the_port_output(runs):
 
 @pytest.mark.parametrize("flag,attr,name", [
     ("DistributedOutput", "distributed_output", "DistributedOutput"),
-    ("RocheLobeOverflow", "rochelobe_overflow", "Roche-lobe overflow"),
 ])
 def test_outputs_outside_the_slice_raise(flag, attr, name):
     phys = port_sim("float64").phys

@@ -209,7 +209,6 @@ def test_flagship_with_one_pds70_feature(extra):
     ({"IntegrateParticles": "yes", "ParticleDustDiffusion": "yes"}, "dust"),
     ({"SelfGravityMode": "besselkernel"}, "Bessel"),
     ({"PVTELookupTable": "yes"}, "PVTELookupTable"),
-    ({"CoolingBetaReference": "floor"}, "CoolingBetaFloor"),
 ])
 def test_unported_features_raise(extra, feature):
     with pytest.raises(NotImplementedError, match=feature):

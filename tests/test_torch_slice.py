@@ -201,9 +201,8 @@ def test_default_device_is_the_card():
 @pytest.mark.parametrize("extra,feature", [
     ({"EquationOfState": "PVTE", "PVTELookupTable": "Yes"}, "PVTE"),
     ({"SelfGravity": "Yes"}, "self-gravity"),        # the Bessel kernel
-    ({"KeepDiskMassConstant": "Yes"}, "KeepDiskMassConstant"),
-    ({"RocheLobeOverflow": "Yes"}, "Roche-lobe overflow"),
-    ({"SurfaceCooling": "scurve"}, "S-curve"),
+    ({"IntegrateParticles": "Yes", "ParticleDustDiffusion": "Yes"},
+     "dust diffusion"),
     ({"EquationOfState": "Polytropic"}, "polytropic"),
     ({"Disk": "No"}, "Disk: no"),
 ])
