@@ -42,8 +42,16 @@ frame) takes cfl, sources, artvisc_sn (the viscous kick's gate is off
 under surface cooling) and the whole-transport kernel once a step and
 ias15 twice; V1504 Cyg (setups/V1504Cyg.yml: PVTE, S-curve cooling,
 AspectRatioMode 1, AlphaMode 1, the stream, the leapfrog) the transport
-once and ias15 four times. All eleven paths are driven here, and
-setups/star_planet.yml (Euler, corotating) in phase 4.
+once and ias15 four times. The long tail: the planet_disk_sg
+(examples/quickstart.yml with SelfGravity: Yes, the default Bessel
+kernel, whose mode keeps cfl, sources and viscous_kick off) takes
+artvisc_sn and the whole-transport kernel once a step and ias15 twice;
+examples/full_physics.yml (symmetric self-gravity, FLD, surface cooling,
+irradiation, 2000 diffusing particles; float64, since in float32 its
+swarm dies on the first step in both packages) cfl, sources, artvisc_sn
+and the transport once. All thirteen paths are driven here,
+setups/star_planet.yml (Euler, corotating), the polytropic EoS, Disk: no
+and the long tail's initial conditions in phase 4.
 
 Phases (any failure raises, so the exit code is not 0):
   1. environment: GPU name and power limit, torch/CUDA versions, nvcc,
@@ -128,6 +136,14 @@ Phases (any failure raises, so the exit code is not 0):
      at the float64 rate), and V1504 Cyg at its own 450x1070 float64 (5
      warm-up and 20 timed steps: the transport once, ias15 four times, 0
      host reads), then the transport against its plain version there;
+     the planet_disk_sg at 1024x3072 float32 (10 warm-up and 60 timed
+     steps: artvisc_sn and the transport once a step, ias15 twice, no
+     other kernel, 0 host reads), then the whole-transport kernel against
+     its plain version on its state; examples/full_physics.yml at its own
+     128x256 float64 (artvisc_sn, cfl, sources, the transport once a
+     step), then those four kernels against their plain versions on its
+     state as OY_Car's are held, with the swarm's alive count and the
+     spread of its radii;
      the PDS70 lines add the FLD
      SOR iterations and the PVTE refreshes per step (3 and, on the run
      path, 2, with or without the dust), and with the dust its share of
@@ -137,7 +153,7 @@ Phases (any failure raises, so the exit code is not 0):
      for 20 steps (rel-L2 < 1e-9); split route 250x512 float32 for 200
      steps and 130x256 float64 for 20 steps, staged route 256x512 and
      128x256, the same budgets; the PDS70 gas setup and the whole PDS70
-     setup (4096 particles) at 64x128, float32 for 200 steps and float64
+     setup (4096 particles) at 64x128, float32 for 100 steps and float64
      for 20, the same budgets, the swarm's r and phi held to them too. The
      GPU run goes through the kernels and the CPU run through the plain
      versions, both on the GPU run's dt sequence. Then the PDS70 gas setup
@@ -154,16 +170,21 @@ Phases (any failure raises, so the exit code is not 0):
      setups/PDS70.yml (an irradiating star, two planets, 2000 particles)
      at 64x192 float64 for 20 steps with its swarm, the same budgets; the
      planet_accretion and setups/star_planet.yml at 256x512 float32 for
-     200 steps and 128x256 float64 for 20, the same budgets, the bodies'
-     masses, the frame's rate and the accumulated MassFlow and torque
-     grids held to them too; the binary_gcfull on the golden's radii at
+     200 steps and 128x256 float64 for 20, the same budgets, the
+     bodies' masses, the frame's rate and the accumulated MassFlow and
+     torque grids held to them too; the binary_gcfull on the golden's radii at
      128x256 float64 for 20 steps (the same budget) and float32 on the
      card against float64 on the CPU for 20 steps, each field within
      twice the JAX package's own float32-vs-float64 rel-L2 there
      (flagship.BINARY_F32_LIMITS); OY_Car with its stream's ramp ending in
      the first step at 128x256 and V1504 Cyg at 64x128, float64 for 20
      steps (the same budget), the Roche-lobe tracker's rate held to it
-     too;
+     too; the polytropic flagship at 64x128 (float64 for 20 steps,
+     float32 for 100), the planet_disk_sg at 64x192 float32 for 100
+     steps, setups/single_planet_no_disk.yml and the FLD-only disk of
+     test/FLD1D (64x2, Disk: no) and the flagship with RandomSigma,
+     CentrifugalBalance and a companion's disk (SecondaryDisk) at 64x128,
+     float64 for 20 steps, the same budgets;
   5. the command line: ``python -m fargocpt_torch start`` (in this process,
      so the launch counters are readable) on examples/adiabatic_disk.yml at
      1024x3072 float32 for two snapshots (about 70 steps), with the counters
@@ -181,18 +202,26 @@ Phases (any failure raises, so the exit code is not 0):
      intervals (MonitorTimestep 1e-5, the stream's ramp 1e-7 orbits), its
      kernels counted, and one snapshot plus ``restart last``, every file of
      the last snapshot bit for bit, massflow_tracker.bin among them;
+     setups/single_planet_no_disk.yml (Disk: no) float64 through four
+     monitor intervals of 10 steps (ias15 twice a step, no other kernel,
+     the gas untouched) and its restart bit for bit; examples/
+     full_physics.yml float64 through ``start -N 20`` (its kernels
+     counted, snapshot 0 and particles.bin finite);
   6. the reference binary on the card: the cold_disk_planet (1e-6),
      spreading_ring (1e-9), shocktube_sn (1e-6), longrun_planet (1e-5),
      planet_torque (1e-6), binary_gceph (1e-5), temperature_test (1e-6),
-     temperature_fld (1e-6), planet_accretion (1e-6) and binary_gcfull
-     (1e-5) goldens of
+     temperature_fld (1e-6), planet_accretion (1e-6), binary_gcfull
+     (1e-5) and shocktube_pvte@lookup (2e-4: the PVTE shock tube on the
+     reference's lookup table, built on the card) goldens of
      tests/goldens/ in float64 through the kernels and
      fargocpt_torch.output, each with the launch counters set to 0 before
      and read after, their snapshots against the reference's as
      tests/test_reference_golden.py holds them (each field's largest
      deviation, the hydro step counts and the last dt of misc.bin; the
      temperature goldens' MassFlow.dat at the deviation the JAX package's
-     CPU run leaves), and each one's wall time.
+     CPU run leaves), and each one's wall time; then the shocktube_pvte
+     tube with the float64 bisection solve, ms a step over 20 steps (its
+     3283-step golden, 6e-3, is the CPU tests' slow tier).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -207,6 +236,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
@@ -344,12 +374,10 @@ def planet_accretion(nr, naz, dtype, device):
 
 def from_yaml(path, nr, naz, dtype, device, **over):
     """A setup file of the repo on an ``nr`` x ``naz`` grid."""
-    import yaml
     from fargocpt_torch.config import Config
+    from fargocpt_torch.flagship import setup_file
     from fargocpt_torch.sim import Simulation
-    with open(os.path.join(HERE, path)) as f:
-        cfg = yaml.safe_load(f)
-    cfg.update(Nrad=nr, Naz=naz, **over)
+    cfg = setup_file(os.path.join(HERE, path), nr, naz, **over)
     cfg.pop("OutputDir", None)
     return Simulation(Config.from_dict(cfg), dtype=dtype, device=device)
 
@@ -425,6 +453,66 @@ def pds70_setup(nr, naz, dtype, device):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")     # CartesianParticles, midpoint
         return from_yaml("setups/PDS70.yml", nr, naz, dtype, device)
+
+
+def planet_disk_sg(nr, naz, dtype, device):
+    """flagship.planet_disk_sg: examples/quickstart.yml with SelfGravity:
+    Yes (the Bessel kernel): a planet in a self-gravitating disk."""
+    from fargocpt_torch.flagship import planet_disk_sg as sg_config
+    from fargocpt_torch.sim import Simulation
+    return Simulation(sg_config(nr, naz), dtype=dtype, device=device)
+
+
+def full_physics(nr, naz, dtype, device):
+    """flagship.full_physics: examples/full_physics.yml as it stands (FLD,
+    symmetric self-gravity, surface cooling, an irradiating star, 2000
+    diffusing particles), FirstDT 1e-3."""
+    from fargocpt_torch.flagship import full_physics as fp_config
+    from fargocpt_torch.sim import Simulation
+    return Simulation(fp_config(nr, naz, FirstDT="1e-3"), dtype=dtype,
+                      device=device)
+
+
+def flagship_with(over: dict, label: str):
+    """A setup function: the flagship with ``over``'s keys."""
+    def setup(nr, naz, dtype, device):
+        from fargocpt_torch.config import Config
+        from fargocpt_torch.flagship import FLAGSHIP
+        from fargocpt_torch.sim import Simulation
+        return Simulation(Config.from_dict(dict(
+            FLAGSHIP, Nrad=str(nr), Naz=str(naz), **over)), dtype=dtype,
+            device=device)
+    setup.__name__ = label
+    return setup
+
+
+# the polytropic EoS and the long tail's initial conditions on the flagship
+polytropic = flagship_with({"EquationOfState": "Polytropic"}, "polytropic")
+sigma_randomize = flagship_with({"RandomSigma": "Yes", "FeatureSize": "0.05"},
+                                "sigma_randomize")
+centrifugal_balance = flagship_with({"CentrifugalBalance": "Yes"},
+                                    "centrifugal_balance")
+# a companion of 0.3 at r = 1.2, whose Roche lobe holds cells
+secondary_disk = flagship_with({
+    "SecondaryDisk": "Yes", "SigmaSlope": "1.0",
+    "ProfileCutoffPointOuter": "0.8", "ProfileCutoffWidthOuter": "0.1",
+    "nbody": [{"name": "star", "semi-major axis": "0.0", "mass": "1.0"},
+              {"name": "companion", "semi-major axis": "1.2",
+               "mass": "0.3"}]}, "secondary_disk")
+
+
+def single_planet_no_disk(nr, naz, dtype, device):
+    """setups/single_planet_no_disk.yml (Disk: no) on an nr x naz grid."""
+    from fargocpt_torch.flagship import single_planet_no_disk as nd_config
+    from fargocpt_torch.sim import Simulation
+    return Simulation(nd_config(nr, naz), dtype=dtype, device=device)
+
+
+def fld1d(nr, naz, dtype, device):
+    """flagship.fld1d: the FLD-only disk of the reference's test/FLD1D."""
+    from fargocpt_torch.flagship import fld1d as fld1d_config
+    from fargocpt_torch.sim import Simulation
+    return Simulation(fld1d_config(nr, naz), dtype=dtype, device=device)
 
 
 # --- phase 2 -----------------------------------------------------------------
@@ -624,20 +712,24 @@ def output_scales(name, oname, ref, f) -> list[float]:
     return [float(ref.abs().max())]
 
 
-def check_f64(name, got, ref, names, f, nr) -> float:
+def check_f64(name, got, ref, names, f, nr, floors=None) -> float:
     """Each output within rtol F64_RTOL[name] and atol 1e-13 of its scale
-    (parity_f64_ragged's criterion; the roll exact); raises otherwise.
-    An output that updates an input field is logged with how far the
-    plain version moved it (max|p-in| / max|in|). Returns the largest
-    absolute error."""
+    (parity_f64_ragged's criterion; the roll exact), or within
+    ``floors[name]`` where that is larger; raises otherwise. An output
+    that updates an input field is logged with how far the plain version
+    moved it (max|p-in| / max|in|). Returns the largest absolute error."""
     max_abs = 0.0
+    floor = (floors or {}).get(name, 0.0)
     for oname, a, b in zip(names, got, ref):
         moved = ""
         if oname in f and f[oname].shape == b.shape:
             moved = (f"; moved {float((b - f[oname]).abs().max()):.3e} of "
                      f"{float(f[oname].abs().max()):.3e}")
+        if floor:
+            moved += f"; floor {floor:.3e}"
         a, b = a.cpu().numpy(), b.cpu().numpy()
-        atol = 1e-13 * float(np.abs(b).max()) if F64_RTOL[name] else 0.0
+        atol = max(1e-13 * float(np.abs(b).max()), floor) \
+            if F64_RTOL[name] else 0.0
         err = float(np.abs(a - b).max())
         max_abs = max(max_abs, err)
         log(f"  {name:20s} {oname:9s} f64 {nr}x{f['sigma'].shape[-1]}: "
@@ -754,8 +846,10 @@ def transport_parity(sim, check=check_f32, dt=None) -> float:
     ref = K.transport_plain(*args, route="whole")
     torch.cuda.synchronize()
     names = ("sigma", "vrad", "vaz", "energy", "mass_flux")
+    # a locally isothermal energy is 0 throughout: left out
     moved = {k: float((out - f[k]).abs().max() / f[k].abs().max())
-             for k, out in zip(names, ref) if k in f}
+             for k, out in zip(names, ref)
+             if k in f and bool(f[k].abs().max() > 0)}
     log(f"  transport on dt {float(dt):.4e}: the plain version moves each "
         "field by (max|out-in| / max|in|) "
         + ", ".join(f"{k} {v:.3e}" for k, v in moved.items()))
@@ -765,25 +859,58 @@ def transport_parity(sim, check=check_f32, dt=None) -> float:
     return check("transport", got, ref, names, f, sim.geometry.nrad)
 
 
-def cv_kernel_parity(sim, names) -> dict:
-    """Each kernel of ``names`` against its plain version on a cataclysmic
-    variable's own state at its own grid, float64 (``check_f64``), with
-    its ms beside the plain version's and its bound at the float64 rate:
-    OY_Car's cfl, sources, artvisc_sn and transport at 200x200 (a partial
-    16-row strip, a ring shorter than one 256-cell block). The dt is
-    ``hydro_dt``: on the CFL dt (~6e-7, the heating/cooling limit)
-    artvisc_sn moves the energy by less than its atol."""
+def potential_ulp_floor(sim, f, bodies, dt) -> float:
+    """How far one ulp of the N-body potential moves a velocity through
+    the sources' potential gradient, twice: 2 dt ulp(max|pot|) over the
+    least cell spacing (a radial cell or r dphi at the inner edge). The
+    sources kernel and its plain version evaluate the potential (the
+    smoothing's powers, the square root) each in its own order, so they
+    may differ by an ulp of it in a cell; where the velocity the gradient
+    updates is far smaller than the gradient's terms (examples/
+    full_physics.yml's v_rad, ~1e-4 against dt |grad pot| ~0.25 at its
+    inner edge), that ulp is far above 1e-13 of the velocity's scale."""
+    from fargocpt_torch.ops import gravity
+    from fargocpt_torch.ops.kernels import derived
+    ctx = sim.stepper.ops
+    _, _, h = derived(ctx, f["sigma"], f["energy"])
+    zero = torch.zeros((), dtype=torch.float64, device=f["sigma"].device)
+    pot = gravity.nbody_potential(ctx.phys, ctx.constants, ctx.g, bodies,
+                                  bodies.x.shape[0], *ctx.cell_xy(), h,
+                                  zero, zero)
+    big = pot.abs().max()
+    ulp = float(torch.nextafter(big, 2.0 * big) - big)
+    radii = np.asarray(sim.geometry.radii, np.float64)
+    spacing = min(float(np.diff(radii).min()),
+                  float(radii[0]) * 2.0 * math.pi / sim.geometry.naz)
+    return 2.0 * float(dt) * ulp / spacing
+
+
+def cv_kernel_parity(sim, names, f=None, floors=False) -> dict:
+    """Each kernel of ``names`` against its plain version on a setup's own
+    state (or the fields ``f``) at its own grid, float64 (``check_f64``),
+    with its ms beside the plain version's and its bound at the float64
+    rate: OY_Car's cfl, sources, artvisc_sn and transport at 200x200 (a
+    partial 16-row strip, a ring shorter than one 256-cell block), those
+    of examples/full_physics.yml at 128x256. The dt is ``hydro_dt``: on
+    OY_Car's CFL dt (~6e-7, the heating/cooling limit) artvisc_sn moves
+    the energy by less than its atol. With ``floors`` the sources' atol is
+    at least ``potential_ulp_floor``."""
     st = sim.state
-    f = {k: getattr(st.fields, k) for k in ("sigma", "vrad", "vaz",
-                                            "energy")}
+    if f is None:
+        f = {k: getattr(st.fields, k) for k in ("sigma", "vrad", "vaz",
+                                                "energy")}
     ctx = sim.stepper.ops
     dt = hydro_dt(sim)
     bodies = sim.stepper.bodies_on_grid(st.nbody, sim.time)
     calls = op_calls(ctx, f, (st.qplus, st.qminus), bodies, st.omega_frame,
                      dt)
     calls.update(artvisc_calls(ctx, f, dt))
+    check = check_f64
+    if floors:
+        check = partial(check_f64, floors={
+            "sources": potential_ulp_floor(sim, f, bodies, dt)})
     return measure({k: calls[k] for k in names}, f, sim.geometry.nrad,
-                   check=check_f64, ops_per_s=F64_OPS_PER_S)
+                   check=check, ops_per_s=F64_OPS_PER_S)
 
 
 def artvisc_calls(ctx, f, dt):
@@ -1908,6 +2035,17 @@ NR_BINARY, NAZ_BINARY = 1609, 1160
 OY_CAR_OPS = {"cfl": 1, "sources": 1, "artvisc_sn": 1, "transport": 1,
               "ias15": 2}
 V1504CYG_OPS = {"transport": 1, "ias15": 4}
+# the planet in a self-gravitating disk: the Bessel mode keeps cfl, sources
+# and the viscous kick off (step.gates, as the JAX package's), the
+# Stone-Norman substep takes its kernel; ias15 twice (the Euler step)
+PLANET_SG_OPS = {"artvisc_sn": 1, "transport": 1, "ias15": 2}
+# examples/full_physics.yml: symmetric self-gravity keeps the fused cfl and
+# sources, surface cooling keeps the viscous kick off; one star, no ias15
+FULL_PHYSICS_OPS = {"cfl": 1, "sources": 1, "artvisc_sn": 1,
+                    "transport": 1}
+# its own grid; float64, since in float32 its swarm dies on its first step
+# in both packages (PDS70's units, au and solar masses: ROADMAP C)
+NR_FULL, NAZ_FULL = 128, 256
 # the two setups' own grids; both run in float64 (in float32 their
 # initial Q+ / Q- are NaN in the JAX package and in the port: the
 # radiative correction factor overflows at their units,
@@ -1995,7 +2133,8 @@ def run_planet(sim, warmup=10, steps=60, profiled=5, ops=None,
             "busy_share": device_ms / 1e3 / wall_profiled,
             "host_reads_per_step": reads / profiled,
             "planet_mass_felt": float(sim.stepper.bodies_on_grid(
-                sim.state.nbody, sim.time).mass[1])}
+                sim.state.nbody, sim.time).mass[1])
+            if sim.stepper.n_bodies > 1 else None}
 
 
 def log_planet(res, gpu) -> None:
@@ -2012,8 +2151,20 @@ def log_planet(res, gpu) -> None:
         + ", ".join(f"{k} {v:.4f}" for k, v in
                     res["device_ms_by_kernel_per_step"].items())
         + f"), busy {100 * res['busy_share']:.1f}% of the wall, "
-        f"{res['host_reads_per_step']:.1f} host reads; the gas feels "
-        f"{res['planet_mass_felt']:.3e} of the planet's mass [{gpu}]")
+        f"{res['host_reads_per_step']:.1f} host reads"
+        + (f"; the gas feels {res['planet_mass_felt']:.3e} of the planet's "
+           "mass" if res["planet_mass_felt"] is not None else "")
+        + f" [{gpu}]")
+
+
+def swarm_summary(sim) -> dict:
+    """The swarm's alive count and the spread (standard deviation) of the
+    alive particles' radii."""
+    p = sim.state.particles
+    r = p.r[p.alive].double()
+    return {"alive": int(p.alive.sum()), "n": p.n,
+            "r_std": float(r.std()) if r.numel() > 1 else 0.0,
+            "r_mean": float(r.mean()) if r.numel() else 0.0}
 
 
 def unfused_sources(sim, gpu) -> dict:
@@ -2127,6 +2278,7 @@ def trajectory(nr, naz, dtype, steps, budget, setup=flagship,
     more than 1e3 ``budget`` of their scales, so that the comparison is
     seen to bite."""
     from fargocpt_torch.state import MONITOR_GRIDS
+    t_start = time.perf_counter()
     gpu = setup(nr, naz, dtype, "cuda")
     cpu = setup(nr, naz, dtype, "cpu")
     start = {k: getattr(cpu.fields, k).double().clone()
@@ -2222,7 +2374,8 @@ def trajectory(nr, naz, dtype, steps, budget, setup=flagship,
                                  f"swarms differ or died{swarm}")
     log(f"  {setup.__name__} {nr}x{naz} {dtype} {gpu.stepper.ops.route} "
         f"route, {steps} steps "
-        f"(t = {float(gpu.time):.4e}): "
+        f"(t = {float(gpu.time):.4e}, {time.perf_counter() - t_start:.1f} "
+        "s): "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + f"  (budget {budget:.0e}"
         + "".join(f"; {k} {v:.3e}" for k, v in limits.items())
@@ -2303,14 +2456,37 @@ CLI_SETUP = {"Nrad": NR, "Naz": NAZ, "Nmonitor": 1, "FirstDT": 1e-3,
 CLI_OPS = ("cfl", "sources", "viscous_kick", "transport")
 
 
-def cli_setup(path, n_snapshots) -> str:
+def yaml_setup(src, path, **over) -> str:
+    """A copy of the setup file ``src`` at ``path`` with ``over``'s keys."""
     import yaml
-    cfg = yaml.safe_load(open(os.path.join(HERE, "examples",
-                                           "adiabatic_disk.yml")))
-    cfg.update(CLI_SETUP, Nsnapshots=n_snapshots)
+    from fargocpt_torch.flagship import setup_file
     with open(path, "w") as f:
-        yaml.safe_dump(cfg, f)
+        yaml.safe_dump(setup_file(os.path.join(HERE, src), **over), f)
     return str(path)
+
+
+def compare_runs(dir_a, dir_b, must=()) -> list:
+    """tools/compare_output.py --rtol 0 of two output directories: the
+    files of the last snapshot, each of which must be OK, those named in
+    ``must`` among them."""
+    cmp = subprocess.run(
+        [sys.executable, os.path.join(HERE, "tools", "compare_output.py"),
+         dir_a, dir_b, "--rtol", "0"], capture_output=True, text=True,
+        timeout=300)
+    files = [ln.strip() for ln in cmp.stdout.splitlines()
+             if ln.startswith("  ")]
+    if cmp.returncode != 0 or not files \
+            or any(": OK " not in ln for ln in files) \
+            or not all(any(ln.startswith(f"{name}: OK") for ln in files)
+                       for name in must):
+        raise AssertionError(f"restart of {dir_a} not bit for bit:\n"
+                             + cmp.stdout)
+    return files
+
+
+def cli_setup(path, n_snapshots) -> str:
+    return yaml_setup("examples/adiabatic_disk.yml", path, **CLI_SETUP,
+                      Nsnapshots=n_snapshots)
 
 
 def run_cli(argv) -> float:
@@ -2354,15 +2530,7 @@ def command_line(work, gpu) -> dict:
     wall_b = run_cli(["start", one, "--dtype", "float32", "-o", dir_b])
     wall_r = run_cli(["restart", "last", two, "--dtype", "float32", "-o",
                       dir_b])
-    cmp = subprocess.run(
-        [sys.executable, os.path.join(HERE, "tools", "compare_output.py"),
-         dir_a, dir_b, "--rtol", "0"], capture_output=True, text=True,
-        timeout=300)
-    files = [ln.strip() for ln in cmp.stdout.splitlines()
-             if ln.startswith("  ")]
-    if cmp.returncode != 0 or not files \
-            or any(": OK " not in ln for ln in files):
-        raise AssertionError("restart not bit for bit:\n" + cmp.stdout)
+    files = compare_runs(dir_a, dir_b)
     rows = np.atleast_2d(np.loadtxt(os.path.join(
         dir_a, "monitor", "timestepLogging.dat")))
     misc = out.load_misc(os.path.join(dir_a, "snapshots", "2"))
@@ -2460,14 +2628,8 @@ OY_CAR_CLI = {"FirstDT": 1e-7, "ROFrampingtime": 1e-7,
 
 
 def oy_car_cli_setup(path, n_snapshots) -> str:
-    import yaml
-    with open(os.path.join(HERE, "setups", "CloseBinaries",
-                           "OY_Car.yml")) as f:
-        cfg = yaml.safe_load(f)
-    cfg.update(OY_CAR_CLI, Nsnapshots=n_snapshots)
-    with open(path, "w") as f:
-        yaml.safe_dump(cfg, f)
-    return str(path)
+    return yaml_setup("setups/CloseBinaries/OY_Car.yml", path, **OY_CAR_CLI,
+                      Nsnapshots=n_snapshots)
 
 
 def oy_car_command_line(work, gpu) -> dict:
@@ -2498,18 +2660,7 @@ def oy_car_command_line(work, gpu) -> dict:
     wall_b = run_cli(["start", one, "--dtype", "float64", "-o", dir_b])
     wall_r = run_cli(["restart", "last", two, "--dtype", "float64", "-o",
                       dir_b])
-    cmp = subprocess.run(
-        [sys.executable, os.path.join(HERE, "tools", "compare_output.py"),
-         dir_a, dir_b, "--rtol", "0"], capture_output=True, text=True,
-        timeout=300)
-    files = [ln.strip() for ln in cmp.stdout.splitlines()
-             if ln.startswith("  ")]
-    if cmp.returncode != 0 or not files \
-            or any(": OK " not in ln for ln in files) \
-            or not any(ln.startswith("massflow_tracker.bin: OK")
-                       for ln in files):
-        raise AssertionError("OY_Car restart not bit for bit:\n"
-                             + cmp.stdout)
+    files = compare_runs(dir_a, dir_b, must=("massflow_tracker.bin",))
     check_state_arrays(dir_a)
     tracker = np.fromfile(os.path.join(dir_a, "snapshots", "2",
                                        "massflow_tracker.bin"), np.float64)
@@ -2531,6 +2682,103 @@ def oy_car_command_line(work, gpu) -> dict:
                                "restart_last": wall_r},
             "tracker": tracker.tolist(), "restart_bitwise": True,
             "files_compared": len(files)}
+
+
+# setups/single_planet_no_disk.yml (Disk: no) with monitor intervals of 10
+# steps of its first dt, two intervals a snapshot
+NO_DISK_CLI = {"MonitorTimestep": 0.01, "Nmonitor": 2}
+NO_DISK_OPS = {"ias15": 2}
+
+
+def no_disk_command_line(work, gpu) -> dict:
+    """Run A: ``start --dtype float64`` of setups/single_planet_no_disk.yml
+    through two snapshots (four monitor intervals of 10 steps), the launch
+    counters set to 0 just before and read just after (ias15 twice a step,
+    no other kernel: no CFL, no gas step). Run B: one snapshot, then
+    ``restart last`` to the second; every file of B's last snapshot bit
+    for bit A's. The bodies moved and the gas did not."""
+    from fargocpt_torch import output as out
+    from fargocpt_torch.ops import kernels as K
+    src = "setups/single_planet_no_disk.yml"
+    two = yaml_setup(src, os.path.join(work, "nd_two.yml"), Nsnapshots=2,
+                     **NO_DISK_CLI)
+    one = yaml_setup(src, os.path.join(work, "nd_one.yml"), Nsnapshots=1,
+                     **NO_DISK_CLI)
+    dir_a, dir_b = os.path.join(work, "nd_a"), os.path.join(work, "nd_b")
+    K.reset_launches()
+    wall_a = run_cli(["start", two, "--dtype", "float64", "-o", dir_a])
+    launches = dict(K.LAUNCHES)
+    n = out.load_misc(os.path.join(dir_a, "snapshots", "2"))["n_hydro_iter"]
+    for name in K.OPS:
+        if launches[name] != NO_DISK_OPS.get(name, 0) * n:
+            raise AssertionError(f"single_planet_no_disk.yml launched {name} "
+                                 f"{launches[name]} times in {n} steps")
+    wall_b = run_cli(["start", one, "--dtype", "float64", "-o", dir_b])
+    wall_r = run_cli(["restart", "last", two, "--dtype", "float64", "-o",
+                      dir_b])
+    files = compare_runs(dir_a, dir_b)
+    rows = {k: np.atleast_2d(np.loadtxt(os.path.join(
+        dir_a, "monitor", f"nbody{k}.dat"))) for k in (0, 1)}
+    sig = [np.fromfile(os.path.join(dir_a, "snapshots", s, "Sigma.dat"))
+           for s in ("0", "2")]
+    if not np.array_equal(sig[0], sig[1]):
+        raise AssertionError("Disk: no moved the gas")
+    planet = rows[1][:, 2:4]
+    moved = float(np.hypot(*(planet[-1] - planet[0])))
+    if not (moved > 1e-2 and np.isfinite(planet).all()):
+        raise AssertionError(f"Disk: no: the planet moved by {moved}")
+    log(f"  setups/single_planet_no_disk.yml float64 (Disk: no, "
+        f"MonitorTimestep {NO_DISK_CLI['MonitorTimestep']}): {n} hydro "
+        f"steps in 4 intervals; start (2 snapshots) {wall_a:.2f} s, start "
+        f"(1) {wall_b:.2f} s, restart last {wall_r:.2f} s; the planet moved "
+        f"{moved:.4f}, the gas not at all; restart: {len(files)} files "
+        f"bit for bit; launches "
+        f"{ {k: v for k, v in launches.items() if v} } [{gpu}]")
+    return {"hydro_steps": n, "launches": launches,
+            "command_wall_s": {"start_two": wall_a, "start_one": wall_b,
+                               "restart_last": wall_r},
+            "planet_moved": moved, "restart_bitwise": True,
+            "files_compared": len(files)}
+
+
+FULL_PHYSICS_CLI_STEPS = 20
+
+
+def full_physics_command_line(work, gpu) -> dict:
+    """``start examples/full_physics.yml --dtype float64 -N 20`` in this
+    process (float64: the swarm dies on its first float32 step in both
+    packages), the launch counters set to 0 just before and read just
+    after (FULL_PHYSICS_OPS a step and the fresh start's two cfl launches,
+    no other kernel); snapshot 0's fields and particles.bin finite, and
+    the swarm alive at the end."""
+    from fargocpt_torch.ops import kernels as K
+    setup = yaml_setup("examples/full_physics.yml",
+                       os.path.join(work, "full_physics.yml"),
+                       FirstDT=1e-3)
+    outdir = os.path.join(work, "full_physics")
+    K.reset_launches()
+    wall = run_cli(["start", setup, "--dtype", "float64", "-o", outdir,
+                    "-N", str(FULL_PHYSICS_CLI_STEPS)])
+    launches = dict(K.LAUNCHES)
+    n = FULL_PHYSICS_CLI_STEPS
+    for name in K.OPS:
+        want = FULL_PHYSICS_OPS.get(name, 0) * n + (2 if name == "cfl"
+                                                    else 0)
+        if launches[name] != want:
+            raise AssertionError(f"full_physics.yml launched {name} "
+                                 f"{launches[name]} times in {n} steps")
+    sdir = os.path.join(outdir, "snapshots", "0")
+    for name in ("Sigma", "vrad", "vazi", "energy", "particles"):
+        arr = np.fromfile(os.path.join(
+            sdir, f"{name}.{'bin' if name == 'particles' else 'dat'}"))
+        if not (arr.size and np.isfinite(arr).all()):
+            raise AssertionError(f"full_physics.yml snapshot 0: {name}")
+    log(f"  examples/full_physics.yml {NR_FULL}x{NAZ_FULL} float64: start "
+        f"-N {n} in {wall:.2f} s (the initial conditions and snapshot 0 "
+        f"included); snapshot 0 finite, particles.bin among it; launches "
+        f"{ {k: v for k, v in launches.items() if v} } [{gpu}]")
+    return {"grid": f"{NR_FULL}x{NAZ_FULL}", "dtype": "float64",
+            "steps": n, "command_wall_s": wall, "launches": launches}
 
 
 def check_state_arrays(outdir) -> None:
@@ -2559,10 +2807,11 @@ GOLDENS = (("cold_disk_planet", 1e-6), ("spreading_ring", 1e-9),
 MASSFLOW_GATES = {"temperature_test": 1e-10, "temperature_fld": 3e-8}
 
 
-def golden_on_card(name, tol, work, gpu) -> dict:
-    """One golden's setup in float64 on the card through the kernels and
-    fargocpt_torch.output, its launch counters set to 0 just before and
-    read just after; its snapshots against tests/goldens/<name>/ as
+def golden_on_card(name, tol, work, gpu, cfg=None, label=None) -> dict:
+    """One golden's setup (or ``cfg``, a variant of it named ``label``) in
+    float64 on the card through the kernels and fargocpt_torch.output, its
+    launch counters set to 0 just before and read just after; its
+    snapshots against tests/goldens/<name>/ as
     tests/test_reference_golden.py holds them: every field's largest
     deviation over its largest value under ``tol``, the same hydro step
     count and last dt in misc.bin."""
@@ -2571,11 +2820,13 @@ def golden_on_card(name, tol, work, gpu) -> dict:
     from fargocpt_torch.ops import kernels as K
     from fargocpt_torch.sim import Simulation
     golden = os.path.join(HERE, "tests", "goldens", name)
-    outdir = os.path.join(work, name)
+    label = label or name
+    outdir = os.path.join(work, label.replace("@", "_"))
+    if cfg is None:
+        cfg = Config.from_file(os.path.join(golden, "setup.yml"))
     K.reset_launches()
     t0 = time.perf_counter()
-    sim = Simulation(Config.from_file(os.path.join(golden, "setup.yml")),
-                     outdir=outdir, dtype="float64")
+    sim = Simulation(cfg, outdir=outdir, dtype="float64")
     writer = out.OutputWriter(sim)
     sim.run()
     writer.close()
@@ -2619,7 +2870,8 @@ def golden_on_card(name, tol, work, gpu) -> dict:
                 raise AssertionError(f"{name} {snap}: MassFlow's outer row")
             devs[f"{snap}/MassFlow"] = float(np.max(np.abs(g[:nr] - m))
                                              / np.max(np.abs(g)))
-    log(f"  {name} {nr}x{na} float64: {wall:.2f} s, {sim.n_hydro_iter} "
+    log(f"  {label} {nr}x{na} float64: "
+        f"{wall:.2f} s, {sim.n_hydro_iter} "
         f"hydro steps; max rel dev "
         + ", ".join(f"{k} {v:.3e}" for k, v in devs.items())
         + f" (gate {tol:.0e}); steps and last dt (ref, port): "
@@ -2642,6 +2894,29 @@ def golden_on_card(name, tol, work, gpu) -> dict:
         raise AssertionError(f"{name}: ias15 was not launched")
     return {"seconds": wall, "hydro_steps": sim.n_hydro_iter,
             "max_rel_dev": devs, "launches": launches}
+
+
+def pvte_bisection_ms(gpu, steps=20) -> dict:
+    """The shocktube_pvte golden's setup with the float64 bisection solve
+    (no lookup table) on the card: ms a step (calculate_time_step +
+    step_once, after 5 warm-up steps) and the run's 3283 steps at that
+    rate."""
+    from fargocpt_torch.flagship import shocktube_pvte
+    from fargocpt_torch.sim import Simulation
+    sim = Simulation(shocktube_pvte(lookup=False), dtype="float64")
+    for _ in range(5):
+        sim.step_once(sim.calculate_time_step())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sim.step_once(sim.calculate_time_step())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    check_state(sim)
+    log(f"  shocktube_pvte (the float64 bisection) 1000x2: {ms:.4f} ms a "
+        f"step on the card, so its 3283 steps would take "
+        f"{ms * 3283 / 1e3:.1f} s: left to the CPU tests' slow tier [{gpu}]")
+    return {"ms_per_step": ms, "estimated_golden_s": ms * 3283 / 1e3}
 
 
 def main() -> int:
@@ -2796,6 +3071,45 @@ def main() -> int:
             raise AssertionError(f"{label} reads the device from the host "
                                  f"{res[label]['host_reads_per_step']} "
                                  "times a step")
+    # the long tail: a planet in a self-gravitating disk (Bessel kernel)
+    # at full width, float32; examples/full_physics.yml at its own grid
+    t0 = time.perf_counter()
+    sim_sg = planet_disk_sg(NR, NAZ, "float32", "cuda")
+    log(f"  planet_disk_sg {NR}x{NAZ} float32 built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    res["planet_disk_sg"] = run_planet(sim_sg, ops=PLANET_SG_OPS,
+                                       label="planet_disk_sg")
+    log_planet(res["planet_disk_sg"], gpu)
+    if res["planet_disk_sg"]["host_reads_per_step"] != 0:
+        raise AssertionError("planet_disk_sg reads the device from the host "
+                             f"{res['planet_disk_sg']['host_reads_per_step']}"
+                             " times a step")
+    res["planet_disk_sg"]["transport_max_abs_err"] = transport_parity(sim_sg)
+    del sim_sg
+    t0 = time.perf_counter()
+    sim_fp = full_physics(NR_FULL, NAZ_FULL, "float64", "cuda")
+    log(f"  full_physics {NR_FULL}x{NAZ_FULL} float64 with "
+        f"{sim_fp.state.particles.n} particles built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    res["full_physics"] = run_planet(sim_fp, ops=FULL_PHYSICS_OPS,
+                                     label="full_physics")
+    log_planet(res["full_physics"], gpu)
+    res["full_physics"]["kernels"] = cv_kernel_parity(
+        sim_fp, ("cfl", "sources", "artvisc_sn", "transport"), floors=True)
+    # the smooth disk compresses too little for artvisc_sn to move its
+    # outputs by more than their atol: held once more on the state with
+    # seeded noise, where it does
+    res["full_physics"]["artvisc_sn_perturbed"] = cv_kernel_parity(
+        sim_fp, ("artvisc_sn",), f=perturbed(sim_fp))["artvisc_sn"]
+    swarm = swarm_summary(sim_fp)
+    res["full_physics"]["swarm"] = swarm
+    log(f"  full_physics after {sim_fp.n_hydro_iter} steps (t = "
+        f"{float(sim_fp.time):.4e}): {swarm['alive']} of {swarm['n']} "
+        f"particles alive, their radii {swarm['r_mean']:.6f} +- "
+        f"{swarm['r_std']:.6f}")
+    if not swarm["alive"] > 0:
+        raise AssertionError("full_physics: the swarm died")
+    del sim_fp
     res["pds70_gas"] = run_pds70(sim_gas)
     log_pds70(res["pds70_gas"], gpu)
     del sim_gas
@@ -2819,9 +3133,9 @@ def main() -> int:
     trajectory(130, 256, "float64", 20, 1e-9, setup=flagship_split)
     trajectory(256, 512, "float32", 200, 1e-3, setup=flagship_staged)
     trajectory(128, 256, "float64", 20, 1e-9, setup=flagship_staged)
-    trajectory(64, 128, "float32", 200, 1e-3, setup=pds70_gas)
+    trajectory(64, 128, "float32", 100, 1e-3, setup=pds70_gas)
     trajectory(64, 128, "float64", 20, 1e-9, setup=pds70_gas)
-    trajectory(64, 128, "float32", 200, 1e-3, setup=pds70_4096)
+    trajectory(64, 128, "float32", 100, 1e-3, setup=pds70_4096)
     trajectory(64, 128, "float64", 20, 1e-9, setup=pds70_4096)
     trajectory(256, 512, "float32", 200, 1e-3, setup=planet_disk)
     trajectory(128, 256, "float64", 20, 1e-9, setup=planet_disk)
@@ -2839,6 +3153,14 @@ def main() -> int:
                setup=binary_gcfull_golden_radii)
     trajectory(128, 256, "float64", 20, 1e-9, setup=oy_car_stream)
     trajectory(64, 128, "float64", 20, 1e-9, setup=v1504cyg, dt=V1504_DT)
+    # the long tail
+    trajectory(64, 128, "float64", 20, 1e-9, setup=polytropic)
+    trajectory(64, 128, "float32", 100, 1e-3, setup=polytropic)
+    trajectory(64, 192, "float32", 100, 1e-3, setup=planet_disk_sg)
+    trajectory(32, 64, "float64", 20, 1e-9, setup=single_planet_no_disk)
+    trajectory(64, 2, "float64", 20, 1e-9, setup=fld1d)
+    for setup in (sigma_randomize, centrifugal_balance, secondary_disk):
+        trajectory(64, 128, "float64", 20, 1e-9, setup=setup)
     binary_f32 = binary_f32_trajectory(128, 256, 20)
     newton = newton_budget(128, 384, 200)
     log(f"  phase 4 done at {time.perf_counter() - t_main:.1f} s")
@@ -2850,13 +3172,20 @@ def main() -> int:
         res_cli = command_line(work, gpu)
         res_cli["gamma_cephei_full"] = binary_command_line(work, gpu)
         res_cli["oy_car"] = oy_car_command_line(work, gpu)
+        res_cli["single_planet_no_disk"] = no_disk_command_line(work, gpu)
+        res_cli["full_physics"] = full_physics_command_line(work, gpu)
     log(f"  phase 5 done at {time.perf_counter() - t_main:.1f} s")
 
     log("== 6. the reference binary's goldens on the card, float64, "
         "through the kernels and fargocpt_torch.output")
+    from fargocpt_torch.flagship import shocktube_pvte
     with tempfile.TemporaryDirectory(prefix="chip_smoke_goldens_") as work:
         res_goldens = {name: golden_on_card(name, tol, work, gpu)
                        for name, tol in GOLDENS}
+        res_goldens["shocktube_pvte@lookup"] = golden_on_card(
+            "shocktube_pvte", 2e-4, work, gpu,
+            cfg=shocktube_pvte(lookup=True), label="shocktube_pvte@lookup")
+    res_goldens["shocktube_pvte_bisection"] = pvte_bisection_ms(gpu)
     log(f"  phase 6 done at {time.perf_counter() - t_main:.1f} s")
 
     # launches: each kernel's count from the run of its own path in phase 3

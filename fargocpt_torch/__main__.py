@@ -13,8 +13,10 @@ package's ``python -m fargocpt_tpu``:
 One process drives one device: the card (``--device cuda``, the default,
 through the CUDA kernels) or the CPU (``--device cpu``, through their
 plain PyTorch versions). ``data`` and ``config`` dispatch before
-``torch`` is imported. ``bench`` and ``--debug-nans`` are not ported yet
-and raise ``NotImplementedError``.
+``torch`` is imported. ``--debug-nans`` checks the state after every
+hydro step and stops at the first NaN or infinity with a
+``FloatingPointError`` naming the field and the step. ``bench`` is not
+ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ def _add_run_flags(p):
                    help="write a torch.profiler trace of the run to "
                         "DIR/trace.json")
     p.add_argument("--debug-nans", action="store_true",
-                   help="a NaN trap (not ported yet)")
+                   help="stop at the first NaN or infinity in the state, "
+                        "checked after every hydro step")
     _add_log_flags(p)
 
 
@@ -83,9 +86,6 @@ def main(argv=None):
     if args.mode == "bench":
         raise NotImplementedError(
             "bench (the port's benchmark entry) is not ported yet")
-    if args.debug_nans:
-        raise NotImplementedError("--debug-nans (a NaN trap) is not "
-                                  "ported yet")
     if args.dtype is None:
         # launcher defaults from the user config store
         # (``fargocpt_torch config set default_dtype float32``)
@@ -153,6 +153,7 @@ def _launch(args) -> int:
         cfg = Config.from_file(args.setup)
         sim = Simulation(cfg, outdir=args.outdir, dtype=args.dtype,
                          device=args.device)
+        sim.stepper.debug_nans = args.debug_nans
         writer = out.OutputWriter(sim)
         log.notice(f"device {sim.device}, {args.dtype}; snapshot writer: "
                    + ("native (background thread)" if writer.is_native

@@ -54,6 +54,29 @@ S-curve's cold and hot alpha), StabilizeViscosity 1, TW artificial
 viscosity, S-curve cooling (Kimura et al. 2020), the Roche-lobe stream
 ramped in over five orbits, the MassFlow monitor grid.
 
+``planet_disk_sg``: ``examples/quickstart.yml`` with ``SelfGravity: Yes``
+and no mode, so the default Bessel kernel: a planet in a
+self-gravitating locally isothermal disk; its scale height takes the
+disk's Toomre Q.
+
+``full_physics``: ``examples/full_physics.yml`` read as it stands: an
+ideal gas with viscous heating, thermal surface cooling, FLD, symmetric
+FFT self-gravity, SN artificial viscosity, an irradiating star and 2000
+dust particles of 4 sizes that diffuse.
+
+``single_planet_no_disk``: ``setups/single_planet_no_disk.yml``, ``Disk:
+no``: a star and an eccentric Jupiter, no gas step.
+
+``fld1d``: the reference's test/FLD1D (tests/test_fld1d.py), ``Disk:
+no``: a passive disk of constant opacity that evolves by FLD alone, the
+flux limiter held at 1/3, one star.
+
+``shocktube_pvte``: the ``shocktube_pvte`` golden's setup
+(tests/goldens/shocktube_pvte/setup.yml): the Sod tube with the PVTE
+equation of state in the PVTE shock tube's units, reflecting walls, TW
+artificial viscosity, on 1000 x 2 cells, with the reference's lookup table
+(``PVTELookupTable``) by default.
+
 ``pds70_gas``: the gas part of ``__graft_entry__._pds70`` (BASELINE.json
 configs[4]): the variable-gamma PVTE equation of state, FLD radiative
 diffusion, symmetric FFT self-gravity, thermal surface cooling, viscous
@@ -182,6 +205,12 @@ PLANET_ACCRETION = {
 
 # the repo's setup files that the setups below read as they stand
 SETUPS_DIR = Path(__file__).resolve().parents[1] / "setups"
+EXAMPLES_DIR = Path(__file__).resolve().parents[1] / "examples"
+QUICKSTART = EXAMPLES_DIR / "quickstart.yml"
+FULL_PHYSICS = EXAMPLES_DIR / "full_physics.yml"
+SINGLE_PLANET_NO_DISK = SETUPS_DIR / "single_planet_no_disk.yml"
+SHOCKTUBE_PVTE = Path(__file__).resolve().parents[1] / "tests" / "goldens" \
+    / "shocktube_pvte" / "setup.yml"
 GAMMA_CEPHEI_FULL = SETUPS_DIR / "gamma_cephei_full.yml"
 OY_CAR = SETUPS_DIR / "CloseBinaries" / "OY_Car.yml"
 V1504CYG = SETUPS_DIR / "V1504Cyg.yml"
@@ -197,6 +226,40 @@ V1504CYG = SETUPS_DIR / "V1504Cyg.yml"
 # GPU tests hold the card's trajectory to them.
 BINARY_F32_LIMITS = {"sigma": 8.5e-7, "vrad": 1.7e-6, "vaz": 1.7e-6,
                      "energy": 8.3e-6}
+
+
+# the reference's test/FLD1D setup (tests/test_fld1d.py) without its
+# output keys, 512 x 2 there
+FLD1D = {
+    "Disk": "no", "Sigma0": "7.570776897752835e-05", "SigmaSlope": "0.5",
+    "SigmaFloor": "1e-7", "AspectRatio": "0.05", "FlaringIndex": "0",
+    "ViscousAlpha": "0", "HeatingViscous": "no", "ArtificialViscosity": "TW",
+    "EquationOfState": "Ideal", "AdiabaticIndex": "1.4", "mu": "2.35",
+    "RadiativeDiffusion": "Yes", "RadiativeDiffusionOmega": "1.5",
+    "RadiativeDiffusionAutoOmega": "No",
+    "RadiativeDiffusionMaxIterations": "50000",
+    "RadiativeDiffusionTest1D": "yes",
+    "RadiativeDiffusionTolerance": "1e-15",
+    "RadiativeDiffusionInnerBoundary": "zerogradient",
+    "RadiativeDiffusionOuterBoundary": "zerogradient",
+    "MinimumTemperature": "3 K", "MaximumTemperature": "1e100 K",
+    "Opacity": "constant", "KappaConst": "0.1 cm2/g", "CFL": "0.5",
+    "HeatingCoolingCFLlimit": "1.0", "l0": "1.0 au", "m0": "1.0 solMass",
+    "ThicknessSmoothing": "0.6", "Transport": "FARGO", "Integrator": "Euler",
+    "InnerBoundary": "reflecting", "OuterBoundary": "reflecting",
+    "InnerBoundaryVazi": "keplerian", "OuterBoundaryVazi": "keplerian",
+    "Damping": "No", "OmegaFrame": "0", "Frame": "F",
+    "Rmin": "0.2", "Rmax": "10.0", "RadialSpacing": "Logarithmic",
+    "Nsnapshots": "20", "Nmonitor": "2", "MonitorTimestep": "3.14159265359",
+    "FirstDT": "3.14159265359e-1", "CFLmaxVar": "1.1",
+}
+
+
+def fld1d(nrad: int = 512, naz: int = 2, **overrides) -> Config:
+    """The FLD-only disk of the reference's test/FLD1D (``Disk: no``) on an
+    ``nrad`` x ``naz`` grid; ``overrides`` replace keys."""
+    return Config.from_dict(dict(FLD1D, Nrad=str(nrad), Naz=str(naz),
+                                 **overrides))
 
 
 def flagship(nrad: int, naz: int) -> Config:
@@ -241,13 +304,17 @@ def planet_accretion(nrad: int, naz: int) -> Config:
     return Config.from_dict(cfg)
 
 
-def setup_file(path: Path, nrad: int, naz: int, **overrides) -> dict:
+def setup_file(path: Path, nrad: int | None = None, naz: int | None = None,
+               **overrides) -> dict:
     """A setup file of the repo as a mapping, on an ``nrad`` x ``naz``
-    grid, ``overrides`` replacing keys."""
+    grid (the file's own where None), ``overrides`` replacing keys."""
     import yaml
     with open(path) as f:
         cfg = yaml.safe_load(f)
-    cfg.update(Nrad=str(nrad), Naz=str(naz), **overrides)
+    for key, n in (("Nrad", nrad), ("Naz", naz)):
+        if n is not None:
+            cfg[key] = str(n)
+    cfg.update(overrides)
     return cfg
 
 
@@ -279,3 +346,43 @@ def v1504cyg(nrad: int = 450, naz: int = 1070, **overrides) -> Config:
     stream, the leapfrog) on an ``nrad`` x ``naz`` grid, its own 450 x 1070
     by default; ``overrides`` replace keys."""
     return Config.from_dict(setup_file(V1504CYG, nrad, naz, **overrides))
+
+
+def planet_disk_sg_setup(nrad: int, naz: int, **overrides) -> dict:
+    """``examples/quickstart.yml`` with ``SelfGravity: Yes`` (the Bessel
+    kernel) as a mapping, on an ``nrad`` x ``naz`` grid, with the run
+    control of the other timed setups; ``overrides`` replace keys."""
+    return setup_file(QUICKSTART, nrad, naz, SelfGravity="Yes",
+                      **{**_RUN, **overrides})
+
+
+def planet_disk_sg(nrad: int, naz: int, **overrides) -> Config:
+    """A planet in a self-gravitating disk (Bessel-kernel self-gravity) on
+    an ``nrad`` x ``naz`` grid."""
+    return Config.from_dict(planet_disk_sg_setup(nrad, naz, **overrides))
+
+
+def full_physics(nrad: int = 128, naz: int = 256, **overrides) -> Config:
+    """``examples/full_physics.yml`` (FLD, self-gravity, surface cooling,
+    irradiation, 2000 diffusing dust particles) on an ``nrad`` x ``naz``
+    grid, its own 128 x 256 by default; ``overrides`` replace keys."""
+    return Config.from_dict(setup_file(FULL_PHYSICS, nrad, naz, **overrides))
+
+
+def single_planet_no_disk(nrad: int | None = None, naz: int | None = None,
+                          **overrides) -> Config:
+    """``setups/single_planet_no_disk.yml`` (``Disk: no``) on an ``nrad``
+    x ``naz`` grid, its own 32 x 64 by default; ``overrides`` replace
+    keys."""
+    return Config.from_dict(setup_file(SINGLE_PLANET_NO_DISK, nrad, naz,
+                                       **overrides))
+
+
+def shocktube_pvte(nrad: int = 1000, naz: int = 2, lookup: bool = True,
+                   **overrides) -> Config:
+    """The PVTE shock tube of the ``shocktube_pvte`` golden on an ``nrad``
+    x ``naz`` grid, its own 1000 x 2 by default; ``lookup`` the
+    reference's lookup table, else the bisection solve."""
+    return Config.from_dict(setup_file(
+        SHOCKTUBE_PVTE, nrad, naz,
+        PVTELookupTable="Yes" if lookup else "No", **overrides))

@@ -1,15 +1,16 @@
 """Initial conditions (reference src/init.cpp): the power-law disk
 (init_gas_density :937, init_gas_energy :1257, init_gas_velocities
 :1467), the spreading-ring test (:346-415), the Sod shock tube with the
-ideal gas (:425-443), the pure Keplerian start, the disk-mass
-renormalisation ``SetSigma0`` (:1150-1188), the 1-d / 2-d profile files of
-``SigmaCondition`` / ``EnergyCondition``, the N-body-centred conditions
-(``nbody``), the circumbinary ring and the binary quadrupole support of
-v_az.
+ideal gas (:425-443) and with PVTE (:525-540), the pure Keplerian start,
+the disk-mass renormalisation ``SetSigma0`` (:1150-1188), the 1-d / 2-d
+profile files of ``SigmaCondition`` / ``EnergyCondition``, the
+N-body-centred conditions (``nbody``), the circumbinary ring, the binary
+quadrupole support of v_az, the simplex-noise ``RandomSigma``
+(:1015-1060), the disk around the secondary (:624-888) and the
+``CentrifugalBalance`` v_az (:1638-1717).
 
-Everything is built host-side in float64 numpy and cast to the run dtype on
-the target device. ``SigmaRandomize``, the secondary disk,
-``CentrifugalBalance`` and the PVTE shock tube raise.
+Everything is built host-side in float64 numpy, seeded noise included, and
+cast to the run dtype on the target device.
 """
 
 from __future__ import annotations
@@ -125,13 +126,18 @@ def spreading_ring_sigma(phys: Physics, geom: Geometry) -> np.ndarray:
     return np.broadcast_to(sigma[:, None], (geom.nrad, geom.naz)).copy()
 
 
-def shock_tube_fields(geom: Geometry) -> tuple[np.ndarray, np.ndarray]:
-    """Sod shock tube, ideal gas (reference src/init.cpp:425-443): left
-    (Sigma, E) = (1, 2.5), right (0.125, 0.25), the jump half a unit above
-    the innermost cell centre. Returns (sigma, energy)."""
+def shock_tube_fields(geom: Geometry, pvte: bool = False
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """Sod shock tube (reference src/init.cpp:425-443, the PVTE tube
+    :525-540): left Sigma 1, right 0.125, the jump half a unit above the
+    innermost cell centre; the energies (2.5, 0.25) of the ideal gas or
+    the PVTE tube's (10.3616..., 0.9110...). Returns (sigma, energy)."""
     right = (geom.rmed - geom.rmed[0]) > 0.5
     sig = np.where(right, 0.125, 1.0)
-    en = np.where(right, 2.0 * 0.125, 2.5)
+    if pvte:
+        en = np.where(right, 0.9110851732216827, 10.361627466581034)
+    else:
+        en = np.where(right, 2.0 * 0.125, 2.5)
     shape = (geom.nrad, geom.naz)
     return (np.broadcast_to(sig[:, None], shape).copy(),
             np.broadcast_to(en[:, None], shape).copy())
@@ -148,6 +154,63 @@ def renormalize_sigma(phys: Physics, geom: Geometry, sigma: np.ndarray,
     if phys.is_adiabatic:
         energy = energy * factor
     return sigma, energy, phys.sigma0 * factor
+
+
+_GRAD2 = np.array([[1, 1], [-1, 1], [1, -1], [-1, -1],
+                   [1, 0], [-1, 0], [0, 1], [0, -1]], np.float64)
+
+
+def simplex_noise_2d(x: np.ndarray, y: np.ndarray, seed: int) -> np.ndarray:
+    """2-D simplex gradient noise (Perlin 2001) in [-1, 1], the
+    permutation drawn by numpy from ``seed``. It stands in for the
+    reference's vendored open-simplex port (src/open-simplex-noise.cpp):
+    band-limited, smooth and zero-mean like it, with other values; the
+    JAX package draws the same field (fargocpt_tpu/initial.py:197-235)."""
+    f2 = 0.5 * (np.sqrt(3.0) - 1.0)
+    g2 = (3.0 - np.sqrt(3.0)) / 6.0
+    perm = np.tile(np.random.default_rng(seed).permutation(256), 2)
+    s = (x + y) * f2
+    i = np.floor(x + s).astype(np.int64)
+    j = np.floor(y + s).astype(np.int64)
+    t = (i + j) * g2
+    x0 = x - (i - t)
+    y0 = y - (j - t)
+    i1 = (x0 > y0).astype(np.int64)
+    j1 = 1 - i1
+    x1 = x0 - i1 + g2
+    y1 = y0 - j1 + g2
+    x2 = x0 - 1.0 + 2.0 * g2
+    y2 = y0 - 1.0 + 2.0 * g2
+    ii = i & 255
+    jj = j & 255
+
+    def corner(xs, ys, gi):
+        tt = np.maximum(0.5 - xs * xs - ys * ys, 0.0)
+        g = _GRAD2[gi % 8]
+        return tt ** 4 * (g[..., 0] * xs + g[..., 1] * ys)
+
+    n0 = corner(x0, y0, perm[ii + perm[jj]])
+    n1 = corner(x1, y1, perm[ii + i1 + perm[jj + j1]])
+    n2 = corner(x2, y2, perm[ii + 1 + perm[jj + 1]])
+    return 70.0 * (n0 + n1 + n2)
+
+
+def randomize_sigma(phys: Physics, geom: Geometry,
+                    sigma: np.ndarray) -> np.ndarray:
+    """RandomSigma: Sigma times (1 + RandomFactor noise), the noise 11
+    octaves of simplex noise over the cells' Cartesian centres, octave i
+    seeded with RandomSeed + i (reference src/init.cpp:1015-1060)."""
+    x, y = geom.cell_centers_xy()
+    f = phys.sigma_feature_size
+    order = 11
+    noise = np.zeros_like(x)
+    for i in range(order):
+        feature = float(1 << i)
+        weight = float(1 << (order - i - 1))
+        noise += weight * simplex_noise_2d(feature * x / f, feature * y / f,
+                                           phys.random_seed + i)
+    noise /= float((1 << order) - 1)
+    return sigma * (1.0 + phys.sigma_random_factor * noise)
 
 
 def read_1d_profile(path: str, radii: np.ndarray) -> np.ndarray:
@@ -309,6 +372,120 @@ def add_gaussian_rings(phys: Physics, constants: Constants, geom: Geometry,
     return sigma, energy
 
 
+def apply_secondary_disk(phys: Physics, constants: Constants,
+                         geom: Geometry, sigma, energy, vrad, vaz,
+                         nbody: dict):
+    """SecondaryDisk: a disk around body 1 inside its Roche lobe (reference
+    src/init.cpp:624-888 ``init_secondary_disk_*``): the power law scaled
+    by sqrt(m_1) with the outer cutoff at the Roche radius, where it
+    exceeds the gas already there, and its velocities about the secondary
+    minus the secondary's own (the reference's sign, :819-821). Returns
+    (sigma, energy, vrad, vaz)."""
+    px, py = float(nbody["x"][1]), float(nbody["y"][1])
+    pvx, pvy = float(nbody["vx"][1]), float(nbody["vy"][1])
+    pm = float(nbody["mass"][1])
+    q = pm / float(nbody["mass"][0])
+    # Eggleton 1983 (reference src/Theo.cpp:306-312)
+    rl = 0.49 * q ** (2.0 / 3.0) / (0.6 * q ** (2.0 / 3.0)
+                                    + np.log(1.0 + q ** (1.0 / 3.0)))
+    compute_radius = rl * np.hypot(px, py)
+    disk_size = phys.profile_cutoff_point_outer * rl / (1.0 - rl)
+    cutoff_width = phys.profile_cutoff_width_outer * rl / (1.0 - rl)
+    scaling = np.sqrt(pm)
+    min_dist = geom.rmin / 3.0
+
+    x, y = geom.cell_centers_xy()
+    r_sec = np.maximum(np.hypot(x - px, y - py), min_dist)
+    inside = r_sec < compute_radius
+    cut = dm.cutoff_outer(disk_size, cutoff_width, r_sec)
+    dens = phys.sigma0 * scaling * r_sec ** (-phys.sigma_slope) * cut
+    old = np.maximum(sigma, phys.sigma_floor * phys.sigma0)
+    sigma = np.where(inside, np.maximum(dens, old), sigma)
+    if phys.is_adiabatic:
+        e_sec = dm.initial_energy(phys, constants, r_sec, pm) * scaling * cut
+        e_floor = phys.minimum_temperature * sigma / phys.mu * constants.R \
+            / (phys.adiabatic_index - 1.0)
+        energy = np.where(inside, np.maximum(e_sec, e_floor), energy)
+
+    def model_v(r_pos, phi):
+        xs = r_pos * np.cos(phi) - px
+        ys = r_pos * np.sin(phi) - py
+        rs = np.maximum(np.hypot(xs, ys), min_dist)
+        if phys.initialize_pure_keplerian:
+            vazi0 = np.sqrt(constants.G * pm / rs)
+            vr0 = dm.viscous_radial_speed_analytic(phys, constants, rs, pm) \
+                * np.ones_like(rs)
+        else:
+            vazi0 = dm.v_az_smoothed(phys, constants, rs, pm)
+            vr0 = dm.vr_numerical_viscous(phys, constants, rs, pm)
+        if phys.initialize_vradial_zero:
+            vr0 = np.zeros_like(rs)
+        vx = (vr0 * xs - vazi0 * ys) / rs
+        vy = (vr0 * ys + vazi0 * xs) / rs
+        return rs, vx - pvx, vy - pvy
+
+    phi_c = geom.phi
+    # v_rad at the radial faces, at the cells' azimuths
+    ra = np.concatenate([geom.rinf, [geom.rinf[-1]]])
+    rs, vx, vy = model_v(ra[:, None], phi_c[None, :])
+    vr_model = (ra[:, None] * np.cos(phi_c)[None, :] * vx
+                + ra[:, None] * np.sin(phi_c)[None, :] * vy) / ra[:, None]
+    vrad = np.where(rs < compute_radius, vr_model, vrad)
+    # v_az at the azimuthal interfaces
+    phi_i = phi_c - 0.5 * geom.dphi
+    rs, vx, vy = model_v(geom.rmed[:, None], phi_i[None, :])
+    va_model = np.cos(phi_i)[None, :] * vy - np.sin(phi_i)[None, :] * vx
+    vaz = np.where(rs < compute_radius, va_model, vaz)
+    return sigma, energy, vrad, vaz
+
+
+def _construct_sequence(u0: float, v: np.ndarray) -> tuple[np.ndarray, float]:
+    """u with u[0] = u0 and (u[i] + u[i-1]) / 2 = v[i], and the sum of
+    |u''| (reference src/Pframeforce.cpp:295-306 ``ConstructSequence``)."""
+    u = np.empty(v.size)
+    u[0] = u0
+    for i in range(1, v.size):
+        u[i] = 2.0 * v[i] - u[i - 1]
+    return u, np.abs(u[2:] + u[:-2] - 2.0 * u[1:-1]).sum()
+
+
+def centrifugal_balance_vaz(phys: Physics, constants: Constants,
+                            geom: Geometry, sigma: np.ndarray,
+                            energy: np.ndarray) -> np.ndarray:
+    """CentrifugalBalance: v_az(r) in balance with gravity and the
+    azimuthally averaged pressure gradient at the interfaces, then the
+    cell-centred sequence whose interface means they are, found by two
+    shots and a secant (reference src/init.cpp:1638-1717); ring 0 the
+    Keplerian extrapolation (:1748-1755)."""
+    nr = geom.nrad
+    sig1d = sigma.mean(axis=1)
+    rmed = geom.rmed
+    gm = constants.G * phys.hydro_center_mass
+    if phys.is_adiabatic:
+        press1d = (phys.adiabatic_index - 1.0) * energy.mean(axis=1)
+    else:
+        cs = phys.aspectratio_ref * rmed ** phys.flaring_index \
+            * np.sqrt(gm / rmed)
+        press1d = sig1d * cs ** 2
+    radii = geom.rinf
+    vt_int = np.zeros(nr)
+    vt_int[1:] = (press1d[1:] - press1d[:-1]) \
+        / (0.5 * (sig1d[1:] + sig1d[:-1])) / (rmed[1:] - rmed[:-1]) \
+        + gm * (1.0 / rmed[:-1] - 1.0 / rmed[1:]) / (rmed[1:] - rmed[:-1])
+    vt_int[1:] = np.sqrt(vt_int[1:] * radii[1:]) \
+        - radii[1:] * phys.omega_frame
+    t1 = vt_int[1] + 0.75 * (vt_int[1] - vt_int[2])
+    _, r1 = _construct_sequence(t1, vt_int)
+    t2 = t1 + 0.25 * (vt_int[1] - vt_int[2])
+    _, r2 = _construct_sequence(t2, vt_int)
+    t1 = t1 - r1 / (r2 - r1) * (t2 - t1)
+    vt_cent, _ = _construct_sequence(t1, vt_int)
+    vk0 = rmed[0] * np.sqrt(gm / rmed[0] ** 3)
+    vk1 = rmed[1] * np.sqrt(gm / rmed[1] ** 3)
+    vt_cent[0] = vt_cent[1] * vk0 / vk1
+    return np.broadcast_to(vt_cent[:, None], (nr, geom.naz)).copy()
+
+
 def build_initial_state(phys: Physics, constants: Constants, geom: Geometry,
                         quad_moment: float = 0.0, nbody: dict | None = None,
                         *, dtype: torch.dtype, device: torch.device | str
@@ -318,16 +495,8 @@ def build_initial_state(phys: Physics, constants: Constants, geom: Geometry,
     ``quad_moment`` is the binary quadrupole moment of the v_az support;
     ``nbody`` (the bodies' x, y, vx, vy and mass, float64 arrays) centres
     the ``nbody`` conditions and the circumbinary ring on the bodies'
-    centre of mass."""
-    unsupported = {
-        "the PVTE shock tube (ShockTube 2)": phys.shock_tube == 2,
-        "SigmaRandomize": phys.sigma_randomize,
-        "the secondary disk": phys.secondary_disk,
-        "CentrifugalBalance": phys.centrifugal_balance,
-    }
-    for name, on in unsupported.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet")
+    centre of mass. The order is the JAX package's
+    (fargocpt_tpu/initial.py:544-642)."""
     com, com_mass = None, phys.hydro_center_mass
     if nbody is not None:
         m = np.asarray(nbody["mass"])
@@ -335,38 +504,42 @@ def build_initial_state(phys: Physics, constants: Constants, geom: Geometry,
         com = (float((m * np.asarray(nbody["x"])).sum() / m.sum()),
                float((m * np.asarray(nbody["y"])).sum() / m.sum()))
     nbody_centred = phys.sigma_condition == "nbody" and com is not None
-    if phys.shock_tube == 1:
-        sigma, energy = shock_tube_fields(geom)
+    if phys.shock_tube in (1, 2):
+        # the velocities take the standard path (src/init.cpp:330-331 runs
+        # init_gas_velocities unconditionally), nothing else
+        sigma, energy = shock_tube_fields(geom, pvte=phys.shock_tube == 2)
+        vrad, vaz = gas_velocities(phys, constants, geom, quad_moment)
+        return _to_state(sigma, vrad, vaz, energy, dtype, device), phys
+    if phys.spreading_ring:
+        sigma = spreading_ring_sigma(phys, geom)
+        energy = np.zeros_like(sigma)
     else:
-        if phys.spreading_ring:
-            sigma = spreading_ring_sigma(phys, geom)
+        sigma = _read_condition(phys.sigma_condition, phys.sigma_filename,
+                                geom)
+        if sigma is None:
+            sigma = nbody_centered_sigma(phys, geom, *com) \
+                if nbody_centred else powerlaw_sigma(phys, geom)
+        if not phys.is_adiabatic:
             energy = np.zeros_like(sigma)
         else:
-            sigma = _read_condition(phys.sigma_condition,
-                                    phys.sigma_filename, geom)
-            if sigma is None:
-                sigma = nbody_centered_sigma(phys, geom, *com) \
-                    if nbody_centred else powerlaw_sigma(phys, geom)
-            if not phys.is_adiabatic:
-                energy = np.zeros_like(sigma)
-            else:
-                energy = _read_condition(phys.energy_condition,
-                                         phys.energy_filename, geom)
-                if energy is None and phys.energy_condition == "nbody" \
-                        and com is not None:
-                    energy = nbody_centered_energy(phys, constants, geom,
-                                                   *com, com_mass, sigma)
-                elif energy is None:
-                    energy = powerlaw_energy(phys, constants, geom, sigma)
-        if phys.sigma_adjust:
-            sigma, energy, sigma0 = renormalize_sigma(phys, geom, sigma,
-                                                      energy)
-            phys = phys.with_(sigma0=sigma0)
-        if phys.cbd_ring:
-            sigma, energy = add_gaussian_rings(
-                phys, constants, geom, sigma, energy,
-                com if phys.sigma_condition == "nbody" else None, com_mass)
-    if nbody_centred and phys.shock_tube != 1:
+            energy = _read_condition(phys.energy_condition,
+                                     phys.energy_filename, geom)
+            if energy is None and phys.energy_condition == "nbody" \
+                    and com is not None:
+                energy = nbody_centered_energy(phys, constants, geom, *com,
+                                               com_mass, sigma)
+            elif energy is None:
+                energy = powerlaw_energy(phys, constants, geom, sigma)
+    if phys.sigma_randomize:
+        sigma = randomize_sigma(phys, geom, sigma)
+    if phys.sigma_adjust:
+        sigma, energy, sigma0 = renormalize_sigma(phys, geom, sigma, energy)
+        phys = phys.with_(sigma0=sigma0)
+    if phys.cbd_ring:
+        sigma, energy = add_gaussian_rings(
+            phys, constants, geom, sigma, energy,
+            com if phys.sigma_condition == "nbody" else None, com_mass)
+    if nbody_centred:
         # the reference's N-body-centred branch returns early, before the
         # centrifugal balance (src/init.cpp:1473-1609)
         m = np.asarray(nbody["mass"])
@@ -379,9 +552,17 @@ def build_initial_state(phys: Physics, constants: Constants, geom: Geometry,
                                               v_com, com_mass, quad_moment,
                                               dist_sec)
     else:
-        # the standard path, the shock tube's too (src/init.cpp:330-331
-        # runs init_gas_velocities unconditionally)
         vrad, vaz = gas_velocities(phys, constants, geom, quad_moment)
+        if phys.centrifugal_balance:
+            vaz = centrifugal_balance_vaz(phys, constants, geom, sigma,
+                                          energy)
+    if phys.secondary_disk and nbody is not None:
+        sigma, energy, vrad, vaz = apply_secondary_disk(
+            phys, constants, geom, sigma, energy, vrad, vaz, nbody)
+    return _to_state(sigma, vrad, vaz, energy, dtype, device), phys
+
+
+def _to_state(sigma, vrad, vaz, energy, dtype, device) -> FieldState:
     t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
     return FieldState(sigma=t(sigma), vrad=t(vrad), vaz=t(vaz),
-                      energy=t(energy)), phys
+                      energy=t(energy))

@@ -58,8 +58,9 @@ class RefValues:
 
 
 def check_supported(phys: Physics) -> None:
-    """Raise NotImplementedError for a boundary outside the ported menu,
-    naming it."""
+    """Raise NotImplementedError for a boundary name outside the menu,
+    naming it: the JAX package's boundaries raise for the same names
+    (fargocpt_tpu/ops/boundary.py), so this refuses them up front."""
     names = {"sigma": (phys.bc_sigma_inner, phys.bc_sigma_outer),
              "energy": (phys.bc_energy_inner, phys.bc_energy_outer),
              "vrad": (phys.bc_vrad_inner, phys.bc_vrad_outer),
@@ -68,7 +69,7 @@ def check_supported(phys: Physics) -> None:
         for edge, name in zip(("inner", "outer"), pair):
             if name not in SUPPORTED[var]:
                 raise NotImplementedError(
-                    f"{edge} {var} boundary {name!r} is not ported yet")
+                    f"{edge} {var} boundary {name!r} is not in the menu")
 
 
 def _row(x, value):

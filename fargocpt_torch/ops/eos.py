@@ -1,5 +1,6 @@
-"""Equation of state and derived thermodynamic quantities for the ideal-gas
-and locally isothermal disks (reference src/SourceEuler.cpp:1054-1505).
+"""Equation of state and derived thermodynamic quantities for the ideal-gas,
+polytropic and locally isothermal disks (reference
+src/SourceEuler.cpp:1054-1505).
 
 AspectRatioMode 0 takes the axisymmetric forms, mode 1 the sums over the
 bodies and mode 2 the distance from the bodies' centre of mass (the
@@ -43,7 +44,8 @@ def sound_speed(phys: Physics, constants, g: Geom, sigma, energy,
                 cs_iso: torch.Tensor | None, pvte_vals=None):
     """Adiabatic cs = sqrt(gamma1 (gamma_eff - 1) E / Sigma)
     (reference src/SourceEuler.cpp:1063-1072), gamma1 = gamma_eff without
-    PVTE; locally isothermal: the static profile."""
+    PVTE; polytropic: sqrt(gamma R T / mu) of the polytropic temperature;
+    locally isothermal: the static profile."""
     if phys.is_adiabatic:
         if pvte_vals is not None:
             gam, _, g1 = pvte_vals
@@ -51,7 +53,8 @@ def sound_speed(phys: Physics, constants, g: Geom, sigma, energy,
             gam = g1 = gamma_eff(phys)
         return torch.sqrt(g1 * (gam - 1.0) * energy / sigma)
     if phys.is_polytropic:
-        raise NotImplementedError("polytropic EoS is not ported yet")
+        temp = temperature(phys, constants, sigma, energy, None)
+        return torch.sqrt(gamma_eff(phys) * constants.R / phys.mu * temp)
     return cs_iso.expand_as(sigma)
 
 
@@ -62,7 +65,7 @@ def pressure(phys: Physics, constants, sigma, energy, cs, pvte_vals=None):
             return (pvte_vals[0] - 1.0) * energy
         return (gamma_eff(phys) - 1.0) * energy
     if phys.is_polytropic:
-        raise NotImplementedError("polytropic EoS is not ported yet")
+        return sigma * cs ** 2 / phys.adiabatic_index
     return sigma * cs ** 2
 
 
@@ -76,7 +79,9 @@ def temperature(phys: Physics, constants, sigma, energy, press,
         return phys.mu / constants.R * (gamma_eff(phys) - 1.0) * energy \
             / sigma
     if phys.is_polytropic:
-        raise NotImplementedError("polytropic EoS is not ported yet")
+        # T = mu / R K Sigma^(gamma - 1), the energy unused
+        return phys.mu / constants.R * phys.polytropic_constant \
+            * sigma ** (gamma_eff(phys) - 1.0)
     return phys.mu / constants.R * press / sigma
 
 
@@ -192,6 +197,15 @@ def scale_height_com(phys: Physics, constants, g: Geom, cs, com_x, com_y,
     return torch.sqrt((cell_x - com_x) ** 2 + (cell_y - com_y) ** 2) \
         * aspect_ratio_com(phys, constants, g, cs, com_x, com_y, com_mass,
                            cell_x, cell_y, pvte_vals)
+
+
+def adjust_scale_height_for_sg(h, toomre_q):
+    """The self-gravitating vertical structure of the Bessel-kernel mode:
+    H sqrt(2 / pi) f(Q), f(Q) = pi (sqrt(1 + 8 Q^2 / pi) - 1) / (4 Q)
+    (reference src/SourceEuler.cpp:1400-1420)."""
+    f = math.pi * (torch.sqrt(1.0 + 8.0 * toomre_q ** 2 / math.pi) - 1.0) \
+        / (4.0 * toomre_q)
+    return h * f * math.sqrt(2.0 / math.pi)
 
 
 def finite_in(value: float, dtype: torch.dtype) -> float:

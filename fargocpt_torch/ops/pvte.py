@@ -17,7 +17,11 @@ energy ``funcdum``) is closed-form elementwise math. Two solvers, as in
   evaluated with Clenshaw, and gamma1 from analytic derivatives
   (``gamma_mu_fast``).
 
-The table builders are numpy and run once on the host.
+The table builders are numpy and run once on the host. With
+``PVTELookupTable`` both dtypes take the reference's bilinear lookup in
+its 1000 x 1000 (rho, e) tables instead (``lookup_tables``,
+``lookup_gamma_mu``), built once per process in float64 on the run's
+device by a replica of the reference's Brent solver.
 """
 
 from __future__ import annotations
@@ -288,6 +292,120 @@ def gamma1_at(rho, T, x_mf, tabs):
     return p * chiT ** 2 / (cv * T) + chiRho
 
 
+# the lookup tables' grid (reference src/pvte_law.cpp:25-41)
+N_RHO = 1000
+N_E = 1000
+RHO_MIN = 1.0e-23
+RHO_MAX = 1.0
+E_MIN = 1.0e8
+E_MAX = 1.0e15
+DLOG_RHO = math.log10(RHO_MAX / RHO_MIN) / N_RHO
+DLOG_E = math.log10(E_MAX / E_MIN) / N_E
+
+
+def _ref_brent_temperature(e_cgs, rho_cgs, x_mf, tabs, delta=1.0e-3):
+    """The reference's Brent solve of T(e, rho) on [1, 1e7] K for the
+    table build (src/pvte_law.cpp:243-301), elementwise with its quirks,
+    which the tables inherit: the loop ends on |b - a| <= ``delta`` in
+    absolute Kelvin, ``fc`` is set from ``fa`` once and never updated, and
+    the root returned is ``b``. Each iteration works on the elements still
+    active (a finished element never changes again), gathered by index;
+    one host read an iteration, the count of those left."""
+    def f(T, rho, e):
+        _, _, mu, _, gam = _gamma_mu_at(rho, T, x_mf, tabs)
+        return mu * e * (gam - 1.0) / (CGS_KB / CGS_MP) - T
+
+    shape = e_cgs.shape
+    e_cgs, rho_cgs = e_cgs.reshape(-1), rho_cgs.reshape(-1)
+    a = torch.ones_like(e_cgs)
+    b = torch.full_like(e_cgs, 1.0e7)
+    fa, fb = f(a, rho_cgs, e_cgs), f(b, rho_cgs, e_cgs)
+    sw = torch.abs(fa) < torch.abs(fb)
+    a, b = torch.where(sw, b, a), torch.where(sw, a, b)
+    fa, fb = torch.where(sw, fb, fa), torch.where(sw, fa, fb)
+    c, fc = a.clone(), fa.clone()
+    d = torch.zeros_like(e_cgs)
+    mflag = torch.ones_like(e_cgs, dtype=torch.bool)
+    idx = torch.arange(e_cgs.numel(), device=e_cgs.device)
+    for _ in range(200):
+        idx = idx[torch.abs(b[idx] - a[idx]) > delta]
+        if idx.numel() == 0:
+            break
+        ai, bi, ci, di = a[idx], b[idx], c[idx], d[idx]
+        fai, fbi, fci, mi = fa[idx], fb[idx], fc[idx], mflag[idx]
+        use_iq = (fai != fci) & (fbi != fci)
+        one = torch.ones_like(ai)
+        s_iq = (ai * fbi * fci
+                / torch.where(use_iq, (fai - fbi) * (fai - fci), one)
+                + bi * fai * fci
+                / torch.where(use_iq, (fbi - fai) * (fbi - fci), one)
+                + ci * fai * fbi
+                / torch.where(use_iq, (fci - fai) * (fci - fbi), one))
+        s_sec = bi - fbi * (bi - ai) / (fbi - fai)
+        s = torch.where(use_iq, s_iq, s_sec)
+        q = (3.0 * ai + bi) / 4.0
+        cond = (((s < torch.minimum(q, bi)) & (s > torch.maximum(q, bi)))
+                | (mi & (torch.abs(s - bi) >= torch.abs(bi - ci) / 2.0))
+                | (~mi & (torch.abs(s - bi) >= torch.abs(ci - di) / 2.0))
+                | (mi & (torch.abs(bi - ci) < delta))
+                | (~mi & (torch.abs(ci - di) < delta)))
+        s = torch.where(cond, (ai + bi) / 2.0, s)
+        fs = f(s, rho_cgs[idx], e_cgs[idx])
+        lo = fai * fs < 0.0
+        nb, nfb = torch.where(lo, s, bi), torch.where(lo, fs, fbi)
+        na, nfa = torch.where(lo, ai, s), torch.where(lo, fai, fs)
+        sw = torch.abs(nfa) < torch.abs(nfb)
+        a[idx] = torch.where(sw, nb, na)
+        b[idx] = torch.where(sw, na, nb)
+        fa[idx] = torch.where(sw, nfb, nfa)
+        fb[idx] = torch.where(sw, nfa, nfb)
+        c[idx], d[idx] = bi, ci
+        mflag[idx] = cond
+    return b.reshape(shape)
+
+
+@functools.lru_cache(maxsize=4)
+def lookup_tables(x_mf: float, device: str = "cpu"):
+    """(rho, e, mu, gamma_eff, gamma1) of the reference's lookup tables on
+    the 1000 x 1000 log-spaced (rho, e) grid (reference
+    src/pvte_law.cpp:370-393 ``initializeLookupTables``), float64 tensors
+    on ``device``, built there once per process and hydrogen fraction."""
+    lo, w, coeffs = funcdum_poly()
+    tabs = (lo, w, torch.tensor(coeffs, dtype=torch.float64, device=device))
+    rho_t = torch.tensor(10.0 ** (DLOG_RHO * np.arange(N_RHO)) * RHO_MIN,
+                         dtype=torch.float64, device=device)
+    e_t = torch.tensor(10.0 ** (DLOG_E * np.arange(N_E)) * E_MIN,
+                       dtype=torch.float64, device=device)
+    rho2, e2 = torch.broadcast_tensors(rho_t[:, None], e_t[None, :])
+    rho2, e2 = rho2.contiguous(), e2.contiguous()
+    T = _ref_brent_temperature(e2, rho2, x_mf, tabs)
+    _, _, mu, _, geff = _gamma_mu_at(rho2, T, x_mf, tabs)
+    g1 = gamma1_at(rho2, T, x_mf, tabs)
+    return rho_t, e_t, mu, geff, g1
+
+
+def lookup_gamma_mu(rho_cgs, e_cgs, tables):
+    """(gamma_eff, mu, gamma1) by the reference's bilinear lookup
+    (src/pvte_law.cpp:395-440): the cell found in log space with its
+    indices clamped to [0, N - 2], the weights linear in (rho, e) and
+    left unclamped, so a point off the table extrapolates. ``tables`` are
+    in the run's dtype."""
+    rho_t, e_t, mu_t, geff_t, g1_t = tables
+    i = torch.floor(torch.log10(rho_cgs / RHO_MIN) / DLOG_RHO).to(torch.int64)
+    j = torch.floor(torch.log10(e_cgs / E_MIN) / DLOG_E).to(torch.int64)
+    i = torch.clamp(i, 0, N_RHO - 2)
+    j = torch.clamp(j, 0, N_E - 2)
+    x = (rho_cgs - rho_t[i]) / (rho_t[i + 1] - rho_t[i])
+    y = (e_cgs - e_t[j]) / (e_t[j + 1] - e_t[j])
+
+    def interp(tab):
+        s_ij = tab[i + 1, j] * x + tab[i, j] * (1.0 - x)
+        s_ijp1 = tab[i + 1, j + 1] * x + tab[i, j + 1] * (1.0 - x)
+        return s_ij * (1.0 - y) + s_ijp1 * y
+
+    return interp(geff_t), interp(mu_t), interp(g1_t)
+
+
 # --------------------------------------------------------------------------
 # float32 fast path: elementwise funcdum, unrolled solvers, analytic gamma1
 # --------------------------------------------------------------------------
@@ -513,28 +631,38 @@ class PVTE:
 
     def __init__(self, phys, units, dtype: torch.dtype, device=None,
                  n_newton: int = 1):
-        if getattr(phys, "pvte_lookup_table", False):
-            raise NotImplementedError("the PVTE lookup table "
-                                      "(PVTELookupTable) is not ported yet")
-        if phys.shock_tube:
-            raise NotImplementedError("PVTE shock-tube units are not ported "
-                                      "yet")
         self.x_mf = phys.hydrogen_mass_fraction
         lo, w, coeffs = funcdum_poly()
         self.tabs = (lo, w, torch.tensor(coeffs, dtype=dtype, device=device))
         self.units = units
         self.density_factor = phys.density_factor
-        self.fast = dtype == torch.float32
+        self.shock_tube = phys.shock_tube
+        self.lookup = bool(phys.pvte_lookup_table)
+        self.tables = None
+        if self.lookup:
+            # the reference's tables, cast to the run's dtype
+            dev = str(torch.device(device if device is not None else "cpu"))
+            self.tables = tuple(t.to(dtype) for t in
+                                lookup_tables(self.x_mf, dev))
+        self.fast = dtype == torch.float32 and not self.lookup
         self.n_newton = int(n_newton)
         self.refreshes = 0
 
     def gamma_mu(self, sigma, energy, scale_height, guess=None):
         """(gamma_eff, mu, gamma1) grids of the state (reference :497-541
-        ``compute_gamma_mu``); ``guess`` warm-starts the float32 solve."""
+        ``compute_gamma_mu``); ``guess`` warm-starts the float32 solve. A
+        shock tube takes Sigma for the volume density, no scale height
+        (reference :521-524)."""
         self.refreshes += 1
         un = self.units
-        rho_cgs = sigma / (self.density_factor * scale_height) * un.density
+        if self.shock_tube > 0:
+            rho_cgs = sigma * un.density
+        else:
+            rho_cgs = sigma / (self.density_factor * scale_height) \
+                * un.density
         e_spec_cgs = energy / sigma * (un.energy_density / un.surface_density)
+        if self.lookup:
+            return lookup_gamma_mu(rho_cgs, e_spec_cgs, self.tables)
         if self.fast:
             return gamma_mu_fast(rho_cgs, e_spec_cgs, self.x_mf, guess=guess,
                                  n_newton=self.n_newton)

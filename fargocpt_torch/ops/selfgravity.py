@@ -5,8 +5,12 @@ With u = ln(r/r0) the smoothed acceleration is a 2-D circular convolution
 of S_r = Sigma e^{u/2} and S_t = Sigma e^{3u/2} with kernels K_r, K_t on a
 radially doubled (2 NR, NAZ) grid. Here it is ``torch.fft.rfft2``, a
 product with the kernel spectra and ``irfft2``, in complex64 for float32
-runs and complex128 for float64. The ``basic`` and ``symmetric`` smoothing
-modes are ported; the Bessel kernel is not.
+runs and complex128 for float64. Three smoothing modes: ``basic``
+(Baruteau 2008), ``symmetric`` (Moldenhauer 2018) and ``besselkernel``
+(Rendon Restrepo 2023, the razor-thin exact kernel, the default), whose
+modified Bessel functions come from ``scipy.special.kv`` on the host. The
+Bessel kernel is built once, from the configured aspect ratio, and never
+rebuilt in the run (``supports_in_run_update``), as in the JAX package.
 
 The adiabatic kernel refresh (reference :186-214) is due every
 ``SelfGravityKernelUpdateInterval`` calls. Its call counter is a host
@@ -24,6 +28,7 @@ from ..params import Physics
 from .common import Geom
 
 SMOOTHING_MODES = ("basic", "b", "symmetric", "s")
+BESSEL_MODES = ("besselkernel", "bk")
 
 
 def _doubled_grid_uth(geometry: Geometry):
@@ -64,12 +69,41 @@ def kernel_host(phys: Physics, geometry: Geometry, aspect_ratio: float
                 ) -> tuple[np.ndarray, np.ndarray]:
     """K_r, K_t on the doubled grid, float64 on the host (reference
     src/selfgravity.cpp:418-519 ``compute_FFT_kernel``)."""
-    if phys.self_gravity_mode not in SMOOTHING_MODES:
-        raise NotImplementedError(
-            f"SelfGravityMode {phys.self_gravity_mode!r} (Bessel-kernel "
-            "self-gravity) is not ported yet")
     U, TH = _doubled_grid_uth(geometry)
-    return _kernel_bs(phys, U, TH, aspect_ratio, np)
+    mode = phys.self_gravity_mode
+    if mode in SMOOTHING_MODES:
+        return _kernel_bs(phys, U, TH, aspect_ratio, np)
+    if mode not in BESSEL_MODES:
+        raise ValueError(f"unknown SelfGravityMode {mode!r}")
+    return _kernel_bessel(U, TH, aspect_ratio)
+
+
+def _kernel_bessel(U, TH, h: float) -> tuple[np.ndarray, np.ndarray]:
+    """K_r, K_t of the razor-thin Bessel kernel (Rendon Restrepo 2023;
+    reference src/selfgravity.cpp:418-519), float64: l(x) = sqrt(pi) x
+    e^x (K_1(x) - K_0(x)) with x = d^2 / 8, its asymptotic series past
+    x = 60. The (u, theta) = (0, 0) cell is the singularity, zeroed, and
+    any 0/0 left elsewhere is taken to 0."""
+    from scipy.special import kv
+    d2 = 2.0 / h ** 2 * (np.cosh(U) - np.cos(TH)) / np.cosh(U)
+    x = d2 / 8.0
+    with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+        small = x < 60.0
+        xs = np.maximum(x, 1e-300)
+        l_sg = np.where(
+            small,
+            np.sqrt(np.pi) * x * np.exp(np.minimum(x, 60.0))
+            * (kv(1.0, xs) - kv(0.0, xs)),
+            np.sqrt(np.pi) * x * 0.5 * np.sqrt(np.pi / 2.0)
+            * (x ** -1.5 - 3.0 / 8.0 * x ** -2.5
+               + 45.0 / 128.0 * x ** -3.5))
+        pref = l_sg / (2.0 * np.pi * h) / np.sqrt(np.cosh(U)) \
+            / (np.cosh(U) - np.cos(TH))
+        k_r = pref * (1.0 - np.cos(TH) * np.exp(-U))
+        k_t = pref * np.sin(TH)
+    k_r[0, 0] = 0.0
+    k_t[0, 0] = 0.0
+    return np.nan_to_num(k_r), np.nan_to_num(k_t)
 
 
 class SelfGravity:
@@ -110,6 +144,12 @@ class SelfGravity:
         self.rebuilds = 0
 
     # ------- in-run kernel update (reference selfgravity.cpp:186-214) -----
+    def supports_in_run_update(self) -> bool:
+        """Whether the run rebuilds the kernel from the disk's aspect ratio:
+        the basic and symmetric modes; the Bessel kernel stays as built
+        (fargocpt_tpu/ops/selfgravity.py:184-190)."""
+        return self.phys.self_gravity_mode in SMOOTHING_MODES
+
     def initial_kernel_state(self):
         """(k_r_hat, k_t_hat, last_aspect_ratio, since_last): the counter
         starts at the interval so the first call is due, the last aspect

@@ -14,14 +14,17 @@ Physics:
     exponential propagator; reference :1579-1674), and the explicit drag
     kick with an adaptive Cash-Karp RK45 (polar or cartesian).
 
-Dust diffusion (reference dust_diffusion.cpp) is not ported:
-``step.check_supported`` refuses ``ParticleDustDiffusion``.
+  * dust diffusion: Brownian radial kicks (Charnoz et al. 2011; reference
+    dust_diffusion.cpp), drawn from the swarm's ``torch.Generator`` on the
+    run's device, seeded from the swarm's seed. PyTorch cannot replay the
+    JAX package's ``jax.random`` draws, so the two packages agree in the
+    distribution of the kicks, and term for term on a given draw.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import NamedTuple
 
 import numpy as np
@@ -52,6 +55,10 @@ class ParticleState:
     # carries per-particle timestep/facold across hydro steps); 0 = unset
     timestep: torch.Tensor
     facold: torch.Tensor
+    # the diffusion kicks' generator on the swarm's device; not a tensor,
+    # so no snapshot holds it: a restart re-seeds it, as the JAX package
+    # re-seeds its key
+    rng: torch.Generator | None = field(default=None, compare=False)
 
     def replace(self, **kw) -> "ParticleState":
         return replace(self, **kw)
@@ -525,6 +532,53 @@ def integrate_rk45(phys: Physics, pp: ParticleParams, constants, units,
 
 
 # ---------------------------------------------------------------------------
+# stochastic dust diffusion
+# ---------------------------------------------------------------------------
+
+def schmidt_number(stokes):
+    """Youdin & Lithwick 2007 eq. 37."""
+    st2 = stokes * stokes
+    return (1.0 + st2) ** 2 / (1.0 + 4.0 * st2)
+
+
+def standard_normal(state: ParticleState) -> torch.Tensor:
+    """One standard normal draw a particle from the swarm's generator."""
+    return torch.randn(state.r.shape, generator=state.rng,
+                       dtype=state.r.dtype, device=state.r.device)
+
+
+def diffuse_dust(phys: Physics, constants, grid: DustGrid, g,
+                 state: ParticleState, rho, cs, scale_height, dt,
+                 normal=None) -> ParticleState:
+    """Brownian radial kicks (reference dust_diffusion.cpp:30-76, Charnoz
+    et al. 2011 eq. 17/21; fargocpt_tpu/particles/dust.py:548-580): the
+    gas diffusion coefficient D_g = alpha cs H and the midplane density
+    and its radial derivative at each particle, D_d = D_g / Sc(St), then
+    dr = D_d / rho drho/dr dt^2 Omega_K + xi sqrt(2 D_d dt) + the 2-d
+    correction, and phi_dot rescaled to keep the specific angular
+    momentum. ``normal`` is the standard normal draw xi, one a particle;
+    without it the swarm's generator draws it."""
+    r = state.r
+    dg_grid = phys.viscous_alpha * cs * (scale_height * g.inv_rb) * g.rb
+    # cell-centred differences, one-sided at the edges, over the spacing's
+    # own differences (jnp.gradient's convention)
+    drho_dr_grid = torch.gradient(rho, dim=0)[0] \
+        / torch.gradient(grid.cell.pos.to(rho.dtype))[0][:, None]
+    d_g, rho_p, drho_dr = interpolate_many(
+        (dg_grid, rho, drho_dr_grid), grid.cell, r, state.phi, grid.naz)
+    d_d = d_g / schmidt_number(state.stokes)
+    omega_k = torch.sqrt(constants.G * phys.hydro_center_mass / r ** 3)
+    mean = d_d / rho_p * drho_dr * dt * dt * omega_k
+    sigma = torch.sqrt(2.0 * d_d * dt)
+    if normal is None:
+        normal = standard_normal(state)
+    corr_2d = r * (torch.sqrt(1.0 + (sigma * normal / r) ** 2) - 1.0)
+    r_new = r + (mean + normal * sigma + corr_2d)
+    return state.replace(r=r_new,
+                         phi_dot=state.phi_dot * (r / r_new) ** 1.5)
+
+
+# ---------------------------------------------------------------------------
 # initialization
 # ---------------------------------------------------------------------------
 
@@ -535,7 +589,8 @@ def init_particles(n: int, rmin: float, rmax: float, slope: float,
                    radii_explicit=None) -> ParticleState:
     """Particles on near-Keplerian orbits with a power-law radial
     distribution (reference src/particles/particles.cpp:516-723). The draw
-    is numpy's on the host, the JAX package's draw for the same seed."""
+    is numpy's on the host, the JAX package's draw for the same seed; the
+    diffusion's generator starts from the same seed."""
     rng = np.random.default_rng(seed)
     if radii_explicit is not None:
         r = np.asarray(radii_explicit, np.float64)
@@ -562,4 +617,5 @@ def init_particles(n: int, rmin: float, rmax: float, slope: float,
         r=t(r), phi=t(phi), r_dot=t(np.zeros(n)), phi_dot=t(vphi / r),
         size=t(sizes), stokes=t(np.zeros(n)),
         alive=torch.ones(n, dtype=torch.bool, device=device),
-        timestep=t(np.zeros(n)), facold=t(np.full(n, 1e-4)))
+        timestep=t(np.zeros(n)), facold=t(np.full(n, 1e-4)),
+        rng=torch.Generator(device=device or "cpu").manual_seed(seed))

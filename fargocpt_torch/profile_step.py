@@ -2,7 +2,8 @@
 
     python -m fargocpt_torch.profile_step
         [--setup flagship|pds70_gas|pds70|planet_disk|planet_torque|
-                 planet_accretion|binary_gcfull|oy_car|v1504cyg]
+                 planet_accretion|binary_gcfull|oy_car|v1504cyg|
+                 planet_disk_sg|full_physics|shocktube_pvte]
         [--route whole|split|staged] [--nrad 1024 1000] [--naz 3072]
         [--steps 120] [--dtype float32|float64]
 
@@ -14,7 +15,10 @@ test on the leapfrog, its accretion test: accretion, the corotating
 frame and the monitor grids, or setups/gamma_cephei_full.yml's
 circumbinary disk: ``--nrad 1609 --naz 1160``, or the cataclysmic
 variables, setups/CloseBinaries/OY_Car.yml: ``--nrad 200 --naz 200``
-and setups/V1504Cyg.yml: ``--nrad 450 --naz 1070``), on
+and setups/V1504Cyg.yml: ``--nrad 450 --naz 1070``, or the quickstart
+with Bessel-kernel self-gravity, examples/full_physics.yml: ``--nrad 128
+--naz 256``, and the PVTE shock tube with the lookup table: ``--nrad 1000
+--naz 2 --dtype float64``), on
 the grid's transport route or the one ``--route`` names, 20 warm-up steps,
 the wall time of ``--steps`` steps (host clock around synchronised work),
 then a ``torch.profiler`` window of 20 steps. Prints per grid the device
@@ -40,8 +44,9 @@ from contextlib import contextmanager
 
 import torch
 
-from .flagship import (binary_gcfull, flagship, oy_car, pds70, pds70_gas,
-                       planet_accretion, planet_disk, planet_torque,
+from .flagship import (binary_gcfull, flagship, full_physics, oy_car, pds70,
+                       pds70_gas, planet_accretion, planet_disk,
+                       planet_disk_sg, planet_torque, shocktube_pvte,
                        v1504cyg)
 from .ops.kernels import ROUTES
 
@@ -49,7 +54,8 @@ SETUPS = {"flagship": flagship, "pds70_gas": pds70_gas, "pds70": pds70,
           "planet_disk": planet_disk, "planet_torque": planet_torque,
           "planet_accretion": planet_accretion,
           "binary_gcfull": binary_gcfull, "oy_car": oy_car,
-          "v1504cyg": v1504cyg}
+          "v1504cyg": v1504cyg, "planet_disk_sg": planet_disk_sg,
+          "full_physics": full_physics, "shocktube_pvte": shocktube_pvte}
 
 # device kernel name fragment -> the op whose CUDA source launches it
 # (fargo_theta on the split route and theta_sweep on the staged route
@@ -90,8 +96,9 @@ def phases():
     from . import step
     from .nbody import system as nbody_sys
     from .ops import (accretion, boundary, cfl, damping, diskmodel, energy,
-                      eos, fld, gravity, kernels, opacity, pvte,
+                      eos, fld, gravity, kernels, opacity, pvte, quantities,
                       selfgravity, sources, viscosity)
+    from .particles import dust
     return (
         (accretion, "accrete_onto_planets", "accretion"),
         (accretion, "orbital_periods", "orbital periods"),
@@ -100,6 +107,10 @@ def phases():
         (step.HydroStep, "_corotation_update", "corotation"),
         (step.HydroStep, "_integrate_particles", "dust"),
         (pvte.PVTE, "gamma_mu", "PVTE refresh"),
+        (pvte, "lookup_gamma_mu", "PVTE lookup"),
+        (eos, "adjust_scale_height_for_sg", "Bessel derived H"),
+        (quantities, "toomre_q", "Toomre Q"),
+        (dust, "diffuse_dust", "dust diffusion"),
         (fld.FLDSolver, "radiative_diffusion", "FLD substep"),
         (fld.FLDSolver, "solve", "FLD SOR solve"),
         (selfgravity.SelfGravity, "accelerations", "self-gravity FFT"),

@@ -14,7 +14,9 @@ the host reads at those boundaries only.
 Everything lives on ``device``, the GPU (``"cuda"``) unless the caller
 asks for ``device="cpu"``; ``"cuda"`` without a card raises.
 ``transport_route`` sends the FARGO transport down a named route
-(``ops/kernels.ROUTES``) where the grid would pick its own.
+(``ops/kernels.ROUTES``) where the grid would pick its own. Setting
+``sim.stepper.debug_nans`` checks the state for NaNs and infinities
+after every step and raises ``FloatingPointError`` at the first.
 """
 
 from __future__ import annotations
@@ -33,11 +35,11 @@ from .config import Config
 from .constants import Constants
 from .grid import Geometry
 from .nbody import system as nbody_sys
-from .ops import diskmodel
+from .ops import boundary, diskmodel
 from .params import physics_from_config
 from .particles import dust
-from .state import FieldState, SystemState
-from .step import HydroStep, check_supported, make_ref_values
+from .state import FieldState, SystemState, check_finite
+from .step import HydroStep, make_ref_values
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -114,14 +116,15 @@ class Simulation:
         self.device = _resolve_device(device)
         self.cfg = cfg
         shock_tube = cfg.get("ShockTube", 0, type=int)
-        if shock_tube == 2:
-            raise NotImplementedError("the PVTE shock tube (ShockTube 2) is "
-                                      "not ported yet")
         # the base-unit keys are consulted on the shock-tube branch too,
         # which overrides them (reference src/init.cpp:446-520)
         for key in ("l0", "m0", "t0", "temp0"):
             cfg.get_raw(key)
-        if shock_tube:
+        if shock_tube == 2:
+            # the PVTE shock tube's unit table (src/init.cpp:540-615)
+            self.units = u.pvte_shock_tube_units()
+            self.constants = Constants.shock_tube()
+        elif shock_tube:
             self.units = u.shock_tube_units()
             self.constants = Constants.shock_tube()
         else:
@@ -181,7 +184,7 @@ class Simulation:
                 omega_frame=(x * vy - y * vx) / max(x * x + y * y, 1e-300))
         if any(b.irradiate for b in self.bodies):
             self.phys = self.phys.with_(heating_star=True)
-        check_supported(self.phys)
+        boundary.check_supported(self.phys)
 
         self.geometry = Geometry.from_config(cfg)
         self.settings = RunSettings.from_config(cfg, outdir)
@@ -204,9 +207,10 @@ class Simulation:
             transport_route=transport_route,
             particle_params=pp if self.phys.integrate_particles else None)
         sg = self.stepper.selfgravity
-        if sg is not None:
+        if sg is not None and not self.phys.centrifugal_balance:
             # equilibrium v_az with the axisymmetric self-gravity pull
-            # (reference src/init.cpp:1722-1724 + selfgravity.cpp:749)
+            # (reference src/init.cpp:1722-1724 + selfgravity.cpp:749),
+            # which CentrifugalBalance's v_az replaces
             vaz = sg.init_azimuthal_velocity_correction(
                 self.phys, fields.sigma, fields.vaz.cpu().numpy())
             fields = fields.replace(vaz=torch.tensor(
@@ -314,7 +318,10 @@ class Simulation:
     # ------------------------------------------------------------------
     def calculate_time_step(self) -> torch.Tensor:
         """dt = min(CFL_max_var * last_dt, cfl_dt) as a 0-d device tensor
-        (reference src/simulation.cpp:100-117); no host sync."""
+        (reference src/simulation.cpp:100-117); no host sync. Disk: no
+        keeps last_dt."""
+        if not self.phys.calculate_disk:
+            return self.last_dt
         dt = torch.minimum(self.phys.cfl_max_var * self.last_dt,
                            self.stepper.cfl_dt(self.state, self.time))
         self.last_dt = dt
@@ -325,6 +332,8 @@ class Simulation:
         self.state = self.stepper.step(self.state, self.time, dt)
         self.time = self.time + dt
         self.n_hydro_iter += 1
+        if self.stepper.debug_nans:
+            check_finite(self.state, self.n_hydro_iter)
 
     def run(self, max_steps: int | None = None):
         """Outer loop (reference src/simulation.cpp:505-560): one
@@ -361,7 +370,7 @@ class Simulation:
         wall0 = _time.time()
         (self.state, self.time, self.last_dt, n, *dt_stats) = \
             self.stepper.advance_to(self.state, self.time, self.last_dt,
-                                    t_target, max_steps)
+                                    t_target, max_steps, self.n_hydro_iter)
         dt_min, dt_max, dt_sum, dt_sq = torch.stack(dt_stats).tolist()
         self.n_hydro_iter += n
         self.monitor_stats = {

@@ -173,10 +173,12 @@ def system_state_from_numpy(tree: dict[str, np.ndarray],
                               t("sg_kernel.1", cdtype), t("sg_kernel.2"),
                               int(tree["sg_kernel.3"]))
     if "particles.r" in tree:
+        # a swarm built from a dict has no diffusion generator: its kicks
+        # then draw from torch's default generator
         parts["particles"] = ParticleState(**{
             f.name: t(f"particles.{f.name}",
                       torch.bool if f.name == "alive" else None)
-            for f in dc_fields(ParticleState)})
+            for f in dc_fields(ParticleState) if f.name != "rng"})
     return SystemState(**parts)
 
 
@@ -186,8 +188,9 @@ def _flat(state: SystemState) -> dict:
         value = getattr(state, f.name)
         if f.name in _GROUPS or isinstance(value, ParticleState):
             for g in dc_fields(value):
-                if getattr(value, g.name) is not None:
-                    out[f"{f.name}.{g.name}"] = getattr(value, g.name)
+                v = getattr(value, g.name)
+                if v is not None and not isinstance(v, torch.Generator):
+                    out[f"{f.name}.{g.name}"] = v
         elif isinstance(value, tuple):
             out.update({f"{f.name}.{k}": v for k, v in enumerate(value)})
         elif value is not None:
@@ -204,3 +207,17 @@ def system_state_to_numpy(state: SystemState) -> dict[str, np.ndarray]:
     """Flat numpy dict of every entry of ``state`` (copied to the host)."""
     return {k: v.detach().cpu().numpy() if torch.is_tensor(v)
             else np.asarray(v) for k, v in _flat(state).items()}
+
+
+def check_finite(state: SystemState, step: int) -> None:
+    """Raise FloatingPointError naming the first tensor of ``state`` that
+    holds a NaN or an infinity after hydro step ``step``: the port's NaN
+    trap (``--debug-nans``; the JAX package sets jax_debug_nans). One host
+    read."""
+    named = [(k, v) for k, v in state_tensors(state).items()
+             if v.is_floating_point() or v.is_complex()]
+    finite = torch.stack([torch.isfinite(v).all() for _, v in named]).tolist()
+    for (name, _), ok in zip(named, finite):
+        if not ok:
+            raise FloatingPointError(f"{name} is not finite after hydro step "
+                                     f"{step}")

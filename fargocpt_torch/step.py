@@ -83,6 +83,16 @@ after each step's final boundary call; a ``custom`` side runs the user's
 and the Ziampras, model and floor beta variants (``ops/energy.py``), all
 outside the fused viscous kick's gate.
 
+The long tail. The polytropic disk takes the unfused substeps with its
+own sound speed, pressure and temperature (``ops/eos.py``). Under
+Bessel-kernel self-gravity (the default mode) ``derived`` scales H by the
+disk's Toomre Q and the kernel stays as built. ``Disk: no`` keeps the dt
+and runs no gas step: the bodies drift and the dust moves, FLD still runs
+on the Euler step (reference src/simulation.cpp:205-208), and no boundary,
+transport or monitor bookkeeping happens. A diffusing swarm takes its
+Brownian kicks after the drag integration (``dust.diffuse_dust``).
+``debug_nans`` checks the state after each step (``state.check_finite``).
+
 PVTE refreshes. The JAX package memoizes ``pvte_vals`` per (sigma,
 energy) within one trace, and each miss warm-starts from the previous
 refresh (the chain, float32 only). Here the memo is a list keyed on tensor
@@ -116,36 +126,19 @@ from .ops import energy as energy_ops
 from .ops.boundary import RefValues
 from .ops.fld import FLDConfig, FLDSolver
 from .ops.pvte import PVTE
-from .ops.selfgravity import SMOOTHING_MODES, SelfGravity
+from .ops.selfgravity import SelfGravity
 from .params import Physics, LEAPFROG, ARTVISC_SN, ARTVISC_TW
 from .particles import dust
 from .state import (FieldState, MonitorAccum, SystemState, N_ECC_STAGES,
                     N_MASS_DELTA,
                     MD_DAMP_IN_CREATE, MD_FLOOR_CREATE, MD_INNER_IN,
-                    MD_INNER_OUT, MD_OUTER_IN, MD_OUTER_OUT)
+                    MD_INNER_OUT, MD_OUTER_IN, MD_OUTER_OUT, check_finite)
 
 
-def check_supported(phys: Physics,
-                    particle_params: dust.ParticleParams | None = None
-                    ) -> None:
-    """Raise NotImplementedError for every feature outside the ported
-    slice, naming it."""
-    unsupported = {
-        "the polytropic EquationOfState": phys.is_polytropic,
-        "the PVTE lookup table (PVTELookupTable)":
-            phys.variable_gamma and phys.pvte_lookup_table,
-        "self-gravity in SelfGravityMode besselkernel (Bessel-kernel "
-        "self-gravity)": phys.self_gravity
-            and phys.self_gravity_mode not in SMOOTHING_MODES,
-        "dust diffusion (ParticleDustDiffusion)":
-            phys.integrate_particles and particle_params is not None
-            and particle_params.diffusion,
-        "Disk: no": not phys.calculate_disk,
-    }
-    for name, on in unsupported.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet")
-    boundary.check_supported(phys)
+def bessel_sg(phys: Physics) -> bool:
+    """Bessel-kernel self-gravity, whose vertical structure adjusts the
+    scale height (the JAX package's test, fargocpt_tpu/step.py:476)."""
+    return phys.self_gravity and phys.self_gravity_mode == "besselkernel"
 
 
 def gates(phys: Physics) -> dict[str, bool]:
@@ -154,7 +147,7 @@ def gates(phys: Physics) -> dict[str, bool]:
     (fargocpt_tpu/step.py:244-304) without the TPU-only terms, and
     ``artvisc_sn``: the Stone-Norman substep of the unfused branch, which
     the JAX package runs as jnp there and the port as its kernel."""
-    bessel = phys.self_gravity and phys.self_gravity_mode == "besselkernel"
+    bessel = bessel_sg(phys)
     sources = (not phys.variable_gamma and not phys.is_polytropic
                and phys.aspectratio_mode == 0 and not bessel)
     viscous_kick = (
@@ -199,7 +192,7 @@ class HydroStep(nn.Module):
         super().__init__()
         bodies = bodies if bodies is not None else \
             [BodyConfig(name="DefaultStar", mass=phys.hydro_center_mass)]
-        check_supported(phys, particle_params)
+        boundary.check_supported(phys)
         self.phys = phys
         self.constants = constants
         self.units = units
@@ -309,6 +302,8 @@ class HydroStep(nn.Module):
         self._pv_memo: list = []
         self._pv_chain = None
         self._memo_shared = False
+        # the NaN trap (--debug-nans): a finiteness check after each step
+        self.debug_nans = False
 
     @property
     def g(self):
@@ -377,13 +372,27 @@ class HydroStep(nn.Module):
         given ``bodies`` (``bodies_on_grid``), the N-body / centre-of-mass
         forms (reference src/SourceEuler.cpp:1054-1441); without them the
         axisymmetric mode-0 forms, as the JAX package's callers without the
-        bodies take them (fargocpt_tpu/step.py:425-476)."""
+        bodies take them (fargocpt_tpu/step.py:425-476). Under Bessel-kernel
+        self-gravity H takes the disk's Toomre Q."""
         if pv is None:
             pv = self.pvte_vals(sigma, energy)
         phys, constants, g = self.phys, self.constants, self.g
         mode = phys.aspectratio_mode
         if mode not in (1, 2) or bodies is None:
-            return kernels.derived(self.ops, sigma, energy, pv)
+            cs, press, h = kernels.derived(self.ops, sigma, energy, pv)
+        else:
+            cs, press, h = self._derived_bodies(sigma, energy, bodies, pv)
+        if bessel_sg(phys):
+            # the self-gravitating vertical structure (reference
+            # src/SourceEuler.cpp:1434-1439; fargocpt_tpu/step.py:474-479)
+            h = eos.adjust_scale_height_for_sg(
+                h, quant.toomre_q(phys, constants, g, sigma, cs))
+        return cs, press, h
+
+    def _derived_bodies(self, sigma, energy, bodies, pv):
+        """``derived`` of AspectRatioMode 1 / 2 given the bodies."""
+        phys, constants, g = self.phys, self.constants, self.g
+        mode = phys.aspectratio_mode
         cx, cy = self.cell_x, self.cell_y
         if mode == 2:
             com_x, com_y, com_m = eos.center_of_mass(bodies)
@@ -569,13 +578,13 @@ class HydroStep(nn.Module):
     def _integrate_particles(self, sigma, vrad, vaz, energy, nb, particles,
                              omega_frame, dt, time):
         """Drag + gravity integration of the swarm against the given gas
-        fields (fargocpt_tpu/step.py:1274-1304). The temperature is the one
-        the reference's particles sample (per-cell gamma and mu with PVTE):
-        for the step-start fields the PVTE grids come from the memo, with
-        no refresh of their own."""
+        fields, then the diffusion kicks (fargocpt_tpu/step.py:1274-1304).
+        The temperature is the one the reference's particles sample
+        (per-cell gamma and mu with PVTE): for the step-start fields the
+        PVTE grids come from the memo, with no refresh of their own."""
         phys, constants = self.phys, self.constants
         pp = self.particle_params
-        _, press, h0 = self.derived(sigma, energy)
+        cs0, press, h0 = self.derived(sigma, energy)
         temp = eos.temperature(phys, constants, sigma, energy, press,
                                self.pvte_vals(sigma, energy))
         rho_mid = sigma / (phys.density_factor * h0)
@@ -584,11 +593,15 @@ class HydroStep(nn.Module):
         sg_accel = None
         if pp.disk_gravity and self.selfgravity is not None:
             sg_accel = self.selfgravity.accelerations(sigma)
-        return integ(phys, pp, constants, self.units, self.dust_grid,
-                     particles, rho_mid, temp, vrad, vaz,
-                     self.bodies_on_grid(nb, time), self.n_bodies,
-                     omega_frame, dt,
-                     sg_accel=sg_accel)
+        particles = integ(phys, pp, constants, self.units, self.dust_grid,
+                          particles, rho_mid, temp, vrad, vaz,
+                          self.bodies_on_grid(nb, time), self.n_bodies,
+                          omega_frame, dt, sg_accel=sg_accel)
+        if pp.diffusion:
+            particles = dust.diffuse_dust(phys, constants, self.dust_grid,
+                                          self.g, particles, rho_mid, cs0,
+                                          h0, dt)
+        return particles
 
     def irradiation_ctx(self, bodies: gravity.BodiesOnGrid):
         """What SubStep3's stellar irradiation reads (the JAX package's
@@ -724,19 +737,26 @@ class HydroStep(nn.Module):
         with no refresh; fargocpt_tpu/step.py:911-934). Returns (vrad,
         vaz, energy, qplus, qminus, sg_kernel, sor, h, nu, ecc), h, nu and
         ecc as ``_substeps`` gives them."""
-        phys, constants, g = self.phys, self.constants, self.g
         (vrad, vaz, energy, qplus, qminus, sg_kernel, pv_last, h_kick,
          nu_kick, ecc) = self._substeps(sigma, vrad, vaz, energy, pot_it,
                                         time, dt, omega_frame, bodies,
                                         sg_kernel, stale_h, stale_derived)
         if self.fld is not None:
-            _, _, h_now = self.derived(sigma, energy, pv=pv_last)
-            energy, _, sor = self.fld.radiative_diffusion(
-                g, sigma, energy, h_now, dt, sor_state=sor)
-            energy = eos.energy_floor_ceiling(phys, constants, sigma, energy,
-                                              pv_last)
+            energy, sor = self._fld(sigma, energy, dt, sor, pv_last)
         return (vrad, vaz, energy, qplus, qminus, sg_kernel, sor, h_kick,
                 nu_kick, ecc)
+
+    def _fld(self, sigma, energy, dt, sor, pv):
+        """FLD radiative diffusion, then the temperature range, both on the
+        PVTE grids ``pv`` (a refresh where None; the range then takes the
+        constant gamma, as the JAX package's ``Disk: no`` step does,
+        fargocpt_tpu/step.py:1453-1467). Returns (energy, sor)."""
+        _, _, h_now = self.derived(sigma, energy, pv=pv)
+        energy, _, sor = self.fld.radiative_diffusion(
+            self.g, sigma, energy, h_now, dt, sor_state=sor)
+        energy = eos.energy_floor_ceiling(self.phys, self.constants, sigma,
+                                          energy, pv)
+        return energy, sor
 
     def _feedback_on(self) -> bool:
         """Whether the disk's force on the bodies is evaluated. On a lone
@@ -869,7 +889,20 @@ class HydroStep(nn.Module):
         nb = nbody_sys.rotate(nb, omega_frame * dt)
         frame_angle = state.frame_angle + omega_frame * dt
 
-        # --- gas substeps and FLD ---
+        # --- gas substeps and FLD; under Disk: no only FLD, which the
+        # reference runs outside the disk's gate (src/simulation.cpp:205-208)
+        if not phys.calculate_disk:
+            sor = state.fld_sor
+            if self.fld is not None:
+                energy, sor = self._fld(sigma, energy, dt, sor, None)
+            nb = nbody_sys.integrate(nb, constants.G, dt,
+                                     method=phys.nbody_integrator)
+            nb = nbody_sys.move_to_hydro_frame_center(nb, self.n_hydroframe)
+            return state.replace(
+                fields=FieldState(sigma=sigma, vrad=vrad, vaz=vaz,
+                                  energy=energy),
+                nbody=nb, omega_frame=omega_frame, frame_angle=frame_angle,
+                fld_sor=sor, particles=particles)
         (vrad, vaz, energy, qplus, qminus, sg_kernel, sor, _,
          nu_step, ecc) = self._gas_kick(sigma, vrad, vaz, energy, pot_it,
                                         time, dt, omega_frame, bodies,
@@ -1004,21 +1037,28 @@ class HydroStep(nn.Module):
                 sigma, vrad, vaz, energy, nb, particles, omega_frame, hdt,
                 time)
 
-        # gas kick 1/2, smoothed with h0 (:319)
-        (vrad, vaz, energy, _, _, sg_kernel, sor, h_kick1,
-         nu_kick1, _) = self._gas_kick(
-            sigma, vrad, vaz, energy, pot_it, time, hdt, omega_frame,
-            self.bodies_on_grid(nb, time), state.sg_kernel, state.fld_sor,
-            stale_h=h0, stale_derived=stale if self.any_accretion else None)
-        sigma, vrad, vaz, energy, _ = self._apply_bcs(
-            sigma, vrad, vaz, energy, omega_frame, nu=nu_kick1, nb=nb,
-            time=time)
-        # gas drift 1/1
-        sigma, vrad, vaz, energy, mass_flux = kernels.transport(
-            self.ops, sigma, vrad, vaz, energy, omega_frame, dt)
-        sigma = eos.apply_sigma_floor(phys, sigma)
-        if phys.is_adiabatic:
-            energy = eos.energy_floor_ceiling(phys, constants, sigma, energy)
+        # gas kick 1/2, smoothed with h0 (:319); Disk: no runs none of the
+        # gas, not even FLD (fargocpt_tpu/step.py:1018-1061)
+        disk = phys.calculate_disk
+        h_kick1 = nu_kick2 = None
+        qplus, qminus = state.qplus, state.qminus
+        sg_kernel, sor = state.sg_kernel, state.fld_sor
+        if disk:
+            (vrad, vaz, energy, _, _, sg_kernel, sor, h_kick1,
+             nu_kick1, _) = self._gas_kick(
+                sigma, vrad, vaz, energy, pot_it, time, hdt, omega_frame,
+                self.bodies_on_grid(nb, time), sg_kernel, sor, stale_h=h0,
+                stale_derived=stale if self.any_accretion else None)
+            sigma, vrad, vaz, energy, _ = self._apply_bcs(
+                sigma, vrad, vaz, energy, omega_frame, nu=nu_kick1, nb=nb,
+                time=time)
+            # gas drift 1/1
+            sigma, vrad, vaz, energy, mass_flux = kernels.transport(
+                self.ops, sigma, vrad, vaz, energy, omega_frame, dt)
+            sigma = eos.apply_sigma_floor(phys, sigma)
+            if phys.is_adiabatic:
+                energy = eos.energy_floor_ceiling(phys, constants, sigma,
+                                                  energy)
 
         # gas kick 2/2 with the bodies at x_{i+1/2}: its disk force and
         # indirect terms come first and reach the bodies after it; the
@@ -1030,11 +1070,12 @@ class HydroStep(nn.Module):
         dax, day, it_disk = self._disk_feedback(sigma, h_stale, bodies_mid)
         it_nb = self._indirect_nbody(nb, bodies_mid, hdt)
         pot_it = self._pot_indirect(it_disk, it_nb)
-        (vrad, vaz, energy, qplus, qminus, sg_kernel, sor, _,
-         nu_kick2, _) = self._gas_kick(sigma, vrad, vaz, energy, pot_it,
-                                       mid_time, hdt, omega_frame,
-                                       bodies_mid, sg_kernel, sor,
-                                       stale_h=h_kick1)
+        if disk:
+            (vrad, vaz, energy, qplus, qminus, sg_kernel, sor, _,
+             nu_kick2, _) = self._gas_kick(sigma, vrad, vaz, energy, pot_it,
+                                           mid_time, hdt, omega_frame,
+                                           bodies_mid, sg_kernel, sor,
+                                           stale_h=h_kick1)
 
         if phys.integrate_particles and particles is not None:
             particles = self._integrate_particles(
@@ -1070,14 +1111,16 @@ class HydroStep(nn.Module):
 
         # the final boundary conditions, the damping zones first; the
         # leapfrog books no floor mass (fargocpt_tpu/step.py:1099-1112)
-        sigma, vrad, vaz, energy, dmp = self._apply_bcs(
-            sigma, vrad, vaz, energy, omega_frame, nu=nu_kick2, final=True,
-            dt=dt, nb=nb, time=time + dt)
-        if phys.keep_mass_constant:
-            sigma = self._rescale_to_initial_mass(sigma)
-        monitor_acc = self._update_monitor_acc(
-            self._mass_deltas(state, mass_flux, dmp), mass_flux, sigma,
-            vrad, vaz, energy, nb, mid_time, pot_it, dt)
+        monitor_acc = state.monitor_acc
+        if disk:
+            sigma, vrad, vaz, energy, dmp = self._apply_bcs(
+                sigma, vrad, vaz, energy, omega_frame, nu=nu_kick2,
+                final=True, dt=dt, nb=nb, time=time + dt)
+            if phys.keep_mass_constant:
+                sigma = self._rescale_to_initial_mass(sigma)
+            monitor_acc = self._update_monitor_acc(
+                self._mass_deltas(state, mass_flux, dmp), mass_flux, sigma,
+                vrad, vaz, energy, nb, mid_time, pot_it, dt)
 
         return state.replace(
             fields=FieldState(sigma=sigma, vrad=vrad, vaz=vaz, energy=energy),
@@ -1208,14 +1251,16 @@ class HydroStep(nn.Module):
                 state.qplus, state.qminus)
 
     def advance_to(self, state: SystemState, time, last_dt, t_target,
-                   max_steps: int | None = None):
+                   max_steps: int | None = None, first_step: int = 0):
         """Advance to ``t_target`` with the reference's dt rules
         (src/simulation.cpp:505-560): dt = min(CFL_max_var * last_dt,
         cfl_dt), stretched or clamped to land on ``t_target``; ``last_dt``
         carries the unclamped dt. One host sync per step: the landing test.
         Each step's CFL and step share their PVTE memo. ``max_steps`` stops
         it after that many steps, short of ``t_target`` if need be (the
-        command line's ``-N``).
+        command line's ``-N``). With ``debug_nans`` each step's state is
+        checked for finiteness (one more read a step), ``first_step`` the
+        number of the run's steps before this call.
 
         Returns (state, time, last_dt, n_steps, dt_min, dt_max, dt_sum,
         dt_sum_sq), the scalars as 0-d tensors except n_steps."""
@@ -1229,8 +1274,11 @@ class HydroStep(nn.Module):
         self._memo_shared = True
         try:
             while True:
+                # Disk: no keeps last_dt and makes no CFL evaluation
+                # (reference src/simulation.cpp:100-117)
                 dt = torch.minimum(self.phys.cfl_max_var * last_dt,
-                                   self.cfl_dt(state, time))
+                                   self.cfl_dt(state, time)) \
+                    if self.phys.calculate_disk else last_dt
                 time_left = target - time
                 clamp = (dt > time_left) | (time_left < dt * 1.05)
                 step_dt = torch.where(clamp, time_left, dt)
@@ -1239,6 +1287,8 @@ class HydroStep(nn.Module):
                 time = torch.where(clamp, target, time + step_dt)
                 last_dt = dt
                 n += 1
+                if self.debug_nans:
+                    check_finite(state, first_step + n)
                 dmin = torch.minimum(dmin, step_dt)
                 dmax = torch.maximum(dmax, step_dt)
                 dsum = dsum + step_dt
@@ -1310,7 +1360,8 @@ class HydroStep(nn.Module):
         fld_sor = self.fld.initial_sor_state(self.dtype, self.device) \
             if self.fld is not None and self.fld.config.auto_omega else None
         sg_kernel = self.selfgravity.initial_kernel_state() \
-            if self.selfgravity is not None and phys.is_adiabatic else None
+            if self.selfgravity is not None and phys.is_adiabatic \
+            and self.selfgravity.supports_in_run_update() else None
         return SystemState(
             fields=fields, qplus=qplus, qminus=qminus, nbody=nbody,
             omega_frame=scalar(omega0), frame_angle=scalar(0.0),

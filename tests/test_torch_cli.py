@@ -169,8 +169,31 @@ def test_config_subcommand(tmp_path):
     (["start", "setup.yml", "--device", "cpu", "--debug-nans"],
      "--debug-nans"),
 ])
-def test_refused_options_raise(argv, name):
-    with pytest.raises(NotImplementedError, match=name):
+def test_refused_options_raise(argv, name, tmp_path, monkeypatch):
+    """``bench`` is refused; ``--debug-nans`` is the NaN trap: a NaN
+    planted in the initial v_az stops the run after its first step with a
+    FloatingPointError naming the field and the step."""
+    if name == "bench":
+        with pytest.raises(NotImplementedError, match=name):
+            cli.main(argv)
+        return
+    from fargocpt_torch import sim as sim_mod
+    real_init = sim_mod.Simulation.__init__
+
+    def planted(self, *args, **kw):
+        real_init(self, *args, **kw)
+        vaz = self.state.fields.vaz.clone()
+        vaz[3, 5] = float("nan")
+        self.state = self.state.replace(
+            fields=self.state.fields.replace(vaz=vaz))
+
+    monkeypatch.setattr(sim_mod.Simulation, "__init__", planted)
+    setup = tmp_path / "setup.yml"
+    setup.write_text(yaml.safe_dump(dict(SETUP, Nrad="16", Naz="32")))
+    argv = ["start", str(setup), "--device", "cpu", "--debug-nans", "-o",
+            str(tmp_path / "out")]
+    with pytest.raises(FloatingPointError,
+                       match=r"fields\.\w+ is not finite after hydro step 1"):
         cli.main(argv)
 
 

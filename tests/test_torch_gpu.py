@@ -32,7 +32,13 @@ against the CPU, a PDS70 gas step through artvisc_sn
 and the whole transport, and the whole PDS70 setup with its dust swarm on
 the device against the same run on the CPU; the output written from card
 tensors against the CPU writer's bytes, and a restart on the card bit for
-bit.
+bit; the long tail: the quickstart with Bessel-kernel self-gravity
+(artvisc_sn and the transport once, ias15 twice), examples/full_physics.yml
+with its diffusing swarm on one shared draw (cfl, sources, artvisc_sn, the
+transport), the polytropic flagship in both dtypes, Disk: no (ias15 only;
+the FLD-only disk no kernel), the PVTE shock tube on lookup tables built on
+the card, RandomSigma, CentrifugalBalance and the secondary's disk, each
+against the CPU, and the NaN trap on the card.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one. This file imports no JAX, so it runs on a GPU host that has none:
@@ -1607,3 +1613,169 @@ def test_rochelobe_stream_on_the_card_matches_the_cpu(cuda, dtype):
     row = out["cpu"][0][NR - 1].numpy()
     assert 3 <= int((row != f["sigma"][NR - 1].astype(row.dtype)).sum()) \
         < NAZ // 2
+
+
+# ---------------------------------------------------------------------------
+# the long tail: Bessel self-gravity, the polytropic EoS, Disk: no, the
+# PVTE shock tube with the lookup table, the rest of the initial
+# conditions, dust diffusion and the NaN trap
+# ---------------------------------------------------------------------------
+
+def _step_pair(gpu, cpu, steps, dt=None):
+    """``steps`` steps of both on the card's dt (or ``dt``); the kernels
+    launched by the card's run."""
+    before = dict(kernels.LAUNCHES)
+    for _ in range(steps):
+        step = gpu.calculate_time_step() if dt is None else dt
+        cpu.calculate_time_step()
+        gpu.step_once(step)
+        cpu.step_once(step.cpu() if torch.is_tensor(step) else step)
+    return {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+
+
+def _energy_held(gpu, cpu, tol):
+    a, b = gpu.fields.energy.cpu(), cpu.fields.energy
+    assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.gpu
+def test_planet_disk_sg_step_launches_and_matches_the_cpu(cuda):
+    """examples/quickstart.yml with SelfGravity: Yes (the Bessel kernel)
+    at 32x96 float64: each Euler step launches artvisc_sn and the
+    transport once and ias15 twice, no other kernel (the Bessel mode keeps
+    cfl, sources and the viscous kick off); ten steps agree with the CPU
+    at 1e-9 of each field's scale."""
+    from fargocpt_torch.flagship import planet_disk_sg
+    gpu = Simulation(planet_disk_sg(32, 96), device=cuda)
+    cpu = Simulation(planet_disk_sg(32, 96), device="cpu")
+    delta = _step_pair(gpu, cpu, 10)
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {
+        "artvisc_sn": 10, "transport": 10, "ias15": 20}
+    _held_to_the_cpu(gpu, cpu, 1e-9)
+
+
+@pytest.mark.gpu
+def test_full_physics_step_launches_and_matches_the_cpu(cuda, monkeypatch):
+    """examples/full_physics.yml at 32x64 float64 with 300 particles: each
+    step launches cfl, sources, artvisc_sn and the transport once, no
+    other kernel; the diffusion draws one shared normal array a step on
+    both devices (their generators differ), so ten steps agree with the
+    CPU at 1e-9 of each field's scale, the energy and the swarm's radii
+    too."""
+    from fargocpt_torch import flagship
+    from fargocpt_torch.particles import dust
+    draw = np.random.default_rng(3).standard_normal(300)
+    monkeypatch.setattr(dust, "standard_normal", lambda state: torch.tensor(
+        draw, dtype=state.r.dtype, device=state.r.device))
+    cfg = dict(NumberOfParticles="300", FirstDT="1e-3")
+    gpu = Simulation(flagship.full_physics(32, 64, **cfg), device=cuda)
+    cpu = Simulation(flagship.full_physics(32, 64, **cfg), device="cpu")
+    delta = _step_pair(gpu, cpu, 10)
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {
+        "cfl": 10, "sources": 10, "artvisc_sn": 10, "transport": 10}
+    _held_to_the_cpu(gpu, cpu, 1e-9)
+    _energy_held(gpu, cpu, 1e-9)
+    a, b = gpu.state.particles.r.cpu(), cpu.state.particles.r
+    assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-9), ("float32", 1e-3)])
+def test_polytropic_step_launches_and_matches_the_cpu(cuda, dtype, tol):
+    """The flagship with the polytropic EoS at 32x64: artvisc_sn and the
+    transport once a step, no other kernel; ten steps agree with the
+    CPU's run in the same dtype at ``tol`` of each field's scale."""
+    cfg = dict(FLAGSHIP, Nrad="32", Naz="64", FirstDT="1e-3",
+               EquationOfState="Polytropic")
+    gpu = Simulation(Config.from_dict(dict(cfg)), device=cuda, dtype=dtype)
+    cpu = Simulation(Config.from_dict(dict(cfg)), device="cpu", dtype=dtype)
+    delta = _step_pair(gpu, cpu, 10)
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {
+        "artvisc_sn": 10, "transport": 10}
+    _held_to_the_cpu(gpu, cpu, tol)
+
+
+@pytest.mark.gpu
+def test_disk_no_steps_on_the_card(cuda):
+    """setups/single_planet_no_disk.yml: ias15 twice a step and no other
+    kernel, the gas untouched, the bodies as on the CPU to 1e-12; and the
+    FLD-only disk (tests/test_fld1d.py's at 64 rings): no kernel, the
+    energy as on the CPU to 1e-9."""
+    from fargocpt_torch.flagship import single_planet_no_disk
+    gpu = Simulation(single_planet_no_disk(), device=cuda)
+    cpu = Simulation(single_planet_no_disk(), device="cpu")
+    sigma0 = gpu.fields.sigma.clone()
+    delta = _step_pair(gpu, cpu, 10)
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {"ias15": 20}
+    assert torch.equal(gpu.fields.sigma, sigma0)
+    _held_to_the_cpu(gpu, cpu, 1e-12)
+    from fargocpt_torch.flagship import fld1d
+    gpu = Simulation(fld1d(64, 2), device=cuda)
+    cpu = Simulation(fld1d(64, 2), device="cpu")
+    e0 = cpu.fields.energy.clone()
+    delta = _step_pair(gpu, cpu, 10)
+    assert delta == dict.fromkeys(kernels.OPS, 0)
+    _energy_held(gpu, cpu, 1e-9)
+    assert float((cpu.fields.energy - e0).abs().max()) \
+        > 1e-4 * float(e0.abs().max())
+
+
+
+
+@pytest.mark.gpu
+def test_pvte_shocktube_lookup_on_the_card(cuda):
+    """The shocktube_pvte golden's setup with PVTELookupTable at 1000x2
+    float64: the tables built on the card hold the CPU's to 1e-12 (gamma1
+    1e-9); 50 steps launch the transport once each, no other kernel, and
+    agree with the CPU at 1e-9 of each field's scale."""
+    from fargocpt_torch.flagship import shocktube_pvte
+    from fargocpt_torch.ops import pvte
+    gpu = Simulation(shocktube_pvte(lookup=True), device=cuda)
+    cpu = Simulation(shocktube_pvte(lookup=True), device="cpu")
+    for t, c, rtol in zip(pvte.lookup_tables(0.75, "cuda"),
+                          pvte.lookup_tables(0.75, "cpu"),
+                          (0, 0, 1e-12, 1e-12, 1e-9)):
+        assert float(((t.cpu() - c).abs() / c.abs()).max()) <= rtol
+    delta = _step_pair(gpu, cpu, 50)
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {"transport": 50}
+    _held_to_the_cpu(gpu, cpu, 1e-9)
+    _energy_held(gpu, cpu, 1e-9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [
+    {"RandomSigma": "Yes", "FeatureSize": "0.05"},
+    {"CentrifugalBalance": "Yes"},
+    {"SecondaryDisk": "Yes", "SigmaSlope": "1.0",
+     "ProfileCutoffPointOuter": "0.8", "ProfileCutoffWidthOuter": "0.1",
+     "nbody": [{"name": "star", "semi-major axis": "0.0", "mass": "1.0"},
+               {"name": "companion", "semi-major axis": "1.2",
+                "mass": "0.3"}]},
+])
+def test_long_tail_initial_conditions_on_the_card(cuda, extra):
+    """RandomSigma, CentrifugalBalance and the secondary's disk on the
+    flagship at 32x64 float64: the initial fields on the card equal the
+    CPU's bit for bit (both are built in numpy on the host), and five
+    steps agree at 1e-9 of each field's scale."""
+    cfg = dict(FLAGSHIP, Nrad="32", Naz="64", FirstDT="1e-3", **extra)
+    gpu = Simulation(Config.from_dict(dict(cfg)), device=cuda)
+    cpu = Simulation(Config.from_dict(dict(cfg)), device="cpu")
+    for name in ("sigma", "vrad", "vaz", "energy"):
+        assert torch.equal(getattr(gpu.fields, name).cpu(),
+                           getattr(cpu.fields, name)), name
+    _step_pair(gpu, cpu, 5)
+    _held_to_the_cpu(gpu, cpu, 1e-9)
+
+
+@pytest.mark.gpu
+def test_debug_nans_trap_on_the_card(cuda):
+    """A NaN planted in v_az stops the card's run after its first step
+    with a FloatingPointError naming a field."""
+    cfg = dict(FLAGSHIP, Nrad="32", Naz="64", MonitorTimestep="0.01")
+    sim = Simulation(Config.from_dict(dict(cfg)), device=cuda)
+    sim.stepper.debug_nans = True
+    vaz = sim.fields.vaz.clone()
+    vaz[3, 5] = float("nan")
+    sim.state = sim.state.replace(fields=sim.fields.replace(vaz=vaz))
+    with pytest.raises(FloatingPointError, match="after hydro step 1"):
+        sim.run()

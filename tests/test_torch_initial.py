@@ -30,15 +30,18 @@ BASE = {"Nrad": str(NR), "Naz": str(NAZ), "Rmin": "0.4", "Rmax": "2.5",
         "FlaringIndex": "0.25", "ViscousAlpha": "1e-3"}
 
 
-def _both(cfg: dict):
-    """(fields, sigma0) of both packages for one configuration."""
+def _both(cfg: dict, nbody: dict | None = None):
+    """(fields, sigma0) of both packages for one configuration; ``nbody``
+    the bodies' float64 arrays where the conditions read them."""
     out = []
     for cfg_cls, unit_mod, consts, phys_fn, geo_cls, build in (
             (JConfig, j_units, JConstants, j_physics, JGeometry, None),
             (Config, units, Constants, physics_from_config, Geometry,
              initial.build_initial_state)):
         c = cfg_cls.from_dict(dict(cfg))
-        if int(cfg.get("ShockTube", 0)):
+        if int(cfg.get("ShockTube", 0)) == 2:
+            un, k = unit_mod.pvte_shock_tube_units(), consts.shock_tube()
+        elif int(cfg.get("ShockTube", 0)):
             un, k = unit_mod.shock_tube_units(), consts.shock_tube()
         else:
             un = unit_mod.Units.from_config_strings("1.0", "1.0", None,
@@ -48,19 +51,21 @@ def _both(cfg: dict):
         phys = phys_fn(c, un, dtype="float64")
         geo = geo_cls.from_config(c)
         if build is None:
-            st, phys = j_initial.build_initial_state(phys, k, geo)
+            st, phys = j_initial.build_initial_state(phys, k, geo,
+                                                     nbody=nbody)
             fields = {n: np.asarray(getattr(st, n))
                       for n in ("sigma", "vrad", "vaz", "energy")}
         else:
-            st, phys = build(phys, k, geo, dtype=torch.float64, device="cpu")
+            st, phys = build(phys, k, geo, nbody=nbody, dtype=torch.float64,
+                             device="cpu")
             fields = {n: getattr(st, n).numpy()
                       for n in ("sigma", "vrad", "vaz", "energy")}
         out.append((fields, phys.sigma0))
     return out
 
 
-def _assert_equal(cfg, vrad_rtol=1e-14):
-    (jf, js0), (tf, ts0) = _both(cfg)
+def _assert_equal(cfg, vrad_rtol=1e-14, nbody=None):
+    (jf, js0), (tf, ts0) = _both(cfg, nbody)
     for name in ("sigma", "vaz", "energy", "vrad"):
         rtol = vrad_rtol if name == "vrad" else 1e-14
         np.testing.assert_allclose(tf[name], jf[name], rtol=rtol, atol=0.0,
@@ -138,6 +143,14 @@ def test_profile_files(tmp_path, kind, which):
     assert geo.nrad == tf["sigma"].shape[0]
 
 
+# a star and a companion of 0.3 on a circular orbit at r = 1.2, whose
+# Roche lobe (0.34) reaches past the closest a cell may be to it (Rmin / 3)
+TWO_BODIES = {"x": np.array([0.0, 1.2]), "y": np.array([0.0, 0.0]),
+              "vx": np.array([0.0, 0.0]),
+              "vy": np.array([0.0, np.sqrt(1.3 / 1.2)]),
+              "mass": np.array([1.0, 0.3])}
+
+
 @pytest.mark.parametrize("extra,feature", [
     ({"ShockTube": "2"}, "PVTE shock tube"),
     ({"RandomSigma": "Yes"}, "SigmaRandomize"),
@@ -145,13 +158,26 @@ def test_profile_files(tmp_path, kind, which):
     ({"SecondaryDisk": "Yes"}, "secondary disk"),
 ])
 def test_initial_conditions_outside_the_slice_raise(extra, feature):
-    cfg = dict(BASE, EquationOfState="Ideal", **extra)
-    c = Config.from_dict(cfg)
-    un = units.shock_tube_units() if "ShockTube" in extra else \
-        units.Units.from_config_strings("1.0", "1.0", None, None)
-    c.set_units(un)
-    phys = physics_from_config(c, un, dtype="float64")
-    with pytest.raises(NotImplementedError, match=feature):
-        initial.build_initial_state(phys, Constants.from_units(un),
-                                    Geometry.from_config(c),
-                                    dtype=torch.float64, device="cpu")
+    """The initial conditions once outside the port's slice, now ported:
+    the PVTE shock tube, ``RandomSigma``, ``CentrifugalBalance`` and the
+    disk around the secondary equal the JAX package's (rtol 1e-14; v_rad,
+    the viscous drift, 1e-9)."""
+    cfg = dict(BASE, EquationOfState="Ideal", FeatureSize="0.05",
+               ProfileCutoffPointOuter="0.8", ProfileCutoffWidthOuter="0.1",
+               **extra)
+    secondary = "SecondaryDisk" in extra
+    tf, _ = _assert_equal(cfg, vrad_rtol=1e-9,
+                          nbody=TWO_BODIES if secondary else None)
+    _, (plain, _) = _both(dict(cfg, SecondaryDisk="No", RandomSigma="No",
+                               CentrifugalBalance="No", ShockTube="0"))
+    if "ShockTube" in extra:
+        assert set(np.unique(tf["sigma"])) == {0.125, 1.0}
+        assert tf["energy"].max() == 10.361627466581034
+    elif "CentrifugalBalance" in extra:
+        assert not np.array_equal(tf["vaz"], plain["vaz"])
+    elif secondary:
+        # on 8 sectors no v_az interface lies in the Roche lobe
+        assert not np.array_equal(tf["vrad"], plain["vrad"])
+        assert (tf["sigma"] > 1.5 * plain["sigma"]).any()
+    else:
+        assert not np.array_equal(tf["sigma"], plain["sigma"])

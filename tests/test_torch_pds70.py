@@ -206,10 +206,38 @@ def test_flagship_with_one_pds70_feature(extra):
 
 
 @pytest.mark.parametrize("extra,feature", [
-    ({"IntegrateParticles": "yes", "ParticleDustDiffusion": "yes"}, "dust"),
+    ({"IntegrateParticles": "yes", "ParticleDustDiffusion": "yes",
+      "NumberOfParticles": "128"}, "dust"),
     ({"SelfGravityMode": "besselkernel"}, "Bessel"),
     ({"PVTELookupTable": "yes"}, "PVTELookupTable"),
 ])
-def test_unported_features_raise(extra, feature):
-    with pytest.raises(NotImplementedError, match=feature):
-        Simulation(Config.from_dict(_cfg(16, 32, **extra)), device="cpu")
+def test_unported_features_raise(extra, feature, monkeypatch):
+    """The PDS70 gas setup's features once outside the slice, now ported,
+    at 16x32: four steps against the JAX package on its dt (rtol 1e-10,
+    v_rad 1e-9 of its largest value). The PVTE lookup shares the port's
+    table with the JAX package; dust diffusion draws one shared normal
+    array a step in both (tests/test_torch_dust_diffusion.py says why)."""
+    from longtail_pairs import share_port_tables
+    if "PVTELookupTable" in extra:
+        share_port_tables(monkeypatch)
+    if "ParticleDustDiffusion" in extra:
+        import jax
+        import jax.numpy as jnp
+        from fargocpt_torch.particles import dust
+        draw = np.random.default_rng(4).standard_normal(128)
+        monkeypatch.setattr(jax.random, "normal", lambda key, shape,
+                            dtype=None: jnp.asarray(draw, dtype))
+        monkeypatch.setattr(dust, "standard_normal",
+                            lambda state: torch.tensor(draw))
+    cfg = _cfg(16, 32, **extra)
+    js = JSimulation(JConfig.from_dict(dict(cfg)))
+    ts = Simulation(Config.from_dict(dict(cfg)), device="cpu")
+    for _ in range(4):
+        dj = js.calculate_time_step()
+        js.step_once(dj)
+        ts.step_once(torch.tensor(dj, dtype=torch.float64))
+    _assert_fields(ts.state, js.state)
+    if "IntegrateParticles" in extra:
+        np.testing.assert_allclose(ts.state.particles.r.numpy(),
+                                   np.asarray(js.state.particles.r),
+                                   rtol=1e-9)

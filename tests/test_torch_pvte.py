@@ -144,7 +144,24 @@ def test_pvte_class_in_code_units(n_newton):
         assert tp.refreshes == 2
 
 
-def test_lookup_table_mode_is_refused():
-    with pytest.raises(NotImplementedError, match="PVTELookupTable"):
-        pvte.PVTE(Physics(variable_gamma=True, pvte_lookup_table=True),
-                  Units(), torch.float64)
+def test_lookup_table_mode_is_refused(monkeypatch):
+    """The lookup table, once refused, now ported: a PVTE evaluator in
+    lookup mode gives the JAX package's (gamma_eff, mu, gamma1) on the same
+    tables to rtol 1e-12 (the tables are held against each other in
+    tests/test_torch_pvte_lookup.py; here the JAX package reads the
+    port's), and no warm start."""
+    monkeypatch.setattr(j_pvte, "lookup_tables", lambda x_mf: tuple(
+        t.numpy() for t in pvte.lookup_tables(x_mf, "cpu")))
+    phys = Physics(variable_gamma=True, pvte_lookup_table=True)
+    ev = pvte.PVTE(phys, Units(), torch.float64)
+    assert ev.lookup and not ev.fast
+    j_ev = j_pvte.PVTE(JPhysics(variable_gamma=True, pvte_lookup_table=True),
+                       JUnits(), jnp.float64)
+    rng = np.random.default_rng(12)
+    sigma = rng.uniform(1e-5, 1e-3, (8, 16))
+    energy = sigma * rng.uniform(1e-6, 1e-3, (8, 16))
+    h = rng.uniform(0.01, 0.1, (8, 16))
+    got = ev.gamma_mu(*(torch.tensor(a) for a in (sigma, energy, h)))
+    ref = j_ev.gamma_mu(sigma, energy, h)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-12)

@@ -127,7 +127,16 @@ def test_initial_vaz_correction(fields):
 
 
 def test_bessel_kernel_is_refused():
-    with pytest.raises(NotImplementedError, match="Bessel"):
-        sg.kernel_host(Physics(self_gravity=True,
-                               self_gravity_mode="besselkernel"),
-                       Geometry.build(NR, NAZ, 0.4, 2.5, "Log"), 0.05)
+    """The Bessel kernel, once refused, now ported: K_r and K_t equal the
+    JAX package's bit for bit (both built on the host with scipy), the
+    singular cell zeroed; tests/test_torch_sg_bessel.py steps it."""
+    k_r, k_t = sg.kernel_host(Physics(self_gravity=True,
+                                      self_gravity_mode="besselkernel"),
+                              Geometry.build(NR, NAZ, 0.4, 2.5, "Log"), 0.05)
+    j_r, j_t = j_sg.kernel_host(JPhysics(self_gravity=True,
+                                         self_gravity_mode="besselkernel"),
+                                JGeometry.build(NR, NAZ, 0.4, 2.5, "Log"),
+                                0.05)
+    np.testing.assert_array_equal(k_r, j_r)
+    np.testing.assert_array_equal(k_t, j_t)
+    assert k_r[0, 0] == 0.0 and np.abs(k_r).max() > 0.0

@@ -201,13 +201,44 @@ def test_default_device_is_the_card():
 @pytest.mark.parametrize("extra,feature", [
     ({"EquationOfState": "PVTE", "PVTELookupTable": "Yes"}, "PVTE"),
     ({"SelfGravity": "Yes"}, "self-gravity"),        # the Bessel kernel
-    ({"IntegrateParticles": "Yes", "ParticleDustDiffusion": "Yes"},
-     "dust diffusion"),
+    ({"IntegrateParticles": "Yes", "ParticleDustDiffusion": "Yes",
+      "NumberOfParticles": "200"}, "dust diffusion"),
     ({"EquationOfState": "Polytropic"}, "polytropic"),
     ({"Disk": "No"}, "Disk: no"),
 ])
-def test_features_outside_the_slice_raise(extra, feature):
-    with pytest.raises(NotImplementedError, match=feature):
-        Simulation(Config.from_dict(dict(FLAGSHIP, **extra)),
-                   device="cpu")
+def test_features_outside_the_slice_raise(extra, feature, monkeypatch):
+    """The features once outside the slice, now ported, on the flagship at
+    32x64: ten steps against the JAX package on one dt sequence (rtol
+    1e-10, v_rad 1e-9 of its largest value). The PVTE lookup shares the
+    port's table with the JAX package (tests/test_torch_pvte_lookup.py
+    holds the two tables against each other); dust diffusion draws one
+    shared normal array a step in both (tests/test_torch_dust_diffusion.py
+    says why)."""
+    from longtail_pairs import assert_fields, build_pair, share_port_tables
+    from longtail_pairs import step_pair
+    if "PVTELookupTable" in extra:
+        share_port_tables(monkeypatch)
+    if "ParticleDustDiffusion" in extra:
+        import jax
+        import jax.numpy as jnp
+        from fargocpt_torch.particles import dust
+        draw = np.random.default_rng(2).standard_normal(200)
+        monkeypatch.setattr(jax.random, "normal", lambda key, shape,
+                            dtype=None: jnp.asarray(draw, dtype))
+        monkeypatch.setattr(dust, "standard_normal",
+                            lambda state: torch.tensor(draw))
+    js, ts = build_pair(dict(FLAGSHIP, Nrad="32", Naz="64", FirstDT="1e-3",
+                             **extra))
+    before = {n: getattr(ts.state.fields, n).clone() for n in FIELDS}
+    step_pair(js, ts, 10)
+    assert_fields(ts.state, js.state)
+    moved = float((ts.state.fields.sigma - before["sigma"]).abs().max())
+    if feature == "Disk: no":
+        assert moved == 0.0 and float(ts.last_dt) == 1e-3
+    else:
+        assert moved > 0.0
+    if "ParticleDustDiffusion" in extra:
+        np.testing.assert_allclose(ts.state.particles.r.numpy(),
+                                   np.asarray(js.state.particles.r),
+                                   rtol=1e-9)
 
