@@ -221,7 +221,21 @@ Phases (any failure raises, so the exit code is not 0):
      temperature goldens' MassFlow.dat at the deviation the JAX package's
      CPU run leaves), and each one's wall time; then the shocktube_pvte
      tube with the float64 bisection solve, ms a step over 20 steps (its
-     3283-step golden, 6e-3, is the CPU tests' slow tier).
+     3283-step golden, 6e-3, is the CPU tests' slow tier);
+  7. the radial decomposition (fargocpt_torch.parallel): ranks spawned by
+     parallel.launch that share the one card over gloo, each collective
+     staged through the host (NCCL, a card a rank, is refused by name
+     here). 2 ranks: the flagship at 192x64 float64, one step and a
+     monitor interval through cfl, sources, viscous_kick and the
+     transport (counted around the sharded calls on every rank) against
+     the single-process run on the card (1e-13 and 1e-11 of each field's
+     scale, the same step count and landing time), then at 1024x3072
+     float32 five steps, each with the sharded CFL (cfl, sources,
+     viscous_kick, the transport counted; each field within F32_TOL of
+     its scale), ms a
+     step of the sharded and the one-process run (ranks sharing one card:
+     not a scaling figure) and the bytes each rank sent a step beside
+     comm_model; 4 ranks: the 192x64 float64 checks.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -233,8 +247,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -2919,6 +2935,331 @@ def pvte_bisection_ms(gpu, steps=20) -> dict:
     return {"ms_per_step": ms, "estimated_golden_s": ms * 3283 / 1e3}
 
 
+# --- 7. the radial decomposition on ranks sharing the card -------------
+SHARD_SMALL = (192, 64)       # tests/test_shard_map.py's flagship grid
+SHARD_STEPS = 5               # float32 steps at full width
+SHARD_TIMED = 10              # timed steps of each run
+SHARD_OPS = ("cfl", "sources", "viscous_kick", "transport")
+# the cases of tests/shard_ranks.py the 4-rank world runs on the card, each
+# three steps of 1e-4 sharded against one process, with the CPU tests'
+# gates (tests/test_torch_shard.py): (name, dtype, the grids' gate, the
+# case's own values, their gate), each a largest difference over its scale
+SHARD_CASES = (
+    ("fld", "float64", 5e-12, ("fld_sor",), 1e-12),
+    ("selfgravity", "float64", 5e-12,
+     ("sg_kernel.0", "sg_kernel.1", "sg_kernel.2"), 1e-12),
+    ("buckets", "float64", 1e-13,
+     tuple(f"particles.{f}" for f in ("r", "phi", "r_dot", "phi_dot",
+                                      "stokes", "timestep")), 1e-12),
+    ("pvte", "float32", 5e-6, ("pvte_guess.0", "pvte_guess.1"), 5e-6))
+# parallel.run on 4 ranks with DistributedOutput: two snapshots
+SHARD_RUN = {"DistributedOutput": "yes", "Nsnapshots": 2,
+             "MonitorTimestep": 0.01}
+GRIDS = ("fields.sigma", "fields.vrad", "fields.vaz", "fields.energy",
+         "qplus", "qminus")
+
+
+def _shard_ranks():
+    """tests/shard_ranks.py: the sharded cases and rank functions of the
+    CPU tests (it imports no JAX)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import shard_ranks
+    return shard_ranks
+
+
+def rank_shard_cases(comm, outdir) -> dict:
+    """One rank of phase 7's 4-rank world beyond the flagship: each case
+    of SHARD_CASES (FLD's per-sweep halo refresh, self-gravity's
+    all_gather, the buckets' migration, artvisc_sn and the PVTE pair in a
+    window) sharded against one process on the card, reduced here to each
+    value's largest difference over its scale; then ``parallel.run`` of
+    the flagship with SHARD_RUN into ``outdir`` and its last snapshot's
+    row files restored onto the ranks."""
+    from fargocpt_torch.ops import kernels as K
+    sr = _shard_ranks()
+    out = {}
+    for name, dtype, _, extras, _ in SHARD_CASES:
+        t0 = time.perf_counter()
+        K.reset_launches()
+        r = sr.rank_case(comm, name, dtype=dtype)
+        torch.cuda.synchronize()
+        s1, s2 = r.pop("states")
+        r.update(diffs={k: sr.rel(s1[k], s2[k]) for k in GRIDS + extras},
+                 launches=dict(K.LAUNCHES), s=time.perf_counter() - t0)
+        if name == "buckets":
+            r["alive_equal"] = bool(np.array_equal(s1["particles.alive"],
+                                                   s2["particles.alive"]))
+        if name == "selfgravity":
+            r["alpha_grav_mean"] = sr.rel(s1["monitor_acc.alpha_grav_mean"],
+                                          s2["monitor_acc.alpha_grav_mean"])
+        out[name] = r
+    t0 = time.perf_counter()
+    cfg = sr.config(None, **SHARD_RUN)
+    final, n_steps = sr.rank_run(comm, cfg, outdir)
+    back, t_back, _ = sr.rank_restore(comm, cfg, outdir,
+                                      SHARD_RUN["Nsnapshots"])
+    out["run"] = {"n_steps": n_steps, "time": t_back,
+                  "restored_equal": all(np.array_equal(final[k], back[k])
+                                        for k in GRIDS[:4]),
+                  "s": time.perf_counter() - t0}
+    return out
+
+
+def check_shard_cases(ranks, outdir, gpu) -> dict:
+    """The 4-rank cases against the CPU tests' gates, and the sharded
+    run's files against one process's run of the same setup on the card:
+    the row files reassembled, the 1-D files, misc.bin, nbody.bin and
+    the monitor files byte for byte."""
+    from pathlib import Path
+    from fargocpt_torch import output as tout
+    from fargocpt_torch.config import Config
+    from fargocpt_torch.sim import Simulation
+    sr = _shard_ranks()
+    res = {}
+    for name, _, gate, extras, extras_gate in SHARD_CASES:
+        cases = [r["cases"][name] for r in ranks]
+        for k, c in enumerate(cases):
+            bad = {key: v for key, v in c["diffs"].items()
+                   if not v < (extras_gate if key in extras else gate)}
+            if bad or not c.get("alive_equal", True):
+                raise AssertionError(f"4 ranks: rank {k} {name} "
+                                     f"{bad or 'particles.alive differ'}")
+        c0 = cases[0]
+        fails = {
+            "fld": lambda: c0["fld_iterations"][0] != c0["fld_iterations"][1],
+            "selfgravity": lambda: not c0["alpha_grav_mean"] < 1e-3 or any(
+                c["bytes"]["all_gather"]
+                != 3 * c["model"]["selfgravity_allgather"] for c in cases),
+            "buckets": lambda: sum(c["overflow"] for c in cases) != 0
+            or not np.array_equal(np.sort(np.concatenate(
+                [c["pids"] for c in cases])), np.arange(64)),
+            "pvte": lambda: not c0["launches"].get("artvisc_sn", 0) > 0,
+        }
+        if fails[name]():
+            raise AssertionError(f"4 ranks: {name} {c0}")
+        worst = max(max(c["diffs"].values()) for c in cases)
+        res[name] = {"max_rel": worst, "s": c0["s"],
+                     "launches": c0["launches"]}
+        log(f"  4 ranks {name} ({c0['s']:.1f} s): largest difference "
+            f"{worst:.3e} of scale against one process (gates {gate:g}, "
+            f"{extras_gate:g}); kernels of both runs {c0['launches']}")
+    run = ranks[0]["cases"]["run"]
+    if not all(r["cases"]["run"]["restored_equal"] for r in ranks):
+        raise AssertionError("the row files did not restore bit for bit")
+    serial = Path(outdir).parent / "serial"
+    sim = Simulation(Config.from_dict(sr.config(None, **SHARD_RUN)),
+                     device="cuda")
+    writer = tout.OutputWriter(sim, serial)
+    sim.run()
+    writer.close()
+    if sim.n_hydro_iter != run["n_steps"]:
+        raise AssertionError(f"run: {run['n_steps']} sharded steps, "
+                             f"{sim.n_hydro_iter} on one process")
+    n_files = 0
+    for sid in map(str, range(SHARD_RUN["Nsnapshots"] + 1)):
+        a, b = serial / "snapshots" / sid, Path(outdir) / "snapshots" / sid
+        for f in sorted(a.iterdir()):
+            if f.name == "config.yml":
+                continue              # the directories differ in it
+            rows = tout.row_files(b, f.name[:-4])
+            if rows:
+                got = b"".join(p.read_bytes() for _, _, p in rows)
+            else:
+                got = (b / f.name).read_bytes()
+            if got != f.read_bytes():
+                raise AssertionError(f"run: snapshot {sid} {f.name} differs "
+                                     "from one process's")
+            n_files += 1
+    for name in ("Quantities.dat", "nbody0.dat"):
+        if (serial / "monitor" / name).read_bytes() \
+                != (Path(outdir) / "monitor" / name).read_bytes():
+            raise AssertionError(f"run: monitor/{name} differs")
+    log(f"  4 ranks parallel.run with DistributedOutput ({run['s']:.1f} s, "
+        f"{run['n_steps']} steps): {n_files} snapshot files and the monitor "
+        f"files equal one process's byte for byte; the last snapshot's row "
+        f"files restore onto the ranks bit for bit [{gpu}]")
+    res["run"] = {**run, "files_equal": n_files}
+    return res
+
+
+def _field_diffs(a, b, names=("sigma", "vrad", "vaz", "energy"),
+                 scale=False) -> dict:
+    """Each field's largest difference, over its largest magnitude where
+    ``scale``."""
+    out = {}
+    for name in names:
+        x, y = getattr(a.fields, name), getattr(b.fields, name)
+        d = float((x - y).abs().max())
+        out[name] = d / max(float(x.abs().max()), 1e-300) if scale else d
+    for name in ("qplus", "qminus"):
+        x, y = getattr(a, name), getattr(b, name)
+        d = float((x - y).abs().max())
+        out[name] = d / max(float(x.abs().max()), 1e-300) if scale else d
+    return out
+
+
+def rank_sharded(comm, full: bool, outdir=None) -> dict:
+    """One rank of phase 7: the flagship at 192x64 float64 (one step of
+    2e-4 and an interval to t = 0.05, sharded against the single-process
+    run on the card, both through the kernels, the kernels counted around
+    the sharded calls only); with ``full`` the flagship at 1024x3072
+    float32 (SHARD_STEPS steps on the single-process run's CFL dt, each
+    field within F32_TOL of its scale), then SHARD_TIMED steps of CFL +
+    step of each run timed (the single-process one on rank 0 alone, the
+    others waiting) and the bytes the communicator sent a step."""
+    from fargocpt_torch.ops import kernels as K
+    from fargocpt_torch.parallel.shard_step import ShardedHydroStep
+    out = {"rank": comm.rank}
+    sim = flagship(*SHARD_SMALL, "float64", comm.device)
+    ss = ShardedHydroStep(sim.stepper, comm)
+    local = ss.shard_state(sim.state)
+    K.reset_launches()
+    loc = ss.step(local, 0.0, 2e-4)
+    torch.cuda.synchronize()
+    out["launches_step"] = dict(K.LAUNCHES)
+    one = sim.stepper.step(sim.state, 0.0, 2e-4)
+    out["f64_step"] = _field_diffs(one, ss.gather(loc), scale=True)
+    o1 = sim.stepper.advance_to(sim.state, 0.0, 1e-4, 0.05)
+    K.reset_launches()
+    o2 = ss.advance_to(local, 0.0, 1e-4, 0.05)
+    torch.cuda.synchronize()
+    out["launches_interval"] = dict(K.LAUNCHES)
+    out["f64_interval"] = _field_diffs(o1[0], ss.gather(o2[0]), scale=True)
+    out["interval"] = ((o1[3], float(o1[1]), float(o1[2])),
+                       (o2[3], float(o2[1]), float(o2[2])))
+    if not full:
+        out["cases"] = rank_shard_cases(comm, outdir)
+        return out
+    del sim, ss, local, loc, one, o1, o2
+    sim = flagship(NR, NAZ, "float32", comm.device)
+    ss = ShardedHydroStep(sim.stepper, comm)
+    local = ss.shard_state(sim.state)
+    state, t, dts = sim.state, 0.0, []
+    for _ in range(SHARD_STEPS):
+        dt = float(sim.stepper.cfl_dt(state))
+        state = sim.stepper.step(state, t, dt)
+        dts.append((t, dt))
+        t += dt
+    K.reset_launches()
+    cfl_rel = 0.0
+    for t, dt in dts:
+        dt_s = float(ss.cfl_dt(local))
+        cfl_rel = max(cfl_rel, abs(dt_s - dt) / dt)
+        local = ss.step(local, t, dt)
+    torch.cuda.synchronize()
+    out["launches_f32"] = dict(K.LAUNCHES)
+    out["f32_cfl_rel"] = cfl_rel
+    out["f32_steps"] = _field_diffs(state, ss.gather(local), scale=True)
+    out["comm_model"] = ss.comm_model()
+
+    def timed(run):
+        comm.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / SHARD_TIMED * 1e3
+
+    def single():
+        sim.stepper.advance_to(sim.state, 0.0, 1e-4, 1.0,
+                               max_steps=SHARD_TIMED)
+    if comm.rank == 0:
+        single()                                   # warm
+        out["single_ms"] = timed(single)
+    else:
+        out["single_ms"] = timed(lambda: None)
+    ss.advance_to(local, 0.0, 1e-4, 1.0, max_steps=2)     # warm
+    comm.reset_counters()
+    out["sharded_ms"] = timed(lambda: ss.advance_to(
+        local, 0.0, 1e-4, 1.0, max_steps=SHARD_TIMED))
+    out["bytes_per_step"] = {k: v // SHARD_TIMED
+                             for k, v in comm.bytes_sent.items()}
+    return out
+
+
+def sharded_phase(gpu) -> dict:
+    """Phase 7: ``fargocpt_torch.parallel`` on ranks that share the one
+    card over gloo (each collective staged through the host): 2 ranks with
+    the full checks of ``rank_sharded``, then 4 at 192x64 float64. The
+    float64 gates are the JAX package's (tests/test_shard_map.py): 1e-13
+    of each field's scale for a step, 1e-11 for an interval, the same step
+    count and landing time. NCCL, which needs a card a rank, is refused by
+    name on this one-card host."""
+    from fargocpt_torch.parallel import launch as plaunch
+    try:
+        plaunch.check_pair("nccl", "cuda", 2)
+    except ValueError as e:
+        log(f"  nccl with 2 ranks refused: {e}")
+    else:
+        if torch.cuda.device_count() < 2:
+            raise AssertionError("nccl was not refused on one card")
+    res = {}
+    # the ranks meet at a file of their own, not at a port that another
+    # process could take first
+    work = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    for n, full in ((2, True), (4, False)):
+        t0 = time.perf_counter()
+        outdir = os.path.join(work, f"rows_{n}")
+        ranks = plaunch.launch(
+            rank_sharded, n, backend="gloo", device="cuda",
+            args=(full, outdir),
+            init_method=f"file://{os.path.join(work, f'store_{n}')}")
+        wall = time.perf_counter() - t0
+        for r in ranks:
+            for label in ("launches_step", "launches_interval") + (
+                    ("launches_f32",) if full else ()):
+                # a lone step takes no CFL
+                for op in SHARD_OPS[label == "launches_step":]:
+                    if not r[label][op] > 0:
+                        raise AssertionError(
+                            f"{n} ranks: rank {r['rank']} launched no {op} "
+                            f"in its {label[9:]}")
+            for label, gate in (("f64_step", 1e-13), ("f64_interval", 1e-11)):
+                worst = max(r[label].values())
+                if not worst < gate:
+                    raise AssertionError(f"{n} ranks: rank {r['rank']} "
+                                         f"{label} {r[label]}")
+            (n1, t1, _), (n2, t2, _) = r["interval"]
+            if (n1, t1) != (n2, t2) or r["interval"] != ranks[0]["interval"]:
+                raise AssertionError(f"{n} ranks: interval {r['interval']}")
+            if full and not max(r["f32_steps"].values()) < F32_TOL:
+                raise AssertionError(f"{n} ranks: rank {r['rank']} float32 "
+                                     f"{r['f32_steps']}")
+        r0 = ranks[0]
+        log(f"  {n} ranks sharing the card (gloo, host-staged), "
+            f"{SHARD_SMALL[0]}x{SHARD_SMALL[1]} float64 against one "
+            f"process: step {max(r0['f64_step'].values()):.3e}, interval "
+            f"to 0.05 ({r0['interval'][1][0]} steps) "
+            f"{max(max(r['f64_interval'].values()) for r in ranks):.3e} of "
+            f"scale; kernels of a sharded step {r0['launches_step']}; "
+            f"world {wall:.1f} s")
+        entry = {"wall_s": wall, "ranks": ranks}
+        if full:
+            worst = max(max(r["f32_steps"].values()) for r in ranks)
+            model = r0["comm_model"]
+            log(f"  {n} ranks {NR}x{NAZ} float32, {SHARD_STEPS} steps: "
+                f"largest field difference {worst:.3e} of scale, the "
+                f"sharded CFL dt within "
+                f"{max(r['f32_cfl_rel'] for r in ranks):.3e} of the one "
+                f"process's; kernels {r0['launches_f32']}")
+            log(f"  {n} ranks sharing one card, not a scaling figure: "
+                f"sharded {max(r['sharded_ms'] for r in ranks):.4f} ms/step "
+                f"(CFL + step), one process {r0['single_ms']:.4f} ms/step "
+                f"[{gpu}]")
+            log(f"  bytes a step by kind, each rank: "
+                + "; ".join(f"rank {r['rank']} {r['bytes_per_step']}"
+                            for r in ranks)
+                + f"; comm_model (an interior rank) {model}")
+            entry["f32_max_rel"] = worst
+        else:
+            entry["cases"] = check_shard_cases(ranks, outdir, gpu)
+            for r in ranks:
+                del r["cases"]
+        res[f"ranks_{n}"] = entry
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA "
@@ -3188,6 +3529,10 @@ def main() -> int:
     res_goldens["shocktube_pvte_bisection"] = pvte_bisection_ms(gpu)
     log(f"  phase 6 done at {time.perf_counter() - t_main:.1f} s")
 
+    log("== 7. the radial decomposition: ranks sharing the card over gloo")
+    res_sharded = sharded_phase(gpu)
+    log(f"  phase 7 done at {time.perf_counter() - t_main:.1f} s")
+
     # launches: each kernel's count from the run of its own path in phase 3
     # (KERNELS: the whole route for cfl, sources and viscous_kick as well,
     # the PDS70 gas step for artvisc_sn)
@@ -3219,6 +3564,7 @@ def main() -> int:
                     f"step_ms_in_turns_at_{NR_SPLIT}": turns,
                     f"step_ms_in_turns_at_{NR}": turns3,
                     "command_line": res_cli,
+                    "sharded": res_sharded,
                     "slices": {r: {k: v for k, v in x.items()
                                    if k != "launches"}
                                for r, x in res.items()}}))

@@ -19,7 +19,7 @@ import torch
 
 from ..nbody import system as nbody_sys
 from ..params import Physics
-from .common import Geom, azim_next
+from .common import Geom, azim_next, ring_col
 
 VARIANTS = ("kley", "sinkhole", "viscous")
 
@@ -73,15 +73,17 @@ def accrete_onto_planets(phys: Physics, constants, g: Geom,
                          nb: nbody_sys.NBodyState, efficiency: torch.Tensor,
                          types: list[str], cell_x, cell_y, sigma, energy,
                          vrad, vaz, omega_frame, dt, nu_grid=None,
-                         periods=None):
+                         periods=None, row_w=None, comm=None):
     """Accretion by every accreting body (``types[k]`` one of
     ``VARIANTS``; ``efficiency`` the (N,) accretion efficiencies in the
     field type). ``nu_grid`` is the viscosity grid the viscous variant
     reads; ``periods`` the orbital periods sampled at the last drift
     (``orbital_periods(constants, nb)`` when None). Returns (sigma,
     energy, nb), the bodies' masses and velocities updated when disk
-    feedback is on (reference :200-219)."""
-    nr = g.nrad
+    feedback is on (reference :200-219). ``row_w`` (NR, 1) weights the rows
+    whose mass the bodies gain, 2..NR-2 when None; sharded, the window's
+    owned rows of them, and ``comm`` sums each body's gains over the ranks
+    (fargocpt_tpu/ops/accretion.py:195-203)."""
     dtype = sigma.dtype
     floor = phys.sigma_floor * phys.sigma0
     # cell-centred cartesian gas velocities (reference :155-161)
@@ -91,8 +93,7 @@ def accrete_onto_planets(phys: Physics, constants, g: Geom,
     vy_cell = (vr_cell * cell_y + vt_cell * cell_x) * g.inv_rb
     # the rows whose mass the bodies gain (reference :172-176: rows 2 to
     # NR - 2 in the serial layout)
-    row = torch.arange(nr, device=sigma.device)[:, None]
-    active = (row > 1) & (row < nr - 1)
+    row_w = ring_col(g, 2) if row_w is None else row_w
 
     if periods is None:
         periods = orbital_periods(constants, nb)
@@ -162,10 +163,12 @@ def accrete_onto_planets(phys: Physics, constants, g: Geom,
             if phys.is_adiabatic:
                 energy = energy * (1.0 - f1)
 
-        dm = torch.where(active, dm, zero)
+        dm = dm * row_w
         d_m = torch.sum(dm)
         d_px = torch.sum(dm * vx_cell)
         d_py = torch.sum(dm * vy_cell)
+        if comm is not None:
+            d_m, d_px, d_py = comm.sum(torch.stack([d_m, d_px, d_py]))
         if phys.disk_feedback or phys.accrete_without_disk_feedback:
             # reference accretion.cpp:207, 319, 466
             m_new = mass[k] + d_m

@@ -104,6 +104,13 @@ class Geom(nn.Module):
         self.naz = geometry.naz
 
 
+def ring_col(g: Geom, lo: int) -> torch.Tensor:
+    """(NR, 1) 1.0 on the rings ``lo``..NR-2 and 0.0 elsewhere, in the
+    grid's dtype: the row weight of a sum over the active rings."""
+    row = torch.arange(g.nrad, device=g.surf.device)[:, None]
+    return ((row >= lo) & (row <= g.nrad - 2)).to(g.surf.dtype)
+
+
 def set_rows(x: torch.Tensor, new: torch.Tensor, lo: int,
              hi: int) -> torch.Tensor:
     """x with rows [lo, hi) replaced by the matching rows of ``new`` (both

@@ -136,15 +136,21 @@ class DampingZones(nn.Module):
                           dt, mi, mo)
         return sigma, vrad, vaz, energy
 
-    def mass_deltas(self, g, sig_before, sig_after) -> torch.Tensor:
+    def mass_deltas(self, g, sig_before, sig_after, row_w=None,
+                    comm=None) -> torch.Tensor:
         """The (4,) mass the zones created and removed: inner creation,
         inner removal, outer creation, outer removal (the JAX package's
-        ``_apply_bcs`` ``want_damping_delta``)."""
+        ``_apply_bcs`` ``want_damping_delta``). Sharded, ``row_w`` is the
+        window's column of owned rows and ``comm`` sums over the ranks
+        (fargocpt_tpu/step.py:544-552)."""
         dm = (sig_after - sig_before) * g.surf
+        if row_w is not None:
+            dm = dm * row_w
         zero = torch.zeros_like(dm)
         din = torch.where(self.in_b, dm, zero)
         dout = torch.where(self.out_b, dm, zero)
-        return torch.stack([torch.sum(torch.clamp(din, min=0.0)),
-                            torch.sum(torch.clamp(-din, min=0.0)),
-                            torch.sum(torch.clamp(dout, min=0.0)),
-                            torch.sum(torch.clamp(-dout, min=0.0))])
+        out = torch.stack([torch.sum(torch.clamp(din, min=0.0)),
+                           torch.sum(torch.clamp(-din, min=0.0)),
+                           torch.sum(torch.clamp(dout, min=0.0)),
+                           torch.sum(torch.clamp(-dout, min=0.0))])
+        return comm.sum(out) if comm is not None else out

@@ -9,6 +9,14 @@ while the loop condition holds (``torch.where`` on a 0-d device flag), so
 a block that runs past convergence changes nothing, and the host reads the
 flag once per block. The iterates, the final temperature and ``n_iter``
 are those of the while loop; only the number of host reads changes.
+
+Sharded (``parallel/shard_step.py``), a rank solves on its window: the
+halo rows of T are refreshed from the neighbours before each measured
+double sweep and once after the loop (``halo_fn``, the reference's
+per-iteration exchange, src/fld.cpp:596-656), the red-black colouring
+follows the global ring index, and the norm sums the owned active cells
+over the ranks (``shard_ctx``; the MPI_Allreduce of :748), so every rank
+reads the same flag (fargocpt_tpu/ops/fld.py:177-277).
 """
 
 from __future__ import annotations
@@ -170,10 +178,12 @@ class FLDSolver:
         omega = torch.clamp(omega, 1.0, 1.99)
         return torch.stack([omega, direction, it])
 
-    def solve(self, T, Told, A, B, C, D, E, omega=None):
+    def solve(self, T, Told, A, B, C, D, E, omega=None, halo_fn=None,
+              shard_ctx=None):
         """Red-black SOR with the reference's convergence test: the change
         of the cell-averaged update norm below the tolerance
-        (src/fld.cpp:694-790). Returns (T, n_iter), n_iter a host int."""
+        (src/fld.cpp:694-790). Returns (T, n_iter), n_iter a host int.
+        ``halo_fn`` and ``shard_ctx`` as the module's docstring says."""
         cfg = self.config
         if omega is None:
             omega = cfg.omega
@@ -182,6 +192,12 @@ class FLDSolver:
         tmax = finite_in(self.phys.maximum_temperature, T.dtype)
         A, B, C, D, E, Told = (x[1:-1] for x in (A, B, C, D, E, Told))
         red, black, active = self.red, self.black, self.active
+        n_cells, reduce = self.n_cells, None
+        if shard_ctx is not None:
+            red, active = shard_ctx["red"], shard_ctx["active"]
+            black = ~red
+            n_cells, reduce = shard_ctx["n_cells"], shard_ctx["reduce"]
+        refresh = halo_fn if halo_fn is not None else (lambda x: x)
 
         def half_sweep(T, color):
             gs = (A * T[:-2] + C * T[2:]
@@ -202,11 +218,14 @@ class FLDSolver:
                 go = (change > tol) & (it < cfg.max_iterations)
                 Tn = T
                 for _ in range(K - 1):
-                    Tn = half_sweep(half_sweep(Tn, red), black)
-                T_old_iter = Tn
+                    Tn = half_sweep(half_sweep(refresh(Tn), red), black)
+                T_old_iter = Tn = refresh(Tn)
                 Tn = half_sweep(half_sweep(Tn, red), black)
                 diff2 = torch.where(active, (Tn - T_old_iter) ** 2, 0.0)
-                avg = torch.sqrt(torch.sum(diff2)) / self.n_cells
+                ssum = torch.sum(diff2)
+                if reduce is not None:
+                    ssum = reduce(ssum)
+                avg = torch.sqrt(ssum) / n_cells
                 T = torch.where(go, Tn, T)
                 change = torch.where(go, torch.abs(avg - last_avg), change)
                 last_avg = torch.where(go, avg, last_avg)
@@ -214,6 +233,8 @@ class FLDSolver:
             if not bool((change > tol) & (it < cfg.max_iterations)):
                 break
             block = SOR_BLOCK
+        # the ghost rows hold the neighbours' final values
+        T = refresh(T)
         n_iter = int(it)
         self.last_n_iter = n_iter
         self.iterations += n_iter
@@ -221,7 +242,7 @@ class FLDSolver:
 
     # ------------------------------------------------------------------
     def radiative_diffusion(self, g: Geom, sigma, energy, scale_height, dt,
-                            sor_state=None):
+                            sor_state=None, halo_fn=None, shard_ctx=None):
         """The FLD substep on the energy (reference src/fld.cpp:965-1019).
         With ``sor_state`` (auto-omega) the relaxation factor is taken from
         and walked in the carried state. Returns (energy, n_iter,
@@ -234,7 +255,8 @@ class FLDSolver:
         ka, kb = self.diffusion_coefficients(g, rho, T)
         A, B, C, D, E = self.matrix_elements(g, rho, ka, kb, dt)
         omega = sor_state[0] if sor_state is not None else None
-        T_new, n_iter = self.solve(T, T, A, B, C, D, E, omega=omega)
+        T_new, n_iter = self.solve(T, T, A, B, C, D, E, omega=omega,
+                                   halo_fn=halo_fn, shard_ctx=shard_ctx)
         if sor_state is not None:
             sor_state = self.adapt_omega(sor_state, n_iter)
         energy = set_rows(energy, c_v * T_new * sigma, 1, nr - 1)

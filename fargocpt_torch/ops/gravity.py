@@ -13,7 +13,7 @@ from dataclasses import dataclass
 import torch
 
 from ..params import Physics
-from .common import Geom
+from .common import Geom, ring_col
 
 
 @dataclass(frozen=True)
@@ -71,15 +71,19 @@ def nbody_potential(phys: Physics, constants, g: Geom,
 def disk_on_body_accel(phys: Physics, constants, g: Geom,
                        bodies: BodiesOnGrid, n_bodies: int,
                        cell_x: torch.Tensor, cell_y: torch.Tensor,
-                       scale_height: torch.Tensor, sigma: torch.Tensor):
+                       scale_height: torch.Tensor, sigma: torch.Tensor,
+                       row_w=None, comm=None):
     """Acceleration of each body by the gas of the active rings 1..NR-2
     (reference src/Force.cpp:23-122 ``ComputeDiskOnPlanetAccel``), with
     the Klahr & Kley cubic smoothing. Body values are cast to the field
-    dtype first. Returns (ax, ay) of length N_bodies."""
+    dtype first. ``row_w`` (NR, 1) weights the rows, those rings when
+    None; sharded, the window's owned active rows, and ``comm`` sums the
+    ranks' parts (the MPI_Allreduce; fargocpt_tpu/ops/gravity.py:57-103).
+    Returns (ax, ay) of length N_bodies."""
     dt = cell_x.dtype
     bx, by = bodies.x.to(dt), bodies.y.to(dt)
     brs = bodies.cubic_smoothing_radius.to(dt)
-    nr = g.nrad
+    row_w = ring_col(g, 1) if row_w is None else row_w
     sig = sigma
     if phys.correct_disk_selfgravity:
         # only the non-axisymmetric disk pulls (reference src/Force.cpp:64-66)
@@ -99,8 +103,11 @@ def disk_on_body_accel(phys: Physics, constants, g: Geom,
                             -(3.0 * q ** 4 - 4.0 * q ** 3),
                             torch.ones_like(q))
         w = constants.G * cellmass * d_sm2 ** -1.5 * klahr
-        axs.append(torch.sum((w * dx)[1:nr - 1]))
-        ays.append(torch.sum((w * dy)[1:nr - 1]))
+        axs.append(torch.sum(w * dx * row_w))
+        ays.append(torch.sum(w * dy * row_w))
+    if comm is not None:
+        axy = comm.sum(torch.stack([torch.stack(axs), torch.stack(ays)]))
+        axs, ays = list(axy[0]), list(axy[1])
     if phys.planet_orbit_disk_test:
         # body 0 orbits in a fixed potential (reference
         # src/Pframeforce.cpp:218-221)

@@ -12,7 +12,7 @@ import math
 import torch
 
 from ..params import Physics
-from .common import Geom, accurate_cos, azim_next, azim_prev
+from .common import Geom, accurate_cos, azim_next, azim_prev, ring_col
 
 
 def _active(x, nr):
@@ -23,10 +23,16 @@ def _mask_cols(g: Geom, radius_limit):
     return g.rb[1:g.nrad - 1] <= radius_limit
 
 
-def total_mass(phys: Physics, g: Geom, sigma, radius_limit):
-    """reference src/quantities.cpp:51-80."""
-    w = torch.where(_mask_cols(g, radius_limit), g.surf[1:g.nrad - 1], 0.0)
-    return torch.sum(w * _active(sigma, g.nrad))
+def total_mass(phys: Physics, g: Geom, sigma, radius_limit, row_w=None,
+               comm=None):
+    """reference src/quantities.cpp:51-80. ``row_w`` (NR, 1) weights the
+    rows: the active rings 1..NR-2 when None; sharded, the window's owned
+    active rows, and ``comm`` sums over the ranks
+    (fargocpt_tpu/ops/quantities.py:27-38)."""
+    row_w = ring_col(g, 1) if row_w is None else row_w
+    w = torch.where(g.rb <= radius_limit, g.surf, 0.0) * row_w
+    s = torch.sum(w * sigma)
+    return comm.sum(s) if comm is not None else s
 
 
 def disk_radius(phys: Physics, g: Geom, sigma, total, frac: float = 0.99):
@@ -106,20 +112,25 @@ def eccentricity_vector(phys: Physics, constants, g: Geom, sigma, vrad, vaz,
     return e_x * ca - e_y * sa, e_y * ca + e_x * sa
 
 
-def mass_average(phys: Physics, g: Geom, sigma, arr, radius_limit):
-    """reference src/quantities.cpp:107-190."""
-    nr = g.nrad
-    w = torch.where(_mask_cols(g, radius_limit),
-                    (sigma * g.surf)[1:nr - 1], 0.0)
-    return torch.sum(w * _active(arr, nr)) / torch.sum(w)
+def mass_average(phys: Physics, g: Geom, sigma, arr, radius_limit,
+                 row_w=None, comm=None):
+    """reference src/quantities.cpp:107-190; ``row_w`` and ``comm`` as
+    ``total_mass`` takes them."""
+    row_w = ring_col(g, 1) if row_w is None else row_w
+    w = torch.where(g.rb <= radius_limit, sigma * g.surf, 0.0) * row_w
+    num_den = torch.stack([torch.sum(w * arr), torch.sum(w)])
+    if comm is not None:
+        num_den = comm.sum(num_den)
+    return num_den[0] / num_den[1]
 
 
 def disk_ecc_peri(phys: Physics, constants, g: Geom, sigma, vrad, vaz,
-                  omega_frame, frame_angle, cos_phi, sin_phi, radius_limit):
+                  omega_frame, frame_angle, cos_phi, sin_phi, radius_limit,
+                  row_w=None, comm=None):
     e_x, e_y = eccentricity_vector(phys, constants, g, sigma, vrad, vaz,
                                    omega_frame, frame_angle, cos_phi, sin_phi)
-    ax = mass_average(phys, g, sigma, e_x, radius_limit)
-    ay = mass_average(phys, g, sigma, e_y, radius_limit)
+    ax = mass_average(phys, g, sigma, e_x, radius_limit, row_w, comm)
+    ay = mass_average(phys, g, sigma, e_y, radius_limit, row_w, comm)
     return torch.sqrt(ax * ax + ay * ay), torch.atan2(ay, ax)
 
 

@@ -159,10 +159,14 @@ class SelfGravity:
                             device=self.k_r_hat.device),
                 int(self.phys.sg_kernel_update_interval))
 
-    def update_kernel(self, kstate, sigma, scale_height, g: Geom):
+    def update_kernel(self, kstate, sigma, scale_height, g: Geom,
+                      row_w=None, comm=None):
         """On every Nth call, rebuild the kernel spectra if the
         mass-averaged aspect ratio moved by more than the threshold
-        (reference :186-214 + quantities.cpp:107-140)."""
+        (reference :186-214 + quantities.cpp:107-140). Sharded, ``row_w``
+        is the window's column of owned rows and ``comm`` sums the mass
+        average's parts over the ranks (fargocpt_tpu/ops/selfgravity.py:
+        203-222), so every rank takes the same decision."""
         k_r_hat, k_t_hat, last_ar, since = kstate
         phys = self.phys
         due = since >= phys.sg_kernel_update_interval - 1
@@ -170,8 +174,15 @@ class SelfGravity:
         if not due:
             return (k_r_hat, k_t_hat, last_ar, since)
         inside = g.rb <= self.geometry.rmax
-        w = torch.where(inside, sigma * g.surf, 0.0)
-        ar_avg = torch.sum(scale_height * g.inv_rb * w) / torch.sum(w)
+        w = sigma * g.surf
+        if row_w is not None:
+            w = w * row_w
+        w = torch.where(inside, w, 0.0)
+        q_m = torch.stack([torch.sum(scale_height * g.inv_rb * w),
+                           torch.sum(w)])
+        if comm is not None:
+            q_m = comm.sum(q_m)
+        ar_avg = q_m[0] / q_m[1]
         # safety net (reference :158-161)
         ar_avg = torch.where(ar_avg == 0.0, phys.aspectratio_ref, ar_avg)
         if not bool(torch.abs(last_ar - ar_avg)

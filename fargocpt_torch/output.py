@@ -24,8 +24,15 @@ byte-compatible where analysis tooling depends on it —
     monitor/timestepLogging.dat (dt statistics, src/hydro_dt_logger.cpp)
     monitor/nbody{i}.dat      (per-body orbit data)
 
-The serial layout only: ``check_supported`` refuses by name the sharded
-files of ``DistributedOutput``. Tensors reach the host at a boundary with
+A run of one process writes the serial layout, with or without
+``DistributedOutput`` (as the JAX package does when the fields live on one
+device, fargocpt_tpu/output.py:258-259). A run sharded over ranks
+(``parallel/run.py``) with ``DistributedOutput`` writes each grid as row
+files, ``<Base>.r<start>-<stop>.dat`` of the rows each rank owns
+(``write_rows``; fargocpt_tpu/output.py:953-1000), and rank 0 the rest of
+the snapshot; ``check_supported`` refuses by name what such a run does
+not write yet. ``restore_simulation`` reads row files as it reads whole
+ones. Tensors reach the host at a boundary with
 one synchronise (``to_host``); the field dumps go through the native
 background writer (``native.AsyncFileWriter``) as float64. This module
 imports ``torch`` only inside its functions, so ``fargocpt_torch data``
@@ -35,6 +42,7 @@ imports ``torch`` only inside its functions, so ``fargocpt_torch data``
 from __future__ import annotations
 
 import math
+import re
 import shutil
 import struct
 from pathlib import Path
@@ -85,16 +93,32 @@ MONITOR_FILES = {"massflow": ("MassFlow", True),
 ECC_STAGES = ("source", "artvisc", "viscosity", "transport", "damping")
 
 
-def check_supported(phys) -> None:
-    """Raise NotImplementedError for every output the port does not write
-    yet, naming it."""
+def check_supported(phys, n_ranks: int = 1) -> None:
+    """Raise NotImplementedError for every output a run over ``n_ranks``
+    ranks does not write yet, naming it. One rank writes everything; a
+    sharded run without DistributedOutput gathers its state and writes the
+    serial layout; with DistributedOutput it writes the prognostic grids,
+    Q+ / Q-, the PVTE cache and the temperature as row files and the 1-D
+    files of the serial layout, not yet the outputs below."""
+    if n_ranks <= 1 or not phys.distributed_output:
+        return
     unsupported = {
-        "DistributedOutput (sharded snapshot files)":
-            phys.distributed_output,
+        "the Write* 2-D fields": bool(phys.snapshot_fields),
+        "the monitor grids (WriteMassFlow, WriteGasTorques, "
+        "WriteAlphaGravMean, WriteAlphaReynoldsMean)":
+            phys.write_massflow or phys.write_gas_torques
+            or phys.write_alpha_grav_mean or phys.write_alpha_reynolds_mean,
+        "WriteTorques": phys.write_torques,
+        "WriteRadialLuminosity / WriteRadialDissipation":
+            phys.write_radial_luminosity or phys.write_radial_dissipation,
+        "the dust particles' file": phys.integrate_particles,
+        "the Roche-lobe tracker's file": phys.rochelobe_overflow,
     }
     for name, on in unsupported.items():
         if on:
-            raise NotImplementedError(f"{name} is not ported yet")
+            raise NotImplementedError(
+                f"{name} in the row files of a sharded run "
+                "(DistributedOutput) is not ported yet")
 
 
 def to_host(tensors: dict) -> dict[str, np.ndarray]:
@@ -959,8 +983,162 @@ class OutputWriter:
 
 
 # ---------------------------------------------------------------------------
+# a sharded run's snapshot (DistributedOutput)
+# ---------------------------------------------------------------------------
+
+_ROW_GRIDS = ("Sigma", "vrad", "vazi", "energy", "Temperature", "Qplus",
+              "Qminus", "PvteGeff", "PvteMu")
+
+
+def write_sharded_snapshot(sim, ss, local, outdir, writer=None):
+    """One snapshot of a run sharded over ``ss.comm``'s ranks with
+    DistributedOutput (fargocpt_tpu/output.py:254-275): every rank writes
+    the rows it owns of each grid as row files (v_rad's top face with the
+    top rank's rows), never gathered; rank 0 (``writer``, its
+    ``OutputWriter``) the 1-D files from the ranks' per-ring mean, min and
+    max, misc.bin, nbody.bin and config.yml, and registers the snapshot.
+    ``local`` is the rank's window state. Every rank calls it."""
+    import torch
+    from .ops import eos
+    comm, phys = ss.comm, sim.phys
+    sdir = Path(outdir) / "snapshots" / str(sim.n_snapshot)
+    if comm.rank == 0:
+        if sdir.exists():
+            shutil.rmtree(sdir)
+        sdir.mkdir(parents=True)
+    comm.barrier()
+    f, ws, own, Lx = local.fields, ss.window, ss._own, ss.Lx
+    grids = {}
+    if phys.write_density:
+        grids["Sigma"] = f.sigma
+    if phys.write_velocity:
+        grids["vrad"], grids["vazi"] = f.vrad, f.vaz
+    if phys.write_energy:
+        grids["energy"] = f.energy
+    with ws.detached(local.pvte_guess):
+        if phys.is_adiabatic:
+            pv = ws.pvte_vals(f.sigma, f.energy)
+            grids["Temperature"] = eos.temperature(
+                phys, sim.constants, f.sigma, f.energy, None, pv)
+            grids["_scale_height"] = ws.derived(f.sigma, f.energy)[2]
+    if phys.is_adiabatic and (phys.bitwise_exact_restarting
+                              or phys.write_qplus):
+        grids["Qplus"] = local.qplus
+    if phys.is_adiabatic and (phys.bitwise_exact_restarting
+                              or phys.write_qminus):
+        grids["Qminus"] = local.qminus
+    if phys.bitwise_exact_restarting and local.pvte_guess is not None:
+        grids["PvteGeff"], grids["PvteMu"] = local.pvte_guess
+    owned = {name: own(x) for name, x in grids.items()}
+    if ss.is_top and "vrad" in owned:
+        owned["vrad"] = torch.cat([owned["vrad"], f.vrad[Lx:Lx + 1]])
+    host = to_host(owned)
+    row0 = ss.rank * ss.L
+    for name in _ROW_GRIDS:
+        if name in host:
+            write_rows(host[name], row0, sdir, name)
+
+    if phys.do_write_1d:
+        g = sim.geometry
+        rmed = g.rmed[row0:row0 + ss.L]
+        one_d = [(name, host[name], g.ra if name == "vrad" else g.rmed)
+                 for name in ("Sigma", "vrad", "vazi", "energy")
+                 if name in host]
+        if phys.is_adiabatic:
+            one_d += [("Temperature", host["Temperature"], g.rmed),
+                      ("aspectratio",
+                       host["_scale_height"] / rmed[:, None], g.rmed)]
+        # (L + 1, F, 3): each grid's per-ring statistics as the serial
+        # writer takes them; row L holds the top face of v_rad
+        stats = np.zeros((ss.L + 1, len(one_d), 3), np.float64)
+        for j, (_, arr, _) in enumerate(one_d):
+            m = arr.shape[0]
+            stats[:m, j, 0] = arr.mean(axis=1)
+            stats[:m, j, 1] = arr.min(axis=1)
+            stats[:m, j, 2] = arr.max(axis=1)
+        every = comm.gather_rows(torch.tensor(
+            stats, device=comm.device)).cpu().numpy()
+        if comm.rank == 0:
+            every = every.reshape(ss.n, ss.L + 1, len(one_d), 3)
+            for j, (name, _, radius) in enumerate(one_d):
+                rows = [every[r, :ss.L, j] for r in range(ss.n)]
+                if name == "vrad":
+                    rows.append(every[ss.n - 1, ss.L:, j])
+                st = np.concatenate(rows)
+                out = np.empty((st.shape[0], 4), np.float64)
+                out[:, 0] = radius[:st.shape[0]]
+                out[:, 1:] = st
+                out.tofile(sdir / f"{name}1D.dat")
+
+    if comm.rank == 0:
+        nb = local.nbody
+        misc = to_host({"misc": torch.stack([
+            t.to(torch.float64).reshape(()) for t in
+            (sim.time, local.omega_frame, local.frame_angle, sim.last_dt)]),
+            "nbody": torch.stack([nb.x, nb.y, nb.vx, nb.vy, nb.mass],
+                                 dim=1).to(torch.float64)})
+        writer._write_misc(sdir, misc["misc"])
+        misc["nbody"].tofile(sdir / "nbody.bin")
+        setup_copy = Path(outdir) / "parameters" / "setup.yml"
+        if setup_copy.exists():
+            shutil.copyfile(setup_copy, sdir / "config.yml")
+    comm.barrier()
+    if comm.rank == 0:
+        with open(Path(outdir) / "snapshots" / "list.txt", "a") as fl:
+            fl.write(f"{sim.n_snapshot}\n")
+        writer._write_time_snapshot(float(misc["misc"][0]))
+
+
+# ---------------------------------------------------------------------------
 # restart
 # ---------------------------------------------------------------------------
+
+_ROW_FILE = re.compile(r"^(.+)\.r(\d+)-(\d+)\.dat$")
+
+
+def write_rows(arr: np.ndarray, row0: int, sdir: Path, base: str) -> None:
+    """A sharded run's rows ``[row0, row0 + len(arr))`` of a grid as
+    ``<base>.r<start>-<stop>.dat``, float64 (the JAX package's
+    ``write_sharded_array``, fargocpt_tpu/output.py:953-969)."""
+    row1 = row0 + arr.shape[0]
+    np.asarray(arr, np.float64).tofile(
+        Path(sdir) / f"{base}.r{row0:05d}-{row1:05d}.dat")
+
+
+def row_files(sdir: Path, base: str) -> list[tuple[int, int, Path]]:
+    """The (start, stop, path) of each row file of ``base``."""
+    out = []
+    for p in sorted(Path(sdir).glob(f"{base}.r*-*.dat")):
+        m = _ROW_FILE.match(p.name)
+        if m and m.group(1) == base:
+            out.append((int(m.group(2)), int(m.group(3)), p))
+    return out
+
+
+def read_rows(sdir: Path, base: str, shape, rows=None) -> np.ndarray:
+    """Rows ``[start, stop)`` (all where ``rows`` is None) of a grid of
+    ``shape`` from its row files, whatever rank count wrote them
+    (fargocpt_tpu/output.py:972-1000); raises where they leave a row
+    out."""
+    pieces = row_files(sdir, base)
+    if not pieces:
+        raise FileNotFoundError(f"no row files of {base} in {sdir}")
+    r0, r1 = rows if rows is not None else (0, shape[0])
+    tail = tuple(shape[1:])
+    out = np.empty((r1 - r0,) + tail, np.float64)
+    filled = 0
+    for f0, f1, path in pieces:
+        lo, hi = max(r0, f0), min(r1, f1)
+        if lo >= hi:
+            continue
+        data = np.fromfile(path, np.float64).reshape((f1 - f0,) + tail)
+        out[lo - r0:hi - r0] = data[lo - f0:hi - f0]
+        filled += hi - lo
+    if filled < r1 - r0:
+        raise ValueError(f"the row files of {base} do not cover rows "
+                         f"{r0}:{r1}")
+    return out
+
 
 def load_misc(snapshot_dir: str | Path) -> dict:
     blob = (Path(snapshot_dir) / "misc.bin").read_bytes()
@@ -987,17 +1165,15 @@ def restore_simulation(sim, outdir: str | Path, snapshot_id: str | int):
     dt, dev = sim.dtype, sim.device
 
     def have(base):
-        if (sdir / f"{base}.dat").exists():
-            return True
-        if any(sdir.glob(f"{base}.r*-*.dat")):
-            raise NotImplementedError(
-                f"restoring the sharded snapshot files of {base} "
-                "(DistributedOutput) is not ported yet")
-        return False
+        return (sdir / f"{base}.dat").exists() or bool(row_files(sdir, base))
 
     def rd(base, nrad, dtype=dt):
-        have(base)
-        arr = np.fromfile(sdir / f"{base}.dat", np.float64)
+        # a sharded run's row files, whatever the writer's rank count,
+        # make the same array (fargocpt_tpu/output.py:1013-1031)
+        if (sdir / f"{base}.dat").exists():
+            arr = np.fromfile(sdir / f"{base}.dat", np.float64)
+        else:
+            arr = read_rows(sdir, base, (nrad, g.naz))
         return torch.tensor(arr.reshape(nrad, g.naz), dtype=dtype,
                             device=dev)
 

@@ -256,6 +256,10 @@ class Simulation:
         self.n_monitor = 0
         self.n_snapshot = 0
         self.n_hydro_iter = 0
+        # what calculate_time_step and run advance the state with in place
+        # of the stepper when set: an object with its cfl_dt and
+        # advance_to on the global state (parallel.run's sharded advancer)
+        self.advancer = None
         # callables (sim) run at the monitor and snapshot boundaries
         self.monitor_hooks = []
         self.snapshot_hooks = []
@@ -323,7 +327,8 @@ class Simulation:
         if not self.phys.calculate_disk:
             return self.last_dt
         dt = torch.minimum(self.phys.cfl_max_var * self.last_dt,
-                           self.stepper.cfl_dt(self.state, self.time))
+                           (self.advancer or self.stepper).cfl_dt(
+                               self.state, self.time))
         self.last_dt = dt
         return dt
 
@@ -369,8 +374,9 @@ class Simulation:
         t_target = (self.n_monitor + 1) * self.settings.monitor_timestep
         wall0 = _time.time()
         (self.state, self.time, self.last_dt, n, *dt_stats) = \
-            self.stepper.advance_to(self.state, self.time, self.last_dt,
-                                    t_target, max_steps, self.n_hydro_iter)
+            (self.advancer or self.stepper).advance_to(
+                self.state, self.time, self.last_dt, t_target, max_steps,
+                self.n_hydro_iter)
         dt_min, dt_max, dt_sum, dt_sq = torch.stack(dt_stats).tolist()
         self.n_hydro_iter += n
         self.monitor_stats = {

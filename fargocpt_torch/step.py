@@ -124,6 +124,7 @@ from .ops import accretion, artvisc, boundary, cfl as cfl_ops, eos, \
 from .ops.damping import DampingZones
 from .ops import energy as energy_ops
 from .ops.boundary import RefValues
+from .ops.common import ring_col
 from .ops.fld import FLDConfig, FLDSolver
 from .ops.pvte import PVTE
 from .ops.selfgravity import SelfGravity
@@ -188,11 +189,14 @@ class HydroStep(nn.Module):
                  device: torch.device | str, quad_moment: float = 0.0,
                  units=None,
                  transport_route: str | None = None,
-                 particle_params: dust.ParticleParams | None = None):
+                 particle_params: dust.ParticleParams | None = None,
+                 shared_from: HydroStep | None = None):
         super().__init__()
         bodies = bodies if bodies is not None else \
             [BodyConfig(name="DefaultStar", mass=phys.hydro_center_mass)]
         boundary.check_supported(phys)
+        self.bodies_cfg = bodies
+        self.geometry = geometry
         self.phys = phys
         self.constants = constants
         self.units = units
@@ -280,8 +284,10 @@ class HydroStep(nn.Module):
         self.particle_params = particle_params or dust.ParticleParams()
         self.dust_grid = dust.DustGrid(geometry, dtype, device) \
             if phys.integrate_particles else None
-        self.pvte = PVTE(phys, units, dtype, device) \
-            if phys.variable_gamma else None
+        # a rank's window stepper (``shared_from`` the whole grid's) keeps
+        # the global PVTE tables and self-gravity solver
+        self.pvte = shared_from.pvte if shared_from is not None else \
+            PVTE(phys, units, dtype, device) if phys.variable_gamma else None
         # the JAX package builds no FLD solver for a non-adiabatic EoS
         # (fargocpt_tpu/step.py:222)
         self.fld = FLDSolver(
@@ -297,13 +303,44 @@ class HydroStep(nn.Module):
                       check_interval=phys.fld_check_interval),
             dtype, device) \
             if phys.radiative_diffusion and phys.is_adiabatic else None
-        self.selfgravity = SelfGravity(phys, constants, geometry, dtype,
-                                       device) if phys.self_gravity else None
+        self.selfgravity = shared_from.selfgravity \
+            if shared_from is not None else \
+            SelfGravity(phys, constants, geometry, dtype, device) \
+            if phys.self_gravity else None
         self._pv_memo: list = []
         self._pv_chain = None
         self._memo_shared = False
         # the NaN trap (--debug-nans): a finiteness check after each step
         self.debug_nans = False
+        # the radial decomposition's hooks; a rank's window stepper
+        # (``parallel/shard_step.py``) sets them (fargocpt_tpu/step.py:
+        # 313-348), one process keeps the whole grid's values below:
+        #   comm            the ranks' Communicator (the JAX axis name)
+        #   _own_col        (Lx, 1) 1.0 where the window row is owned
+        #   _own_int_col    owned and global rows [1, NR-2]
+        #   _own_act_col    owned and global rows [2, NR-2] (accretion)
+        #   _inner_face     (window index of global face 1, weight)
+        #   _outer_face     (window index of global face NR-1, weight)
+        #   _halo_refresh   state -> state with fresh halo rows
+        #   _fld_halo_fn    FLD's ghost refresh of one grid, each SOR sweep
+        #   _fld_shard_ctx  FLD's global red-black masks, norm rows, sum
+        #   _sg_gather      window sigma -> the global grid (all_gather)
+        #   _sg_window      global accelerations -> the window's rows
+        #   _particle_shard_ctx  slab-owned buckets: bounds, exchange size
+        #   _particle_gather, _global_stepper  the replicated swarm:
+        #                   global fields, and the stepper that moves it
+        self.comm = None
+        self._own_col = torch.ones((geometry.nrad, 1), dtype=dtype,
+                                   device=device)
+        self._own_int_col = ring_col(self.g, 1)
+        self._own_act_col = ring_col(self.g, 2)
+        self._inner_face = (1, 1.0)
+        self._outer_face = (geometry.nrad - 1, 1.0)
+        self._halo_refresh = None
+        self._fld_halo_fn = self._fld_shard_ctx = None
+        self._sg_gather = self._sg_window = None
+        self._particle_shard_ctx = None
+        self._particle_gather = self._global_stepper = None
 
     @property
     def g(self):
@@ -484,6 +521,32 @@ class HydroStep(nn.Module):
         return RefValues(sigma0=self.ref_sigma0, energy0=self.ref_energy0,
                          vrad0=self.ref_vrad0, vaz0=self.ref_vaz0)
 
+    # --- reductions over the grid, summed over the ranks when sharded ---
+    def _sum_cells(self, x, weight_col):
+        """The sum of ``x`` times the row weight, over the ranks when
+        sharded (fargocpt_tpu/step.py:365-374)."""
+        s = torch.sum(x * weight_col)
+        return self.comm.sum(s) if self.comm is not None else s
+
+    def _face_row(self, flux, which: str):
+        """Global face 1 (``which`` "inner") or NR-1 ("outer") of a face
+        array; when sharded the rank holding it adds it, the others zero
+        (fargocpt_tpu/step.py:376-385)."""
+        idx, w = self._inner_face if which == "inner" else self._outer_face
+        if self.comm is None:
+            return flux[idx]
+        return self.comm.sum(flux[idx] * w)
+
+    def _sg_accels(self, sigma, spectra=None):
+        """The self-gravity accelerations; when sharded the FFT runs on
+        the all-gathered global sigma and the window's rows are kept
+        (fargocpt_tpu/step.py:831-841)."""
+        if self._sg_gather is None:
+            return self.selfgravity.accelerations(sigma, spectra)
+        g_r, g_t = self.selfgravity.accelerations(self._sg_gather(sigma),
+                                                  spectra)
+        return self._sg_window(g_r), self._sg_window(g_t)
+
     def _nu_now(self, sigma, energy):
         cs, _, h = self.derived(sigma, energy)
         return self.viscosity_grid(cs, h)
@@ -507,8 +570,10 @@ class HydroStep(nn.Module):
         """KeepDiskMassConstant: sigma scaled so the disk's mass inside
         Rmax stays the initial one (reference src/simulation.cpp:246-251,
         :476-481; fargocpt_tpu/step.py:1136-1146)."""
-        m0 = quant.total_mass(self.phys, self.g, self.ref_sigma0, self.rmax)
-        m_new = quant.total_mass(self.phys, self.g, sigma, self.rmax)
+        m0 = quant.total_mass(self.phys, self.g, self.ref_sigma0, self.rmax,
+                              self._own_int_col, self.comm)
+        m_new = quant.total_mass(self.phys, self.g, sigma, self.rmax,
+                                 self._own_int_col, self.comm)
         return sigma * (m0 / m_new)
 
     def _apply_bcs(self, sigma, vrad, vaz, energy, omega_frame, nu=None,
@@ -537,7 +602,8 @@ class HydroStep(nn.Module):
             sigma, vrad, vaz, energy = self.damping.apply(
                 phys, sigma, vrad, vaz, energy, ref, dt, nu=dmp_nu)
             if sigma is not sig_before:
-                dmp = self.damping.mass_deltas(self.g, sig_before, sigma)
+                dmp = self.damping.mass_deltas(self.g, sig_before, sigma,
+                                               self._own_col, self.comm)
         if nu is None and "viscous" in (phys.bc_vrad_inner,
                                         phys.bc_vrad_outer):
             nu_bodies = self.bodies_on_grid(nb, time) \
@@ -581,7 +647,29 @@ class HydroStep(nn.Module):
         fields, then the diffusion kicks (fargocpt_tpu/step.py:1274-1304).
         The temperature is the one the reference's particles sample
         (per-cell gamma and mu with PVTE): for the step-start fields the
-        PVTE grids come from the memo, with no refresh of their own."""
+        PVTE grids come from the memo, with no refresh of their own.
+        When sharded, a rank moves its slot bucket against its window and
+        migrates the crossers (``particles/sharded.py``), or the whole
+        replicated swarm against the all-gathered global fields with the
+        global stepper (fargocpt_tpu/step.py:1254-1270)."""
+        if self._particle_shard_ctx is not None:
+            from .particles import sharded as psh
+            return psh.integrate_bucket(self, sigma, vrad, vaz, energy, nb,
+                                        particles, omega_frame, dt, time)
+        if self._particle_gather is not None:
+            sigma, vrad, vaz, energy = self._particle_gather(sigma, vrad,
+                                                             vaz, energy)
+            glob = self._global_stepper
+            with glob.detached(None):
+                return glob._particle_core(sigma, vrad, vaz, energy, nb,
+                                           particles, omega_frame, dt, time)
+        return self._particle_core(sigma, vrad, vaz, energy, nb, particles,
+                                   omega_frame, dt, time)
+
+    def _particle_core(self, sigma, vrad, vaz, energy, nb, particles,
+                       omega_frame, dt, time):
+        """``_integrate_particles`` against this stepper's own grid (the
+        whole grid, or a rank's window)."""
         phys, constants = self.phys, self.constants
         pp = self.particle_params
         cs0, press, h0 = self.derived(sigma, energy)
@@ -592,7 +680,7 @@ class HydroStep(nn.Module):
             ("e", "a", "r")) else dust.integrate_expmid
         sg_accel = None
         if pp.disk_gravity and self.selfgravity is not None:
-            sg_accel = self.selfgravity.accelerations(sigma)
+            sg_accel = self._sg_accels(sigma)
         particles = integ(phys, pp, constants, self.units, self.dust_grid,
                           particles, rho_mid, temp, vrad, vaz,
                           self.bodies_on_grid(nb, time), self.n_bodies,
@@ -653,10 +741,10 @@ class HydroStep(nn.Module):
         if self.selfgravity is not None:
             spectra = None
             if sg_kernel is not None:
-                sg_kernel = self.selfgravity.update_kernel(sg_kernel, sigma,
-                                                           h, g)
+                sg_kernel = self.selfgravity.update_kernel(
+                    sg_kernel, sigma, h, g, self._own_col, self.comm)
                 spectra = sg_kernel[:2]
-            g_r, g_t = self.selfgravity.accelerations(sigma, spectra)
+            g_r, g_t = self._sg_accels(sigma, spectra)
             vrad, vaz = self.selfgravity.kick(g, vrad, vaz, g_r, g_t, dt)
 
         if fused_sources:
@@ -753,7 +841,8 @@ class HydroStep(nn.Module):
         fargocpt_tpu/step.py:1453-1467). Returns (energy, sor)."""
         _, _, h_now = self.derived(sigma, energy, pv=pv)
         energy, _, sor = self.fld.radiative_diffusion(
-            self.g, sigma, energy, h_now, dt, sor_state=sor)
+            self.g, sigma, energy, h_now, dt, sor_state=sor,
+            halo_fn=self._fld_halo_fn, shard_ctx=self._fld_shard_ctx)
         energy = eos.energy_floor_ceiling(self.phys, self.constants, sigma,
                                           energy, pv)
         return energy, sor
@@ -779,7 +868,7 @@ class HydroStep(nn.Module):
         cell_x, cell_y = self.cell_x, self.cell_y
         dax, day = gravity.disk_on_body_accel(
             self.phys, self.constants, self.g, bodies, self.n_bodies, cell_x,
-            cell_y, h, sigma)
+            cell_y, h, sigma, self._own_int_col, self.comm)
         return dax, day, gravity.indirect_term_disk(bodies, self.n_hydroframe,
                                                     dax, day)
 
@@ -804,8 +893,8 @@ class HydroStep(nn.Module):
         """The step's boundary, damping and (Euler) floor mass bookkeeping
         added to the run's (reference src/TransportEuler.cpp:575-608 +
         src/types.h:30-60)."""
-        g = self.g
-        f_in, f_out = mass_flux[1], mass_flux[g.nrad - 1]
+        f_in = self._face_row(mass_flux, "inner")
+        f_out = self._face_row(mass_flux, "outer")
         like = mass_flux
         inc = [torch.zeros((), dtype=like.dtype, device=like.device)] \
             * N_MASS_DELTA
@@ -920,8 +1009,8 @@ class HydroStep(nn.Module):
             self.ops, sigma, vrad, vaz, energy, omega_frame, dt)
         sig_pre_floor = sigma
         sigma = eos.apply_sigma_floor(phys, sigma)
-        floor_created = torch.sum(
-            ((sigma - sig_pre_floor) * g.surf)[1:g.nrad - 1])
+        floor_created = self._sum_cells((sigma - sig_pre_floor) * g.surf,
+                                        self._own_int_col)
         if phys.is_adiabatic:
             energy = eos.energy_floor_ceiling(phys, constants, sigma, energy)
         if ecc is not None:
@@ -937,7 +1026,7 @@ class HydroStep(nn.Module):
         # (fargocpt_tpu/step.py:1503-1515; the leapfrog keeps no tracker)
         rof_mdot = state.monitor_acc.rof_mdot
         if rof_mdot is not None:
-            delta = -torch.sum(mass_flux[1])
+            delta = -torch.sum(self._face_row(mass_flux, "inner"))
             alpha = torch.clamp(dt / self.rof_averaging_time(), max=1.0)
             rof_mdot = (1.0 - alpha) * rof_mdot + alpha * delta / dt
 
@@ -1140,7 +1229,8 @@ class HydroStep(nn.Module):
             self.body_accretion_efficiency, self.accretion_types, cell_x,
             cell_y, sigma, energy, vrad, vaz, omega_frame, dt,
             nu_grid=nu_grid() if "viscous" in self.accretion_types
-            else None, periods=periods)
+            else None, periods=periods, row_w=self._own_act_col,
+            comm=self.comm)
         return eos.apply_sigma_floor(self.phys, sigma), energy, nb
 
     def _corotation_body(self) -> int:
@@ -1172,7 +1262,7 @@ class HydroStep(nn.Module):
         return quant.disk_ecc_peri(
             self.phys, self.constants, self.g, sigma, vrad, vaz, omega_frame,
             zero, self.ops.cos_row[None, :], self.ops.sin_row[None, :],
-            self.ecc_radius_limit)
+            self.ecc_radius_limit, self._own_int_col, self.comm)
 
     def _ecc_delta(self, ecc: list, before, sigma, vrad, vaz, omega_frame):
         """Append the (e, peri) change since ``before`` to ``ecc``; returns
@@ -1201,7 +1291,7 @@ class HydroStep(nn.Module):
                 + quant.alpha_from_stress(t_rey, sigma, cs_a) * dt
         if phys.write_alpha_grav_mean:
             if self.selfgravity is not None:
-                g_r, g_t = self.selfgravity.accelerations(sigma)
+                g_r, g_t = self._sg_accels(sigma)
                 t_grav = quant.gravitational_stress(phys, self.constants, g,
                                                     g_r, g_t)
             else:
@@ -1239,16 +1329,21 @@ class HydroStep(nn.Module):
         phys = self.phys
         with self._pvte_scope(state.pvte_guess):
             if self.gates["cfl"]:
-                return kernels.cfl(self.ops, f.sigma, f.vrad, f.vaz,
-                                   f.energy, state.qplus, state.qminus)
-            bodies = self.bodies_on_grid(state.nbody, time) \
-                if phys.aspectratio_mode in (1, 2) or phys.alpha_mode != 0 \
-                else None
-            cs, _, h = self.derived(f.sigma, f.energy, bodies)
-            nu = self.viscosity_grid(cs, h, f.sigma, f.energy, bodies)
-            return cfl_ops.condition_cfl(
-                phys, self.g, f.sigma, f.vrad, f.vaz, f.energy, cs, nu,
-                state.qplus, state.qminus)
+                dt = kernels.cfl(self.ops, f.sigma, f.vrad, f.vaz, f.energy,
+                                 state.qplus, state.qminus)
+            else:
+                bodies = self.bodies_on_grid(state.nbody, time) \
+                    if phys.aspectratio_mode in (1, 2) \
+                    or phys.alpha_mode != 0 else None
+                cs, _, h = self.derived(f.sigma, f.energy, bodies)
+                nu = self.viscosity_grid(cs, h, f.sigma, f.energy, bodies)
+                dt = cfl_ops.condition_cfl(
+                    phys, self.g, f.sigma, f.vrad, f.vaz, f.energy, cs, nu,
+                    state.qplus, state.qminus)
+        # when sharded the least over the ranks, whose windows cover every
+        # active ring (the reference's MPI_Allreduce MIN, src/cfl.cpp:379;
+        # fargocpt_tpu/step.py:1600-1617)
+        return self.comm.min(dt) if self.comm is not None else dt
 
     def advance_to(self, state: SystemState, time, last_dt, t_target,
                    max_steps: int | None = None, first_step: int = 0):
@@ -1274,6 +1369,11 @@ class HydroStep(nn.Module):
         self._memo_shared = True
         try:
             while True:
+                if self._halo_refresh is not None:
+                    # a rank's halo rows from its neighbours, once a step
+                    # before the CFL and the step (fargocpt_tpu/step.py:
+                    # 1641-1646; the reference's CommunicateBoundaries)
+                    state = self._halo_refresh(state)
                 # Disk: no keeps last_dt and makes no CFL evaluation
                 # (reference src/simulation.cpp:100-117)
                 dt = torch.minimum(self.phys.cfl_max_var * last_dt,

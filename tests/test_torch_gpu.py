@@ -38,7 +38,10 @@ with its diffusing swarm on one shared draw (cfl, sources, artvisc_sn, the
 transport), the polytropic flagship in both dtypes, Disk: no (ias15 only;
 the FLD-only disk no kernel), the PVTE shock tube on lookup tables built on
 the card, RandomSigma, CentrifugalBalance and the secondary's disk, each
-against the CPU, and the NaN trap on the card.
+against the CPU, and the NaN trap on the card; the radial decomposition
+(``fargocpt_torch.parallel``): two gloo ranks sharing the card, their
+host-staged collectives against the CPU ranks' and a sharded flagship
+step against the single-process one, and NCCL refused on one card.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one. This file imports no JAX, so it runs on a GPU host that has none:
@@ -1779,3 +1782,49 @@ def test_debug_nans_trap_on_the_card(cuda):
     sim.state = sim.state.replace(fields=sim.fields.replace(vaz=vaz))
     with pytest.raises(FloatingPointError, match="after hydro step 1"):
         sim.run()
+
+
+# --- the radial decomposition on ranks sharing the card ---------------------
+
+@pytest.mark.gpu
+def test_staged_collectives_on_the_card_equal_the_cpu(cuda, tmp_path):
+    """gloo with CUDA tensors stages each collective through the host:
+    the exchange, sum, min, gather and broadcast of 2 ranks on the card
+    give the CPU ranks' values and bytes, and come back on the card."""
+    import shard_ranks as sr
+    from fargocpt_torch.parallel.launch import launch
+    got = {}
+    for dev in ("cuda", "cpu"):
+        got[dev] = launch(sr.rank_comm_ops, 2, backend="gloo", device=dev,
+                          init_method=f"file://{tmp_path}/store_{dev}")
+    for (g, devs, nbytes), (c, _, cbytes) in zip(got["cuda"], got["cpu"]):
+        assert devs == {"cuda"}
+        assert nbytes == cbytes
+        for name in c:
+            np.testing.assert_array_equal(g[name], c[name], err_msg=name)
+
+
+@pytest.mark.gpu
+def test_two_ranks_step_the_flagship_through_the_kernels(cuda, tmp_path):
+    """Two ranks sharing the card step the 192x64 flagship in float64: the
+    sharded step launches sources, viscous_kick and the transport, and
+    matches the single-process step on the card to 1e-13
+    of each grid's scale (tests/test_shard_map.py's gate)."""
+    import shard_ranks as sr
+    from fargocpt_torch.parallel.launch import launch
+    res = launch(sr.rank_flagship_step, 2, backend="gloo", device="cuda",
+                 init_method=f"file://{tmp_path}/store")
+    for diffs, launches in res:
+        for op in ("sources", "viscous_kick", "transport"):
+            assert launches[op] >= 1, (op, launches)
+        for key, d in diffs.items():
+            assert d < 1e-13, (key, d)
+
+
+@pytest.mark.gpu
+def test_nccl_on_one_card_is_refused(cuda):
+    """NCCL needs a card a rank; more ranks than cards raise by name."""
+    from fargocpt_torch.parallel.launch import check_pair
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match="nccl needs a card a rank"):
+        check_pair("nccl", "cuda", n)

@@ -568,10 +568,15 @@ def test_loader_opens_the_port_output(runs):
     ("DistributedOutput", "distributed_output", "DistributedOutput"),
 ])
 def test_outputs_outside_the_slice_raise(flag, attr, name):
-    phys = port_sim("float64").phys
+    """One rank writes every output, DistributedOutput included (the
+    serial layout); a run sharded over ranks with it refuses by name what
+    its row files do not hold yet, and nothing else."""
+    phys = port_sim("float64").phys.with_(**{attr: True})
     tout.check_supported(phys)
+    tout.check_supported(phys, n_ranks=2)
+    tout.check_supported(phys.with_(write_torques=True), n_ranks=1)
     with pytest.raises(NotImplementedError, match=name):
-        tout.check_supported(phys.with_(**{attr: True}))
+        tout.check_supported(phys.with_(write_torques=True), n_ranks=2)
 
 
 @pytest.mark.parametrize("flag", list(MONITORS))
@@ -622,14 +627,39 @@ def test_monitor_files_are_byte_identical(monitor_runs):
 
 @pytest.mark.parametrize("flag", ["DistributedOutput"])
 def test_writer_refuses_outputs_the_simulation_runs(flag, tmp_path):
+    """A run on one device with DistributedOutput writes the serial
+    layout, as the JAX package does (fargocpt_tpu/output.py:258-259); the
+    writer of a sharded run refuses by name an output its row files lack
+    (the mass-flow grid here)."""
     ts = port_sim("float64", **{flag: "Yes"})
+    tout.OutputWriter(ts, tmp_path)
+    ts.run()
+    snap = tmp_path / "snapshots" / "1"
+    assert (snap / "Sigma.dat").exists()
+    assert not list(snap.glob("*.r0*-*.dat"))
     with pytest.raises(NotImplementedError, match=flag):
-        tout.OutputWriter(ts, tmp_path)
+        tout.check_supported(
+            port_sim("float64", **{flag: "Yes", "WriteMassFlow": "Yes"}).phys,
+            n_ranks=2)
 
 
 def test_sharded_snapshot_restore_raises(runs, tmp_path):
+    """A snapshot whose grids are row files (DistributedOutput of a
+    sharded run) restores to the state of the whole files, bit for bit;
+    row files that leave rows out raise."""
     shutil.copytree(runs["root"] / "torch", tmp_path / "out")
     sdir = tmp_path / "out" / "snapshots" / "1"
-    (sdir / "Sigma.dat").rename(sdir / "Sigma.r00000-00032.dat")
-    with pytest.raises(NotImplementedError, match="DistributedOutput"):
+    for name, rows in (("Sigma", 32), ("vrad", 33), ("Qplus", 32)):
+        arr = np.fromfile(sdir / f"{name}.dat").reshape(rows, 64)
+        (sdir / f"{name}.dat").unlink()
+        tout.write_rows(arr[:11], 0, sdir, name)
+        tout.write_rows(arr[11:], 11, sdir, name)
+    ts = tout.restore_simulation(port_sim(runs["dtype"]), tmp_path / "out", 1)
+    whole = tout.restore_simulation(port_sim(runs["dtype"]),
+                                    runs["root"] / "torch", 1)
+    got, want = (system_state_to_numpy(s.state) for s in (ts, whole))
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    (sdir / "Sigma.r00000-00011.dat").unlink()
+    with pytest.raises(ValueError, match="do not cover"):
         tout.restore_simulation(port_sim(runs["dtype"]), tmp_path / "out", 1)
