@@ -266,6 +266,8 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 # a call; perturbed: a simulation's fields with seeded noise (the
 # unperturbed disk is axisymmetric, which would leave the azimuthal
 # stencils untested)
+from fargocpt_torch import telemetry  # noqa: E402
+from fargocpt_torch.parallel.comm import KINDS  # noqa: E402
 from fargocpt_torch.profile_ops import (  # noqa: E402
     HBM_BYTES_PER_S, OP_FRAGMENTS, RADIAL_SHAPES, event_ms as time_ms,
     perturbed, profile_op, radial_calls, radial_inputs)
@@ -1589,9 +1591,11 @@ def cuda_kernel_launches(fn) -> int:
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
+    # the spans' device-side annotations (``fc:``) are not kernels
     return sum(1 for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and "Memcpy" not in e.name and "Memset" not in e.name)
+               and "Memcpy" not in e.name and "Memset" not in e.name
+               and not e.name.startswith("fc:"))
 
 
 def ias15_parity(sim, gpu) -> dict:
@@ -1810,7 +1814,7 @@ def run_slice(sim, warmup=10, steps=60) -> dict:
     from fargocpt_torch.ops import kernels as K
     route = sim.stepper.ops.route
     nr = sim.geometry.nrad
-    K.reset_launches()
+    telemetry.reset("launch.")
     for _ in range(warmup):
         sim.step_once(sim.calculate_time_step())
     torch.cuda.synchronize()
@@ -1820,7 +1824,7 @@ def run_slice(sim, warmup=10, steps=60) -> dict:
         sim.step_once(sim.calculate_time_step())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = telemetry.values("launch.", K.OPS)
     n = warmup + steps
     own = ROUTE_OPS[route]
     other = {op for ops in ROUTE_OPS.values() for op in ops} - set(own)
@@ -1913,12 +1917,14 @@ def run_pds70(sim, warmup=3, steps=10, run_steps=10) -> dict:
     st = sim.stepper
     nr, naz = sim.geometry.nrad, sim.geometry.naz
     dusty = sim.state.particles is not None
+    sg0 = telemetry.value("selfgravity.rebuild")
     for _ in range(warmup):
         sim.step_once(sim.calculate_time_step())
     timer = DustTimer(st) if dusty else None
     torch.cuda.synchronize()
-    K.reset_launches()
-    fld0, pv0 = st.fld.iterations, st.pvte.refreshes
+    telemetry.reset("launch.")
+    fld0, pv0 = (telemetry.value("fld.sor_iterations"),
+                telemetry.value("pvte.refresh"))
     t_start = sim.time.clone()
     window = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     window[0].record()
@@ -1928,7 +1934,7 @@ def run_pds70(sim, warmup=3, steps=10, run_steps=10) -> dict:
     window[1].record()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = telemetry.values("launch.", K.OPS)
     check_pds70_launches(launches, steps)
     mean_dt = float(sim.time - t_start) / steps
     per_step = seconds / steps
@@ -1936,17 +1942,21 @@ def run_pds70(sim, warmup=3, steps=10, run_steps=10) -> dict:
            "launches": launches, "seconds": seconds, "per_step": per_step,
            "mcell": nr * naz / per_step / 1e6, "mean_dt": mean_dt,
            "s_per_orbit": 2.0 * math.pi / mean_dt * per_step,
-           "fld_iterations_per_step": (st.fld.iterations - fld0) / steps,
-           "pvte_refreshes_per_step": (st.pvte.refreshes - pv0) / steps,
-           "sg_kernel_rebuilds": st.selfgravity.rebuilds}
+           "fld_iterations_per_step":
+               (telemetry.value("fld.sor_iterations") - fld0) / steps,
+           "pvte_refreshes_per_step":
+               (telemetry.value("pvte.refresh") - pv0) / steps,
+           "sg_kernel_rebuilds":
+               telemetry.value("selfgravity.rebuild") - sg0}
     if dusty:
         res["dust_ms_per_step"] = timer.ms() / steps
         res["dust_share"] = res["dust_ms_per_step"] * steps \
             / window[0].elapsed_time(window[1])
 
     # the run path: each step's CFL refresh serves its step
-    K.reset_launches()
-    fld0, pv0 = st.fld.iterations, st.pvte.refreshes
+    telemetry.reset("launch.")
+    fld0, pv0 = (telemetry.value("fld.sor_iterations"),
+                telemetry.value("pvte.refresh"))
     target = sim.time + run_steps * mean_dt
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1956,13 +1966,13 @@ def run_pds70(sim, warmup=3, steps=10, run_steps=10) -> dict:
     run_seconds = time.perf_counter() - t0
     sim.state, sim.time, sim.last_dt = state, time_, last_dt
     sim.n_hydro_iter += n
-    check_pds70_launches(dict(K.LAUNCHES), n)
+    check_pds70_launches(telemetry.values("launch.", K.OPS), n)
     res.update({"run_steps": n, "run_per_step": run_seconds / n,
                 "run_mcell": nr * naz / (run_seconds / n) / 1e6,
                 "run_fld_iterations_per_step":
-                    (st.fld.iterations - fld0) / n,
+                    (telemetry.value("fld.sor_iterations") - fld0) / n,
                 "run_pvte_refreshes_per_step":
-                    (st.pvte.refreshes - pv0) / n})
+                    (telemetry.value("pvte.refresh") - pv0) / n})
     if res["pvte_refreshes_per_step"] != 3.0 \
             or res["run_pvte_refreshes_per_step"] != 2.0:
         raise AssertionError(
@@ -2085,7 +2095,7 @@ def run_planet(sim, warmup=10, steps=60, profiled=5, ops=None,
     import warnings
     from fargocpt_torch.ops import kernels as K
     nr, naz = sim.geometry.nrad, sim.geometry.naz
-    K.reset_launches()
+    telemetry.reset("launch.")
     for _ in range(warmup):
         sim.step_once(sim.calculate_time_step())
     torch.cuda.synchronize()
@@ -2095,7 +2105,7 @@ def run_planet(sim, warmup=10, steps=60, profiled=5, ops=None,
         sim.step_once(sim.calculate_time_step())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = telemetry.values("launch.", K.OPS)
     n = warmup + steps
     for name in K.OPS:
         if launches[name] != ops.get(name, 0) * n:
@@ -2114,7 +2124,8 @@ def run_planet(sim, warmup=10, steps=60, profiled=5, ops=None,
         torch.cuda.synchronize()
         wall_profiled = time.perf_counter() - t0
     dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith("fc:")]
     device_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     ours = ("cfl_ring_kernel", "sources_kernel", "vk_tile_kernel", "tr_",
             "ias15_kernel", "artvisc_sn_kernel")
@@ -2532,9 +2543,9 @@ def command_line(work, gpu) -> dict:
     two = cli_setup(os.path.join(work, "two.yml"), 2)
     one = cli_setup(os.path.join(work, "one.yml"), 1)
     dir_a, dir_b = os.path.join(work, "a"), os.path.join(work, "b")
-    K.reset_launches()
+    telemetry.reset("launch.")
     wall_a = run_cli(["start", two, "--dtype", "float32", "-o", dir_a])
-    launches = dict(K.LAUNCHES)
+    launches = telemetry.values("launch.", K.OPS)
     for name in K.OPS:
         if (launches[name] > 0) != (name in CLI_OPS):
             raise AssertionError(f"the command line launched {name} "
@@ -2605,12 +2616,12 @@ def binary_command_line(work, gpu) -> dict:
     WriteAspectratio and WriteMassFlow among them, finite."""
     from fargocpt_torch.ops import kernels as K
     outdir = os.path.join(work, "gamma_cephei_full")
-    K.reset_launches()
+    telemetry.reset("launch.")
     wall = run_cli(["start", os.path.join(HERE, "setups",
                                           "gamma_cephei_full.yml"),
                     "--dtype", "float32", "-o", outdir,
                     "-N", str(BINARY_CLI_STEPS)])
-    launches = dict(K.LAUNCHES)
+    launches = telemetry.values("launch.", K.OPS)
     for name in K.OPS:
         if launches[name] != BINARY_OPS.get(name, 0) * BINARY_CLI_STEPS:
             raise AssertionError(f"gamma_cephei_full.yml launched {name} "
@@ -2661,9 +2672,9 @@ def oy_car_command_line(work, gpu) -> dict:
     two = oy_car_cli_setup(os.path.join(work, "oy_two.yml"), 2)
     one = oy_car_cli_setup(os.path.join(work, "oy_one.yml"), 1)
     dir_a, dir_b = os.path.join(work, "oy_a"), os.path.join(work, "oy_b")
-    K.reset_launches()
+    telemetry.reset("launch.")
     wall_a = run_cli(["start", two, "--dtype", "float64", "-o", dir_a])
-    launches = dict(K.LAUNCHES)
+    launches = telemetry.values("launch.", K.OPS)
     misc = out.load_misc(os.path.join(dir_a, "snapshots", "2"))
     n = misc["n_hydro_iter"]
     for name in K.OPS:
@@ -2721,9 +2732,9 @@ def no_disk_command_line(work, gpu) -> dict:
     one = yaml_setup(src, os.path.join(work, "nd_one.yml"), Nsnapshots=1,
                      **NO_DISK_CLI)
     dir_a, dir_b = os.path.join(work, "nd_a"), os.path.join(work, "nd_b")
-    K.reset_launches()
+    telemetry.reset("launch.")
     wall_a = run_cli(["start", two, "--dtype", "float64", "-o", dir_a])
-    launches = dict(K.LAUNCHES)
+    launches = telemetry.values("launch.", K.OPS)
     n = out.load_misc(os.path.join(dir_a, "snapshots", "2"))["n_hydro_iter"]
     for name in K.OPS:
         if launches[name] != NO_DISK_OPS.get(name, 0) * n:
@@ -2772,10 +2783,10 @@ def full_physics_command_line(work, gpu) -> dict:
                        os.path.join(work, "full_physics.yml"),
                        FirstDT=1e-3)
     outdir = os.path.join(work, "full_physics")
-    K.reset_launches()
+    telemetry.reset("launch.")
     wall = run_cli(["start", setup, "--dtype", "float64", "-o", outdir,
                     "-N", str(FULL_PHYSICS_CLI_STEPS)])
-    launches = dict(K.LAUNCHES)
+    launches = telemetry.values("launch.", K.OPS)
     n = FULL_PHYSICS_CLI_STEPS
     for name in K.OPS:
         want = FULL_PHYSICS_OPS.get(name, 0) * n + (2 if name == "cfl"
@@ -2840,7 +2851,7 @@ def golden_on_card(name, tol, work, gpu, cfg=None, label=None) -> dict:
     outdir = os.path.join(work, label.replace("@", "_"))
     if cfg is None:
         cfg = Config.from_file(os.path.join(golden, "setup.yml"))
-    K.reset_launches()
+    telemetry.reset("launch.")
     t0 = time.perf_counter()
     sim = Simulation(cfg, outdir=outdir, dtype="float64")
     writer = out.OutputWriter(sim)
@@ -2848,7 +2859,8 @@ def golden_on_card(name, tol, work, gpu, cfg=None, label=None) -> dict:
     writer.close()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    launches = {k: v for k, v in telemetry.values("launch.", K.OPS).items()
+                if v}
     nr, na = sim.geometry.nrad, sim.geometry.naz
     ref_rad = np.loadtxt(os.path.join(golden, "used_rad.dat"))
     if not np.allclose(sim.geometry.radii[:nr + 1], ref_rad, rtol=1e-12,
@@ -2980,12 +2992,13 @@ def rank_shard_cases(comm, outdir) -> dict:
     out = {}
     for name, dtype, _, extras, _ in SHARD_CASES:
         t0 = time.perf_counter()
-        K.reset_launches()
+        telemetry.reset("launch.")
         r = sr.rank_case(comm, name, dtype=dtype)
         torch.cuda.synchronize()
         s1, s2 = r.pop("states")
         r.update(diffs={k: sr.rel(s1[k], s2[k]) for k in GRIDS + extras},
-                 launches=dict(K.LAUNCHES), s=time.perf_counter() - t0)
+                 launches=telemetry.values("launch.", K.OPS),
+                 s=time.perf_counter() - t0)
         if name == "buckets":
             r["alive_equal"] = bool(np.array_equal(s1["particles.alive"],
                                                    s2["particles.alive"]))
@@ -3113,17 +3126,17 @@ def rank_sharded(comm, full: bool, outdir=None) -> dict:
     sim = flagship(*SHARD_SMALL, "float64", comm.device)
     ss = ShardedHydroStep(sim.stepper, comm)
     local = ss.shard_state(sim.state)
-    K.reset_launches()
+    telemetry.reset("launch.")
     loc = ss.step(local, 0.0, 2e-4)
     torch.cuda.synchronize()
-    out["launches_step"] = dict(K.LAUNCHES)
+    out["launches_step"] = telemetry.values("launch.", K.OPS)
     one = sim.stepper.step(sim.state, 0.0, 2e-4)
     out["f64_step"] = _field_diffs(one, ss.gather(loc), scale=True)
     o1 = sim.stepper.advance_to(sim.state, 0.0, 1e-4, 0.05)
-    K.reset_launches()
+    telemetry.reset("launch.")
     o2 = ss.advance_to(local, 0.0, 1e-4, 0.05)
     torch.cuda.synchronize()
-    out["launches_interval"] = dict(K.LAUNCHES)
+    out["launches_interval"] = telemetry.values("launch.", K.OPS)
     out["f64_interval"] = _field_diffs(o1[0], ss.gather(o2[0]), scale=True)
     out["interval"] = ((o1[3], float(o1[1]), float(o1[2])),
                        (o2[3], float(o2[1]), float(o2[2])))
@@ -3140,14 +3153,14 @@ def rank_sharded(comm, full: bool, outdir=None) -> dict:
         state = sim.stepper.step(state, t, dt)
         dts.append((t, dt))
         t += dt
-    K.reset_launches()
+    telemetry.reset("launch.")
     cfl_rel = 0.0
     for t, dt in dts:
         dt_s = float(ss.cfl_dt(local))
         cfl_rel = max(cfl_rel, abs(dt_s - dt) / dt)
         local = ss.step(local, t, dt)
     torch.cuda.synchronize()
-    out["launches_f32"] = dict(K.LAUNCHES)
+    out["launches_f32"] = telemetry.values("launch.", K.OPS)
     out["f32_cfl_rel"] = cfl_rel
     out["f32_steps"] = _field_diffs(state, ss.gather(local), scale=True)
     out["comm_model"] = ss.comm_model()
@@ -3169,11 +3182,12 @@ def rank_sharded(comm, full: bool, outdir=None) -> dict:
     else:
         out["single_ms"] = timed(lambda: None)
     ss.advance_to(local, 0.0, 1e-4, 1.0, max_steps=2)     # warm
-    comm.reset_counters()
+    telemetry.reset("comm.bytes.")
     out["sharded_ms"] = timed(lambda: ss.advance_to(
         local, 0.0, 1e-4, 1.0, max_steps=SHARD_TIMED))
-    out["bytes_per_step"] = {k: v // SHARD_TIMED
-                             for k, v in comm.bytes_sent.items()}
+    out["bytes_per_step"] = {
+        k: v // SHARD_TIMED
+        for k, v in telemetry.values("comm.bytes.", KINDS).items()}
     return out
 
 

@@ -44,7 +44,10 @@ def _add_run_flags(p):
     p.add_argument("-N", "--max-iterations", type=int, default=None)
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="write a torch.profiler trace of the run to "
-                        "DIR/trace.json")
+                        "DIR/trace.json; it holds the port's fc: spans "
+                        "(each monitor interval an fc:sim.advance_monitor "
+                        "with its phases nested inside) beside the card's "
+                        "kernels")
     p.add_argument("--debug-nans", action="store_true",
                    help="stop at the first NaN or infinity in the state, "
                         "checked after every hydro step")
@@ -177,7 +180,8 @@ def _launch(args) -> int:
         profiler = None
         if args.profile:
             # a torch.profiler trace (viewable in chrome://tracing or
-            # perfetto); the reference has no tracer
+            # perfetto), with the fc: spans of ``telemetry``, which are on
+            # while it records; the reference has no tracer
             from torch.profiler import ProfilerActivity, profile
             acts = [ProfilerActivity.CPU]
             if sim.device.type == "cuda":

@@ -17,7 +17,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from .. import units as u
+from .. import telemetry, units as u
 from ..config import Config
 from ..ops.common import accurate_cos
 
@@ -216,8 +216,9 @@ def integrate(state: NBodyState, G: float, dt, n_substeps: int = 16,
         return state
     if method == "ias15":
         from ..ops import kernels
-        x, y, vx, vy = kernels.ias15(state.x, state.y, state.vx, state.vy,
-                                     state.mass, G, dt)
+        with telemetry.span("nbody.ias15"):
+            x, y, vx, vy = kernels.ias15(state.x, state.y, state.vx,
+                                         state.vy, state.mass, G, dt)
         return state.replace(x=x, y=y, vx=vx, vy=vy)
     dt = torch.as_tensor(dt, dtype=state.x.dtype, device=state.x.device)
     h = dt / n_substeps
@@ -303,6 +304,7 @@ def dist_to_primary(state: NBodyState):
     return torch.sqrt(dx * dx + dy * dy)
 
 
+@telemetry.spanned("nbody.roche_radius")
 def dimensionless_roche_radius(state: NBodyState, n_iter: int = 12):
     """L1 distance fraction x for each body orbiting the primary
     (reference src/Theo.cpp:251-277 init_l1, Newton iteration); 0 for the

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from .. import telemetry
 from ..nbody import system as nbody_sys
 from ..params import Physics
 from .common import Geom, azim_next, ring_col
@@ -24,6 +25,7 @@ from .common import Geom, azim_next, ring_col
 VARIANTS = ("kley", "sinkhole", "viscous")
 
 
+@telemetry.spanned("accretion.orbital_periods")
 def orbital_periods(constants, nb: nbody_sys.NBodyState,
                     n_hydroframe: int = 1) -> torch.Tensor:
     """Osculating orbital period of every body (float64), as the

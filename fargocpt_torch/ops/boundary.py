@@ -33,6 +33,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import telemetry
 from ..params import Physics
 from . import diskmodel as dm
 from .common import Geom
@@ -273,6 +274,7 @@ def _put_row(x, row: int, value):
                      dim=0)
 
 
+@telemetry.spanned("boundary.center_of_mass")
 def center_of_mass_boundary(phys: Physics, constants, g: Geom, sigma, vrad,
                             vaz, energy, nb, n_hydroframe: int,
                             quad_moment: float, omega_frame,
@@ -366,6 +368,7 @@ def center_of_mass_boundary(phys: Physics, constants, g: Geom, sigma, vrad,
     return sigma, vrad, vaz, energy
 
 
+@telemetry.spanned("boundary.rochelobe")
 def rochelobe_overflow(phys: Physics, constants, g: Geom, sigma, vrad, vaz,
                        energy, omega_frame, nb, current_time,
                        temp0_factor: float, time_to_hours: float,

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from ..params import Physics, ARTVISC_SN, LEAPFROG
 from .common import Geom, azim_next
 from .viscosity import viscosity_correction_factors
@@ -60,6 +61,7 @@ def inverse_dt_squared(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
         + invdt5 ** 2 + invdt6 ** 2
 
 
+@telemetry.spanned("cfl.condition")
 def condition_cfl(phys: Physics, g: Geom, sigma, vrad, vaz, energy, cs, nu,
                   qplus, qminus) -> torch.Tensor:
     """Returns the CFL dt as a 0-d tensor. StabilizeViscosity 2 adds the

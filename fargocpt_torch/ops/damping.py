@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import telemetry
 from ..params import Physics
 from .boundary import RefValues
 
@@ -101,6 +102,7 @@ class DampingZones(nn.Module):
                             dim=0)
         return -1.5 * phys.viscous_outflow_speed * nu_face * self.inv_ra
 
+    @telemetry.spanned("damping.apply")
     def apply(self, phys: Physics, sigma, vrad, vaz, energy,
               ref: RefValues, dt, nu=None):
         """reference src/boundary_conditions/damping.cpp ``damping()``.

@@ -19,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..params import Physics
 from .eos import finite_in
 
@@ -174,6 +175,7 @@ def _derive(f, r, rel_h: float = 8.0e-4):
             - 8.0 * f(r - h) + f(r - 2.0 * h)) / (12.0 * h)
 
 
+@telemetry.spanned("diskmodel.drift_model")
 def vr_numerical_viscous(phys: Physics, constants, r, mass,
                          quad_moment=0.0):
     """v_r of the steady viscous accretion balance on the initial profile,

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import telemetry
 from ..params import Physics
 from .common import Geom, azim_next, set_rows
 from . import eos, opacity as opacity_mod
@@ -153,6 +154,7 @@ class IrradiationCtx:
     cell_y: torch.Tensor
 
 
+@telemetry.spanned("energy.irradiation")
 def irradiation(phys: Physics, constants, ctx: IrradiationCtx,
                 aspect_ratio, tau_eff, current_time):
     """Stellar irradiation heating Q+ (Menou & Goodman 2004 via D'Angelo &
@@ -198,6 +200,7 @@ def thermal_cooling(phys: Physics, constants, temperature, tau_eff):
         * (temperature ** 4 - phys.minimum_temperature ** 4) / tau_eff
 
 
+@telemetry.spanned("energy.scurve_cooling")
 def scurve_cooling(phys: Physics, constants, units, g: Geom, sigma,
                    temperature, mu_grid):
     """Dwarf-nova S-curve surface cooling (reference
@@ -258,6 +261,7 @@ def scurve_cooling(phys: Physics, constants, units, g: Geom, sigma,
     return qminus, tau_eff
 
 
+@telemetry.spanned("energy.substep3")
 def substep3(phys: Physics, constants, g: Geom, sigma, energy, nu,
              tau_rr, tau_pp, tau_rp, div_v, scale_height, current_time, dt,
              units=None, pvte_vals=None, ref=None,

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from .. import telemetry
 from ..params import Physics
 from .common import Geom
 
@@ -149,6 +150,7 @@ def sound_speed_iso_com(phys: Physics, constants, g: Geom, com_x, com_y,
         * torch.sqrt(constants.G * com_mass / dist)
 
 
+@telemetry.spanned("eos.scale_height_nbody")
 def scale_height_nbody(phys: Physics, constants, g: Geom, cs, bodies,
                        n_bodies: int, body_radius, cell_x, cell_y,
                        pvte_vals=None):
@@ -165,6 +167,7 @@ def scale_height_nbody(phys: Physics, constants, g: Geom, cs, bodies,
     return 1.0 / torch.sqrt(inv_h2)
 
 
+@telemetry.spanned("eos.aspect_ratio_nbody")
 def aspect_ratio_nbody(phys: Physics, constants, g: Geom, cs, bodies,
                        n_bodies: int, body_radius, cell_x, cell_y,
                        pvte_vals=None):
@@ -199,6 +202,7 @@ def scale_height_com(phys: Physics, constants, g: Geom, cs, com_x, com_y,
                            cell_x, cell_y, pvte_vals)
 
 
+@telemetry.spanned("eos.sg_scale_height")
 def adjust_scale_height_for_sg(h, toomre_q):
     """The self-gravitating vertical structure of the Bessel-kernel mode:
     H sqrt(2 / pi) f(Q), f(Q) = pi (sqrt(1 + 8 Q^2 / pi) - 1) / (4 Q)

@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..params import Physics
 from .common import Geom, azim_next, azim_prev, set_rows
 from . import opacity as opacity_mod
@@ -58,8 +59,8 @@ class FLDConfig:
 
 
 class FLDSolver:
-    """Radiative diffusion for one configuration. ``iterations`` counts
-    the SOR iterations of all solves."""
+    """Radiative diffusion for one configuration; ``solve`` counts its SOR
+    iterations as ``fld.sor_iterations`` in ``telemetry``."""
 
     def __init__(self, phys: Physics, constants, units, geometry,
                  config: FLDConfig, dtype: torch.dtype, device=None):
@@ -78,7 +79,6 @@ class FLDSolver:
                             (self.nrad, self.naz)).copy(), device=device)
         self.n_cells = self.nrad * self.naz
         self.last_n_iter = SOR_BLOCK
-        self.iterations = 0             # SOR iterations over all solves
 
     # ------------------------------------------------------------------
     def diffusion_coefficients(self, g: Geom, rho, T):
@@ -169,6 +169,7 @@ class FLDSolver:
         """Reverse the walk when the iteration count worsened, step omega
         by 0.01, clamp to [1.0, 1.99] (reference src/fld.cpp:773-792)."""
         omega, direction, old_iter = sor_state[0], sor_state[1], sor_state[2]
+        telemetry.count("sync.fld_upload")
         it = torch.as_tensor(n_iter, dtype=sor_state.dtype,
                              device=sor_state.device)
         direction = torch.where(old_iter < it, -direction, direction)
@@ -178,6 +179,7 @@ class FLDSolver:
         omega = torch.clamp(omega, 1.0, 1.99)
         return torch.stack([omega, direction, it])
 
+    @telemetry.spanned("fld.solve")
     def solve(self, T, Told, A, B, C, D, E, omega=None, halo_fn=None,
               shard_ctx=None):
         """Red-black SOR with the reference's convergence test: the change
@@ -210,6 +212,7 @@ class FLDSolver:
         K = max(int(cfg.check_interval), 1)
         it = torch.zeros((), dtype=torch.int32, device=T.device)
         last_avg = torch.zeros((), dtype=T.dtype, device=T.device)
+        telemetry.count("sync.fld_upload")
         change = torch.tensor(torch.finfo(T.dtype).max, dtype=T.dtype,
                               device=T.device)
         block = max(1, self.last_n_iter // K)
@@ -230,14 +233,16 @@ class FLDSolver:
                 change = torch.where(go, torch.abs(avg - last_avg), change)
                 last_avg = torch.where(go, avg, last_avg)
                 it = it + go.to(torch.int32) * K
+            telemetry.count("sync.fld_block")
             if not bool((change > tol) & (it < cfg.max_iterations)):
                 break
             block = SOR_BLOCK
         # the ghost rows hold the neighbours' final values
         T = refresh(T)
+        telemetry.count("sync.fld_iterations")
         n_iter = int(it)
         self.last_n_iter = n_iter
-        self.iterations += n_iter
+        telemetry.count("fld.sor_iterations", n_iter)
         return T, n_iter
 
     # ------------------------------------------------------------------
@@ -246,18 +251,19 @@ class FLDSolver:
         """The FLD substep on the energy (reference src/fld.cpp:965-1019).
         With ``sor_state`` (auto-omega) the relaxation factor is taken from
         and walked in the carried state. Returns (energy, n_iter,
-        sor_state)."""
-        phys, constants = self.phys, self.constants
-        nr = g.nrad
-        c_v = constants.R / (phys.mu * (phys.adiabatic_index - 1.0))
-        T = self._temperature_boundary(energy / (c_v * sigma))
-        rho = sigma / (phys.density_factor * scale_height)
-        ka, kb = self.diffusion_coefficients(g, rho, T)
-        A, B, C, D, E = self.matrix_elements(g, rho, ka, kb, dt)
-        omega = sor_state[0] if sor_state is not None else None
-        T_new, n_iter = self.solve(T, T, A, B, C, D, E, omega=omega,
-                                   halo_fn=halo_fn, shard_ctx=shard_ctx)
-        if sor_state is not None:
-            sor_state = self.adapt_omega(sor_state, n_iter)
-        energy = set_rows(energy, c_v * T_new * sigma, 1, nr - 1)
-        return energy, n_iter, sor_state
+        sor_state). It runs as the span ``fld.radiative_diffusion``."""
+        with telemetry.span("fld.radiative_diffusion"):
+            phys, constants = self.phys, self.constants
+            nr = g.nrad
+            c_v = constants.R / (phys.mu * (phys.adiabatic_index - 1.0))
+            T = self._temperature_boundary(energy / (c_v * sigma))
+            rho = sigma / (phys.density_factor * scale_height)
+            ka, kb = self.diffusion_coefficients(g, rho, T)
+            A, B, C, D, E = self.matrix_elements(g, rho, ka, kb, dt)
+            omega = sor_state[0] if sor_state is not None else None
+            T_new, n_iter = self.solve(T, T, A, B, C, D, E, omega=omega,
+                                       halo_fn=halo_fn, shard_ctx=shard_ctx)
+            if sor_state is not None:
+                sor_state = self.adapt_omega(sor_state, n_iter)
+            energy = set_rows(energy, c_v * T_new * sigma, 1, nr - 1)
+            return energy, n_iter, sor_state

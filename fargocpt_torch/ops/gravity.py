@@ -12,6 +12,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import telemetry
 from ..params import Physics
 from .common import Geom, ring_col
 
@@ -38,6 +39,7 @@ def smoothing_length(phys: Physics, scale_height: torch.Tensor,
     return phys.thickness_smoothing * scale_height
 
 
+@telemetry.spanned("gravity.nbody_potential")
 def nbody_potential(phys: Physics, constants, g: Geom,
                     bodies: BodiesOnGrid, n_bodies: int,
                     cell_x: torch.Tensor, cell_y: torch.Tensor,
@@ -68,6 +70,7 @@ def nbody_potential(phys: Physics, constants, g: Geom,
     return pot
 
 
+@telemetry.spanned("gravity.disk_on_bodies")
 def disk_on_body_accel(phys: Physics, constants, g: Geom,
                        bodies: BodiesOnGrid, n_bodies: int,
                        cell_x: torch.Tensor, cell_y: torch.Tensor,
@@ -154,13 +157,14 @@ def indirect_term_nbody_predictor(constants, nb, n_center: int,
         z = torch.zeros((), dtype=nb.x.dtype, device=nb.x.device)
         return z, z
     from ..nbody.system import integrate
-    pred = integrate(nb, constants.G, dt)
-    m = nb.mass[:n_center]
-    mc = torch.sum(m)
-    dvx = torch.sum(m * (pred.vx[:n_center] - nb.vx[:n_center])) / mc
-    dvy = torch.sum(m * (pred.vy[:n_center] - nb.vy[:n_center])) / mc
-    dt = torch.as_tensor(dt, dtype=nb.x.dtype, device=nb.x.device)
-    safe_dt = torch.where(dt != 0.0, dt, torch.ones_like(dt))
-    zero = torch.zeros_like(dvx)
-    return (torch.where(dt != 0.0, -dvx / safe_dt, zero),
-            torch.where(dt != 0.0, -dvy / safe_dt, zero))
+    with telemetry.span("gravity.indirect_term"):
+        pred = integrate(nb, constants.G, dt)
+        m = nb.mass[:n_center]
+        mc = torch.sum(m)
+        dvx = torch.sum(m * (pred.vx[:n_center] - nb.vx[:n_center])) / mc
+        dvy = torch.sum(m * (pred.vy[:n_center] - nb.vy[:n_center])) / mc
+        dt = torch.as_tensor(dt, dtype=nb.x.dtype, device=nb.x.device)
+        safe_dt = torch.where(dt != 0.0, dt, torch.ones_like(dt))
+        zero = torch.zeros_like(dvx)
+        return (torch.where(dt != 0.0, -dvx / safe_dt, zero),
+                torch.where(dt != 0.0, -dvy / safe_dt, zero))

@@ -24,7 +24,9 @@ library with a plain C interface loaded through ``ctypes``: one ``nvcc``
 per source, all started together, then one link. The library's file name
 carries a hash of the sources and flags, so a stale build is never loaded.
 
-``LAUNCHES`` counts, per op, the calls that launched the op's kernel.
+Each op's entry point runs as the span ``kernels.<op>`` (its checks,
+marshalling and launch), and ``telemetry`` counts, as ``launch.<op>``, the
+calls that launched the op's kernel.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import telemetry
 from ..grid import Geometry
 from ..nbody import ias15 as ias15_ops
 from ..params import Physics, ARTVISC_SN, ARTVISC_TW, LEAPFROG
@@ -55,12 +58,6 @@ OPS = ("cfl", "sources", "viscous_kick", "transport",
        "radial_momenta_sweep", "fargo_theta", "artvisc_sn",
        "radial_sweep", "theta_sweep", "advect_shift", "ias15")
 ROUTES = ("whole", "split", "staged")
-LAUNCHES = {name: 0 for name in OPS}
-
-
-def reset_launches() -> None:
-    for name in OPS:
-        LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -471,7 +468,7 @@ def _launch(op: str, like: torch.Tensor, tensors: list[torch.Tensor],
     if rc != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc} "
                            f"({_LIB.fc_error_string(rc).decode()})")
-    LAUNCHES[op] += 1
+    telemetry.count("launch." + op)
 
 
 def _device_scalar(like: torch.Tensor, v, dtype: torch.dtype) -> torch.Tensor:
@@ -502,6 +499,7 @@ def _scalars(like: torch.Tensor, values) -> torch.Tensor:
 # the ops
 # ---------------------------------------------------------------------------
 
+@telemetry.spanned("kernels.cfl")
 def cfl(ctx: KernelContext, sigma, vrad, vaz, energy, qplus, qminus):
     """CFL dt as a 0-d tensor of the field dtype."""
     if sigma.device.type == "cpu":
@@ -559,6 +557,7 @@ def _body_vector(name: str, t: torch.Tensor, n: int,
     return t.to(device=like.device, dtype=torch.float64).contiguous()
 
 
+@telemetry.spanned("kernels.sources")
 def sources(ctx: KernelContext, sigma, vrad, vaz, energy,
             bodies: gravity.BodiesOnGrid, indirect, omega_frame, dt,
             h_smooth=None):
@@ -616,6 +615,7 @@ def sources(ctx: KernelContext, sigma, vrad, vaz, energy,
     return vrad_out, vaz_out
 
 
+@telemetry.spanned("kernels.viscous_kick")
 def viscous_kick(ctx: KernelContext, sigma, vrad, vaz, energy, dt, time,
                  compress: bool = True, want_cs: bool = False):
     """Returns (vrad, vaz, energy, qplus, qminus), with ``want_cs`` and the
@@ -676,6 +676,7 @@ def viscous_kick(ctx: KernelContext, sigma, vrad, vaz, energy, dt, time,
     return (*outs, cs_out) if want_cs else tuple(outs)
 
 
+@telemetry.spanned("kernels.transport")
 def transport(ctx: KernelContext, sigma, vrad, vaz, energy, omega_frame, dt,
               shift=None, route=None):
     """FARGO transport by ``route`` (the context's when None): on the
@@ -730,6 +731,7 @@ def transport(ctx: KernelContext, sigma, vrad, vaz, energy, omega_frame, dt,
     return tuple(outs)
 
 
+@telemetry.spanned("kernels.radial_momenta_sweep")
 def radial_momenta_sweep(ctx: KernelContext, sigma, vrad, vaz, energy, base,
                          dt, omega_frame):
     """The momenta [rp, rm, ap, am, (energy), sigma] built from the fields
@@ -757,6 +759,7 @@ def radial_momenta_sweep(ctx: KernelContext, sigma, vrad, vaz, energy, base,
     return out
 
 
+@telemetry.spanned("kernels.fargo_theta")
 def fargo_theta(ctx: KernelContext, qs, vres, vconst, nshift, dt,
                 two_pass: bool):
     """Residual sweep of the (K, NR, NAZ) batch with ``vres`` (NR, NAZ),
@@ -782,6 +785,7 @@ def fargo_theta(ctx: KernelContext, qs, vres, vconst, nshift, dt,
     return out
 
 
+@telemetry.spanned("kernels.radial_sweep")
 def radial_sweep(ctx: KernelContext, qs, sigma, vrad, base, dt):
     """The batch ``qs`` (K, NR, NAZ), any K >= 1 and NR >= 3, swept
     radially in specific form (divided by ``sigma``) with the sigma flux
@@ -804,6 +808,7 @@ def radial_sweep(ctx: KernelContext, qs, sigma, vrad, base, dt):
     return out
 
 
+@telemetry.spanned("kernels.theta_sweep")
 def theta_sweep(ctx: KernelContext, qs, v, dt):
     """One azimuthal sweep of the batch ``qs`` (K, NR, NAZ), any K >= 1,
     entry K-1 the density, with the velocity ``v`` (NR, NAZ). Returns
@@ -823,6 +828,7 @@ def theta_sweep(ctx: KernelContext, qs, v, dt):
     return out
 
 
+@telemetry.spanned("kernels.advect_shift")
 def advect_shift(qs, nshift):
     """The per-ring integer roll of the batch ``qs`` (K, NR, NAZ) by
     ``nshift`` (int32, NR; any sign and size):
@@ -840,6 +846,7 @@ def advect_shift(qs, nshift):
     return out
 
 
+@telemetry.spanned("kernels.artvisc_sn")
 def artvisc_sn(ctx: KernelContext, sigma, vrad, vaz, energy, dt):
     """The Stone-Norman artificial viscosity substep. Returns (vrad, vaz,
     energy)."""
@@ -867,6 +874,7 @@ IAS15_LOCAL_BODIES = 16     # the per-thread arrays of csrc/ias15.cu
 IAS15_WORK_VALUES = 66      # float64 workspace values a body beyond them
 
 
+@telemetry.spanned("kernels.ias15")
 def ias15(x, y, vx, vy, m, G, dt, counts: torch.Tensor | None = None):
     """The bodies (float64 (N,) tensors) advanced under mutual gravity by
     exactly ``dt`` (a 0-d tensor of the run dtype, or a float) with the

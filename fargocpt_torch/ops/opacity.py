@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from .. import telemetry
 from ..params import Physics
 
 
@@ -144,6 +145,7 @@ def _bell_cgs(rho, T):
     return torch.where(lnT > math.log(t234) + power1 * lnr, k_high, k_low)
 
 
+@telemetry.spanned("opacity.opacity")
 def opacity(phys: Physics, units, rho, T):
     """kappa(rho, T) in code units (reference src/opacity.cpp:8-32)."""
     mode = phys.opacity_mode

@@ -32,6 +32,8 @@ import math
 import numpy as np
 import torch
 
+from .. import telemetry
+
 # cgs constants (reference src/constants.cpp:39-45)
 CGS_M_E = 9.1093826e-28
 CGS_EV = 1.602176463158e-12
@@ -384,6 +386,7 @@ def lookup_tables(x_mf: float, device: str = "cpu"):
     return rho_t, e_t, mu, geff, g1
 
 
+@telemetry.spanned("pvte.lookup")
 def lookup_gamma_mu(rho_cgs, e_cgs, tables):
     """(gamma_eff, mu, gamma1) by the reference's bilinear lookup
     (src/pvte_law.cpp:395-440): the cell found in log space with its
@@ -627,7 +630,8 @@ class PVTE:
     """Per-run PVTE evaluator: the units, the funcdum fit on the run's
     device, and the solver of the dtype (float32: the fast path,
     warm-started with ``n_newton`` Newton steps; float64: the bisection
-    pipeline). ``refreshes`` counts the calls of ``gamma_mu``."""
+    pipeline). ``gamma_mu`` counts its calls as ``pvte.refresh`` in
+    ``telemetry`` and runs as the span ``pvte.gamma_mu``."""
 
     def __init__(self, phys, units, dtype: torch.dtype, device=None,
                  n_newton: int = 1):
@@ -646,28 +650,30 @@ class PVTE:
                                 lookup_tables(self.x_mf, dev))
         self.fast = dtype == torch.float32 and not self.lookup
         self.n_newton = int(n_newton)
-        self.refreshes = 0
 
     def gamma_mu(self, sigma, energy, scale_height, guess=None):
         """(gamma_eff, mu, gamma1) grids of the state (reference :497-541
         ``compute_gamma_mu``); ``guess`` warm-starts the float32 solve. A
         shock tube takes Sigma for the volume density, no scale height
         (reference :521-524)."""
-        self.refreshes += 1
-        un = self.units
-        if self.shock_tube > 0:
-            rho_cgs = sigma * un.density
-        else:
-            rho_cgs = sigma / (self.density_factor * scale_height) \
-                * un.density
-        e_spec_cgs = energy / sigma * (un.energy_density / un.surface_density)
-        if self.lookup:
-            return lookup_gamma_mu(rho_cgs, e_spec_cgs, self.tables)
-        if self.fast:
-            return gamma_mu_fast(rho_cgs, e_spec_cgs, self.x_mf, guess=guess,
-                                 n_newton=self.n_newton)
-        T = temperature_from_energy(e_spec_cgs, rho_cgs, self.x_mf, self.tabs)
-        _, _, mu, _, gamma_eff = _gamma_mu_at(rho_cgs, T, self.x_mf,
-                                              self.tabs)
-        g1 = gamma1_at(rho_cgs, T, self.x_mf, self.tabs)
-        return gamma_eff, mu, g1
+        telemetry.count("pvte.refresh")
+        with telemetry.span("pvte.gamma_mu"):
+            un = self.units
+            if self.shock_tube > 0:
+                rho_cgs = sigma * un.density
+            else:
+                rho_cgs = sigma / (self.density_factor * scale_height) \
+                    * un.density
+            e_spec_cgs = energy / sigma \
+                * (un.energy_density / un.surface_density)
+            if self.lookup:
+                return lookup_gamma_mu(rho_cgs, e_spec_cgs, self.tables)
+            if self.fast:
+                return gamma_mu_fast(rho_cgs, e_spec_cgs, self.x_mf,
+                                     guess=guess, n_newton=self.n_newton)
+            T = temperature_from_energy(e_spec_cgs, rho_cgs, self.x_mf,
+                                        self.tabs)
+            _, _, mu, _, gamma_eff = _gamma_mu_at(rho_cgs, T, self.x_mf,
+                                                  self.tabs)
+            g1 = gamma1_at(rho_cgs, T, self.x_mf, self.tabs)
+            return gamma_eff, mu, g1

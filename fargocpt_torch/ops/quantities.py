@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from .. import telemetry
 from ..params import Physics
 from .common import Geom, accurate_cos, azim_next, azim_prev, ring_col
 
@@ -43,6 +44,7 @@ def disk_radius(phys: Physics, g: Geom, sigma, total, frac: float = 0.99):
     cum = torch.cumsum(ring_mass, dim=0)
     idx = torch.searchsorted(cum, (frac * total).reshape(1))[0]
     idx = torch.clamp(idx, 0, nr - 3)
+    telemetry.count("sync.monitor.disk_radius")
     return g.rb[1 + idx, 0]
 
 
@@ -134,6 +136,7 @@ def disk_ecc_peri(phys: Physics, constants, g: Geom, sigma, vrad, vaz,
     return torch.sqrt(ax * ax + ay * ay), torch.atan2(ay, ax)
 
 
+@telemetry.spanned("quantities.toomre_q")
 def toomre_q(phys: Physics, constants, g: Geom, sigma, cs):
     """Toomre Q = cs * Omega_K / (pi G Sigma) per cell
     (reference src/compute.cpp:93-113 ``toomreQ``)."""

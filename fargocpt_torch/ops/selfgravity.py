@@ -15,7 +15,10 @@ rebuilt in the run (``supports_in_run_update``), as in the JAX package.
 The adiabatic kernel refresh (reference :186-214) is due every
 ``SelfGravityKernelUpdateInterval`` calls. Its call counter is a host
 integer, so only a due call reads the device: one read of whether the
-mass-weighted aspect ratio moved past the threshold.
+mass-weighted aspect ratio moved past the threshold. A due refresh and the
+accelerations run as the spans ``selfgravity.update_kernel`` and
+``selfgravity.accelerations``; ``selfgravity.rebuild`` counts the
+rebuilds.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..grid import Geometry, LOGARITHMIC
 from ..params import Physics
 from .common import Geom
@@ -141,7 +145,6 @@ class SelfGravity:
                                     device=device)
         self.k_t_hat = torch.tensor(np.fft.rfft2(k_t).astype(cnp),
                                     device=device)
-        self.rebuilds = 0
 
     # ------- in-run kernel update (reference selfgravity.cpp:186-214) -----
     def supports_in_run_update(self) -> bool:
@@ -173,41 +176,45 @@ class SelfGravity:
         since = 0 if due else since + 1
         if not due:
             return (k_r_hat, k_t_hat, last_ar, since)
-        inside = g.rb <= self.geometry.rmax
-        w = sigma * g.surf
-        if row_w is not None:
-            w = w * row_w
-        w = torch.where(inside, w, 0.0)
-        q_m = torch.stack([torch.sum(scale_height * g.inv_rb * w),
-                           torch.sum(w)])
-        if comm is not None:
-            q_m = comm.sum(q_m)
-        ar_avg = q_m[0] / q_m[1]
-        # safety net (reference :158-161)
-        ar_avg = torch.where(ar_avg == 0.0, phys.aspectratio_ref, ar_avg)
-        if not bool(torch.abs(last_ar - ar_avg)
-                    >= phys.sg_kernel_aspectratio_threshold):
-            return (k_r_hat, k_t_hat, last_ar, since)
-        self.rebuilds += 1
-        k_r, k_t = _kernel_bs(phys, self.U, self.TH, ar_avg, torch)
-        return (torch.fft.rfft2(k_r).to(self.cdtype),
-                torch.fft.rfft2(k_t).to(self.cdtype), ar_avg, since)
+        with telemetry.span("selfgravity.update_kernel"):
+            inside = g.rb <= self.geometry.rmax
+            w = sigma * g.surf
+            if row_w is not None:
+                w = w * row_w
+            w = torch.where(inside, w, 0.0)
+            q_m = torch.stack([torch.sum(scale_height * g.inv_rb * w),
+                               torch.sum(w)])
+            if comm is not None:
+                q_m = comm.sum(q_m)
+            ar_avg = q_m[0] / q_m[1]
+            # safety net (reference :158-161)
+            ar_avg = torch.where(ar_avg == 0.0, phys.aspectratio_ref, ar_avg)
+            telemetry.count("sync.sg_kernel")
+            if not bool(torch.abs(last_ar - ar_avg)
+                        >= phys.sg_kernel_aspectratio_threshold):
+                return (k_r_hat, k_t_hat, last_ar, since)
+            telemetry.count("selfgravity.rebuild")
+            k_r, k_t = _kernel_bs(phys, self.U, self.TH, ar_avg, torch)
+            return (torch.fft.rfft2(k_r).to(self.cdtype),
+                    torch.fft.rfft2(k_t).to(self.cdtype), ar_avg, since)
 
     def accelerations(self, sigma, spectra=None):
         """g_r, g_phi at the cell centres (reference :321-700); ``spectra``
         are the carried kernel spectra, when the run updates them."""
-        nr, naz = self.geometry.nrad, self.geometry.naz
-        k_r_hat, k_t_hat = spectra if spectra is not None \
-            else (self.k_r_hat, self.k_t_hat)
-        pad = torch.zeros_like(sigma)
-        s_r = torch.cat([sigma * self.scale_half, pad], dim=0)
-        s_t = torch.cat([sigma * self.scale_3half, pad], dim=0)
-        acc_r = torch.fft.irfft2(k_r_hat * torch.fft.rfft2(s_r),
-                                 s=(2 * nr, naz))[:nr]
-        acc_t = torch.fft.irfft2(k_t_hat * torch.fft.rfft2(s_t),
-                                 s=(2 * nr, naz))[:nr]
-        norm = -self.constants.G * self.r_step * self.t_step
-        return norm * acc_r / self.scale_half, norm * acc_t / self.scale_3half
+        with telemetry.span("selfgravity.accelerations"):
+            nr, naz = self.geometry.nrad, self.geometry.naz
+            k_r_hat, k_t_hat = spectra if spectra is not None \
+                else (self.k_r_hat, self.k_t_hat)
+            pad = torch.zeros_like(sigma)
+            s_r = torch.cat([sigma * self.scale_half, pad], dim=0)
+            s_t = torch.cat([sigma * self.scale_3half, pad], dim=0)
+            acc_r = torch.fft.irfft2(k_r_hat * torch.fft.rfft2(s_r),
+                                     s=(2 * nr, naz))[:nr]
+            acc_t = torch.fft.irfft2(k_t_hat * torch.fft.rfft2(s_t),
+                                     s=(2 * nr, naz))[:nr]
+            norm = -self.constants.G * self.r_step * self.t_step
+            return (norm * acc_r / self.scale_half,
+                    norm * acc_t / self.scale_3half)
 
     def kick(self, g: Geom, vrad, vaz, g_r, g_t, dt):
         """Velocity update from the accelerations (reference :712-747):

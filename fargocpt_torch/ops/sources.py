@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from ..params import Physics
 from .common import Geom, azim_next, azim_prev, set_rows
 
@@ -63,6 +64,7 @@ def compression_heating(phys: Physics, g: Geom, energy, vrad, vaz, dt,
     return set_rows(energy, new, 0, g.nrad - 1)
 
 
+@telemetry.spanned("sources.update")
 def update_with_sourceterms(phys: Physics, g: Geom, sigma, press, pot,
                             vrad, vaz, energy, omega_frame, dt,
                             compress: bool = True, pvte_vals=None):

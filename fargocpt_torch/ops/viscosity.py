@@ -10,12 +10,14 @@ import math
 
 import torch
 
+from .. import telemetry
 from ..params import Physics
 from .common import Geom, azim_next, azim_prev, set_rows
 from .pvte import ionization_fraction
 from .sources import divergence_v
 
 
+@telemetry.spanned("viscosity.alpha_grid")
 def alpha_grid(phys: Physics, g: Geom, units=None, temperature=None,
                sigma=None, scale_height=None, bodies=None,
                n_bodies: int = 0, cell_x=None, cell_y=None):
@@ -73,6 +75,7 @@ def kinematic_viscosity(phys: Physics, g: Geom, cs, scale_height,
     return torch.full_like(cs, phys.constant_viscosity)
 
 
+@telemetry.spanned("viscosity.stress")
 def viscous_stress_tensor(phys: Physics, g: Geom, sigma, vrad, vaz, nu):
     """tau_rr, tau_pp (cell centered), tau_rp (corner, rows 1..NR-1; row 0
     zero) and div_v."""
@@ -98,6 +101,7 @@ def viscous_stress_tensor(phys: Physics, g: Geom, sigma, vrad, vaz, nu):
     return tau_rr, tau_pp, tau_rp, div_v
 
 
+@telemetry.spanned("viscosity.correction_factors")
 def viscosity_correction_factors(phys: Physics, g: Geom, sigma, nu):
     """The StabilizeViscosity correction factors c_phi, c_r of each cell,
     rows 1..NR-1 (reference src/viscosity/viscosity.cpp:256-354): the
@@ -149,6 +153,7 @@ def _stabilize_corr(c, dt):
     return 1.0 / (torch.clamp(1.0 + dt * c, min=0.0) - dt * c)
 
 
+@telemetry.spanned("viscosity.update")
 def update_velocities_with_viscosity(phys: Physics, g: Geom, sigma,
                                      vrad, vaz, tau_rr, tau_pp, tau_rp, dt,
                                      nu=None):

@@ -18,16 +18,21 @@ not a fallback, and it is the pair that lets several ranks share one card.
 NCCL moves device tensors and needs a card a rank; a CPU device under
 NCCL raises.
 
-``bytes_sent`` counts, per kind of collective, the bytes this rank put on
-the wire: an exchange its blocks to the neighbours that exist, an
-all_gather (ring) its rows to the n - 1 others, an all_reduce its tensor,
-a broadcast its tensor on the source rank.
+``telemetry`` counts as ``comm.bytes.<kind>``, per kind of collective
+(``KINDS``), the bytes this rank put on the wire: an exchange its blocks
+to the neighbours that exist, an all_gather (ring) its rows to the n - 1
+others, an all_reduce its tensor, a broadcast its tensor on the source
+rank; and as ``sync.comm.stage`` each copy through the host. The
+collectives run as the spans ``comm.exchange``, ``comm.sum``,
+``comm.min``, ``comm.gather_rows`` and ``comm.broadcast``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from .. import telemetry
 
 KINDS = ("exchange", "all_gather", "all_reduce", "broadcast")
 
@@ -58,22 +63,25 @@ class Communicator:
         else:
             raise ValueError(f"backend {self.backend!r} is not supported: "
                              "name gloo or nccl")
-        self.bytes_sent = dict.fromkeys(KINDS, 0)
-
-    def reset_counters(self) -> None:
-        self.bytes_sent = dict.fromkeys(KINDS, 0)
 
     # ------------------------------------------------------------------
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         """The tensor the backend moves: a host copy under gloo with a
         CUDA device, the tensor itself otherwise (contiguous)."""
         t = t.contiguous()
-        return t.to("cpu") if self.staged else t
+        if not self.staged:
+            return t
+        telemetry.count("sync.comm.stage")
+        return t.to("cpu")
 
     def _back(self, t: torch.Tensor) -> torch.Tensor:
-        return t.to(self.device) if self.staged else t
+        if not self.staged:
+            return t
+        telemetry.count("sync.comm.stage")
+        return t.to(self.device)
 
     # ------------------------------------------------------------------
+    @telemetry.spanned("comm.exchange")
     def exchange(self, up: torch.Tensor, down: torch.Tensor):
         """Send ``up`` to the rank above and ``down`` to the rank below;
         return (from_below, from_above), the blocks the neighbours sent.
@@ -89,14 +97,15 @@ class Communicator:
                                   self.group))
             ops.append(dist.P2POp(dist.irecv, from_above, self._peer(r + 1),
                                   self.group))
-            self.bytes_sent["exchange"] += up_w.numel() * up_w.element_size()
+            telemetry.count("comm.bytes.exchange",
+                            up_w.numel() * up_w.element_size())
         if r > 0:
             ops.append(dist.P2POp(dist.isend, down_w, self._peer(r - 1),
                                   self.group))
             ops.append(dist.P2POp(dist.irecv, from_below, self._peer(r - 1),
                                   self.group))
-            self.bytes_sent["exchange"] += \
-                down_w.numel() * down_w.element_size()
+            telemetry.count("comm.bytes.exchange",
+                            down_w.numel() * down_w.element_size())
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
@@ -110,34 +119,39 @@ class Communicator:
 
     def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         w = self._wire(t).clone()
-        self.bytes_sent["all_reduce"] += w.numel() * w.element_size()
+        telemetry.count("comm.bytes.all_reduce", w.numel() * w.element_size())
         dist.all_reduce(w, op=op, group=self.group)
         return self._back(w)
 
+    @telemetry.spanned("comm.sum")
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """``lax.psum``: the elementwise sum over the ranks, the same bits
         on every rank."""
         return self._all_reduce(t, dist.ReduceOp.SUM)
 
+    @telemetry.spanned("comm.min")
     def min(self, t: torch.Tensor) -> torch.Tensor:
         """``lax.pmin``."""
         return self._all_reduce(t, dist.ReduceOp.MIN)
 
+    @telemetry.spanned("comm.gather_rows")
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """``lax.all_gather(x, tiled=True)`` along dim 0: every rank's
         block in rank order, on every rank."""
         w = self._wire(x)
         parts = [torch.empty_like(w) for _ in range(self.size)]
         dist.all_gather(parts, w, group=self.group)
-        self.bytes_sent["all_gather"] += \
-            (self.size - 1) * w.numel() * w.element_size()
+        telemetry.count("comm.bytes.all_gather",
+                        (self.size - 1) * w.numel() * w.element_size())
         return self._back(torch.cat(parts, dim=0))
 
+    @telemetry.spanned("comm.broadcast")
     def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         """Rank ``src``'s tensor on every rank."""
         w = self._wire(t).clone()
         if self.rank == src:
-            self.bytes_sent["broadcast"] += w.numel() * w.element_size()
+            telemetry.count("comm.bytes.broadcast",
+                            w.numel() * w.element_size())
         dist.broadcast(w, src=self._peer(src), group=self.group)
         return self._back(w)
 

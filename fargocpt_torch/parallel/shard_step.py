@@ -44,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..ops.boundary import RefValues
 from ..params import LEAPFROG
 from ..state import FieldState, SystemState
@@ -281,6 +282,7 @@ class ShardedHydroStep:
         from ..particles import sharded as psh
         if not isinstance(local.particles, psh.ShardedParticles):
             return 0
+        telemetry.count("sync.particles.overflow")
         return int(self.comm.sum(local.particles.overflow.reshape(1)
                                  .to(torch.float64))[0])
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import telemetry
 from ..grid import Geometry
 from ..params import Physics
 from ..units import CGS_KB, CGS_AMU
@@ -511,6 +512,7 @@ def integrate_rk45(phys: Physics, pp: ParticleParams, constants, units,
         # a sub-step that is NaN (its error estimate was) or 0 can never
         # finish its dt, and the host would wait for ever
         stuck = ~done & ~(torch.isfinite(h) & (h != 0.0))
+        telemetry.count("sync.dust_rk45")
         all_done, n_stuck = torch.stack([done.all(), stuck.sum()]).tolist()
         if n_stuck:
             raise RuntimeError(f"integrate_rk45: {n_stuck} particles can "
@@ -547,6 +549,7 @@ def standard_normal(state: ParticleState) -> torch.Tensor:
                        dtype=state.r.dtype, device=state.r.device)
 
 
+@telemetry.spanned("dust.diffuse")
 def diffuse_dust(phys: Physics, constants, grid: DustGrid, g,
                  state: ParticleState, rho, cs, scale_height, dt,
                  normal=None) -> ParticleState:

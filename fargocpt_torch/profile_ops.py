@@ -200,8 +200,10 @@ def launch_times(fn, fragments, calls=10) -> tuple[list[dict], float]:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        # the spans' device-side annotations (``fc:``) are not work
         device = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("fc:")]
         found = sorted(
             ((e.time_range.start, e.name, e.time_range.elapsed_us())
              for e in device if any(f in e.name for f in fragments)),

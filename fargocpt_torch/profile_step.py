@@ -24,23 +24,21 @@ the wall time of ``--steps`` steps (host clock around synchronised work),
 then a ``torch.profiler`` window of 20 steps. Prints per grid the device
 time per step of each hand-written kernel (grouped by op) and of the
 PyTorch ops (with their heaviest kernels), the launches per step, and the
-device's busy share of the wall time. A second window of 20 steps wraps
-the step's phases (``phases()``: the PVTE refresh, FLD, self-gravity, the
-opacity, the dust, ...) in ``record_function`` ranges and prints the device
-time and kernel launches of each; ranges nest (the opacity runs inside
-FLD and SubStep3, the Roche radius inside the accretion). The
+device's busy share of the wall time; then the step's phases, the port's
+own ``fc:`` spans of the same window (``telemetry``: the PVTE refresh,
+FLD, self-gravity, the opacity, the dust, the kernels' wrappers, ...),
+with the device time launched inside each; spans nest (the opacity runs
+inside FLD and SubStep3, the Roche radius inside the accretion). The
 last line is all of it as one JSON object. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
 
 import torch
 
@@ -90,90 +88,6 @@ def _device_us(event, attrs=("self_device_time_total",
     return 0.0
 
 
-def phases():
-    """(owner, attribute, label) of the functions a step calls, each timed
-    as one profiler range."""
-    from . import step
-    from .nbody import system as nbody_sys
-    from .ops import (accretion, boundary, cfl, damping, diskmodel, energy,
-                      eos, fld, gravity, kernels, opacity, pvte, quantities,
-                      selfgravity, sources, viscosity)
-    from .particles import dust
-    return (
-        (accretion, "accrete_onto_planets", "accretion"),
-        (accretion, "orbital_periods", "orbital periods"),
-        (nbody_sys, "dimensionless_roche_radius", "Roche radius"),
-        (step.HydroStep, "_update_monitor_acc", "monitor grids"),
-        (step.HydroStep, "_corotation_update", "corotation"),
-        (step.HydroStep, "_integrate_particles", "dust"),
-        (pvte.PVTE, "gamma_mu", "PVTE refresh"),
-        (pvte, "lookup_gamma_mu", "PVTE lookup"),
-        (eos, "adjust_scale_height_for_sg", "Bessel derived H"),
-        (quantities, "toomre_q", "Toomre Q"),
-        (dust, "diffuse_dust", "dust diffusion"),
-        (fld.FLDSolver, "radiative_diffusion", "FLD substep"),
-        (fld.FLDSolver, "solve", "FLD SOR solve"),
-        (selfgravity.SelfGravity, "accelerations", "self-gravity FFT"),
-        (selfgravity.SelfGravity, "update_kernel", "self-gravity kernel"),
-        (opacity, "opacity", "opacity"),
-        (energy, "substep3", "SubStep3"),
-        (sources, "update_with_sourceterms", "sources"),
-        (gravity, "nbody_potential", "N-body potential"),
-        (gravity, "disk_on_body_accel", "disk on the bodies"),
-        (gravity, "indirect_term_nbody_predictor", "indirect term"),
-        (step.HydroStep, "bodies_on_grid", "bodies on the grid"),
-        (damping.DampingZones, "apply", "damping zones"),
-        (viscosity, "viscous_stress_tensor", "viscous stress"),
-        (viscosity, "update_velocities_with_viscosity", "viscous update"),
-        (cfl, "condition_cfl", "CFL condition"),
-        (kernels, "artvisc_sn", "artvisc_sn op"),
-        (kernels, "transport", "transport op"),
-        (boundary, "apply_boundary_conditions", "boundaries"),
-        (boundary, "center_of_mass_boundary", "center-of-mass boundary"),
-        (boundary, "rochelobe_overflow", "Roche-lobe stream"),
-        (energy, "scurve_cooling", "S-curve cooling"),
-        (diskmodel, "vr_numerical_viscous", "drift model"),
-        (step.HydroStep, "derived", "derived grids"),
-        (eos, "scale_height_nbody", "N-body scale height"),
-        (eos, "aspect_ratio_nbody", "N-body aspect ratio"),
-        (viscosity, "alpha_grid", "alpha grid"),
-        (viscosity, "viscosity_correction_factors",
-         "viscosity correction factors"),
-        (energy, "irradiation", "irradiation"),
-    )
-
-
-def _launches(event) -> int:
-    """The kernel launches the host made inside a range: its descendant
-    runtime calls ``cudaLaunchKernel`` / ``cuLaunchKernel``."""
-    n, stack = 0, list(event.cpu_children)
-    while stack:
-        child = stack.pop()
-        n += "LaunchKernel" in child.name
-        stack.extend(child.cpu_children)
-    return n
-
-
-@contextmanager
-def ranges(targets):
-    """Wraps each target in a ``record_function`` range while inside."""
-    saved = []
-    for owner, name, label in targets:
-        fn = getattr(owner, name)
-
-        def wrapped(*a, _fn=fn, _label=label, **kw):
-            with torch.profiler.record_function(_label):
-                return _fn(*a, **kw)
-
-        saved.append((owner, name, fn))
-        setattr(owner, name, functools.wraps(fn)(wrapped))
-    try:
-        yield
-    finally:
-        for owner, name, fn in saved:
-            setattr(owner, name, fn)
-
-
 def profile_grid(nrad: int, naz: int, setup: str = "flagship",
                  warmup: int = 20, steps: int = 120,
                  window: int = 20, route: str | None = None,
@@ -200,7 +114,9 @@ def profile_grid(nrad: int, naz: int, setup: str = "flagship",
         torch.cuda.synchronize()
     ops: dict[str, dict] = {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # the spans' device-side annotations are not kernels
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.key.startswith("fc:"):
             continue
         us = _device_us(e)
         if us <= 0.0:
@@ -213,25 +129,18 @@ def profile_grid(nrad: int, naz: int, setup: str = "flagship",
         row["kernels"][e.key[:80]] = us / 1e3 / window
     device_ms = sum(r["device_ms_per_step"] for r in ops.values())
 
-    targets = phases()
-    labels = {label for _, _, label in targets}
-    with ranges(targets), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
-        run(window)
-        torch.cuda.synchronize()
-    # the host-side range events: their device time sums the kernels
+    # the host-side span events: their device time sums the kernels
     # launched inside (the device-side annotation of the same name spans
     # first kernel to last, idle gaps included, and is left out)
     phase_ms = {}
     for e in prof.events():
-        if e.name in labels and e.device_type == torch.autograd.DeviceType.CPU:
-            row = phase_ms.setdefault(e.name, {"device_ms_per_step": 0.0,
-                                               "calls_per_step": 0.0,
-                                               "launches_per_step": 0.0})
+        if e.name.startswith("fc:") \
+                and e.device_type == torch.autograd.DeviceType.CPU:
+            row = phase_ms.setdefault(e.name[3:], {"device_ms_per_step": 0.0,
+                                                   "calls_per_step": 0.0})
             row["device_ms_per_step"] += _device_us(
                 e, ("device_time_total", "cuda_time_total")) / 1e3 / window
             row["calls_per_step"] += 1.0 / window
-            row["launches_per_step"] += _launches(e) / window
     return {"setup": setup, "grid": f"{nrad}x{naz}", "dtype": dtype,
             "route": sim.stepper.ops.route,
             "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
@@ -275,11 +184,10 @@ def main(argv=None) -> int:
             heaviest = sorted(row["kernels"].items(), key=lambda kv: -kv[1])
             for name, ms in heaviest[:12]:
                 print(f"      {ms:.4f} ms  {name}", flush=True)
-        print("  phases (device time of the ranges; they nest):", flush=True)
+        print("  phases (device time of the spans; they nest):", flush=True)
         for label, row in sorted(r["phases"].items(),
                                  key=lambda kv: -kv[1]["device_ms_per_step"]):
-            print(f"  {label:22s} {row['calls_per_step']:6.2f} calls  "
-                  f"{row['launches_per_step']:7.1f} launches  "
+            print(f"  {label:28s} {row['calls_per_step']:6.2f} calls  "
                   f"{row['device_ms_per_step']:.4f} ms", flush=True)
     print(json.dumps({"gpu": gpu, "results": results}))
     return 0

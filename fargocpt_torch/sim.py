@@ -22,7 +22,6 @@ after every step and raises ``FloatingPointError`` at the first.
 from __future__ import annotations
 
 import dataclasses
-import time as _time
 import warnings
 from dataclasses import dataclass
 
@@ -30,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import initial, units as u
+from . import initial, telemetry, units as u
 from .config import Config
 from .constants import Constants
 from .grid import Geometry
@@ -370,26 +369,32 @@ class Simulation:
         """One monitor interval: ``advance_to`` the next output time, the
         interval's dt statistics (one host read), then the hooks. With
         ``max_steps`` it may stop short of the output time: then it runs
-        no hook and returns False."""
+        no hook and returns False. The call is the root span
+        ``sim.advance_monitor`` (``telemetry.root``), whose monotonic clock
+        gives ``monitor_stats["walltime"]``."""
         t_target = (self.n_monitor + 1) * self.settings.monitor_timestep
-        wall0 = _time.time()
-        (self.state, self.time, self.last_dt, n, *dt_stats) = \
-            (self.advancer or self.stepper).advance_to(
-                self.state, self.time, self.last_dt, t_target, max_steps,
-                self.n_hydro_iter)
-        dt_min, dt_max, dt_sum, dt_sq = torch.stack(dt_stats).tolist()
-        self.n_hydro_iter += n
-        self.monitor_stats = {
-            "n_steps": n, "walltime": _time.time() - wall0,
-            "dt_min": dt_min, "dt_max": dt_max, "dt_sum": dt_sum,
-            "dt_sq": dt_sq,
-        }
-        if max_steps is not None and n >= max_steps \
-                and not bool(self.time == t_target):
-            return False
-        self.n_monitor += 1
-        self._handle_outputs()
-        return True
+        with telemetry.root() as call:
+            (self.state, self.time, self.last_dt, n, *dt_stats) = \
+                (self.advancer or self.stepper).advance_to(
+                    self.state, self.time, self.last_dt, t_target, max_steps,
+                    self.n_hydro_iter)
+            with telemetry.span("sim.dt_stats"):
+                telemetry.count("sync.dt_stats")
+                dt_min, dt_max, dt_sum, dt_sq = torch.stack(dt_stats).tolist()
+                self.n_hydro_iter += n
+                call.steps = n
+                self.monitor_stats = {
+                    "n_steps": n, "walltime": call.elapsed(),
+                    "dt_min": dt_min, "dt_max": dt_max, "dt_sum": dt_sum,
+                    "dt_sq": dt_sq,
+                }
+                if max_steps is not None and n >= max_steps:
+                    telemetry.count("sync.stop_test")
+                    if not bool(self.time == t_target):
+                        return False
+            self.n_monitor += 1
+            self._handle_outputs()
+            return True
 
     def _handle_outputs(self, initial: bool = False):
         s = self.settings
@@ -419,6 +424,7 @@ class Simulation:
         """Keplerian elements of body k about the accumulated inner mass
         (reference src/nbody/planetary_system.cpp:773-820)."""
         nb = self.state.nbody
+        telemetry.count("sync.monitor.bodies")
         x, y, vx, vy, m = torch.stack(
             [nb.x, nb.y, nb.vx, nb.vy, nb.mass]).cpu().numpy()
         if k == 0 and self.n_hydroframe == 1:

@@ -16,11 +16,20 @@ import itertools
 import numpy as np
 import torch
 
+from fargocpt_torch import telemetry
 from fargocpt_torch.config import Config
+from fargocpt_torch.parallel.comm import KINDS
 from fargocpt_torch.parallel.launch import launch
 from fargocpt_torch.parallel.shard_step import ShardedHydroStep
 from fargocpt_torch.sim import Simulation
 from fargocpt_torch.state import system_state_to_numpy
+
+def since(before: dict, prefix: str) -> dict:
+    """The counters under ``prefix`` less ``before`` (a ``telemetry.values``
+    of the same names)."""
+    now = telemetry.values(prefix, before)
+    return {k: now[k] - before[k] for k in before}
+
 
 # tests/test_shard_map.py flagship_config
 FLAGSHIP = {
@@ -128,18 +137,18 @@ def rank_flagship(comm, extra, interval=True):
     local = ss.shard_state(sim.state)
     out = {"cfl": (float(sim.stepper.cfl_dt(sim.state)),
                    float(ss.cfl_dt(local)))}
-    comm.reset_counters()
+    sent = telemetry.values("comm.bytes.", KINDS)
     loc = ss.step(local, 0.0, 2e-4)
-    out["step_bytes"] = dict(comm.bytes_sent)
+    out["step_bytes"] = since(sent, "comm.bytes.")
     g = ss.gather(loc)
     s1 = sim.stepper.step(sim.state, 0.0, 2e-4)
     out["step"] = (np_state(s1), np_state(g))
     out["model"] = ss.comm_model()
     if interval:
         o1 = sim.stepper.advance_to(sim.state, 0.0, 1e-4, 0.5)
-        comm.reset_counters()
+        sent = telemetry.values("comm.bytes.", KINDS)
         o2 = ss.advance_to(local, 0.0, 1e-4, 0.5)
-        out["interval_bytes"] = dict(comm.bytes_sent)
+        out["interval_bytes"] = since(sent, "comm.bytes.")
         out["interval"] = (
             (o1[3], float(o1[1]), float(o1[2]), np_state(o1[0])),
             (o2[3], float(o2[1]), float(o2[2]), np_state(ss.gather(o2[0]))))
@@ -161,18 +170,23 @@ def rank_case(comm, name, steps=3, dtype="float64"):
                           shard_particles=name not in REPLICATED)
     local = ss.shard_state(sim.state)
     s1 = sim.state
-    comm.reset_counters()
+    sent = telemetry.values("comm.bytes.", KINDS)
+    # the SOR iterations of the single-process solves and the sharded ones
+    iters = [0, 0]
     for i in range(steps):
+        n0 = telemetry.value("fld.sor_iterations")
         s1 = sim.stepper.step(s1, i * 1e-4, 1e-4)
+        n1 = telemetry.value("fld.sor_iterations")
         local = ss.step(local, i * 1e-4, 1e-4)
-    out = {"bytes": dict(comm.bytes_sent), "model": ss.comm_model(),
+        iters[0] += n1 - n0
+        iters[1] += telemetry.value("fld.sor_iterations") - n1
+    out = {"bytes": since(sent, "comm.bytes."), "model": ss.comm_model(),
            "overflow": ss.overflow(local)}
     if name in ("buckets",):
         sp = local.particles
         out["pids"] = sp.pid[sp.valid].cpu().numpy()
     if sim.stepper.fld is not None:
-        out["fld_iterations"] = (sim.stepper.fld.iterations,
-                                 ss.window.fld.iterations)
+        out["fld_iterations"] = tuple(iters)
     out["states"] = (np_state(s1), np_state(ss.gather(local)))
     return out
 
@@ -282,6 +296,7 @@ def rank_comm_ops(comm):
     a sum, a min, a gather and a broadcast; host copies of the results,
     the device they came back on and the bytes sent."""
     dev, k = comm.device, comm.rank
+    sent = telemetry.values("comm.bytes.", KINDS)
     x = torch.arange(12, dtype=torch.float64, device=dev).reshape(3, 4) \
         + 100.0 * k
     below, above = comm.exchange(x[1:], x[:2])
@@ -293,7 +308,8 @@ def rank_comm_ops(comm):
             "gather": comm.gather_rows(x[:1]),
             "broadcast": comm.broadcast(x, comm.size - 1)}
     return ({name: t.cpu().numpy() for name, t in outs.items()},
-            {t.device.type for t in outs.values()}, dict(comm.bytes_sent))
+            {t.device.type for t in outs.values()},
+            since(sent, "comm.bytes."))
 
 
 def rank_flagship_step(comm, dtype="float64"):
@@ -304,9 +320,9 @@ def rank_flagship_step(comm, dtype="float64"):
     sim = port_sim(config(), dtype=dtype, device=comm.device)
     ss = ShardedHydroStep(sim.stepper, comm)
     local = ss.shard_state(sim.state)
-    K.reset_launches()
+    before = telemetry.values("launch.", K.OPS)
     local = ss.step(local, 0.0, 2e-4)
-    launches = dict(K.LAUNCHES)
+    launches = since(before, "launch.")
     one = np_state(sim.stepper.step(sim.state, 0.0, 2e-4))
     many = np_state(ss.gather(local))
     keys = ("fields.sigma", "fields.vrad", "fields.vaz", "fields.energy",

@@ -19,6 +19,7 @@ from fargocpt_tpu.ops import pallas_kernels as pk
 from fargocpt_tpu.ops.common import prepare_geom as j_prepare_geom
 from fargocpt_tpu.params import Physics as JPhysics
 
+from fargocpt_torch import telemetry
 from fargocpt_torch.constants import Constants
 from fargocpt_torch.grid import Geometry
 from fargocpt_torch.ops import kernels
@@ -50,11 +51,11 @@ def test_artvisc_sn_plain_matches_the_tpu_kernel(dissipation):
                         jnp.float64)
     sigma, vrad, vaz, energy = _inputs()
     dt = 0.01
-    kernels.reset_launches()
+    telemetry.reset("launch.")
     got = kernels.artvisc_sn(ctx, *(torch.tensor(a) for a in
                                     (sigma, vrad, vaz, energy)),
                              torch.tensor(dt, dtype=torch.float64))
-    assert kernels.LAUNCHES["artvisc_sn"] == 0    # the plain version ran
+    assert telemetry.value("launch.artvisc_sn") == 0    # the plain version ran
     j_args = [jnp.asarray(a) for a in (sigma, vrad, vaz, energy)]
     with pltpu.force_tpu_interpret_mode():
         ref_pallas = pk.artvisc_sn_pallas(

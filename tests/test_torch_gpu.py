@@ -53,6 +53,7 @@ import numpy as np
 import pytest
 import torch
 
+from fargocpt_torch import telemetry
 from fargocpt_torch.config import Config
 from fargocpt_torch.constants import Constants
 from fargocpt_torch.flagship import FLAGSHIP, pds70, pds70_gas
@@ -119,9 +120,9 @@ def test_cfl_kernel_matches_plain(cuda, adiabatic, sn):
     f = _fields(2, cuda)
     args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], f["qplus"],
             f["qminus"])
-    before = kernels.LAUNCHES["cfl"]
+    before = telemetry.value("launch.cfl")
     got = kernels.cfl(ctx, *args)
-    assert kernels.LAUNCHES["cfl"] == before + 1
+    assert telemetry.value("launch.cfl") == before + 1
     np.testing.assert_allclose(float(got),
                                float(kernels.cfl_plain(ctx, *args)),
                                rtol=1e-12)
@@ -216,9 +217,9 @@ def test_cfl_kernel_across_tile_edges(cuda, fast, nr, naz, plant, dtype):
     f = _cfl_fields(nr, naz, dtype, cuda, plant)
     args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], f["qplus"],
             f["qminus"])
-    before = kernels.LAUNCHES["cfl"]
+    before = telemetry.value("launch.cfl")
     got = kernels.cfl(ctx, *args)
-    assert kernels.LAUNCHES["cfl"] == before + 1
+    assert telemetry.value("launch.cfl") == before + 1
     ref = kernels.cfl_plain(ctx, *args)
     assert got.shape == ref.shape == () and got.dtype == dtype
     if plant == "nan":
@@ -316,9 +317,9 @@ def test_theta_ops_across_tile_edges(cuda, op, nr, naz, k_quant, limiter,
     args = _theta_inputs(nr, naz, k_quant, dtype, cuda)
     dt = torch.tensor(0.01, dtype=dtype, device=cuda)
     name = op[:11]
-    before = kernels.LAUNCHES[name]
+    before = telemetry.value("launch." + name)
     got = _theta_call(op, ctx, *args, dt)
-    assert kernels.LAUNCHES[name] == before + 1
+    assert telemetry.value("launch." + name) == before + 1
     _close_batch(got, _theta_call(op, ctx, *args, dt, plain=True), dtype)
 
 
@@ -384,9 +385,9 @@ def test_viscous_kick_kernel_across_tile_edges(cuda, adiabatic, artvisc_on,
     f = _fields(11, cuda, nr, naz, dtype, floor_cells=naz >= 7)
     args = (f["sigma"], f["vrad"], f["vaz"], f["energy"],
             torch.tensor(0.003, dtype=dtype, device=cuda), 0.0)
-    before = kernels.LAUNCHES["viscous_kick"]
+    before = telemetry.value("launch.viscous_kick")
     got = kernels.viscous_kick(ctx, *args)
-    assert kernels.LAUNCHES["viscous_kick"] == before + 1
+    assert telemetry.value("launch.viscous_kick") == before + 1
     ref = kernels.viscous_kick_plain(ctx, *args)
     for g, r in zip(got, ref):
         assert g.shape == r.shape and bool(torch.isfinite(g).all())
@@ -464,9 +465,9 @@ def test_sources_kernel_across_tile_edges(cuda, adiabatic, n_bodies,
     args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], bodies,
             (_one(1e-3, cuda), _one(-2e-3, cuda)), _one(0.4, cuda),
             torch.tensor(0.003, dtype=dtype, device=cuda))
-    before = kernels.LAUNCHES["sources"]
+    before = telemetry.value("launch.sources")
     got = kernels.sources(ctx, *args)
-    assert kernels.LAUNCHES["sources"] == before + 1
+    assert telemetry.value("launch.sources") == before + 1
     ref = kernels.sources_plain(ctx, *args)
     for g, r in zip(got, ref):
         assert g.shape == r.shape and bool(torch.isfinite(g).all())
@@ -525,8 +526,11 @@ def _device_activity(fn, args, calls=5):
              if e.device_type == torch.autograd.DeviceType.CPU
              and ("LaunchKernel" in e.name or "Memcpy" in e.name
                   or "Memset" in e.name)]
+    # the device-side annotations of the port's spans (``fc:``, on while
+    # the profiler records) are not work the call asked of the device
     ran = [e.name for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith("fc:")]
     return asked, ran
 
 
@@ -613,13 +617,14 @@ def test_transport_kernel_matches_plain(cuda, adiabatic, fast, route, nr, naz,
         dtype=torch.int32, device=cuda)
     args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], omega, dt,
             (vmean, nshift, vconst))
-    before = dict(kernels.LAUNCHES)
+    before = telemetry.values("launch.", kernels.OPS)
     got = kernels.transport(ctx, *args, route=route)
     ops = {"whole": {"transport": 1},
            "split": {"radial_momenta_sweep": 1, "fargo_theta": 1},
            "staged": {"radial_sweep": 1, "theta_sweep": 2 if fast else 1,
                       "advect_shift": 1}}[route]
-    assert {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS} == \
+    assert {op: telemetry.value("launch." + op) - before[op]
+            for op in kernels.OPS} == \
         {op: ops.get(op, 0) for op in kernels.OPS}
     ref = kernels.transport_plain(ctx, *args, route="whole")
     if dtype == torch.float64:
@@ -674,9 +679,9 @@ def test_radial_momenta_sweep_kernel_matches_plain(cuda, adiabatic, limiter):
     dt, omega = _one(0.01, cuda), _one(0.3, cuda)
     base = transport.sigma_flux(ctx.phys, ctx.g, f["sigma"], f["vrad"], dt)
     args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], base, dt, omega)
-    before = kernels.LAUNCHES["radial_momenta_sweep"]
+    before = telemetry.value("launch.radial_momenta_sweep")
     got = kernels.radial_momenta_sweep(ctx, *args)
-    assert kernels.LAUNCHES["radial_momenta_sweep"] == before + 1
+    assert telemetry.value("launch.radial_momenta_sweep") == before + 1
     ref = kernels.radial_momenta_sweep_plain(ctx, *args)
     assert got.shape == ref.shape == (6 if adiabatic else 5, NR, NAZ)
     _close([got], [ref], 1e-11, [1e-13 * float(ref.abs().max())])
@@ -696,9 +701,9 @@ def test_fargo_theta_kernel_matches_plain(cuda, k_quant, limiter, two_pass):
     nshift = torch.tensor(rng.integers(-2 * NAZ, 2 * NAZ, NR),
                           dtype=torch.int32, device=cuda)
     args = (qs, vres, vconst, nshift, _one(0.01, cuda), two_pass)
-    before = kernels.LAUNCHES["fargo_theta"]
+    before = telemetry.value("launch.fargo_theta")
     got = kernels.fargo_theta(ctx, *args)
-    assert kernels.LAUNCHES["fargo_theta"] == before + 1
+    assert telemetry.value("launch.fargo_theta") == before + 1
     ref = kernels.fargo_theta_plain(ctx, *args)
     _close([got], [ref], 1e-11, [1e-13 * float(ref.abs().max())])
 
@@ -720,10 +725,11 @@ def test_split_route_step_launches_the_split_kernels(cuda):
     sim = Simulation(cfg, transport_route="split")
     assert sim.device.type == "cuda"
     assert sim.stepper.ops.route == "split"
-    before = dict(kernels.LAUNCHES)
+    before = telemetry.values("launch.", kernels.OPS)
     sim.step_once(sim.calculate_time_step())
     torch.cuda.synchronize()
-    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    delta = {op: telemetry.value("launch." + op) - before[op]
+             for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {
         "cfl": 1, "sources": 1, "viscous_kick": 1,
         "radial_momenta_sweep": 1, "fargo_theta": 1}
@@ -749,9 +755,9 @@ def test_radial_sweep_kernel_matches_plain(cuda, k_quant, limiter):
     sigma = _batch(31, 1, cuda)[0][0]
     dt = _one(0.01, cuda)
     base = transport.sigma_flux(ctx.phys, ctx.g, sigma, vrad, dt)
-    before = kernels.LAUNCHES["radial_sweep"]
+    before = telemetry.value("launch.radial_sweep")
     got = kernels.radial_sweep(ctx, qs, sigma, vrad, base, dt)
-    assert kernels.LAUNCHES["radial_sweep"] == before + 1
+    assert telemetry.value("launch.radial_sweep") == before + 1
     ref = kernels.radial_sweep_plain(ctx, qs, sigma, vrad, base, dt)
     _close([got], [ref], 1e-11, [1e-13 * float(ref.abs().max())])
 
@@ -777,9 +783,9 @@ def test_radial_ops_across_strip_edges(cuda, op, k_quant, nr, naz, limiter,
                     flux_limiter_type=limiter), cuda, nr, naz, dtype)
     kern, plain = radial_calls(
         ctx, radial_inputs(nr, naz, k_quant, dtype, cuda))[op]
-    before = kernels.LAUNCHES[op]
+    before = telemetry.value("launch." + op)
     got = kern()
-    assert kernels.LAUNCHES[op] == before + 1
+    assert telemetry.value("launch." + op) == before + 1
     _close_batch(got, plain(), dtype)
 
 
@@ -789,9 +795,9 @@ def test_radial_ops_across_strip_edges(cuda, op, k_quant, nr, naz, limiter,
 def test_theta_sweep_kernel_matches_plain(cuda, k_quant, limiter):
     ctx = _ctx(dict(flux_limiter_type=limiter), cuda)
     qs, v, _ = _batch(37, k_quant, cuda)
-    before = kernels.LAUNCHES["theta_sweep"]
+    before = telemetry.value("launch.theta_sweep")
     got = kernels.theta_sweep(ctx, qs, v, _one(0.01, cuda))
-    assert kernels.LAUNCHES["theta_sweep"] == before + 1
+    assert telemetry.value("launch.theta_sweep") == before + 1
     ref = kernels.theta_sweep_plain(ctx, qs, v, _one(0.01, cuda))
     _close([got], [ref], 1e-11, [1e-13 * float(ref.abs().max())])
 
@@ -821,9 +827,9 @@ def test_advect_shift_kernel_equals_plain(cuda, k_quant, dtype, nr, naz):
     qs = torch.tensor(rng.random((k_quant, nr, naz)), dtype=dtype,
                       device=cuda)
     nshift = _shifts(nr, naz, cuda)
-    before = kernels.LAUNCHES["advect_shift"]
+    before = telemetry.value("launch.advect_shift")
     got = kernels.advect_shift(qs, nshift)
-    assert kernels.LAUNCHES["advect_shift"] == before + 1
+    assert telemetry.value("launch.advect_shift") == before + 1
     assert torch.equal(got, kernels.advect_shift_plain(qs, nshift))
     with pytest.raises(ValueError, match="nshift"):
         kernels.advect_shift(qs, nshift.long())
@@ -856,10 +862,11 @@ def test_staged_route_step_launches_the_staged_kernels(cuda, scheme):
                                 Transport=scheme))
     sim = Simulation(cfg, transport_route="staged")
     assert sim.stepper.ops.route == "staged"
-    before = dict(kernels.LAUNCHES)
+    before = telemetry.values("launch.", kernels.OPS)
     sim.step_once(sim.calculate_time_step())
     torch.cuda.synchronize()
-    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    delta = {op: telemetry.value("launch." + op) - before[op]
+             for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {
         "cfl": 1, "sources": 1, "viscous_kick": 1, "radial_sweep": 1,
         "theta_sweep": 2 if scheme == "FARGO" else 1, "advect_shift": 1}
@@ -898,9 +905,9 @@ def test_artvisc_sn_kernel_matches_plain(cuda, dissipation, dtype):
     vaz = (f["vaz"] - 1.0) * 3.0
     args = (f["sigma"], f["vrad"] * 6.0, vaz, f["energy"],
             torch.tensor(0.01, dtype=dtype, device=cuda))
-    before = kernels.LAUNCHES["artvisc_sn"]
+    before = telemetry.value("launch.artvisc_sn")
     got = kernels.artvisc_sn(ctx, *args)
-    assert kernels.LAUNCHES["artvisc_sn"] == before + 1
+    assert telemetry.value("launch.artvisc_sn") == before + 1
     ref = kernels.artvisc_sn_plain(ctx, *args)
     if dtype == torch.float64:
         _close(got, ref, 1e-12, (1e-15, 1e-15, 1e-15))
@@ -915,11 +922,12 @@ def test_pds70_gas_step_launches_artvisc_sn_and_transport(cuda):
     fused sources, viscous kick or CFL."""
     sim = Simulation(pds70_gas(64, 128), dtype="float32")
     assert sim.device.type == "cuda"
-    before = dict(kernels.LAUNCHES)
+    before = telemetry.values("launch.", kernels.OPS)
     for _ in range(2):
         sim.step_once(sim.calculate_time_step())
     torch.cuda.synchronize()
-    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    delta = {op: telemetry.value("launch." + op) - before[op]
+             for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {"transport": 2,
                                                      "artvisc_sn": 2}
     for name in ("sigma", "vrad", "vaz", "energy"):
@@ -1046,9 +1054,9 @@ def test_ias15_kernel_matches_plain(cuda, case, dt_dtype):
     for _ in range(4):
         dt = torch.tensor(period / 10, dtype=dt_dtype, device=cuda)
         counts = torch.zeros(2, dtype=torch.int32, device=cuda)
-        before = kernels.LAUNCHES["ias15"]
+        before = telemetry.value("launch.ias15")
         k_state = kernels.ias15(*k_state, m, 1.0, dt, counts=counts)
-        assert kernels.LAUNCHES["ias15"] == before + 1
+        assert telemetry.value("launch.ias15") == before + 1
         plain_counts = []
         p_state = kernels.ias15_plain(*p_state, m, 1.0, dt, plain_counts)
         assert tuple(counts.tolist()) == plain_counts[0]
@@ -1114,9 +1122,9 @@ def test_ias15_kernel_takes_more_than_16_bodies(cuda, n):
     for _ in range(3):
         dt = torch.tensor(period / 20, dtype=torch.float64, device=cuda)
         counts = torch.zeros(2, dtype=torch.int32, device=cuda)
-        before = kernels.LAUNCHES["ias15"]
+        before = telemetry.value("launch.ias15")
         k_state = kernels.ias15(*k_state, m, 1.0, dt, counts=counts)
-        assert kernels.LAUNCHES["ias15"] == before + 1
+        assert telemetry.value("launch.ias15") == before + 1
         plain_counts = []
         p_state = kernels.ias15_plain(*p_state, m, 1.0, dt, plain_counts)
         assert tuple(counts.tolist()) == plain_counts[0]
@@ -1137,12 +1145,13 @@ def test_planet_disk_step_launches_and_matches_the_cpu(cuda, dtype):
     cpu = Simulation(planet_disk(64, 128), dtype=dtype, device="cpu")
     gpu.step_once(gpu.calculate_time_step())
     cpu.step_once(cpu.calculate_time_step())
-    before = dict(kernels.LAUNCHES)
+    before = telemetry.values("launch.", kernels.OPS)
     for _ in range(9):
         dt = gpu.calculate_time_step()
         gpu.step_once(dt)
         cpu.step_once(dt.cpu())
-    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    delta = {op: telemetry.value("launch." + op) - before[op]
+             for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {
         "cfl": 9, "sources": 9, "viscous_kick": 9, "transport": 9,
         "ias15": 18}
@@ -1204,9 +1213,9 @@ def test_sources_kernel_takes_more_bodies_than_a_chunk(cuda, dtype):
     args = (f["sigma"], f["vrad"], f["vaz"], f["energy"], bodies,
             (_one(1e-3, cuda), _one(-2e-3, cuda)), _one(0.4, cuda),
             torch.tensor(0.003, dtype=dtype, device=cuda))
-    before = kernels.LAUNCHES["sources"]
+    before = telemetry.value("launch.sources")
     got = kernels.sources(ctx, *args)
-    assert kernels.LAUNCHES["sources"] == before + 1
+    assert telemetry.value("launch.sources") == before + 1
     ref = kernels.sources_plain(ctx, *args)
     v = float(f["vaz"].abs().max())
     _close_by_dtype(got, ref, dtype, 1e-11, (1e-13, 1e-13), [v, v])
@@ -1225,9 +1234,9 @@ def test_viscous_kick_kernel_with_the_in_kick_sound_speed(cuda, artvisc_on,
     f = _fields(11, cuda, nr, naz, dtype, floor_cells=naz >= 7)
     args = (f["sigma"], f["vrad"], f["vaz"], f["energy"],
             torch.tensor(0.003, dtype=dtype, device=cuda), 0.0)
-    before = kernels.LAUNCHES["viscous_kick"]
+    before = telemetry.value("launch.viscous_kick")
     got = kernels.viscous_kick(ctx, *args, want_cs=True)
-    assert kernels.LAUNCHES["viscous_kick"] == before + 1
+    assert telemetry.value("launch.viscous_kick") == before + 1
     ref = kernels.viscous_kick_plain(ctx, *args, want_cs=True)
     assert len(got) == len(ref) == 6
     scales = _vk_scales(f, ref[:5]) + [float(ref[5].abs().max())]
@@ -1249,12 +1258,13 @@ def test_planet_torque_leapfrog_step_launches_and_matches_the_cpu(cuda,
     cpu = Simulation(planet_torque(128, 256), dtype=dtype, device="cpu")
     gpu.step_once(gpu.calculate_time_step())
     cpu.step_once(cpu.calculate_time_step())
-    before = dict(kernels.LAUNCHES)
+    before = telemetry.values("launch.", kernels.OPS)
     for _ in range(9):
         dt = gpu.calculate_time_step()
         gpu.step_once(dt)
         cpu.step_once(dt.cpu())
-    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    delta = {op: telemetry.value("launch." + op) - before[op]
+             for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {
         "cfl": 9, "sources": 18, "viscous_kick": 18, "transport": 9,
         "ias15": 36}
@@ -1354,12 +1364,13 @@ def test_planet_accretion_step_launches_and_matches_the_cpu(cuda, dtype):
     from fargocpt_torch.flagship import planet_accretion
     gpu = Simulation(planet_accretion(128, 256), dtype=dtype, device=cuda)
     cpu = Simulation(planet_accretion(128, 256), dtype=dtype, device="cpu")
-    before = dict(kernels.LAUNCHES)
+    before = telemetry.values("launch.", kernels.OPS)
     for _ in range(10):
         dt = gpu.calculate_time_step()
         gpu.step_once(dt)
         cpu.step_once(dt.cpu())
-    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    delta = {op: telemetry.value("launch." + op) - before[op]
+             for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {
         "cfl": 10, "sources": 10, "viscous_kick": 20, "transport": 10,
         "ias15": 40}
@@ -1381,12 +1392,13 @@ def test_star_planet_step_launches_and_matches_the_cpu(cuda):
     cfg = dict(yaml.safe_load(path.read_text()), Nrad=64, Naz=128)
     gpu = Simulation(Config.from_dict(dict(cfg)), device=cuda)
     cpu = Simulation(Config.from_dict(dict(cfg)), device="cpu")
-    before = dict(kernels.LAUNCHES)
+    before = telemetry.values("launch.", kernels.OPS)
     for _ in range(10):
         dt = gpu.calculate_time_step()
         gpu.step_once(dt)
         cpu.step_once(dt.cpu())
-    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    delta = {op: telemetry.value("launch." + op) - before[op]
+             for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {
         "cfl": 10, "sources": 10, "viscous_kick": 10, "transport": 10,
         "ias15": 20}
@@ -1418,12 +1430,13 @@ def test_binary_gcfull_step_launches_and_matches_the_cpu(cuda, over):
     too."""
     gpu = Simulation(_binary_gcfull(128, 256, **over), device=cuda)
     cpu = Simulation(_binary_gcfull(128, 256, **over), device="cpu")
-    before = dict(kernels.LAUNCHES)
+    before = telemetry.values("launch.", kernels.OPS)
     for _ in range(10):
         dt = gpu.calculate_time_step()
         gpu.step_once(dt)
         cpu.step_once(dt.cpu())
-    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    delta = {op: telemetry.value("launch." + op) - before[op]
+             for op in kernels.OPS}
     # with the frame on both bodies the indirect term is zero, so the
     # predictor's two calls a step drop out
     ias15 = 20 if gpu.n_hydroframe == 2 else 40
@@ -1521,12 +1534,13 @@ def test_oy_car_step_launches_and_matches_the_cpu(cuda):
     cfg = dict(ROFrampingtime="1e-7", FirstDT="1e-7")
     gpu = Simulation(oy_car(64, 128, **cfg), device=cuda)
     cpu = Simulation(oy_car(64, 128, **cfg), device="cpu")
-    before = dict(kernels.LAUNCHES)
+    before = telemetry.values("launch.", kernels.OPS)
     for _ in range(10):
         dt = gpu.calculate_time_step()
         gpu.step_once(dt)
         cpu.step_once(dt.cpu())
-    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    delta = {op: telemetry.value("launch." + op) - before[op]
+             for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {
         "cfl": 10, "sources": 10, "artvisc_sn": 10, "transport": 10,
         "ias15": 20}
@@ -1551,13 +1565,14 @@ def test_v1504cyg_step_launches_and_matches_the_cpu(cuda):
     cpu = Simulation(v1504cyg(32, 64), device="cpu")
     start = {k: getattr(cpu.fields, k).clone()
              for k in ("sigma", "vaz", "energy")}
-    before = dict(kernels.LAUNCHES)
+    before = telemetry.values("launch.", kernels.OPS)
     for _ in range(5):
         dt_g, dt_c = gpu.calculate_time_step(), cpu.calculate_time_step()
         assert abs(float(dt_g) - float(dt_c)) <= 1e-9 * float(dt_c)
         gpu.step_once(1e-4)
         cpu.step_once(1e-4)
-    delta = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    delta = {op: telemetry.value("launch." + op) - before[op]
+             for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {"transport": 5,
                                                      "ias15": 20}
     _held_to_the_cpu(gpu, cpu, 1e-9)
@@ -1627,13 +1642,14 @@ def test_rochelobe_stream_on_the_card_matches_the_cpu(cuda, dtype):
 def _step_pair(gpu, cpu, steps, dt=None):
     """``steps`` steps of both on the card's dt (or ``dt``); the kernels
     launched by the card's run."""
-    before = dict(kernels.LAUNCHES)
+    before = telemetry.values("launch.", kernels.OPS)
     for _ in range(steps):
         step = gpu.calculate_time_step() if dt is None else dt
         cpu.calculate_time_step()
         gpu.step_once(step)
         cpu.step_once(step.cpu() if torch.is_tensor(step) else step)
-    return {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPS}
+    return {op: telemetry.value("launch." + op) - before[op]
+             for op in kernels.OPS}
 
 
 def _energy_held(gpu, cpu, tol):

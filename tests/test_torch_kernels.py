@@ -25,6 +25,7 @@ from fargocpt_tpu.ops.common import prepare_geom as j_prepare_geom
 from fargocpt_tpu.params import Physics as JPhysics
 from fargocpt_tpu.units import Units as JUnits
 
+from fargocpt_torch import telemetry
 from fargocpt_torch.constants import Constants
 from fargocpt_torch.grid import Geometry
 from fargocpt_torch.ops import gravity, kernels, transport
@@ -103,7 +104,7 @@ def test_cfl_plain_matches_pallas(adiabatic, sn):
     ctx = _ctx(kw)
     got = kernels.cfl(ctx, T(f["sigma"]), T(f["vrad"]), T(f["vaz"]),
                       T(f["energy"]), T(f["qplus"]), T(f["qminus"]))
-    assert kernels.LAUNCHES["cfl"] == 0
+    assert telemetry.value("launch.cfl") == 0
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-12)
 
 
@@ -323,4 +324,4 @@ def test_cuda_launch_refuses_cpu_tensors():
     x = torch.zeros((8, 16), dtype=torch.float64)
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         kernels._launch("cfl", x, [x], [], [8, 16])
-    assert kernels.LAUNCHES["cfl"] == 0
+    assert telemetry.value("launch.cfl") == 0

@@ -27,6 +27,7 @@ from fargocpt_tpu.params import physics_from_config as j_physics_from_config
 from fargocpt_tpu.sim import Simulation as JSimulation
 from fargocpt_tpu.units import Units as JUnits
 
+from fargocpt_torch import telemetry
 from fargocpt_torch.config import Config
 from fargocpt_torch.flagship import PDS70, pds70
 from fargocpt_torch.params import physics_from_config
@@ -123,7 +124,7 @@ def _assert_particles(tp, jp, rtol=1e-9):
 def test_twenty_steps_match_jax_f64():
     js = JSimulation(JConfig.from_dict(_cfg(32, 64, 256)))
     ts = Simulation(pds70(32, 64, n_particles=256), device="cpu")
-    before = ts.stepper.pvte.refreshes
+    before = telemetry.value("pvte.refresh")
     for _ in range(20):
         dj = js.calculate_time_step()
         dt = ts.calculate_time_step()
@@ -132,7 +133,7 @@ def test_twenty_steps_match_jax_f64():
         ts.step_once(dt)
     # the dust reads the memoised step-start PVTE grids: three refreshes
     # per calculate_time_step + step_once, as without the dust
-    assert ts.stepper.pvte.refreshes - before == 3 * 20
+    assert telemetry.value("pvte.refresh") - before == 3 * 20
     np.testing.assert_allclose(float(ts.time), js.time, rtol=1e-12)
     _assert_gas(ts.state, js.state)
     tp, jp = ts.state.particles, js.state.particles
@@ -155,12 +156,12 @@ def test_run_path_refreshes_twice_a_step_with_dust():
     cfg = _cfg(16, 32, 64, MonitorTimestep="0.02")
     js = JSimulation(JConfig.from_dict(dict(cfg)))
     ts = Simulation(Config.from_dict(dict(cfg)), device="cpu")
-    before = ts.stepper.pvte.refreshes
+    before = telemetry.value("pvte.refresh")
     js.run()
     ts.run()
     assert ts.n_hydro_iter == js.n_hydro_iter > 3
     # run() first takes two CFL steps of its own
-    assert ts.stepper.pvte.refreshes - before == 2 + 2 * ts.n_hydro_iter
+    assert telemetry.value("pvte.refresh") - before == 2 + 2 * ts.n_hydro_iter
     _assert_gas(ts.state, js.state)
     _assert_particles(ts.state.particles, js.state.particles)
 

@@ -23,6 +23,7 @@ import torch
 from fargocpt_tpu.config import Config as JConfig
 from fargocpt_tpu.sim import Simulation as JSimulation
 
+from fargocpt_torch import telemetry
 from fargocpt_torch.config import Config
 from fargocpt_torch.flagship import PDS70_GAS, pds70_gas
 from fargocpt_torch.sim import Simulation
@@ -105,20 +106,20 @@ def test_pvte_refreshes_per_step_equal_jax():
     ts = Simulation(Config.from_dict(dict(cfg)), dtype="float32",
                     device="cpu")
     jrec, trec = _GuessSources(js.stepper.pvte), _GuessSources(ts.stepper.pvte)
-    before = ts.stepper.pvte.refreshes
+    before = telemetry.value("pvte.refresh")
     js.step_once(js.calculate_time_step())
     ts.step_once(ts.calculate_time_step())
     assert jrec.record == trec.record == STANDALONE
-    assert ts.stepper.pvte.refreshes - before == 3
+    assert telemetry.value("pvte.refresh") - before == 3
 
     jrec.clear()
     trec.clear()
-    before = ts.stepper.pvte.refreshes
+    before = telemetry.value("pvte.refresh")
     js.run()               # traces one step of the run loop
     ts.run()
     n = ts.n_hydro_iter - 1
     assert ts.n_hydro_iter == js.n_hydro_iter > 3
-    assert ts.stepper.pvte.refreshes - before == len(trec.record)
+    assert telemetry.value("pvte.refresh") - before == len(trec.record)
     assert jrec.record == ["state", "state"]
     # run() first takes two CFL steps, which the JAX package had traced
     assert trec.record == ["state"] * 4 + [-1, -2] * (n - 1)

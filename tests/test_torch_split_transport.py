@@ -34,6 +34,7 @@ from fargocpt_tpu.ops.common import prepare_geom as j_prepare_geom
 from fargocpt_tpu.params import Physics as JPhysics
 from fargocpt_tpu.sim import Simulation as JSimulation
 
+from fargocpt_torch import telemetry
 from fargocpt_torch.config import Config
 from fargocpt_torch.constants import Constants
 from fargocpt_torch.grid import Geometry
@@ -103,7 +104,7 @@ def test_radial_momenta_sweep_plain_matches_pallas(adiabatic, limiter):
     got = kernels.radial_momenta_sweep(
         ctx, T(f["sigma"]), T(f["vrad"]), T(f["vaz"]), T(f["energy"]),
         T(base), T(dt), T(omega))
-    assert kernels.LAUNCHES["radial_momenta_sweep"] == 0
+    assert telemetry.value("launch.radial_momenta_sweep") == 0
     assert got.shape == (k_quant, NR, NAZ)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12,
                                atol=1e-14)
@@ -133,7 +134,7 @@ def test_fargo_theta_plain_matches_pallas(k_quant, limiter, two_pass):
     ctx = _ctx(_phys_kw(limiter=limiter))
     got = kernels.fargo_theta(ctx, T(qs), T(vres), T(vconst),
                               torch.tensor(nshift), T(dt), two_pass)
-    assert kernels.LAUNCHES["fargo_theta"] == 0
+    assert telemetry.value("launch.fargo_theta") == 0
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12,
                                atol=1e-14)
 
@@ -187,7 +188,7 @@ def test_split_composition_matches_jax_transport(adiabatic, fast):
     assert ctx.route == "split"
     got = kernels.transport(ctx, T(f["sigma"]), T(f["vrad"]), T(f["vaz"]),
                             T(f["energy"]), T(omega), T(dt))
-    assert all(kernels.LAUNCHES[op] == 0 for op in kernels.OPS)
+    assert all(telemetry.value("launch." + op) == 0 for op in kernels.OPS)
     for name, g, r, atol in zip(
             ("sigma", "vrad", "vaz", "energy", "mass_flux"), got, ref,
             (1e-14, 1e-13, 1e-13, 1e-14, 1e-15)):
@@ -216,7 +217,7 @@ def test_whole_route_off_a_multiple_of_16_matches_jax_transport(nr, naz,
     assert ctx.route == "whole"
     got = kernels.transport(ctx, T(f["sigma"]), T(f["vrad"]), T(f["vaz"]),
                             T(f["energy"]), T(omega), T(dt))
-    assert all(kernels.LAUNCHES[op] == 0 for op in kernels.OPS)
+    assert all(telemetry.value("launch." + op) == 0 for op in kernels.OPS)
     for name, g, r, atol in zip(
             ("sigma", "vrad", "vaz", "energy", "mass_flux"), got, ref,
             (1e-14, 1e-13, 1e-13, 1e-14, 1e-15)):

@@ -38,6 +38,7 @@ from fargocpt_tpu.ops.common import prepare_geom as j_prepare_geom
 from fargocpt_tpu.params import Physics as JPhysics
 from fargocpt_tpu.sim import Simulation as JSimulation
 
+from fargocpt_torch import telemetry
 from fargocpt_torch.config import Config
 from fargocpt_torch.constants import Constants
 from fargocpt_torch.grid import Geometry
@@ -82,7 +83,7 @@ def _fields(seed, nr=NR, naz=NAZ):
 
 
 def _no_launch():
-    assert all(kernels.LAUNCHES[op] == 0 for op in kernels.OPS)
+    assert all(telemetry.value("launch." + op) == 0 for op in kernels.OPS)
 
 
 @pytest.mark.parametrize("limiter", [0, 1])
