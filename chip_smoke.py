@@ -56,13 +56,14 @@ and the long tail's initial conditions in phase 4.
 Phases (any failure raises, so the exit code is not 0):
   1. environment: GPU name and power limit, torch/CUDA versions, nvcc,
      and the build of the CUDA kernels from fargocpt_torch/csrc;
-  2. per-kernel parity: each of the eleven kernels (kernels.OPS) against its
+  2. per-kernel parity: each of the twelve kernels (kernels.OPS) against its
      plain PyTorch version on the same GPU tensors, at full size in
      float32 (a setup's state with seeded noise: the flagship at 1024x3072
      for the whole route's four kernels and the staged route's three, at
      1000x3072 for the split route's two, the PDS70 gas state at 1024x3072
      for artvisc_sn, whose outputs are measured against the plain
-     version's increments; the roll of advect_shift bit for bit) and at
+     version's increments; the roll of advect_shift bit for bit; the PDS70
+     gas state in float64 at 1024x3072 for pvte_refresh, PVTE_RTOL) and at
      130x200 float64 (seeded random fields), plus each one's time beside
      the plain version's (CUDA events, median of 25 calls), its least time
      on the card: the bytes of its inputs and outputs at the memory rate
@@ -283,12 +284,14 @@ ROUTE_OPS = {"whole": {"transport": 1},
 
 # One row per kernel of fargocpt_torch.ops.kernels.OPS (main() refuses to
 # run if the two differ): what it replaces (the TPU kernel's line in
-# fargocpt_tpu/ops/pallas_kernels.py; for ias15, which replaces no TPU
-# kernel, the JAX package's while loop), the slice of phase 3 whose launch
-# count the last line but one reports, and the float64 tolerance at
-# 130x200 (those of tests/test_torch_kernels.py; rtol 1e-11 for the split
-# and staged routes' kernels, 1e-12 for artvisc_sn, the roll exact; ias15
-# 1e-13 of its state's scale). The source is fargocpt_torch/csrc/<name>.cu.
+# fargocpt_tpu/ops/pallas_kernels.py; for ias15 and pvte_refresh, which
+# replace no TPU kernel, the JAX package's while loop and the refresh it
+# leaves to XLA), the slice of phase 3 whose launch count the last line but
+# one reports, and the float64 tolerance at 130x200 (those of
+# tests/test_torch_kernels.py; rtol 1e-11 for the split and staged routes'
+# kernels, 1e-12 for artvisc_sn, the roll exact; ias15 1e-13 of its
+# state's scale; pvte_refresh at 1024x3072, PVTE_RTOL). The source is
+# fargocpt_torch/csrc/<name>.cu.
 PALLAS = "fargocpt_tpu/ops/pallas_kernels.py"
 KERNELS = {
     "cfl": (f"{PALLAS}:838", "whole", 1e-12),
@@ -302,6 +305,8 @@ KERNELS = {
     "theta_sweep": (f"{PALLAS}:106", "staged", 1e-11),
     "advect_shift": (f"{PALLAS}:628", "staged", 0.0),
     "ias15": ("fargocpt_tpu/nbody/ias15.py:236", "planet_torque", 1e-13),
+    "pvte_refresh": ("fargocpt_tpu/ops/pvte.py PVTE.gamma_mu (XLA)",
+                     "pds70_f64", 1e-10),
 }
 F64_RTOL = {name: row[2] for name, row in KERNELS.items()}
 # The card's published peaks (H100 SXM data sheet, at 700 W): the device
@@ -1598,6 +1603,65 @@ def cuda_kernel_launches(fn) -> int:
                and not e.name.startswith("fc:"))
 
 
+# the cold float64 PVTE refresh against its plain version: gamma_eff and mu
+# at rtol 1e-13, gamma1 at 1e-10 (tests/test_torch_pvte.py's tolerances:
+# gamma1's finite differences with eps = 1e-4 scale the rounding by 1e4)
+PVTE_RTOL = {"gamma_eff": 1e-13, "mu": 1e-13, "gamma1": 1e-10}
+
+
+def pvte_refresh_parity(gpu) -> dict:
+    """pvte_refresh against its plain version on the PDS70 gas state in
+    float64 at NR x NAZ with seeded noise (the benchmark's PVTE disk): each
+    output's largest relative difference and the number of values that
+    differ at all, the kernel's and the plain version's ms a call by
+    events, the kernel's device time, the plain version's device launches,
+    and the least time: 3 planes in and 3 out at the memory rate against
+    the plain version's operations at the float64 rate."""
+    from fargocpt_torch.ops import kernels as K
+    t0 = time.perf_counter()
+    sim = pds70_gas(NR, NAZ, "float64", "cuda")
+    log(f"  PDS70 gas {NR}x{NAZ} float64 built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    f = perturbed(sim)
+    s, e = f["sigma"], f["energy"]
+    h = sim.stepper.pvte_scale_height(s, e)
+    pv = sim.stepper.pvte
+    kern = partial(K.pvte_refresh, pv, s, e, h)
+    plain = partial(K.pvte_refresh_plain, pv, s, e, h)
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    out = {}
+    for name, a, b in zip(PVTE_RTOL, got, ref):
+        rel = float(((a - b).abs() / b.abs()).max())
+        differ = int((a != b).sum())
+        log(f"  pvte_refresh {name:9s} f64 {NR}x{NAZ}: max rel {rel:.3e}, "
+            f"{differ} of {a.numel()} values differ (rtol "
+            f"{PVTE_RTOL[name]:.0e})")
+        if not rel <= PVTE_RTOL[name]:
+            raise AssertionError(f"pvte_refresh.{name}: kernel/plain "
+                                 f"mismatch {rel:.3e}")
+        out[f"{name}_max_rel"] = rel
+        out[f"{name}_values_differ"] = differ
+    ms, plain_ms = time_ms(kern), time_ms(plain)
+    # the device time from ten calls back to back between two events: the
+    # host enqueues the next call while the card runs one (~0.3 ms of host
+    # a call against ~6 ms of kernel), so the card waits only before the
+    # first. Here the profiler has kept 6 of 10 and 0 of 1 of this
+    # kernel's launches.
+    device_ms = time_ms(lambda: [kern() for _ in range(10)], reps=5) / 10
+    plain_launches = cuda_kernel_launches(plain)
+    flops = flops_of(plain)
+    bnd = bound([s, e, h], got, flops, F64_OPS_PER_S)
+    log(f"  pvte_refresh         kernel {ms:.4f} ms (device {device_ms:.4f})"
+        f"   plain {plain_ms:.4f} ms ({plain_launches} device launches)   "
+        f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; {flops} flops = "
+        f"{flops / (NR * NAZ):.1f} per cell) [{gpu}]")
+    return {"max_abs_err": max(float((a - r).abs().max())
+                               for a, r in zip(got, ref)),
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, **bnd,
+            "plain_launches": plain_launches, "library_ms": None, **out}
+
+
 def ias15_parity(sim, gpu) -> dict:
     """The ias15 kernel against its plain version on the card in float64:
     two bodies at e = 0.9 and four bodies over a period in calls of a
@@ -1809,8 +1873,8 @@ def run_slice(sim, warmup=10, steps=60) -> dict:
     """The flagship's steps on its route, with the launch counters set to 0
     just before and read just after: every op of the route its launches a
     step (ROUTE_OPS), cfl, sources and viscous_kick once a step
-    (FLAGSHIP_OPS), the other routes' ops, artvisc_sn and ias15 (a lone
-    star) never."""
+    (FLAGSHIP_OPS), the other routes' ops, artvisc_sn, ias15 (a lone
+    star) and pvte_refresh never."""
     from fargocpt_torch.ops import kernels as K
     route = sim.stepper.ops.route
     nr = sim.geometry.nrad
@@ -1831,7 +1895,8 @@ def run_slice(sim, warmup=10, steps=60) -> dict:
     for name in K.OPS:
         if name in own:
             ok = launches[name] == own[name] * n
-        elif name in other or name in ("artvisc_sn", "ias15"):
+        elif name in other or name in ("artvisc_sn", "ias15",
+                                       "pvte_refresh"):
             ok = launches[name] == 0
         else:
             ok = launches[name] == FLAGSHIP_OPS[name] * n
@@ -1867,10 +1932,13 @@ def check_state(sim) -> None:
         raise AssertionError(f"tensors left on the CPU: {on_cpu[:10]}")
 
 
-def check_pds70_launches(launches, steps) -> None:
-    """One transport and one artvisc_sn launch a step, no other kernel."""
+def check_pds70_launches(launches, steps, refreshes) -> None:
+    """One transport and one artvisc_sn launch a step, one pvte_refresh
+    launch a PVTE refresh (``refreshes``: the float64 ones), no other
+    kernel."""
     for name, n in launches.items():
-        want = steps if name in PDS70_OPS else 0
+        want = steps if name in PDS70_OPS \
+            else refreshes if name == "pvte_refresh" else 0
         if n != want:
             raise AssertionError(f"PDS70: kernel {name} launched {n} times "
                                  f"in {steps} steps, expected {want}")
@@ -1935,7 +2003,9 @@ def run_pds70(sim, warmup=3, steps=10, run_steps=10) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = telemetry.values("launch.", K.OPS)
-    check_pds70_launches(launches, steps)
+    f64 = sim.dtype == torch.float64
+    check_pds70_launches(launches, steps,
+                         telemetry.value("pvte.refresh") - pv0 if f64 else 0)
     mean_dt = float(sim.time - t_start) / steps
     per_step = seconds / steps
     res = {"dtype": str(sim.dtype).removeprefix("torch."),
@@ -1966,7 +2036,8 @@ def run_pds70(sim, warmup=3, steps=10, run_steps=10) -> dict:
     run_seconds = time.perf_counter() - t0
     sim.state, sim.time, sim.last_dt = state, time_, last_dt
     sim.n_hydro_iter += n
-    check_pds70_launches(telemetry.values("launch.", K.OPS), n)
+    check_pds70_launches(telemetry.values("launch.", K.OPS), n,
+                         telemetry.value("pvte.refresh") - pv0 if f64 else 0)
     res.update({"run_steps": n, "run_per_step": run_seconds / n,
                 "run_mcell": nr * naz / (run_seconds / n) / 1e6,
                 "run_fld_iterations_per_step":
@@ -2057,10 +2128,12 @@ NR_BINARY, NAZ_BINARY = 1609, 1160
 # viscous kick's gate is off, the Stone-Norman substep its kernel): cfl,
 # sources, artvisc_sn and the whole-transport kernel once, ias15 twice (the
 # indirect term's predictor and the drift); V1504 Cyg's leapfrog under
-# PVTE and the circumbinary menu: the transport once, ias15 four times
+# PVTE and the circumbinary menu: the transport once, ias15 four times,
+# pvte_refresh five times (calculate_time_step's refresh and the leapfrog's
+# four)
 OY_CAR_OPS = {"cfl": 1, "sources": 1, "artvisc_sn": 1, "transport": 1,
               "ias15": 2}
-V1504CYG_OPS = {"transport": 1, "ias15": 4}
+V1504CYG_OPS = {"transport": 1, "ias15": 4, "pvte_refresh": 5}
 # the planet in a self-gravitating disk: the Bessel mode keeps cfl, sources
 # and the viscous kick off (step.gates, as the JAX package's), the
 # Stone-Norman substep takes its kernel; ias15 twice (the Euler step)
@@ -2128,7 +2201,7 @@ def run_planet(sim, warmup=10, steps=60, profiled=5, ops=None,
            and not e.name.startswith("fc:")]
     device_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     ours = ("cfl_ring_kernel", "sources_kernel", "vk_tile_kernel", "tr_",
-            "ias15_kernel", "artvisc_sn_kernel")
+            "ias15_kernel", "artvisc_sn_kernel", "pvte_refresh_kernel")
     own = sum(1 for e in dev if any(f in e.name for f in ours))
     by_kernel = {}
     for e in dev:
@@ -3322,6 +3395,7 @@ def main() -> int:
     measured["ias15"] = {k: v for k, v in ias15_res["planet_disk"].items()
                          if k not in ("plain_launches", "steps")}
     measured_leapfrog = parity_leapfrog(sim, gpu)
+    measured["pvte_refresh"] = pvte_refresh_parity(gpu)
     parity_f64_ragged(torch.device("cuda"))
     parity_tile_edges(torch.device("cuda"))
     golden_grid_edges(torch.device("cuda"))

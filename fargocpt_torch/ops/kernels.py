@@ -8,10 +8,12 @@ between its ops as PyTorch ops (``transport.route`` picks whole or split
 per grid; the staged route runs where ``KernelContext`` is built with
 ``transport_route="staged"``); and the Stone-Norman artificial viscosity
 substep, ``artvisc_sn``, which the steps outside the fused viscous kick's
-gate run (the PVTE setups). One more kernel replaces no TPU kernel:
+gate run (the PVTE setups). Two more kernels replace no TPU kernel:
 ``ias15``, a whole adaptive IAS15 call of the N-body integrator on the
 device (the JAX package's ``lax.while_loop``), with planets twice an
-Euler step and four times a leapfrog step.
+Euler step and four times a leapfrog step; and ``pvte_refresh``, the cold
+float64 PVTE refresh of ``ops/pvte.py`` (``PVTE.gamma_mu`` without a
+lookup table; float64 only), which the JAX package leaves to XLA.
 
 Each op's entry point (the names in ``OPS``) takes the plain version only
 for tensors on the CPU; for a CUDA tensor it launches the kernel or
@@ -51,12 +53,16 @@ from ..grid import Geometry
 from ..nbody import ias15 as ias15_ops
 from ..params import Physics, ARTVISC_SN, ARTVISC_TW, LEAPFROG
 from . import artvisc, cfl as cfl_ops, energy as energy_ops, eos, gravity, \
-    sources as src_ops, transport as tr_ops, viscosity as visc
+    pvte as pvte_ops, sources as src_ops, transport as tr_ops, \
+    viscosity as visc
 from .common import Geom
 
 OPS = ("cfl", "sources", "viscous_kick", "transport",
        "radial_momenta_sweep", "fargo_theta", "artvisc_sn",
-       "radial_sweep", "theta_sweep", "advect_shift", "ias15")
+       "radial_sweep", "theta_sweep", "advect_shift", "ias15",
+       "pvte_refresh")
+# the ops whose library exports a float64 function only
+F64_ONLY = ("pvte_refresh",)
 ROUTES = ("whole", "split", "staged")
 
 
@@ -309,6 +315,14 @@ def ias15_plain(x, y, vx, vy, m, G, dt, counts: list | None = None):
     return ias15_ops.integrate_ias15(x, y, vx, vy, m, G, dt, counts=counts)
 
 
+def pvte_refresh_plain(pv: pvte_ops.PVTE, sigma, energy, scale_height):
+    """The cold float64 PVTE refresh of the evaluator ``pv``: the cells'
+    cgs density and specific energy (``PVTE.cgs``), then
+    ``pvte.gamma_mu_bisect``. Returns (gamma_eff, mu, gamma1)."""
+    rho_cgs, e_spec_cgs = pv.cgs(sigma, energy, scale_height)
+    return pvte_ops.gamma_mu_bisect(rho_cgs, e_spec_cgs, pv.x_mf, pv.tabs)
+
+
 # ---------------------------------------------------------------------------
 # build and launch
 # ---------------------------------------------------------------------------
@@ -408,7 +422,7 @@ def build() -> BuildInfo:
     args = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_double),
             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     for op in OPS:
-        for sfx in ("f32", "f64"):
+        for sfx in ("f64",) if op in F64_ONLY else ("f32", "f64"):
             fn = getattr(lib, f"fc_{op}_{sfx}")
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -913,4 +927,77 @@ def ias15(x, y, vx, vy, m, G, dt, counts: torch.Tensor | None = None):
                        device=x.device) if n > IAS15_LOCAL_BODIES else None
     _launch("ias15", dt_dev, [x, y, vx, vy, m, dt_dev, *outs, counts, work],
             [G, ias15_ops.EPS_DEFAULT], [n, 1], min_nr=2)
+    return tuple(outs)
+
+
+def pvte_constants(pv: pvte_ops.PVTE) -> dict[str, float]:
+    """The float parameters of csrc/pvte_refresh.cu, in the order of its
+    ``PvteArgs``, each folded from Python floats as the plain version
+    folds it (``ops/pvte.py``: ionization_fraction,
+    dissociation_fraction, mean_molecular_weight, gas_energy_eps,
+    func_dum_ln, temperature_from_energy, gamma1_at, PVTE.cgs), so that
+    the kernel computes the same values."""
+    x_mf, un = pv.x_mf, pv.units
+    lo, w, coeffs = pv.tabs
+    P = pvte_ops
+    epsn = 1e-4
+    return {
+        "x_mf": x_mf,
+        "cx": P.CGS_M_H / x_mf * (P.CGS_M_E * P.CGS_KB
+                                  / (2 * math.pi * P.CGS_HBAR ** 2)) ** 1.5,
+        "cy": P.CGS_M_H / (2.0 * x_mf)
+        * (P.CGS_M_H * P.CGS_KB / (4 * math.pi * P.CGS_HBAR ** 2)) ** 1.5,
+        "ex": -13.60 * P.CGS_EV,
+        "ey": -4.48 * P.CGS_EV,
+        "kb": P.CGS_KB,
+        "two_xmf": 2.0 * x_mf,
+        "c_hi": 1.5 * x_mf,
+        "eps_he": 0.375 * (1.0 - x_mf),
+        "c_hh": 4.48 * P.CGS_EV * x_mf,
+        "two_kb": 2.0 * P.CGS_KB,
+        "c_hii": 13.60 * P.CGS_EV * x_mf,
+        "c_h2": 0.5 * x_mf,
+        "fd_lo": lo,
+        "fd_hi": lo + coeffs.shape[0] * w,
+        "fd_w": w,
+        "fd_inv_w": 1.0 / w,
+        "inv_r": 1.0 / (P.CGS_KB / P.CGS_MP),
+        "lo_fac": 1 - epsn,
+        "hi_fac": 1 + epsn,
+        "density_factor": pv.density_factor,
+        "to_density": un.density,
+        "to_e_spec": un.energy_density / un.surface_density,
+    }
+
+
+@telemetry.spanned("kernels.pvte_refresh")
+def pvte_refresh(pv: pvte_ops.PVTE, sigma, energy, scale_height):
+    """(gamma_eff, mu, gamma1) of the cells of ``sigma`` and ``energy``
+    (any shape; ``scale_height`` of the same shape, unread for a shock
+    tube) by the evaluator ``pv``'s cold float64 refresh: 48 halvings of
+    log10 T and gamma1 by finite differences. Float64 only. On the GPU one
+    launch, a thread a cell."""
+    if sigma.dtype != torch.float64:
+        raise TypeError(f"pvte_refresh: the refresh is float64, got "
+                        f"{sigma.dtype}")
+    if sigma.device.type == "cpu":
+        return pvte_refresh_plain(pv, sigma, energy, scale_height)
+    shock_tube = pv.shock_tube > 0
+    h = None if shock_tube else scale_height
+    coeffs = pv.tabs[2]
+    for name, t in (("sigma", sigma), ("energy", energy),
+                    ("scale_height", h)):
+        if t is not None:
+            _check(name, t, sigma.shape, sigma)
+    _check("funcdum coefficients", coeffs, (pvte_ops.FUNCDUM_SEGMENTS,
+                                            pvte_ops.FUNCDUM_DEGREE + 1),
+           sigma)
+    n = sigma.numel()
+    if n >= 2 ** 31:
+        raise ValueError(f"pvte_refresh: {n} cells, the kernel takes fewer "
+                         "than 2**31")
+    outs = [torch.empty_like(sigma) for _ in range(3)]
+    _launch("pvte_refresh", sigma, [sigma, energy, h, coeffs, *outs],
+            list(pvte_constants(pv).values()), [n, 1, int(shock_tube)],
+            min_nr=1)
     return tuple(outs)

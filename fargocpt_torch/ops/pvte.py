@@ -9,7 +9,9 @@ energy ``funcdum``) is closed-form elementwise math. Two solvers, as in
 
 * float64: 48 bisection halvings of log10 T on [1, 1e7] K with the
   piecewise-Chebyshev ``funcdum`` (32 segments, degree 10) and gamma1 by
-  finite differences (``temperature_from_energy``, ``gamma1_at``);
+  finite differences (``temperature_from_energy``, ``gamma1_at``;
+  ``gamma_mu_bisect``), on the GPU as one CUDA kernel
+  (``kernels.pvte_refresh``, ``csrc/pvte_refresh.cu``);
 * float32: the unrolled 13 bisection + 4 Illinois solve in t = ln T
   (``_temperature_fast``), or, warm-started from a previous refresh's
   (gamma_eff, mu), ``n_newton`` bracket-safeguarded Newton steps
@@ -273,6 +275,16 @@ def temperature_from_energy(e_specific_cgs, rho_cgs, x_mf, tabs,
         take_low = resid(10.0 ** mid) < 0.0
         lo, hi = torch.where(take_low, lo, mid), torch.where(take_low, mid, hi)
     return 10.0 ** (0.5 * (lo + hi))
+
+
+def gamma_mu_bisect(rho_cgs, e_spec_cgs, x_mf, tabs):
+    """(gamma_eff, mu, gamma1) by the float64 pipeline: T from the 48
+    halvings, gamma_eff and mu there, gamma1 by finite differences. The
+    plain version of ``kernels.pvte_refresh``."""
+    T = temperature_from_energy(e_spec_cgs, rho_cgs, x_mf, tabs)
+    _, _, mu, _, gamma_eff = _gamma_mu_at(rho_cgs, T, x_mf, tabs)
+    g1 = gamma1_at(rho_cgs, T, x_mf, tabs)
+    return gamma_eff, mu, g1
 
 
 def gamma1_at(rho, T, x_mf, tabs):
@@ -630,8 +642,10 @@ class PVTE:
     """Per-run PVTE evaluator: the units, the funcdum fit on the run's
     device, and the solver of the dtype (float32: the fast path,
     warm-started with ``n_newton`` Newton steps; float64: the bisection
-    pipeline). ``gamma_mu`` counts its calls as ``pvte.refresh`` in
-    ``telemetry`` and runs as the span ``pvte.gamma_mu``."""
+    pipeline, ``kernels.pvte_refresh``: one CUDA kernel on the GPU, the
+    plain ``gamma_mu_bisect`` on the CPU). ``gamma_mu`` counts its calls as
+    ``pvte.refresh`` in ``telemetry`` and runs as the span
+    ``pvte.gamma_mu``."""
 
     def __init__(self, phys, units, dtype: torch.dtype, device=None,
                  n_newton: int = 1):
@@ -651,6 +665,20 @@ class PVTE:
         self.fast = dtype == torch.float32 and not self.lookup
         self.n_newton = int(n_newton)
 
+    def cgs(self, sigma, energy, scale_height):
+        """The cells' volume density and specific energy in cgs: the
+        midplane density Sigma / (density_factor H), or, in a shock tube,
+        Sigma itself (reference :521-524)."""
+        un = self.units
+        if self.shock_tube > 0:
+            rho_cgs = sigma * un.density
+        else:
+            rho_cgs = sigma / (self.density_factor * scale_height) \
+                * un.density
+        e_spec_cgs = energy / sigma \
+            * (un.energy_density / un.surface_density)
+        return rho_cgs, e_spec_cgs
+
     def gamma_mu(self, sigma, energy, scale_height, guess=None):
         """(gamma_eff, mu, gamma1) grids of the state (reference :497-541
         ``compute_gamma_mu``); ``guess`` warm-starts the float32 solve. A
@@ -658,22 +686,12 @@ class PVTE:
         (reference :521-524)."""
         telemetry.count("pvte.refresh")
         with telemetry.span("pvte.gamma_mu"):
-            un = self.units
-            if self.shock_tube > 0:
-                rho_cgs = sigma * un.density
-            else:
-                rho_cgs = sigma / (self.density_factor * scale_height) \
-                    * un.density
-            e_spec_cgs = energy / sigma \
-                * (un.energy_density / un.surface_density)
+            if not (self.lookup or self.fast):
+                from . import kernels     # which imports this module
+                return kernels.pvte_refresh(self, sigma, energy,
+                                            scale_height)
+            rho_cgs, e_spec_cgs = self.cgs(sigma, energy, scale_height)
             if self.lookup:
                 return lookup_gamma_mu(rho_cgs, e_spec_cgs, self.tables)
-            if self.fast:
-                return gamma_mu_fast(rho_cgs, e_spec_cgs, self.x_mf,
-                                     guess=guess, n_newton=self.n_newton)
-            T = temperature_from_energy(e_spec_cgs, rho_cgs, self.x_mf,
-                                        self.tabs)
-            _, _, mu, _, gamma_eff = _gamma_mu_at(rho_cgs, T, self.x_mf,
-                                                  self.tabs)
-            g1 = gamma1_at(rho_cgs, T, self.x_mf, self.tabs)
-            return gamma_eff, mu, g1
+            return gamma_mu_fast(rho_cgs, e_spec_cgs, self.x_mf,
+                                 guess=guess, n_newton=self.n_newton)

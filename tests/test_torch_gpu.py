@@ -1554,7 +1554,9 @@ def test_oy_car_step_launches_and_matches_the_cpu(cuda):
 def test_v1504cyg_step_launches_and_matches_the_cpu(cuda):
     """setups/V1504Cyg.yml at 32x64 float64 (the leapfrog, PVTE, S-curve
     cooling, AspectRatioMode 1, AlphaMode 1): each step launches the
-    transport once and ias15 four times, no other kernel; five steps agree
+    transport once, ias15 four times and pvte_refresh once a PVTE refresh
+    (five: calculate_time_step's and the leapfrog's four), no other
+    kernel; five steps agree
     with the CPU's plain versions at 1e-9 of each field's scale. The
     setup's CFL dt (~1e-16 here; ROADMAP C) moves no field, so both step
     on a fixed 1e-4, under the FARGO shear limit, and sigma, vaz and the
@@ -1574,7 +1576,8 @@ def test_v1504cyg_step_launches_and_matches_the_cpu(cuda):
     delta = {op: telemetry.value("launch." + op) - before[op]
              for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {"transport": 5,
-                                                     "ias15": 20}
+                                                     "ias15": 20,
+                                                     "pvte_refresh": 25}
     _held_to_the_cpu(gpu, cpu, 1e-9)
     a, b = gpu.fields.energy.cpu(), cpu.fields.energy
     assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max())

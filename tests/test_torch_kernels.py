@@ -325,3 +325,43 @@ def test_cuda_launch_refuses_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         kernels._launch("cfl", x, [x], [], [8, 16])
     assert telemetry.value("launch.cfl") == 0
+
+
+def test_pvte_refresh_is_an_op_in_float64_only():
+    """The cold float64 PVTE refresh is one of the ops, and its source
+    exports the float64 function alone."""
+    assert "pvte_refresh" in kernels.OPS
+    assert kernels.F64_ONLY == ("pvte_refresh",)
+    source = (kernels.CSRC / "pvte_refresh.cu").read_text()
+    assert "int fc_pvte_refresh_f64(" in source
+    assert "fc_pvte_refresh_f32" not in source
+
+
+def test_pvte_constants_follow_the_kernel_argument_struct():
+    """kernels.pvte_constants and csrc/pvte_refresh.cu's PvteArgs name the
+    same parameters in the same order: a reordering on one side only would
+    feed the kernel the wrong constants."""
+    import re
+    from fargocpt_torch.ops import pvte
+    source = (kernels.CSRC / "pvte_refresh.cu").read_text()
+    start = source.index("struct PvteArgs {")
+    body = source[start:source.index("};", start)].split("double", 1)[1]
+    names = re.findall(r"\b([a-z_0-9]+)\b", body)
+    pv = pvte.PVTE(Physics(variable_gamma=True), Units(), torch.float64)
+    assert names == list(kernels.pvte_constants(pv))
+
+
+def test_pvte_refresh_launch_refuses_cpu_and_non_float64_tensors():
+    """The CUDA path of pvte_refresh never runs on CPU tensors, and the op
+    takes float64 alone, on any device (and never falls back)."""
+    from fargocpt_torch.ops import pvte
+    x = torch.ones((8, 16), dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        kernels._launch("pvte_refresh", x, [x, x, x], [], [128, 1, 0],
+                        min_nr=1)
+    pv = pvte.PVTE(Physics(variable_gamma=True), Units(), torch.float32)
+    for dtype in (torch.float32, torch.float16):
+        y = x.to(dtype)
+        with pytest.raises(TypeError, match="float64"):
+            kernels.pvte_refresh(pv, y, y, y)
+    assert telemetry.value("launch.pvte_refresh") == 0

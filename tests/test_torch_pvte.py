@@ -23,7 +23,7 @@ from fargocpt_tpu.params import Physics as JPhysics
 from fargocpt_tpu.units import Units as JUnits
 
 from fargocpt_torch import telemetry
-from fargocpt_torch.ops import pvte
+from fargocpt_torch.ops import kernels, pvte
 from fargocpt_torch.params import Physics
 from fargocpt_torch.units import Units
 
@@ -167,3 +167,41 @@ def test_lookup_table_mode_is_refused(monkeypatch):
     ref = j_ev.gamma_mu(sigma, energy, h)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-12)
+
+
+def _refresh_before(pv, sigma, energy, h):
+    """PVTE.gamma_mu's float64 pipeline as it stood before the refresh
+    became an op, written out."""
+    un = pv.units
+    if pv.shock_tube > 0:
+        rho_cgs = sigma * un.density
+    else:
+        rho_cgs = sigma / (pv.density_factor * h) * un.density
+    e_spec_cgs = energy / sigma * (un.energy_density / un.surface_density)
+    T = pvte.temperature_from_energy(e_spec_cgs, rho_cgs, pv.x_mf, pv.tabs)
+    _, _, mu, _, gamma_eff = pvte._gamma_mu_at(rho_cgs, T, pv.x_mf, pv.tabs)
+    g1 = pvte.gamma1_at(rho_cgs, T, pv.x_mf, pv.tabs)
+    return gamma_eff, mu, g1
+
+
+@pytest.mark.parametrize("shock_tube", [0, 2])
+def test_pvte_refresh_plain_is_the_pipeline_before(shock_tube):
+    """On the CPU the op's plain version, and PVTE.gamma_mu through the op,
+    give the float64 pipeline's grids bit for bit, the shock-tube form
+    included; no kernel is launched and the refresh is counted once."""
+    rng = np.random.default_rng(21 + shock_tube)
+    shape = (24, 40)
+    sigma = torch.tensor(rng.uniform(1e-5, 1e-3, shape))
+    energy = sigma * torch.tensor(rng.uniform(1e-6, 1e-2, shape))
+    h = torch.tensor(rng.uniform(0.01, 0.1, shape))
+    pv = pvte.PVTE(Physics(variable_gamma=True, shock_tube=shock_tube),
+                   Units(), torch.float64)
+    assert not (pv.fast or pv.lookup)
+    ref = _refresh_before(pv, sigma, energy, h)
+    before = telemetry.value("pvte.refresh")
+    for got in (kernels.pvte_refresh_plain(pv, sigma, energy, h),
+                pv.gamma_mu(sigma, energy, h)):
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    assert telemetry.value("pvte.refresh") == before + 1
+    assert telemetry.value("launch.pvte_refresh") == 0
