@@ -1,5 +1,7 @@
 """The comparison that decides ``correct``: what the timed path produced
-against the plain reference (``reference/fargo_plain``), number by number.
+against the plain reference that the cell's configuration names
+(``reference/<name>/``, ``fargo_plain`` by default; its contract is
+``harness.reference_missing``'s), number by number.
 
 Three readings of a run, each with its limit from the cell's file:
 
@@ -13,6 +15,8 @@ Three readings of a run, each with its limit from the cell's file:
   the same call; its fields are compared with the program's result.
 * ``time_gap``: the simulated time at both points; ``swarm_gap``: the
   dust particles at both points, where the run has a swarm;
+  ``bodies_gap``: the N-body state at both points, each body's position,
+  velocity and mass and the frame's angular velocity ``omega_frame``;
   ``snap_gap``: a snapshot written inside the window, drawn from the
   seed, read back from its files and compared with the state it was
   written from (the fields, the temperature the reference derives from
@@ -20,7 +24,9 @@ Three readings of a run, each with its limit from the cell's file:
 
 A gap is the largest difference over a field divided by the largest
 magnitude of the reference's field. The angle of a particle is compared
-on the circle, as a share of pi.
+on the circle, as a share of pi. A gap over several quantities is the
+worst of theirs, NaN where any is NaN (a value that is not finite); the
+result reports a gap that is not finite as None, which fails its limit.
 """
 
 from __future__ import annotations
@@ -58,13 +64,13 @@ def to_host(obj):
     return obj
 
 
-def reference_classes() -> dict:
-    from .reference.fargo_plain import state
-    from .reference.fargo_plain.nbody import system
-    from .reference.fargo_plain.particles import dust
+def reference_classes(reference) -> dict:
+    """The state classes of a loaded reference package, by name."""
+    state = reference.state
     return {c.__name__: c for c in (
         state.FieldState, state.SystemState, state.MonitorAccum,
-        dust.ParticleState, system.NBodyState)}
+        reference.particles.dust.ParticleState,
+        reference.nbody.system.NBodyState)}
 
 
 def to_reference(obj, classes: dict, device, dtype: torch.dtype):
@@ -110,9 +116,14 @@ def rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
     return diff / scale if scale > 0 else diff
 
 
+def worst(*gaps: float) -> float:
+    """The largest gap; NaN where any is NaN (``max`` would pass it by)."""
+    return math.nan if any(math.isnan(g) for g in gaps) else max(gaps)
+
+
 def fields_gap(prog_fields, ref_fields) -> float:
-    return max(rel_gap(getattr(prog_fields, k), getattr(ref_fields, k))
-               for k in FIELDS)
+    return worst(*(rel_gap(getattr(prog_fields, k), getattr(ref_fields, k))
+                   for k in FIELDS))
 
 
 def swarm_gap(p, r) -> float:
@@ -129,7 +140,19 @@ def swarm_gap(p, r) -> float:
                            - r.phi.cpu().double()[alive_r] + math.pi,
                            2.0 * math.pi) - math.pi
     gaps.append(float(dphi.abs().max()) / math.pi if dphi.numel() else 0.0)
-    return max(gaps)
+    return worst(*gaps)
+
+
+def bodies_gap(p, r) -> float:
+    """The program's N-body state against the reference's, of two
+    ``SystemState``s: each body's x, y, vx, vy and mass, and
+    ``omega_frame``, a ``rel_gap`` each over all bodies; inf where the
+    number of bodies differs, NaN where a value is not finite."""
+    if p.nbody.x.shape != r.nbody.x.shape:
+        return math.inf
+    return worst(*(rel_gap(getattr(p.nbody, k), getattr(r.nbody, k))
+                   for k in ("x", "y", "vx", "vy", "mass")),
+                 rel_gap(p.omega_frame, r.omega_frame))
 
 
 def time_gap(t_prog, t_ref) -> float:
@@ -154,11 +177,11 @@ def read_snapshot(sdir: Path, nr: int, naz: int) -> dict:
             "temperature": grid("Temperature", nr), "time": time}
 
 
-def snapshot_gap(files: dict, kept: dict, ref_sim) -> float:
+def snapshot_gap(files: dict, kept: dict, ref_sim, eos) -> float:
     """The snapshot's files against the state they were written from: the
     four fields, the temperature the reference derives from that state
-    with its own equation of state, the time."""
-    from .reference.fargo_plain.ops import eos
+    with its equation of state ``eos`` (the reference's ``ops.eos``), the
+    time."""
     dev = ref_sim.device
     f = {k: kept[k].to(dev, torch.float64) for k in FIELDS}
     pv = ref_sim.stepper.pvte_vals(f["sigma"], f["energy"]) \
@@ -168,4 +191,4 @@ def snapshot_gap(files: dict, kept: dict, ref_sim) -> float:
     gaps = [rel_gap(torch.from_numpy(files[k]), f[k]) for k in FIELDS]
     gaps.append(rel_gap(torch.from_numpy(files["temperature"]), temp))
     gaps.append(time_gap(files["time"], kept["time"]))
-    return max(gaps)
+    return worst(*gaps)

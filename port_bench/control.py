@@ -55,7 +55,7 @@ def main(argv=None) -> int:
         for seed, dtype in runs:
             t0 = time.perf_counter()
             r = harness.run_cell(args.workload, seed, args.seconds, False,
-                                 t0, dtype=dtype)
+                                 t0, dtype=dtype, root=ROOT)
             row = {"workload": args.workload, "seed": seed,
                    "dtype": dtype or "config", "correct": r["correct"],
                    "checks": r["checks"], "window": r["window"],

@@ -6,9 +6,10 @@ Everything a cell needs is found by name: ``BENCHMARK.json`` names the
 cell's configuration and its metrics; ``configs/<config>.json`` holds the
 setup as it is run, ``cells/<cell>.json`` the traffic (the output
 cadence, the warm-up, the steps of one call, the perturbation, the
-limits), ``metrics/<metric>.py`` the reader of each per-layer metric. A
-later cell, configuration or metric is new files and new entries, with
-no edit here.
+limits), ``metrics/<metric>.py`` the reader of each per-layer metric, and
+``reference/<name>/`` the plain reference that a configuration names
+(``load_reference``). A later cell, configuration, metric or reference is
+new files and new entries, with no edit here.
 
 The window is the run path users run (``python -m fargocpt_torch
 start``): a ``Simulation`` with an ``OutputWriter`` on an output
@@ -19,12 +20,16 @@ last call's end, which reads its statistics to the host, closes it.
 
 from __future__ import annotations
 
+import ast
 import gc
+import hashlib
+import importlib
 import importlib.util
 import json
 import math
 import random
 import shutil
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -60,6 +65,91 @@ def load_reader(name: str, bench_dir: Path = BENCH_DIR):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+# what a reference package must hold: each module, by its file under the
+# package, with the top-level names the harness and the check take from it
+REFERENCE_PARTS = {
+    "__init__.py": (),
+    "config.py": ("Config",),
+    "sim.py": ("Simulation",),
+    "state.py": ("FieldState", "SystemState", "MonitorAccum"),
+    "nbody/system.py": ("NBodyState",),
+    "particles/dust.py": ("ParticleState",),
+    "ops/eos.py": ("temperature",),
+    "scope.py": ("refuse_outside",),
+}
+
+
+def reference_name(config: dict) -> str:
+    """The plain reference a configuration names (its optional key
+    ``reference``), ``fargo_plain`` where it names none."""
+    return config.get("reference", "fargo_plain")
+
+
+def reference_missing(name: str, bench_dir: Path = BENCH_DIR) -> list[str]:
+    """The parts of the contract that ``reference/<name>/`` lacks, by
+    reading its files without importing them; empty where it has all.
+
+    The contract: a package of plain PyTorch that imports neither JAX nor
+    the program, with
+    ``config.Config`` (``Config.from_dict(setup)``, the setup as it is
+    run); ``sim.Simulation`` (``Simulation(config, dtype=, device=)``
+    with the program's ``begin()``, ``advance_monitor(max_steps)``,
+    ``state``, ``fields``, ``time``, ``last_dt``, ``n_monitor``,
+    ``n_hydro_iter``, ``monitor_stats``, ``device``, ``dtype``, ``phys``,
+    ``constants`` and ``stepper.pvte``/``stepper.pvte_vals``);
+    ``state.FieldState``, ``state.SystemState`` and ``state.MonitorAccum``,
+    ``nbody.system.NBodyState`` and ``particles.dust.ParticleState``,
+    dataclasses whose fields are the program's by name (the program's
+    state is rebuilt in them); ``ops.eos.temperature`` (a snapshot's
+    temperature); and ``scope.refuse_outside``, which its ``Simulation``
+    calls to refuse a setup outside what the copy covers.
+    """
+    if not (isinstance(name, str) and name.isidentifier()):
+        return [f"a package name, not {name!r}"]
+    root = bench_dir / "reference" / name
+    missing = []
+    for rel, names in REFERENCE_PARTS.items():
+        path = root / rel
+        if not path.is_file():
+            missing.append(rel)
+            continue
+        defined = set()
+        for node in ast.parse(path.read_text(), str(path)).body:
+            if isinstance(node, (ast.ClassDef, ast.FunctionDef)):
+                defined.add(node.name)
+            elif isinstance(node, (ast.Import, ast.ImportFrom)):
+                defined.update((a.asname or a.name).split(".")[0]
+                               for a in node.names)
+            elif isinstance(node, ast.Assign):
+                defined.update(t.id for t in node.targets
+                               if isinstance(t, ast.Name))
+        missing += [f"{rel[:-3].replace('/', '.')}.{n}" for n in names
+                    if n not in defined]
+    return missing
+
+
+def load_reference(name: str, bench_dir: Path = BENCH_DIR):
+    """The package ``reference/<name>/`` under ``bench_dir``, imported from
+    its files with the modules of the contract (``reference_missing``), so
+    that a checkout runs its own copy. Its module name is made from its
+    path: two checkouts' copies never share a module."""
+    path = (bench_dir / "reference" / name).resolve()
+    modname = f"port_bench_reference_{name}_" \
+        + hashlib.sha1(str(path).encode()).hexdigest()[:12]
+    if modname not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            modname, path / "__init__.py",
+            submodule_search_locations=[str(path)])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules[modname] = pkg
+        spec.loader.exec_module(pkg)
+    for rel in REFERENCE_PARTS:
+        if rel != "__init__.py":
+            importlib.import_module(
+                f"{modname}.{rel[:-3].replace('/', '.')}")
+    return sys.modules[modname]
 
 
 def cell_metrics(manifest: dict, cell: str, kind: str) -> list[dict]:
@@ -149,11 +239,18 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     """One run of ``workload``; returns the result line's object, with
     the window's own numbers under ``window``. ``dtype``
     runs the program in another precision than the configuration's (the
-    control); ``overrides`` replace setup keys (the tests' small grids)."""
+    control); ``overrides`` replace setup keys (the tests' small grids).
+    A configuration whose reference lacks a part of the contract
+    (``reference_missing``) raises ValueError before anything is built."""
     bench_dir = root / "port_bench"
     manifest = load_manifest(root)
     cell = load_cell(workload, bench_dir)
     config = load_config(cell["config"], bench_dir)
+    missing = reference_missing(reference_name(config), bench_dir)
+    if missing:
+        raise ValueError(
+            f"configuration {cell['config']!r} names the reference "
+            f"{reference_name(config)!r}, which lacks: {', '.join(missing)}")
     setup = setup_dict(config, cell, seed, overrides)
     dtype = dtype or config["dtype"]
 
@@ -273,8 +370,9 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
 
-        readings = compare(config, cell, setup, seed, device, start, before,
-                           end, last_steps, snap)
+        ref = load_reference(reference_name(config), bench_dir)
+        readings = compare(ref, config, cell, setup, seed, device, start,
+                           before, end, last_steps, snap)
     finally:
         if writer is not None:
             writer.close()
@@ -321,17 +419,16 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     return result
 
 
-def compare(config, cell, setup, seed, device, start, before, end,
-            last_steps, snap) -> dict:
-    """The reference's readings (``check``): from its own initial
-    conditions through the warm-up, from the program's state before the
-    window's last call through that call, and the snapshot."""
-    from .reference.fargo_plain.config import Config as RConfig
-    from .reference.fargo_plain.sim import Simulation as RSim
-
-    classes = check.reference_classes()
-    ref = RSim(RConfig.from_dict(dict(setup)), dtype=config["dtype"],
-               device=device)
+def compare(reference, config, cell, setup, seed, device, start, before,
+            end, last_steps, snap) -> dict:
+    """The readings of the reference package ``reference`` (``check``):
+    from its own initial conditions through the warm-up, from the
+    program's state before the window's last call through that call, and
+    the snapshot."""
+    classes = check.reference_classes(reference)
+    ref = reference.sim.Simulation(
+        reference.config.Config.from_dict(dict(setup)),
+        dtype=config["dtype"], device=device)
     amp = cell["perturbation"]
     noise = perturbation(seed, ref.fields, device)
     ref.state = ref.state.replace(fields=perturbed(ref.fields, noise, amp))
@@ -341,20 +438,25 @@ def compare(config, cell, setup, seed, device, start, before, end,
     out = {"start_gap": check.fields_gap(start.state.fields, ref.fields)}
     t_gap = check.time_gap(start.time, ref.time)
     s_gap = check.swarm_gap(start.state.particles, ref.state.particles)
+    b_gap = check.bodies_gap(start.state, ref.state)
 
     before.load_into(ref, classes)
     ref.advance_monitor(cell["chunk_steps"])
     out["end_gap"] = check.fields_gap(end.state.fields, ref.fields)
     if ref.monitor_stats["n_steps"] != last_steps:
         out["end_gap"] = math.inf
-    t_gap = max(t_gap, check.time_gap(end.time, ref.time))
-    s_gap = max(s_gap, check.swarm_gap(end.state.particles,
-                                       ref.state.particles))
+    t_gap = check.worst(t_gap, check.time_gap(end.time, ref.time))
+    s_gap = check.worst(s_gap, check.swarm_gap(end.state.particles,
+                                               ref.state.particles))
+    b_gap = check.worst(b_gap, check.bodies_gap(end.state, ref.state))
     out["time_gap"] = t_gap
     if "swarm_gap" in cell["limits"]:
         out["swarm_gap"] = s_gap
+    if "bodies_gap" in cell["limits"]:
+        out["bodies_gap"] = b_gap
     if "snap_gap" in cell["limits"]:
         # none due: nothing to compare; due and not written: never came
         out["snap_gap"] = 0.0 if snap is None else math.inf if not snap \
-            else check.snapshot_gap(snap["files"], snap["kept"], ref)
+            else check.snapshot_gap(snap["files"], snap["kept"], ref,
+                                    reference.ops.eos)
     return {k: (v if math.isfinite(v) else None) for k, v in out.items()}

@@ -94,23 +94,34 @@ def test_altered_snapshot_is_not_correct(monkeypatch):
     assert failed(r) == {"snap_gap"}
 
 
-def test_reference_follows_the_port_on_the_cpu():
-    """The plain reference and the port's CPU path, both from the cell's
-    configuration at a small size, agree bit for bit over a few calls."""
+MANIFEST = harness.load_manifest()
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in MANIFEST["configs"]])
+def test_reference_follows_the_port_on_the_cpu(config):
+    """The plain reference that the configuration names and the port's CPU
+    path, both from the configuration at a small size (with the output
+    cadence of its first cell), agree bit for bit over a few calls: the
+    fields, the time and the N-body state."""
     from fargocpt_torch.config import Config
     from fargocpt_torch.sim import Simulation
-    from port_bench.reference.fargo_plain.config import Config as RConfig
-    from port_bench.reference.fargo_plain.sim import Simulation as RSim
-    for cell, extra in (("adiabatic_disk.run", {}),
-                        ("pvte_fld_sg_dust.run", {"NumberOfParticles": "64"})):
-        spec = harness.load_cell(cell)
-        setup = harness.setup_dict(harness.load_config(spec["config"]),
-                                   spec, 3, {**SMALL, **extra})
-        a = Simulation(Config.from_dict(dict(setup)), device="cpu")
-        b = RSim(RConfig.from_dict(dict(setup)), device="cpu")
-        for sim in (a, b):
-            sim.begin()
-            harness.warm_up(sim, 6)
-        for k in ("sigma", "vrad", "vaz", "energy"):
-            assert torch.equal(getattr(a.fields, k), getattr(b.fields, k))
-        assert float(a.time) == float(b.time)
+    spec = harness.load_cell(next(w["name"] for w in MANIFEST["workloads"]
+                                  if w["config"] == config))
+    cfg = harness.load_config(config)
+    small = {**SMALL, **({"NumberOfParticles": "64"}
+                         if "NumberOfParticles" in cfg["setup"] else {})}
+    setup = harness.setup_dict(cfg, spec, 3, small)
+    ref = harness.load_reference(harness.reference_name(cfg))
+    a = Simulation(Config.from_dict(dict(setup)), device="cpu")
+    b = ref.sim.Simulation(ref.config.Config.from_dict(dict(setup)),
+                           device="cpu")
+    for sim in (a, b):
+        sim.begin()
+        harness.warm_up(sim, 6)
+    for k in ("sigma", "vrad", "vaz", "energy"):
+        assert torch.equal(getattr(a.fields, k), getattr(b.fields, k))
+    assert float(a.time) == float(b.time)
+    for k in ("x", "y", "vx", "vy", "mass"):
+        assert torch.equal(getattr(a.state.nbody, k),
+                           getattr(b.state.nbody, k))
+    assert torch.equal(a.state.omega_frame, b.state.omega_frame)

@@ -35,6 +35,6 @@ def test_cell_on_the_card(cuda, cell, traced):
     kind = "per_layer" if traced else "end_to_end"
     names = {m["name"] for m in harness.cell_metrics(manifest, cell, kind)}
     if cell == "adiabatic_disk.snap" and traced:
-        names.discard("snapshot_stall_ms")     # no snapshot in 3 s
+        names -= {"snapshot_stall_ms", "snapshot_gb_per_s"}   # none in 3 s
     assert names <= set(result["metrics"])
     assert result["device"]["platform"] == "gpu"

@@ -67,6 +67,15 @@ def test_cell_found_from_files(manifest, cell):
     assert len(harness.cell_metrics(manifest, cell, "end_to_end")) == 3
 
 
+@pytest.mark.parametrize("config", [c["name"] for c in
+                                    harness.load_manifest()["configs"]])
+def test_named_reference_meets_the_contract(config):
+    name = harness.reference_name(harness.load_config(config))
+    assert harness.reference_missing(name) == []
+    ref = harness.load_reference(name)
+    assert callable(ref.scope.refuse_outside)
+
+
 def test_added_cell_config_and_metric_run_without_edit(tmp_path, manifest):
     """A cell, a configuration and a per-layer metric added as files and
     entries in a copy are listed and run on the CPU at a small size."""
