@@ -11,6 +11,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import yaml
 
 from fargocpt_torch import __main__ as cli, telemetry
 from fargocpt_torch.config import Config
@@ -35,6 +36,13 @@ PVTE_SPANS = {"pvte.gamma_mu", "fld.radiative_diffusion", "fld.solve",
               "selfgravity.accelerations", "dust.integrate",
               "kernels.artvisc_sn", "energy.substep3", "opacity.opacity",
               "cfl.condition", "sources.update", "step.derived"}
+# those of PDS 70 b and c in their disk: the bodies, the damping zones, TW
+# viscosity, the irradiation and the swarm
+PLANET_SPANS = {"kernels.cfl", "kernels.sources", "gravity.nbody_potential",
+                "gravity.disk_on_bodies", "gravity.indirect_term",
+                "nbody.ias15", "nbody.roche_radius", "step.bodies_on_grid",
+                "damping.apply", "artvisc.tw", "energy.substep3",
+                "energy.irradiation", "opacity.opacity", "dust.integrate"}
 
 def pvte_disk(tmp_path, **extra):
     """PVTE + FLD + symmetric FFT self-gravity + 64 particles at 16 x 32,
@@ -44,6 +52,23 @@ def pvte_disk(tmp_path, **extra):
     cfg.update(extra)
     sim = Simulation(Config.from_dict(cfg), outdir=str(tmp_path / "out"),
                      device="cpu")
+    return sim, OutputWriter(sim)
+
+
+def planet_disk(tmp_path, **extra):
+    """setups/PDS70.yml with its unit moved to planet b's orbit (l0 22.7
+    au, Sigma0 kept in code units, the semi-major axes in au), so that
+    both planets orbit inside the grid; 16 x 32 and 64 particles, with
+    its writer."""
+    cfg = yaml.safe_load((ROOT / "setups" / "PDS70.yml").read_text())
+    cfg.update(l0="22.7 au", Sigma0="3.66915 g/cm2", Nrad=16, Naz=32,
+               NumberOfParticles=64, MonitorTimestep="6.28", Nmonitor=100)
+    for body, axis in zip(cfg["nbody"], ("0.0 au", "22.7 au", "30.2 au")):
+        body["semi-major axis"] = axis
+    cfg.update(extra)
+    with pytest.warns(UserWarning, match="CartesianParticles"):
+        sim = Simulation(Config.from_dict(cfg),
+                         outdir=str(tmp_path / "out"), device="cpu")
     return sim, OutputWriter(sim)
 
 
@@ -165,6 +190,27 @@ def test_monitor_boundary_counts_the_writers_reads(tmp_path):
                                             rel=1e-5)
 
 
+def test_planet_disk_monitor_boundary_counts_each_bodys_read(tmp_path):
+    """PDS 70 b and c in their disk: a call that reaches the output time
+    counts the writers' reads as the lone star's disk does, but one
+    ``monitor.bodies`` read a body (the orbital elements of each body's
+    file); the planets' step (IAS15, the feedback, the damping, TW)
+    reads nothing."""
+    sim, w = planet_disk(tmp_path, MonitorTimestep="0.2")
+    sim.begin()
+    moved = deltas(lambda: sim.advance_monitor())
+    w.close()
+    n = sim.monitor_stats["n_steps"]
+    assert n >= 2 and sim.n_monitor == 1 and sim.state.nbody.n == 3
+    syncs = {k: v for k, v in moved.items() if k.startswith("sync.")}
+    assert syncs == {"sync.landing": n, "sync.upload": 5, "sync.dt_stats": 1,
+                     "sync.monitor.disk_radius": 1,
+                     "sync.monitor.pdivv_dt": 1, "sync.monitor.time": 1,
+                     "sync.monitor.bodies": 3, "sync.output.to_host": 2}
+    assert len((tmp_path / "out" / "monitor" / "nbody2.dat").read_text()
+               .splitlines()) > 2
+
+
 def test_snapshot_leaves_its_record(tmp_path):
     sim, w = adiabatic_disk(tmp_path)
     sim.begin()
@@ -181,9 +227,10 @@ def test_snapshot_leaves_its_record(tmp_path):
     assert moved["sync.output.to_host"] == 1
 
 
-@pytest.mark.parametrize("disk", ["adiabatic", "pvte"])
+@pytest.mark.parametrize("disk", ["adiabatic", "pvte", "planets"])
 def test_profiled_call_nests_its_spans_in_the_trace(tmp_path, disk):
-    sim, w = (adiabatic_disk if disk == "adiabatic" else pvte_disk)(tmp_path)
+    sim, w = {"adiabatic": adiabatic_disk, "pvte": pvte_disk,
+              "planets": planet_disk}[disk](tmp_path)
     sim.begin()
     sim.advance_monitor(2)
     n = len(telemetry.RECORDS)
@@ -195,7 +242,8 @@ def test_profiled_call_nests_its_spans_in_the_trace(tmp_path, disk):
     assert [r.steps for r in recs] == [2, 3]
     assert telemetry.window(5) == recs and telemetry.window(4) is None
     assert recs[1].counters["sync.landing"] == 3
-    expected = RUN_SPANS | (PVTE_SPANS if disk == "pvte" else ADIABATIC_SPANS)
+    expected = RUN_SPANS | {"adiabatic": ADIABATIC_SPANS, "pvte": PVTE_SPANS,
+                            "planets": PLANET_SPANS}[disk]
     spans = {e["name"][3:]: [] for e in events
              if e["name"].startswith("fc:")}
     for e in events:
