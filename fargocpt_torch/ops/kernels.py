@@ -8,12 +8,15 @@ between its ops as PyTorch ops (``transport.route`` picks whole or split
 per grid; the staged route runs where ``KernelContext`` is built with
 ``transport_route="staged"``); and the Stone-Norman artificial viscosity
 substep, ``artvisc_sn``, which the steps outside the fused viscous kick's
-gate run (the PVTE setups). Two more kernels replace no TPU kernel:
+gate run (the PVTE setups). Three more kernels replace no TPU kernel:
 ``ias15``, a whole adaptive IAS15 call of the N-body integrator on the
 device (the JAX package's ``lax.while_loop``), with planets twice an
-Euler step and four times a leapfrog step; and ``pvte_refresh``, the cold
+Euler step and four times a leapfrog step; ``pvte_refresh``, the cold
 float64 PVTE refresh of ``ops/pvte.py`` (``PVTE.gamma_mu`` without a
-lookup table; float64 only), which the JAX package leaves to XLA.
+lookup table; float64 only), which the JAX package leaves to XLA; and
+``bodies_on_grid``, the bodies' ramped masses, Roche radii and cubic
+smoothing radii (``nbody/system.py``; float64 only), which it also
+leaves to XLA.
 
 Each op's entry point (the names in ``OPS``) takes the plain version only
 for tensors on the CPU; for a CUDA tensor it launches the kernel or
@@ -50,7 +53,7 @@ from torch import nn
 
 from .. import telemetry
 from ..grid import Geometry
-from ..nbody import ias15 as ias15_ops
+from ..nbody import ias15 as ias15_ops, system as nbody_sys
 from ..params import Physics, ARTVISC_SN, ARTVISC_TW, LEAPFROG
 from . import artvisc, cfl as cfl_ops, energy as energy_ops, eos, gravity, \
     pvte as pvte_ops, sources as src_ops, transport as tr_ops, \
@@ -60,9 +63,9 @@ from .common import Geom
 OPS = ("cfl", "sources", "viscous_kick", "transport",
        "radial_momenta_sweep", "fargo_theta", "artvisc_sn",
        "radial_sweep", "theta_sweep", "advect_shift", "ias15",
-       "pvte_refresh")
+       "pvte_refresh", "bodies_on_grid")
 # the ops whose library exports a float64 function only
-F64_ONLY = ("pvte_refresh",)
+F64_ONLY = ("pvte_refresh", "bodies_on_grid")
 ROUTES = ("whole", "split", "staged")
 
 
@@ -321,6 +324,23 @@ def pvte_refresh_plain(pv: pvte_ops.PVTE, sigma, energy, scale_height):
     ``pvte.gamma_mu_bisect``. Returns (gamma_eff, mu, gamma1)."""
     rho_cgs, e_spec_cgs = pv.cgs(sigma, energy, scale_height)
     return pvte_ops.gamma_mu_bisect(rho_cgs, e_spec_cgs, pv.x_mf, pv.tabs)
+
+
+def bodies_on_grid_plain(nb: nbody_sys.NBodyState, ramp_time=None,
+                         cubic_factor=None, time=0.0):
+    """The bodies as the gas sees them at ``time``: the masses ramped over
+    ``ramp_time`` (``rampup_masses``; None: unramped), the dimensionless
+    Roche radii (``roche_radius_plain``) and the cubic smoothing radii,
+    Roche radius x distance to the primary x ``cubic_factor`` (None:
+    zeros). Returns (mass, roche, cubic), float64 (N,)."""
+    mass = nb.mass if ramp_time is None \
+        else nbody_sys.rampup_masses(nb, ramp_time, time)
+    roche = nbody_sys.roche_radius_plain(nb)
+    if cubic_factor is None:
+        cubic = torch.zeros_like(nb.x)
+    else:
+        cubic = roche * nbody_sys.dist_to_primary(nb) * cubic_factor
+    return mass, roche, cubic
 
 
 # ---------------------------------------------------------------------------
@@ -1000,4 +1020,46 @@ def pvte_refresh(pv: pvte_ops.PVTE, sigma, energy, scale_height):
     _launch("pvte_refresh", sigma, [sigma, energy, h, coeffs, *outs],
             list(pvte_constants(pv).values()), [n, 1, int(shock_tube)],
             min_nr=1)
+    return tuple(outs)
+
+
+@telemetry.spanned("kernels.bodies_on_grid")
+def bodies_on_grid(nb: nbody_sys.NBodyState, ramp_time=None,
+                   cubic_factor=None, time=0.0):
+    """``bodies_on_grid_plain``'s (mass, roche, cubic) of the float64
+    bodies ``nb`` (any N >= 1) at ``time``, a float or a 0-d tensor of the
+    run type. On the GPU one launch, a thread a body, with no host read and
+    no upload: a device ``time`` is read by the kernel, a float is one of
+    its arguments."""
+    like = nb.mass
+    if like.dtype != torch.float64:
+        raise TypeError(f"bodies_on_grid: the bodies are float64, got "
+                        f"{like.dtype}")
+    if like.device.type == "cpu":
+        return bodies_on_grid_plain(nb, ramp_time, cubic_factor, time)
+    n = like.shape[0]
+    per_body = []
+    for name, t in (("x", nb.x), ("y", nb.y), ("mass", nb.mass),
+                    ("ramp_time", ramp_time),
+                    ("cubic_factor", cubic_factor)):
+        if t is not None:
+            t = t.contiguous()
+            _check(name, t, (n,), like)
+        per_body.append(t)
+    if torch.is_tensor(time) and time.device.type != "cpu":
+        if time.device != like.device:
+            raise ValueError(f"bodies_on_grid: time is on {time.device}, "
+                             f"expected {like.device}")
+        if time.dtype not in _SUFFIX or time.numel() != 1:
+            raise TypeError("bodies_on_grid: time must be one float32 or "
+                            f"float64 value, got {time.dtype} "
+                            f"{tuple(time.shape)}")
+        t_dev, t_arg = time.reshape(1), 0.0
+        kind = 1 if time.dtype == torch.float32 else 2
+    else:
+        t_dev, t_arg, kind = None, float(time), 0
+    out = torch.empty((3, n), dtype=torch.float64, device=like.device)
+    outs = [out[0], out[1], out[2]]
+    _launch("bodies_on_grid", like, [*per_body, t_dev, *outs],
+            [t_arg, math.pi / 2.0], [n, 1, kind], min_nr=1)
     return tuple(outs)

@@ -500,21 +500,19 @@ class HydroStep(nn.Module):
         """Body data the gas-side ops need at ``time`` (a float or a 0-d
         tensor): the masses ramped up, and the Klahr cubic smoothing radius
         (Roche radius x distance to the primary x the body's factor); all
-        float64 tensors on the device (fargocpt_tpu/step.py:498-509)."""
+        float64 tensors on the device (fargocpt_tpu/step.py:498-509); on
+        the card one launch of the ``bodies_on_grid`` kernel."""
         if self.n_bodies == 1:
             # a lone star: no orbit to ramp its mass over, no Roche lobe
             return gravity.BodiesOnGrid(
                 x=nb.x, y=nb.y, mass=nb.mass,
                 cubic_smoothing_radius=torch.zeros_like(nb.x))
         with telemetry.span("step.bodies_on_grid"):
-            mass = nbody_sys.rampup_masses(nb, self.body_ramp_time, time)
-            if self.any_cubic:
-                cubic = nbody_sys.dimensionless_roche_radius(nb) \
-                    * nbody_sys.dist_to_primary(nb) * self.body_cubic_factor
-            else:
-                # no cubic smoothing: the finite Roche radii times zero
-                # factors
-                cubic = torch.zeros_like(nb.x)
+            # no cubic smoothing: zeros, not the finite Roche radii times
+            # zero factors
+            mass, _, cubic = kernels.bodies_on_grid(
+                nb, self.body_ramp_time,
+                self.body_cubic_factor if self.any_cubic else None, time)
             return gravity.BodiesOnGrid(x=nb.x, y=nb.y, mass=mass,
                                         cubic_smoothing_radius=cubic)
 

@@ -19,7 +19,10 @@ radial_sweep (K = 1, 2, 5, 6) at shapes that cross every edge of the
 radial column march's strips and blocks (RADIAL_SHAPES), both limiters,
 both dtypes; the sources with a smoothing plane
 and with 513 bodies, the viscous kick with its in-kick sound speed,
-ias15 with 17 and 40 bodies (a device workspace) bit for bit; a
+ias15 with 17 and 40 bodies (a device workspace) bit for bit;
+bodies_on_grid against its plain ATen chain bit for bit (2 to 513 bodies,
+every ramp, cubic and time form) and PDS 70's Euler planet step through
+it bit for bit; a
 split-route and a staged-route Simulation step through their kernels,
 a leapfrog planet_torque step (sources and viscous_kick twice, ias15
 four times), a planet_accretion step (the leapfrog in the corotating
@@ -1132,12 +1135,173 @@ def test_ias15_kernel_takes_more_than_16_bodies(cuda, n):
             assert torch.equal(a, b)
 
 
+# ---------------------------------------------------------------------------
+# bodies_on_grid: the ramped masses, Roche radii and cubic smoothing radii
+# in one launch
+# ---------------------------------------------------------------------------
+
+def _grid_bodies(n, device):
+    """A star and n - 1 bodies from a seed, one of them of 1e-12 stellar
+    masses (from 3 bodies on): an NBodyState of float64 tensors on
+    ``device``."""
+    from fargocpt_torch.nbody.system import NBodyState
+    rng = np.random.default_rng(n)
+    a = 0.3 + 2.5 * rng.random(n - 1)
+    phi = rng.random(n - 1) * 2 * np.pi
+    m = np.concatenate([[0.76], 10.0 ** rng.uniform(-7, -1.5, n - 1)])
+    if n >= 3:
+        m[2] = 1e-12
+    x = np.concatenate([[1e-3], a * np.cos(phi)])
+    y = np.concatenate([[-2e-3], a * np.sin(phi)])
+    z = np.zeros(n)
+    return NBodyState(*(torch.tensor(v, dtype=torch.float64, device=device)
+                        for v in (x, y, z, z, m)))
+
+
+RAMPS = {"in_progress": lambda n: np.linspace(0.0, 3.0, n),
+         "finished": lambda n: np.full(n, 0.5),
+         "off": lambda n: None}
+CUBIC = {"factors": lambda n: np.linspace(0.0, 0.6, n),
+         "zero_factors": lambda n: np.zeros(n),
+         "off": lambda n: None}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("time_kind", ["float", "float64", "float32"])
+@pytest.mark.parametrize("cubic", list(CUBIC))
+@pytest.mark.parametrize("ramp", list(RAMPS))
+@pytest.mark.parametrize("n", [2, 3, 17, 513])
+def test_bodies_on_grid_kernel_equals_the_plain_chain(cuda, n, ramp, cubic,
+                                                      time_kind):
+    """The kernel against the plain ATen chain (rampup_masses, the Roche
+    radius's 12 Newton iterations, the distance to the primary) on the same
+    card, bit for bit: the ramped masses, the Roche radii and the cubic
+    smoothing radii; time as a float and as a 0-d device tensor of either
+    run type; one launch a call."""
+    nb = _grid_bodies(n, cuda)
+    ramp_time, factor = (None if f(n) is None else _one(f(n), cuda)
+                         for f in (RAMPS[ramp], CUBIC[cubic]))
+    time = 1.25 if time_kind == "float" else torch.tensor(
+        1.25, dtype=getattr(torch, time_kind), device=cuda)
+    before = telemetry.value("launch.bodies_on_grid")
+    got = kernels.bodies_on_grid(nb, ramp_time, factor, time)
+    assert telemetry.value("launch.bodies_on_grid") == before + 1
+    want = kernels.bodies_on_grid_plain(nb, ramp_time, factor, time)
+    for name, a, b in zip(("mass", "roche", "cubic"), got, want):
+        assert a.shape == (n,) and a.dtype == torch.float64, name
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, b), (name, (a - b).abs().max())
+    mass, roche, cubic_r = got
+    assert float(roche[0]) == 0.0 and bool((roche[1:] > 0.0).all())
+    assert bool((cubic_r != 0.0).any()) == (cubic == "factors")
+    assert bool((mass != nb.mass).any()) == (ramp == "in_progress")
+
+
+@pytest.mark.gpu
+def test_roche_radius_on_the_card_reads_the_kernel(cuda):
+    """dimensionless_roche_radius of a CUDA state (the accretion's and the
+    output's) is the kernel's Roche output: one launch, the plain Newton
+    loop's values bit for bit, also with the roles swapped as the output's
+    radius limit swaps them."""
+    from fargocpt_torch.nbody import system as nbody_sys
+    nb = _grid_bodies(3, cuda)
+    swapped = nb.replace(x=nb.x[[1, 0]], y=nb.y[[1, 0]], vx=nb.vx[:2],
+                         vy=nb.vy[:2], mass=nb.mass[[1, 0]])
+    for state in (nb, swapped):
+        before = telemetry.value("launch.bodies_on_grid")
+        got = nbody_sys.dimensionless_roche_radius(state)
+        assert telemetry.value("launch.bodies_on_grid") == before + 1
+        assert torch.equal(got, nbody_sys.roche_radius_plain(state))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("time_kind", ["float", "float64", "float32"])
+def test_bodies_on_grid_kernel_is_one_launch_and_no_host_read(cuda,
+                                                              time_kind):
+    """A call asks the device for one launch, its kernel's, and no copy
+    or fill, with time a float (a kernel argument) or on the device (read
+    by the kernel)."""
+    nb = _grid_bodies(3, cuda)
+    time = 1.25 if time_kind == "float" else torch.tensor(
+        1.25, dtype=getattr(torch, time_kind), device=cuda)
+    args = (nb, _one(RAMPS["in_progress"](3), cuda),
+            _one(CUBIC["factors"](3), cuda), time)
+    calls = 5
+    asked, ran = _device_activity(kernels.bodies_on_grid, args, calls)
+    assert len(asked) == calls and all("LaunchKernel" in n for n in asked), \
+        asked
+    assert 1 <= len(ran) <= calls \
+        and all("bodies_on_grid_kernel" in n for n in ran), ran
+
+
+@pytest.mark.gpu
+def test_bodies_on_grid_kernel_refuses_what_it_cannot_take(cuda):
+    nb = _grid_bodies(3, cuda)
+    with pytest.raises(TypeError, match="float64"):
+        kernels.bodies_on_grid(nb.replace(mass=nb.mass.float()))
+    with pytest.raises(ValueError, match="shape"):
+        kernels.bodies_on_grid(nb, _one([1.0, 2.0], cuda))
+    with pytest.raises(TypeError, match="time"):
+        kernels.bodies_on_grid(nb, None, None,
+                               torch.ones(2, dtype=torch.float64,
+                                          device=cuda))
+
+
+def _pds70_planets(device):
+    """setups/PDS70.yml with its unit moved to planet b's orbit, at 16x32
+    with 64 particles (tests/test_torch_telemetry.py's planet disk)."""
+    import warnings
+    import yaml
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "setups" / "PDS70.yml"
+    cfg = yaml.safe_load(path.read_text())
+    cfg.update(l0="22.7 au", Sigma0="3.66915 g/cm2", Nrad=16, Naz=32,
+               NumberOfParticles=64)
+    for body, axis in zip(cfg["nbody"], ("0.0 au", "22.7 au", "30.2 au")):
+        body["semi-major axis"] = axis
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return Simulation(Config.from_dict(cfg), device=device)
+
+
+@pytest.mark.gpu
+def test_euler_planet_step_with_the_kernel_equals_the_plain_chain(
+        cuda, monkeypatch):
+    """PDS 70 b and c in their disk at 16x32 on the card (the Euler step
+    with its swarm): three steps with the kernel equal three steps with
+    the plain ATen chain on the same card bit for bit, the fields, the
+    bodies and the swarm; the kernel launches twice a step (the step's
+    start and the swarm's integration)."""
+    sims = {}
+    for side in ("kernel", "plain"):
+        if side == "plain":
+            monkeypatch.setattr(kernels, "bodies_on_grid",
+                                kernels.bodies_on_grid_plain)
+        sim = _pds70_planets(cuda)
+        before = telemetry.value("launch.bodies_on_grid")
+        for _ in range(3):
+            sim.step_once(sim.calculate_time_step())
+        launched = telemetry.value("launch.bodies_on_grid") - before
+        assert launched == (6 if side == "kernel" else 0), (side, launched)
+        sims[side] = sim
+    a, b = sims["kernel"], sims["plain"]
+    for name in ("sigma", "vrad", "vaz", "energy"):
+        assert torch.equal(getattr(a.fields, name), getattr(b.fields, name)), \
+            name
+    for name in ("x", "y", "vx", "vy", "mass"):
+        assert torch.equal(getattr(a.state.nbody, name),
+                           getattr(b.state.nbody, name)), name
+    for name in ("r", "phi"):
+        assert torch.equal(getattr(a.state.particles, name),
+                           getattr(b.state.particles, name)), name
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_planet_disk_step_launches_and_matches_the_cpu(cuda, dtype):
     """The quickstart physics at 64x128: each step launches cfl, sources,
-    viscous_kick and the transport once and ias15 twice (the indirect
-    term's predictor and the drift); ten steps agree with the CPU's plain
+    viscous_kick, the transport and bodies_on_grid once and ias15 twice
+    (the indirect term's predictor and the drift); ten steps agree with the CPU's plain
     versions (rtol 1e-9 in float64, 1e-4 of each field's scale in
     float32) and the bodies too."""
     from fargocpt_torch.flagship import planet_disk
@@ -1154,7 +1318,7 @@ def test_planet_disk_step_launches_and_matches_the_cpu(cuda, dtype):
              for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {
         "cfl": 9, "sources": 9, "viscous_kick": 9, "transport": 9,
-        "ias15": 18}
+        "ias15": 18, "bodies_on_grid": 9}
     tol = 1e-9 if dtype == "float64" else 1e-4
     for name in ("sigma", "vrad", "vaz"):
         a = getattr(gpu.fields, name).cpu()
@@ -1250,7 +1414,8 @@ def test_planet_torque_leapfrog_step_launches_and_matches_the_cpu(cuda,
                                                                   dtype):
     """The leapfrog at 128x256 (flagship.planet_torque): each step launches
     cfl and the transport once, sources and viscous_kick twice (the two
-    kicks), ias15 four times (two half drifts, two predictors); ten steps
+    kicks), ias15 and bodies_on_grid four times (two half drifts, two
+    predictors); ten steps
     agree with the CPU's plain versions (rtol 1e-9 in float64, 1e-4 of
     each field's scale in float32), the bodies too."""
     from fargocpt_torch.flagship import planet_torque
@@ -1267,7 +1432,7 @@ def test_planet_torque_leapfrog_step_launches_and_matches_the_cpu(cuda,
              for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {
         "cfl": 9, "sources": 18, "viscous_kick": 18, "transport": 9,
-        "ias15": 36}
+        "ias15": 36, "bodies_on_grid": 36}
     tol = 1e-9 if dtype == "float64" else 1e-4
     for name in ("sigma", "vrad", "vaz"):
         a = getattr(gpu.fields, name).cpu()
@@ -1354,7 +1519,9 @@ def test_planet_accretion_step_launches_and_matches_the_cpu(cuda, dtype):
     """The accretion test at 128x256 (flagship.planet_accretion: the
     leapfrog in the corotating frame, a Kley-accreting planet, the MassFlow
     and gas-torque grids): each step launches cfl, sources and the
-    transport once, viscous_kick twice and ias15 four times (the first
+    transport once, viscous_kick twice, ias15 four times and
+    bodies_on_grid seven times (the accretion's Roche radius among them;
+    the first
     kick of an accreting step reads the pressure from before the
     accretion: the unfused substep; the second kick the kernel); ten
     steps agree with the CPU's plain versions (rtol 1e-9 in float64, 1e-4
@@ -1373,7 +1540,7 @@ def test_planet_accretion_step_launches_and_matches_the_cpu(cuda, dtype):
              for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {
         "cfl": 10, "sources": 10, "viscous_kick": 20, "transport": 10,
-        "ias15": 40}
+        "ias15": 40, "bodies_on_grid": 70}
     assert float(gpu.state.nbody.mass[1]) > 2e-5
     _held_to_the_cpu(gpu, cpu, 1e-9 if dtype == "float64" else 1e-4,
                      f32_grids=dtype == "float32")
@@ -1382,8 +1549,8 @@ def test_planet_accretion_step_launches_and_matches_the_cpu(cuda, dtype):
 @pytest.mark.gpu
 def test_star_planet_step_launches_and_matches_the_cpu(cuda):
     """setups/star_planet.yml at 64x128 float64 (the Euler step in the
-    corotating frame): each step launches cfl, sources, viscous_kick and
-    the transport once and ias15 twice; ten steps agree with the CPU's
+    corotating frame): each step launches cfl, sources, viscous_kick,
+    the transport and bodies_on_grid once and ias15 twice; ten steps agree with the CPU's
     plain versions at rtol 1e-9, the bodies and the frame's rate too."""
     import yaml
     from pathlib import Path
@@ -1401,7 +1568,7 @@ def test_star_planet_step_launches_and_matches_the_cpu(cuda):
              for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {
         "cfl": 10, "sources": 10, "viscous_kick": 10, "transport": 10,
-        "ias15": 20}
+        "ias15": 20, "bodies_on_grid": 10}
     _held_to_the_cpu(gpu, cpu, 1e-9)
 
 
@@ -1423,8 +1590,8 @@ def test_binary_gcfull_step_launches_and_matches_the_cpu(cuda, over):
     """The circumbinary-disk menu at 128x256 float64 (N-body-centred ICs,
     AspectRatioMode, AlphaMode 2, StabilizeViscosity, the center-of-mass
     boundary, the viscously accreting secondary): each leapfrog step
-    launches the transport once and ias15 four times (twice with the hydro
-    frame on the binary) and no other kernel (the gates keep cfl, sources
+    launches the transport once, ias15 four times (twice with the hydro
+    frame on the binary), bodies_on_grid seven times and no other kernel (the gates keep cfl, sources
     and viscous_kick off); ten steps agree with
     the CPU's plain versions at rtol 1e-9, the bodies and their masses
     too."""
@@ -1440,8 +1607,8 @@ def test_binary_gcfull_step_launches_and_matches_the_cpu(cuda, over):
     # with the frame on both bodies the indirect term is zero, so the
     # predictor's two calls a step drop out
     ias15 = 20 if gpu.n_hydroframe == 2 else 40
-    assert delta == dict.fromkeys(kernels.OPS, 0) | {"transport": 10,
-                                                     "ias15": ias15}
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {
+        "transport": 10, "ias15": ias15, "bodies_on_grid": 70}
     _held_to_the_cpu(gpu, cpu, 1e-9)
     a, b = gpu.fields.energy.cpu(), cpu.fields.energy
     assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max())
@@ -1526,7 +1693,8 @@ def test_center_of_mass_boundary_on_the_card_matches_the_cpu(cuda, dtype,
 def test_oy_car_step_launches_and_matches_the_cpu(cuda):
     """setups/CloseBinaries/OY_Car.yml at 64x128 float64, its stream's
     ramp ending in the first step: each Euler step launches cfl, sources,
-    artvisc_sn and the transport once and ias15 twice, no other kernel
+    artvisc_sn, the transport and bodies_on_grid once and ias15 twice, no
+    other kernel
     (surface cooling keeps the viscous kick's gate off); ten steps agree
     with the CPU's plain versions at 1e-9 of each field's scale, the
     bodies and the Roche-lobe tracker's rate too."""
@@ -1543,7 +1711,7 @@ def test_oy_car_step_launches_and_matches_the_cpu(cuda):
              for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {
         "cfl": 10, "sources": 10, "artvisc_sn": 10, "transport": 10,
-        "ias15": 20}
+        "ias15": 20, "bodies_on_grid": 10}
     _held_to_the_cpu(gpu, cpu, 1e-9)
     a = float(gpu.state.monitor_acc.rof_mdot)
     b = float(cpu.state.monitor_acc.rof_mdot)
@@ -1555,8 +1723,8 @@ def test_v1504cyg_step_launches_and_matches_the_cpu(cuda):
     """setups/V1504Cyg.yml at 32x64 float64 (the leapfrog, PVTE, S-curve
     cooling, AspectRatioMode 1, AlphaMode 1): each step launches the
     transport once, ias15 four times and pvte_refresh once a PVTE refresh
-    (five: calculate_time_step's and the leapfrog's four), no other
-    kernel; five steps agree
+    (five: calculate_time_step's and the leapfrog's four), bodies_on_grid
+    five times, no other kernel; five steps agree
     with the CPU's plain versions at 1e-9 of each field's scale. The
     setup's CFL dt (~1e-16 here; ROADMAP C) moves no field, so both step
     on a fixed 1e-4, under the FARGO shear limit, and sigma, vaz and the
@@ -1577,7 +1745,8 @@ def test_v1504cyg_step_launches_and_matches_the_cpu(cuda):
              for op in kernels.OPS}
     assert delta == dict.fromkeys(kernels.OPS, 0) | {"transport": 5,
                                                      "ias15": 20,
-                                                     "pvte_refresh": 25}
+                                                     "pvte_refresh": 25,
+                                                     "bodies_on_grid": 25}
     _held_to_the_cpu(gpu, cpu, 1e-9)
     a, b = gpu.fields.energy.cpu(), cpu.fields.energy
     assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max())
@@ -1663,8 +1832,8 @@ def _energy_held(gpu, cpu, tol):
 @pytest.mark.gpu
 def test_planet_disk_sg_step_launches_and_matches_the_cpu(cuda):
     """examples/quickstart.yml with SelfGravity: Yes (the Bessel kernel)
-    at 32x96 float64: each Euler step launches artvisc_sn and the
-    transport once and ias15 twice, no other kernel (the Bessel mode keeps
+    at 32x96 float64: each Euler step launches artvisc_sn, the transport
+    and bodies_on_grid once and ias15 twice, no other kernel (the Bessel mode keeps
     cfl, sources and the viscous kick off); ten steps agree with the CPU
     at 1e-9 of each field's scale."""
     from fargocpt_torch.flagship import planet_disk_sg
@@ -1672,7 +1841,8 @@ def test_planet_disk_sg_step_launches_and_matches_the_cpu(cuda):
     cpu = Simulation(planet_disk_sg(32, 96), device="cpu")
     delta = _step_pair(gpu, cpu, 10)
     assert delta == dict.fromkeys(kernels.OPS, 0) | {
-        "artvisc_sn": 10, "transport": 10, "ias15": 20}
+        "artvisc_sn": 10, "transport": 10, "ias15": 20,
+        "bodies_on_grid": 10}
     _held_to_the_cpu(gpu, cpu, 1e-9)
 
 
@@ -1719,8 +1889,8 @@ def test_polytropic_step_launches_and_matches_the_cpu(cuda, dtype, tol):
 
 @pytest.mark.gpu
 def test_disk_no_steps_on_the_card(cuda):
-    """setups/single_planet_no_disk.yml: ias15 twice a step and no other
-    kernel, the gas untouched, the bodies as on the CPU to 1e-12; and the
+    """setups/single_planet_no_disk.yml: ias15 twice a step, bodies_on_grid
+    once and no other kernel, the gas untouched, the bodies as on the CPU to 1e-12; and the
     FLD-only disk (tests/test_fld1d.py's at 64 rings): no kernel, the
     energy as on the CPU to 1e-9."""
     from fargocpt_torch.flagship import single_planet_no_disk
@@ -1728,7 +1898,8 @@ def test_disk_no_steps_on_the_card(cuda):
     cpu = Simulation(single_planet_no_disk(), device="cpu")
     sigma0 = gpu.fields.sigma.clone()
     delta = _step_pair(gpu, cpu, 10)
-    assert delta == dict.fromkeys(kernels.OPS, 0) | {"ias15": 20}
+    assert delta == dict.fromkeys(kernels.OPS, 0) | {"ias15": 20,
+                                                     "bodies_on_grid": 10}
     assert torch.equal(gpu.fields.sigma, sigma0)
     _held_to_the_cpu(gpu, cpu, 1e-12)
     from fargocpt_torch.flagship import fld1d

@@ -331,7 +331,7 @@ def test_pvte_refresh_is_an_op_in_float64_only():
     """The cold float64 PVTE refresh is one of the ops, and its source
     exports the float64 function alone."""
     assert "pvte_refresh" in kernels.OPS
-    assert kernels.F64_ONLY == ("pvte_refresh",)
+    assert kernels.F64_ONLY == ("pvte_refresh", "bodies_on_grid")
     source = (kernels.CSRC / "pvte_refresh.cu").read_text()
     assert "int fc_pvte_refresh_f64(" in source
     assert "fc_pvte_refresh_f32" not in source
@@ -365,3 +365,88 @@ def test_pvte_refresh_launch_refuses_cpu_and_non_float64_tensors():
         with pytest.raises(TypeError, match="float64"):
             kernels.pvte_refresh(pv, y, y, y)
     assert telemetry.value("launch.pvte_refresh") == 0
+
+
+def test_bodies_on_grid_is_an_op_in_float64_only():
+    """The bodies on the grid are one of the ops, and their source exports
+    the float64 function alone."""
+    assert "bodies_on_grid" in kernels.OPS
+    assert "bodies_on_grid" in kernels.F64_ONLY
+    source = (kernels.CSRC / "bodies_on_grid.cu").read_text()
+    assert "int fc_bodies_on_grid_f64(" in source
+    assert "fc_bodies_on_grid_f32" not in source
+
+
+def _bodies(n, dtype=torch.float64):
+    """A star and n - 1 planets from a seed: an NBodyState on the CPU."""
+    from fargocpt_torch.nbody.system import NBodyState
+    rng = np.random.default_rng(n)
+    a = np.linspace(0.5, 2.5, n - 1)
+    phi = rng.random(n - 1) * 2 * np.pi
+    x = np.concatenate([[0.01], a * np.cos(phi)])
+    y = np.concatenate([[-0.02], a * np.sin(phi)])
+    m = np.concatenate([[1.0], 1e-4 + 1e-2 * rng.random(n - 1)])
+    z = np.zeros(n)
+    return NBodyState(*(torch.tensor(v, dtype=dtype)
+                        for v in (x, y, z, z, m)))
+
+
+def test_bodies_on_grid_launch_refuses_cpu_and_float32_tensors():
+    """The CUDA path of bodies_on_grid never runs on CPU tensors, and the
+    op takes float64 bodies alone, on any device (and never falls back)."""
+    nb = _bodies(3)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        kernels._launch("bodies_on_grid", nb.mass,
+                        [nb.x, nb.y, nb.mass, None, None, None] + [nb.x] * 3,
+                        [0.0, 1.0], [3, 1, 0], min_nr=1)
+    for dtype in (torch.float32, torch.float16):
+        with pytest.raises(TypeError, match="float64"):
+            kernels.bodies_on_grid(_bodies(3, dtype))
+    assert telemetry.value("launch.bodies_on_grid") == 0
+
+
+@pytest.mark.parametrize("time_kind", ["float", "tensor"])
+@pytest.mark.parametrize("cubic", ["factors", "zero_factors", "off"])
+@pytest.mark.parametrize("ramp", ["in_progress", "finished", "off"])
+@pytest.mark.parametrize("n", [2, 3, 17])
+def test_bodies_on_grid_cpu_path_is_the_plain_chain(n, ramp, cubic,
+                                                    time_kind):
+    """On the CPU the op is the plain chain of nbody/system.py, bit for
+    bit: the ramped masses, the Roche radii of the Newton loop (in its
+    span ``nbody.roche_radius``) and Roche radius x distance to the
+    primary x factor; no launch is counted."""
+    from fargocpt_torch.nbody import system as nbody_sys
+    nb = _bodies(n)
+    ramp_time = {"in_progress": torch.linspace(0.0, 3.0, n,
+                                               dtype=torch.float64),
+                 "finished": torch.full((n,), 0.5, dtype=torch.float64),
+                 "off": None}[ramp]
+    factor = {"factors": torch.linspace(0.0, 0.6, n, dtype=torch.float64),
+              "zero_factors": torch.zeros(n, dtype=torch.float64),
+              "off": None}[cubic]
+    time = 1.25 if time_kind == "float" \
+        else torch.tensor(1.25, dtype=torch.float64)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        mass, roche, cubic_r = kernels.bodies_on_grid(nb, ramp_time, factor,
+                                                      time)
+    names = {e.name for e in prof.events()}
+    assert {"fc:kernels.bodies_on_grid", "fc:nbody.roche_radius"} <= names
+    assert telemetry.value("launch.bodies_on_grid") == 0
+    want_mass = nb.mass if ramp_time is None \
+        else nbody_sys.rampup_masses(nb, ramp_time, time)
+    want_roche = nbody_sys.roche_radius_plain(nb)
+    want_cubic = torch.zeros(n, dtype=torch.float64) if factor is None \
+        else want_roche * nbody_sys.dist_to_primary(nb) * factor
+    for got, want in ((mass, want_mass), (roche, want_roche),
+                      (cubic_r, want_cubic)):
+        assert got.dtype == torch.float64 and got.shape == (n,)
+        assert torch.equal(got, want)
+    assert torch.equal(nbody_sys.dimensionless_roche_radius(nb), want_roche)
+    assert float(roche[0]) == 0.0 and bool((roche[1:] > 0.0).all())
+    if ramp == "in_progress":
+        ramping = (ramp_time > 0.0) & (ramp_time > 1.25)
+        assert bool((mass[ramping] < nb.mass[ramping]).all())
+        assert torch.equal(mass[~ramping], nb.mass[~ramping])
+    else:
+        assert torch.equal(mass, nb.mass)

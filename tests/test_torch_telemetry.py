@@ -41,6 +41,7 @@ PVTE_SPANS = {"pvte.gamma_mu", "fld.radiative_diffusion", "fld.solve",
 PLANET_SPANS = {"kernels.cfl", "kernels.sources", "gravity.nbody_potential",
                 "gravity.disk_on_bodies", "gravity.indirect_term",
                 "nbody.ias15", "nbody.roche_radius", "step.bodies_on_grid",
+                "kernels.bodies_on_grid",
                 "damping.apply", "artvisc.tw", "energy.substep3",
                 "energy.irradiation", "opacity.opacity", "dust.integrate"}
 
